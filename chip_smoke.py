@@ -1,0 +1,567 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port (``tpudet_torch``) on one NVIDIA GPU and checks it.
+
+    python3 chip_smoke.py
+
+Phases, one line of output each (a failed check exits non-zero and prints
+no result):
+
+1. the card's name and power limit; TF32 off for the f32 comparisons;
+2. the CUDA kernels built from ``tpudet_torch/kernels/csrc`` with nvcc;
+3. the NMS kernel against its plain PyTorch version on the card, at the
+   shapes voc_r50 inference gives it (32 x 6000 presorted proposals at 0.7
+   -> 300, 32 x 1024 class-shifted candidates at 0.5 -> 100), on sparse
+   and on clustered scenes (where the walk must cross most blocks), and on
+   edge cases: kept indices must be equal;
+4. the RoI Align kernel against its plain version at [32, 40, 40, 256] x
+   300 RoIs per image, S = 7, r = 2, in f32 and bf16;
+5. voc_r50 inference at full width (ResNet-50 to c4, neck 256, RPN 512, fc
+   1024, 20 classes, bf16 backbone) through ``make_eval_step`` on uint8
+   canvases drawn from a seed: b = 8 on the 640x640 and 640x1024 buckets
+   with the kernels' launch counts, a small f32 input held against the same
+   model on the CPU (the plain versions), and ms per batch at b = 8 and 32;
+6. a ``torch.profiler`` trace of one b=32 640x640 predict: device time by
+   kernel and by kind, and the device's busy share.
+
+Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
+last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+# Published peaks of one H100 SXM (dense): HBM rate and the f32 rate outside
+# the tensor cores, which is what the NMS and RoI Align arithmetic runs on.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per pairwise IoU test as the NMS kernel evaluates it: two
+# min, two max, two subtracts and two clamps for the overlap, one multiply,
+# the union's add and subtract, one divide, one compare (box areas aside).
+NMS_OPS_PER_PAIR = 13
+# f32 operations per output value of RoI Align and per sample: three for
+# each of the two horizontal lerps and the vertical one, one accumulate.
+ROI_OPS_PER_SAMPLE = 10
+# Head kernels drawn wider than Flax's normal(0.01)/normal(0.001): at init
+# the softmax sits near 1/21, below score_thresh 0.05, and no detection
+# would reach the final NMS. The head inputs have an rms near 1 at this
+# init, so these widths give logits and deltas of a few units.
+HEAD_STD = {"objectness": 0.1, "cls": 0.15, "bbox": 0.05}
+
+
+def fail(message: str) -> None:
+    print(f"FAIL: {message}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, message: str) -> None:
+    if not cond:
+        fail(message)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms, from CUDA events around ``iters``
+    calls after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def random_boxes(gen, shape, height, width, lo=16.0, hi=400.0, device="cuda"):
+    import torch
+
+    xy = torch.rand(shape + (2,), generator=gen) * torch.tensor([width, height])
+    wh = lo + torch.rand(shape + (2,), generator=gen) * (hi - lo)
+    boxes = torch.cat([xy - wh / 2, xy + wh / 2], dim=-1)
+    x = boxes[..., 0::2].clamp(0, width)
+    y = boxes[..., 1::2].clamp(0, height)
+    return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]],
+                       dim=-1).to(device)
+
+
+def clustered_boxes(gen, b, p, height, width, centres, jitter=0.06,
+                    device="cuda"):
+    """Boxes as an RPN's top proposals come: ``p`` jittered copies (by
+    ``jitter`` of the box size) of ``centres[i]`` objects in image i, in
+    random score order. Greedy NMS suppresses most of them, so its walk
+    goes far down the sorted list, as on real proposals."""
+    import torch
+
+    out = []
+    for n in centres:
+        objects = random_boxes(gen, (n,), height, width, lo=24.0, hi=300.0,
+                               device="cpu")
+        base = objects[torch.randint(0, n, (p,), generator=gen)]
+        size = (base[:, 2:] - base[:, :2]).repeat(1, 2)
+        boxes = base + torch.randn(p, 4, generator=gen) * jitter * size
+        x = boxes[:, 0::2].clamp(0, width)
+        y = boxes[:, 1::2].clamp(0, height)
+        out.append(torch.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], dim=-1))
+    return torch.stack(out).to(device)
+
+
+def nms_work(keep, max_out):
+    """What this input needs of NMS: per image, how far the greedy walk
+    goes (the position after the ``max_out``-th keep, else every box), and
+    the pairwise IoU tests it makes on the way (each examined box against
+    every box kept before it)."""
+    import torch
+
+    kept_before = torch.cumsum(keep.long(), dim=1) - keep.long()
+    needed = kept_before < max_out
+    reach = needed.sum(dim=1)  # needed is a prefix of each row
+    return reach, int((kept_before * needed).sum())
+
+
+def nms_scenes(b=32, device="cuda"):
+    """The NMS inputs of phase 3, ``{(call, scene): (boxes, candidates, thr,
+    max_outputs)}``, at the two main-path shapes. Proposals: 6000 presorted
+    boxes, ~5% masked by the min-size test, 0.7 -> 300. Final: 1024
+    candidates of 20 classes shifted by class * 4096, 0.5 -> 100.
+    Sparse scenes are uniform boxes, where the walk reaches max_outputs
+    keeps within a few hundred boxes. Clustered scenes are jittered copies
+    of a few objects, where the walk crosses most of the 64-box blocks:
+    some images end with fewer than max_outputs keeps, some reach it late."""
+    import torch
+
+    from tpudet_torch.ops import nms as tnms
+
+    gen = torch.Generator().manual_seed(1)
+    props = {"sparse": random_boxes(gen, (b, 6000), 640, 1024, device=device),
+             "clustered": clustered_boxes(gen, b, 6000, 640, 1024,
+                                          [60 + 2 * i for i in range(b)],
+                                          device=device)}
+    dets = {"sparse": random_boxes(gen, (b, 1024), 640, 1024, lo=8.0,
+                                   hi=200.0, device=device),
+            "clustered": clustered_boxes(gen, b, 1024, 640, 1024,
+                                         [1 + i % 4 for i in range(b)],
+                                         device=device)}
+    classes = torch.randint(1, 21, (b, 1024), generator=gen).to(device)
+    cand_p = (torch.rand(b, 6000, generator=gen) > 0.05).to(device)
+    cand_d = (torch.rand(b, 1024, generator=gen) > 0.1).to(device)
+    calls = {}
+    for scene in ("sparse", "clustered"):
+        calls[("proposals", scene)] = (props[scene], cand_p, 0.7, 300)
+        shifted = tnms.class_offset_boxes(dets[scene], classes, 4096.0)
+        calls[("final", scene)] = (shifted.contiguous(), cand_d, 0.5, 100)
+    return calls
+
+
+# ------------------------------------------------------------ phases
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda} | "
+          "TF32 off (matmul, cudnn)", flush=True)
+    return card
+
+
+def phase_build():
+    from tpudet_torch.kernels import _build
+
+    start = time.perf_counter()
+    _build.build(["nms", "roi_align"])  # one nvcc per source, in parallel
+    for name in ("nms", "roi_align"):
+        _build.load(name)
+    seconds = time.perf_counter() - start
+    print(f"build: nvcc {' '.join(_build.BASE_FLAGS)} -> nms, roi_align in "
+          f"{seconds:.2f} s ({_build.BUILD_DIR.relative_to(HERE)})", flush=True)
+
+
+def phase_nms():
+    import torch
+
+    from tpudet_torch import kernels as tk
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.ops import nms as tnms
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+             "bound_ms": 0.0, "err": 0.0}
+    for (name, scene), (boxes, cand, thr, k) in nms_scenes().items():
+        b, p = cand.shape
+        pos, valid = knms.nms_keep_cuda(boxes, cand, thr, k)
+        ref_pos, ref_valid = knms.nms_keep_plain(boxes, cand, thr, k)
+        torch.cuda.synchronize()
+        # Mismatch: the largest position difference, or the count of
+        # differing valid flags where that is larger; 0 when equal.
+        err = max(int((pos - ref_pos).abs().max()),
+                  int((valid != ref_valid).sum()))
+        total["err"] = max(total["err"], float(err))
+        check(err == 0, f"NMS {name} {scene}: kernel and plain version keep "
+                        f"different boxes (mismatch {err})")
+        reach, pairs = nms_work(tnms.greedy_keep(boxes, cand, thr), k)
+        blocks = (reach + 63) // 64
+        if scene == "clustered":
+            check(int(blocks.min()) * 3 >= 2 * ((p + 63) // 64),
+                  f"NMS {name} clustered: a walk crossed only "
+                  f"{int(blocks.min())} of {(p + 63) // 64} blocks")
+        # The least the card must move for this input: the boxes and
+        # candidate flags up to where each image's walk stops, the kept
+        # positions and counts out; the least work is the walk's IoU tests.
+        bytes_moved = (int(reach.sum()) * (16 + 1)
+                       + pos.numel() * 4 + boxes.shape[0] * 4)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = pairs * NMS_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+        ms = time_ms(lambda: knms.nms_keep_cuda(boxes, cand, thr, k))
+        plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
+                           iters=2, warmup=1)
+        if scene == "clustered":
+            for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                               ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                               ("bound_ms", max(bytes_ms, ops_ms))):
+                total[key] += value
+        print(f"nms {name} {scene}: b={b} P={p} thr={thr} -> {k}: indices "
+              f"equal, kept/image {int(valid.sum(1).min())}.."
+              f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
+              f"{int(reach.max())} boxes ({int(blocks.min())}.."
+              f"{int(blocks.max())} of {(p + 63) // 64} blocks) | kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
+              f"operations {ops_ms:.6f}: {pairs} IoU tests)", flush=True)
+
+    # Edge cases through the full dispatch (sort, mask, gather), against
+    # the plain nms on the CPU.
+    boxes = torch.tensor([[10, 10, 50, 50]] * 6 + [[200, 200, 260, 240]] * 4,
+                         dtype=torch.float32)
+    scores = torch.tensor([0.5, 0.9, 0.9, 0.1, 0.9, 0.3, 0.3, 0.3, 0.8,
+                           float("nan")])
+    cases = [
+        ("identical boxes, tied scores, NaN", boxes, scores, {}, 6),
+        ("all masked", boxes, scores,
+         {"valid_mask": torch.zeros(10, dtype=torch.bool)}, 4),
+        ("max_outputs > N", boxes, scores, {"score_threshold": 0.2}, 64),
+        ("zero-area boxes", boxes * torch.tensor([1.0, 1.0, 0.0, 1.0]),
+         scores, {}, 8),
+    ]
+    for label, b, s, kw, k in cases:
+        ref = tnms.nms(b, s, 0.5, k, **kw)
+        out = tk.nms_dispatch(b.cuda(), s.cuda(), 0.5, k,
+                              **{a: (v.cuda() if torch.is_tensor(v) else v)
+                                 for a, v in kw.items()})
+        check(torch.equal(out[0].cpu(), ref[0]) and torch.equal(out[1].cpu(),
+                                                               ref[1]),
+              f"NMS edge case '{label}' differs from the plain version")
+    print(f"nms edge cases: {len(cases)} equal to the plain version", flush=True)
+    return total
+
+
+def phase_roi_align():
+    import torch
+
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.ops import roi_align as tra
+
+    gen = torch.Generator().manual_seed(2)
+    b, h, w, c, r = 32, 40, 40, 256, 300
+    feat32 = torch.randn(b, h, w, c, generator=gen).cuda()
+    # Image-pixel boxes on the 640x640 canvas, a few across the border,
+    # divided by the stride as the model does.
+    rois = (random_boxes(gen, (b, r), 640, 640, lo=8.0, hi=500.0)
+            .reshape(-1, 4) / 16.0)
+    rois[::37] += torch.tensor([-30.0, -30.0, 0.0, 0.0], device="cuda") / 16.0
+    rois = rois.contiguous()
+    index = torch.arange(b, dtype=torch.int32, device="cuda").repeat_interleave(r)
+    s, sr = 7, 2
+    result = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        feat = feat32.to(dtype)
+        out = kra.roi_align_cuda(feat, rois, index, s, sr)
+        ref = kra.roi_align_plain(feat, rois, index, s, sr)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            # Same arithmetic, other summation order (FMA contraction).
+            ok = bool((err <= 1e-5).all())
+            tol = "atol 1e-5"
+        else:
+            # Both round the same f32 sum to bf16 once: at most one bf16 ulp
+            # (2^-7 relative) apart where the sums straddle a rounding edge.
+            ok = bool((err <= 2 ** -7 * ref.float().abs() + 1e-6).all())
+            tol = "one bf16 ulp (rtol 2^-7)"
+        check(ok, f"RoI Align {name}: kernel differs from the plain version "
+                  f"by {err.max().item():.3e}")
+        ms = time_ms(lambda: kra.roi_align_cuda(feat, rois, index, s, sr))
+        plain_ms = time_ms(lambda: kra.roi_align_plain(feat, rois, index, s,
+                                                       sr), iters=3, warmup=1)
+        einsum_ms = time_ms(
+            lambda: [tra.roi_align_mxu(feat[i], rois[i * r:(i + 1) * r], s, sr)
+                     for i in range(b)], iters=3, warmup=1)
+        size = feat.element_size()
+        bytes_moved = (feat.numel() * size + rois.numel() * 4
+                       + index.numel() * 4 + out.numel() * size)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = out.numel() * sr * sr * ROI_OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+        result[name] = {"ms": ms, "plain_ms": plain_ms, "err": err.max().item(),
+                        "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                        "einsum_ms": einsum_ms}
+        print(f"roi_align {name}: [{b}, {h}, {w}, {c}] x {r} RoIs/image, "
+              f"S={s} r={sr}: max err {err.max().item():.3e} ({tol}) | kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, two-einsum form "
+              f"{einsum_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})", flush=True)
+    return result
+
+
+def voc_model(dtype: str, device="cuda", seed: int = 0):
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+
+    cfg = preset_config("voc_r50")
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
+    model = build_model(cfg, device=device).init(seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    heads = {"objectness": model.core.rpn_head.objectness,
+             "cls": model.core.det_head.cls, "bbox": model.core.det_head.bbox}
+    with torch.no_grad():
+        for name, layer in heads.items():
+            draw = torch.randn(layer.weight.shape, generator=gen)
+            layer.weight.copy_(draw * HEAD_STD[name])
+    return cfg, model
+
+
+def canvases(b, h, w, seed):
+    """uint8 canvases with a valid region per image, as the loader pads
+    resized images onto a bucket."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    image = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    hw = np.stack([rng.uniform(0.7, 1.0, b) * h, rng.uniform(0.7, 1.0, b) * w],
+                  axis=1).astype(np.float32)
+    hw[0] = (h, w)
+    return {"image": torch.from_numpy(image).cuda(),
+            "image_hw": torch.from_numpy(hw).cuda()}
+
+
+def check_detections(out, batch, num_classes, label):
+    import torch
+
+    b = batch["image"].shape[0]
+    check(out["boxes"].shape == (b, 100, 4) and out["scores"].shape == (b, 100)
+          and out["classes"].shape == (b, 100) and out["valid"].shape == (b, 100)
+          and out["num_detections"].shape == (b,), f"{label}: output shapes")
+    check(bool(torch.isfinite(out["boxes"]).all()
+               and torch.isfinite(out["scores"]).all()), f"{label}: non-finite")
+    check(bool((out["num_detections"] > 0).all()),
+          f"{label}: an image has no detections {out['num_detections'].tolist()}")
+    valid = out["valid"]
+    check(bool(((out["classes"] >= 1) & (out["classes"] <= num_classes))[valid]
+               .all()), f"{label}: classes outside 1..{num_classes}")
+    hw = batch["image_hw"][:, None, :]
+    inside = ((out["boxes"][..., 0::2] <= hw[..., 1:2] + 1e-3).all(-1)
+              & (out["boxes"][..., 1::2] <= hw[..., 0:1] + 1e-3).all(-1)
+              & (out["boxes"] >= 0).all(-1))
+    check(bool(inside[valid].all()), f"{label}: boxes outside the image")
+
+
+def same_detections(port, ref):
+    """Kernel path against the plain path: same valid masks; each detection
+    has a counterpart of the same class with score within 1e-4 and box
+    within 1e-2 px (two detections whose scores tie within the float error
+    of the two backends may trade places)."""
+    if not (port["valid"] == ref["valid"]).all():
+        return False
+    for b in range(ref["valid"].shape[0]):
+        n = int(ref["num_detections"][b])
+        free = list(range(n))
+        for i in range(n):
+            match = [k for k in free
+                     if port["classes"][b, k] == ref["classes"][b, i]
+                     and abs(port["scores"][b, k] - ref["scores"][b, i]) < 1e-4
+                     and (abs(port["boxes"][b, k] - ref["boxes"][b, i])
+                          < 1e-2).all()]
+            if not match:
+                return False
+            free.remove(min(match, key=lambda m: abs(m - i)))
+    return True
+
+
+def phase_main_path(card):
+    import torch
+
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.train.step import make_eval_step
+
+    cfg, model = voc_model("bfloat16")
+    step = make_eval_step(model, cfg)
+    batches = {"640x640": canvases(8, 640, 640, seed=3),
+               "640x1024": canvases(8, 640, 1024, seed=4)}
+    torch.cuda.synchronize()
+    # The main path: counts set to 0 just before, read just after.
+    knms.LAUNCHES = 0
+    kra.LAUNCHES = 0
+    outs = {name: step(batch) for name, batch in batches.items()}
+    torch.cuda.synchronize()
+    launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES}
+    check(launches == {"nms": 2 * len(batches), "roi_align": len(batches)},
+          f"main path launches {launches}: expected 2 NMS and 1 RoI Align "
+          "per predict")
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        print(f"voc_r50 bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}", flush=True)
+    print(f"main path launches: {json.dumps(launches)} over "
+          f"{len(batches)} predicts", flush=True)
+
+    # Reference on a small input: the f32 model with the kernels on the
+    # card against the same weights on the CPU, where every wrapper runs
+    # its plain version.
+    cfg32, model32 = voc_model("float32")
+    cpu_cfg, cpu_model = voc_model("float32", device="cpu")
+    cpu_model.load_state_dict(model32.state_dict())
+    small = canvases(2, 256, 256, seed=5)
+    gpu_out = make_eval_step(model32, cfg32)(small)
+    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
+        {k: v.cpu() for k, v in small.items()})
+    gpu_out = {k: v.cpu() for k, v in gpu_out.items()}
+    check(bool((cpu_out["num_detections"] > 0).all()), "reference: no detections")
+    check(same_detections(gpu_out, cpu_out),
+          "f32 predict on the card differs from the plain versions on the CPU")
+    print(f"reference: f32 b=2 256x256 predict on the card equals the CPU "
+          f"plain path (detections {cpu_out['num_detections'].tolist()})",
+          flush=True)
+    del model32, cpu_model
+
+    torch.backends.cudnn.benchmark = True
+    for name, (h, w) in (("640x640", (640, 640)), ("640x1024", (640, 1024))):
+        for b in (8, 32):
+            batch = batches[name] if b == 8 else canvases(b, h, w, seed=6)
+            ms = time_ms(lambda: step(batch), iters=10, warmup=3)
+            print(f"voc_r50 bf16 predict b={b} {name}: {ms:.2f} ms/batch, "
+                  f"{1e3 * b / ms:.1f} img/s (uint8 canvases on the card, "
+                  f"preprocess included) | {card}", flush=True)
+    print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    return launches, step
+
+
+KINDS = (
+    ("nms kernel", ("nms_mask_kernel", "nms_reduce_kernel")),
+    ("roi_align kernel", ("roi_align_fwd_kernel",)),
+    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd",
+                     "nhwc", "fprop")),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("sort and top-k", ("sort", "radix", "topk", "scan")),
+)
+
+
+def phase_profile(card, step):
+    """One b=32 640x640 predict of the main path's ``step`` under
+    torch.profiler: device time by kernel and by kind, and the device's
+    busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = canvases(32, 640, 640, seed=6)
+    for _ in range(3):
+        step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(kernels), "profiler: no device events (time with CUDA events)")
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name, by_kind = {}, {}
+    for e in kernels:
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+        low = e.name.lower()
+        kind = next((k for k, keys in KINDS if any(x in low for x in keys)),
+                    "other (elementwise, copies, reductions)")
+        by_kind[kind] = (by_kind.get(kind, 0.0)
+                         + e.time_range.elapsed_us() / 1e3)
+    print(f"profile b=32 640x640 predict: wall {wall_ms:.2f} ms, device busy "
+          f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f}%), "
+          f"{len(kernels)} kernel launches | {card}", flush=True)
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  kind {kind}: {ms:.3f} ms ({100 * ms / device_ms:.1f}%)",
+              flush=True)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    for name, (n, ms) in top:
+        print(f"  {ms:8.3f} ms {n:5d}x  {name[:110]}", flush=True)
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script runs the port "
+             "on a CUDA card")
+    sys.path.insert(0, str(HERE))
+    try:
+        import tpudet_torch
+    except ImportError:
+        fail("tpudet_torch is not beside chip_smoke.py: run it from a checkout")
+    check(Path(tpudet_torch.__file__).resolve().parent.parent == HERE,
+          f"tpudet_torch was imported from {tpudet_torch.__file__}, not from "
+          "this checkout")
+    card = phase_device()
+    phase_build()
+    nms = phase_nms()
+    roi = phase_roi_align()
+    launches, step = phase_main_path(card)
+    phase_profile(card, step)
+
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+
+    bf16 = roi["bf16"]
+    kernels = [
+        {"name": "nms", "route": "cuda", "source": knms.SOURCE,
+         "replaces": knms.REPLACES, "launches": launches["nms"],
+         "max_abs_err": nms["err"], "ms": nms["ms"],
+         "plain_ms": nms["plain_ms"],
+         "bound_ms": nms["bound_ms"],
+         "bound_by": "operations" if nms["ops_ms"] >= nms["bytes_ms"]
+         else "bytes", "library_ms": None},
+        {"name": "roi_align", "route": "cuda", "source": kra.SOURCE,
+         "replaces": kra.REPLACES, "launches": launches["roi_align"],
+         "max_abs_err": bf16["err"], "ms": bf16["ms"],
+         "plain_ms": bf16["plain_ms"],
+         "bound_ms": max(bf16["bytes_ms"], bf16["ops_ms"]),
+         "bound_by": "bytes" if bf16["bytes_ms"] >= bf16["ops_ms"]
+         else "operations", "library_ms": None},
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

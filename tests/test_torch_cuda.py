@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests skip without a card. On a
+machine with one (and without JAX, which ``tests/conftest.py`` imports):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Shapes here are small and ragged (box counts that are not a multiple of the
+64-box block, channel counts that are not a multiple of 32); ``chip_smoke.py``
+covers the main path's shapes.
+"""
+
+import pytest
+import torch
+
+from tpudet_torch import kernels as tk
+from tpudet_torch.kernels import nms as knms
+from tpudet_torch.kernels import roi_align as kra
+from tpudet_torch.ops import nms as tnms
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def boxes(gen, b, n, extent=300.0):
+    xy = torch.rand(b, n, 2, generator=gen) * extent
+    wh = 4 + torch.rand(b, n, 2, generator=gen) * 80
+    return torch.cat([xy, xy + wh], dim=-1)
+
+
+@pytest.mark.parametrize("b,n,thr,k", [(1, 1, 0.5, 4), (3, 65, 0.5, 10),
+                                       (2, 700, 0.7, 300), (4, 130, 0.3, 200)])
+def test_nms_kernel_equals_plain(cuda, b, n, thr, k):
+    gen = torch.Generator().manual_seed(n)
+    bx = boxes(gen, b, n)
+    cand = torch.rand(b, n, generator=gen) > 0.1
+    out = knms.nms_keep_cuda(bx.to(cuda), cand.to(cuda), thr, k)
+    ref = knms.nms_keep_plain(bx, cand, thr, k)
+    assert torch.equal(out[0].cpu(), ref[0])
+    assert torch.equal(out[1].cpu(), ref[1])
+
+
+def test_nms_dispatch_on_card_equals_cpu(cuda):
+    gen = torch.Generator().manual_seed(7)
+    bx = boxes(gen, 2, 300)
+    scores = torch.rand(2, 300, generator=gen)
+    scores[0, 5] = float("nan")
+    classes = torch.randint(1, 4, (2, 300), generator=gen)
+    mask = scores > 0.05
+    for fn, args in ((tk.nms_dispatch, (bx, scores)),
+                     (tk.batched_nms_dispatch, (bx, scores, classes))):
+        ref = fn(*args, 0.5, 50, valid_mask=mask)
+        out = fn(*(a.to(cuda) for a in args), 0.5, 50,
+                 valid_mask=mask.to(cuda))
+        assert torch.equal(out[0].cpu(), ref[0])
+        assert torch.equal(out[1].cpu(), ref[1])
+    ref = tnms.nms(bx, scores, 0.5, 50, score_threshold=0.3)
+    out = tk.nms_dispatch(bx.to(cuda), scores.to(cuda), 0.5, 50,
+                          score_threshold=0.3)
+    assert torch.equal(out[0].cpu(), ref[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,s,r", [(40, 7, 2), (256, 5, 3), (8, 1, 1)])
+def test_roi_align_kernel_equals_plain(cuda, dtype, c, s, r):
+    gen = torch.Generator().manual_seed(c)
+    feat = torch.randn(3, 11, 19, c, generator=gen).to(dtype)
+    rois = boxes(gen, 3, 9, extent=18.0).reshape(-1, 4) / 4 - 1
+    rois[0] = torch.tensor([3.0, 4.0, 3.0, 9.0])  # zero width
+    index = torch.arange(3, dtype=torch.int32).repeat_interleave(9)
+    out = kra.roi_align_cuda(feat.to(cuda), rois.to(cuda), index.to(cuda),
+                             s, r).cpu().float()
+    ref = kra.roi_align_plain(feat.to(cuda), rois.to(cuda), index.to(cuda),
+                              s, r).cpu().float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    else:  # one rounding of the same f32 sum: at most one bf16 ulp apart
+        assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
+
+
+def test_predict_on_card_equals_plain_path(cuda):
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.models import build_model
+
+    cfg = tiny_test_config()
+    card = build_model(cfg, device=cuda).init(seed=0)
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # wide enough that detections pass score_thresh
+        cpu.core.det_head.cls.weight.normal_(0, 1.0, generator=gen)
+    card.load_state_dict(cpu.state_dict())
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [100.0, 128.0]])}
+    out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+    ref = cpu.predict(batch)
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    assert (ref["num_detections"] > 0).all()
+    torch.testing.assert_close(out["boxes"].cpu(), ref["boxes"], rtol=1e-4,
+                               atol=1e-3)
+    torch.testing.assert_close(out["scores"].cpu(), ref["scores"], rtol=1e-4,
+                               atol=1e-4)

@@ -1,0 +1,74 @@
+"""The port stands alone: importing it loads neither JAX nor any module of
+the JAX package, and its config keeps the JAX package's defaults."""
+
+import ast
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from tpudet import config as jconfig
+from tpudet_torch import config as tconfig
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "tpudet_torch"
+
+
+def test_import_loads_no_jax_and_no_tpudet_module():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import tpudet_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(tpudet_torch.__path__,"
+        " 'tpudet_torch.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "print(json.dumps({'modules': names, 'loaded': sorted(sys.modules)}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(result["modules"]) >= 20
+    loaded = result["loaded"]
+    for banned in ("jax", "jaxlib", "flax", "optax", "orbax"):
+        assert banned not in loaded
+    assert not [m for m in loaded if m == "tpudet" or m.startswith("tpudet.")]
+
+
+def test_sources_import_no_jax_and_no_tpudet():
+    for path in PORT.rglob("*.py"):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "flax", "optax", "tpudet"), \
+                    f"{path.relative_to(ROOT)} imports {name}"
+
+
+@pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
+                                   "AnchorConfig", "RPNConfig", "ROIConfig",
+                                   "Config"])
+def test_config_defaults_equal_jax(group):
+    port = getattr(tconfig, group)()
+    ref = getattr(jconfig, group)()
+    fields = [f.name for f in dataclasses.fields(port)]
+    for name in fields:
+        assert hasattr(ref, name), f"{group}.{name} is not a JAX field"
+        if group != "Config" or name in ("model", "use_pallas", "rpn_only"):
+            assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
+
+
+def test_tiny_test_config_equals_jax_fields():
+    port, ref = tconfig.tiny_test_config(), jconfig.tiny_test_config()
+    for group in ("data", "backbone", "anchors", "rpn", "roi"):
+        for f in dataclasses.fields(getattr(port, group)):
+            assert (getattr(getattr(port, group), f.name)
+                    == getattr(getattr(ref, group), f.name)), f"{group}.{f.name}"
+    assert port.use_pallas == ref.use_pallas

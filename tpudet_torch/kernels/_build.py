@@ -1,0 +1,85 @@
+"""Builds the CUDA sources under ``csrc/`` with ``nvcc`` and loads them with
+``ctypes``.
+
+Each source is its own shared library with a plain C interface, built at
+first CUDA use into ``build/tpudet_torch_kernels/`` at the repository root
+and keyed by a hash of the source and the flags, so a fresh checkout builds
+them on first use and an edited source builds anew. Importing this module
+needs no compiler: the CPU path never calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpudet_torch_kernels"
+
+# -fmad=false: no FMA contraction, so NMS decisions are bit-exact and RoI
+# Align places its samples exactly where its plain version does.
+BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): the CUDA kernels "
+        "of tpudet_torch build on a machine with the CUDA toolkit"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives for this source."""
+    digest = hashlib.sha256()
+    digest.update((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(BASE_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> None:
+    """Build every missing library, one ``nvcc`` per source, all at once.
+    Each writes a temporary file that is renamed into place on success."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *BASE_FLAGS, "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((proc, cmd, tmp, out))
+    failures = []
+    for proc, cmd, tmp, out in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        build([name])
+        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+    return _loaded[name]

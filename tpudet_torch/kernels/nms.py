@@ -1,0 +1,108 @@
+"""Greedy NMS keep-walk: the Hopper kernel (``csrc/nms.cu``) and its plain
+PyTorch version.
+
+Replaces ``tpudet/kernels/nms.py::_nms_kernel`` (reached through
+``nms_pallas``). The TPU kernel resolves 128-box tiles with a vectorized
+fixed-point sweep because the TPU is one wide core; on Hopper the work is
+split the other way: a parallel pass builds the IoU > thr bitmask over 64x64
+box blocks for every image at once, and one warp per image walks it in
+score order, stopping at ``max_outputs`` keeps.
+
+What bounds it on the H100: the least work is reading the boxes the walk
+reaches once and testing each of them against the boxes kept before it;
+the IoU tests (13 f32 operations each) outweigh the bytes, so operations
+set the bound. This first design does more: pass 1 tests every pair (O(P^2 / 2) IoUs per
+image, most of its time) and pass 2 is serial per image. It keeps the
+serial part to one shared-memory bit test per box and spreads the OR of a
+kept row over 32 lanes; testing only the pairs the walk reaches is later
+work (PERF.md).
+
+Decisions are bit-exact against the plain version (and the JAX kernel): f32
+IoU in the JAX operation order, no FMA (``-fmad=false`` and round-to-nearest
+intrinsics), the threshold passed as a 32-bit float.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from tpudet_torch.kernels import _build
+from tpudet_torch.ops.nms import _select_kept, greedy_keep
+
+# Launches of the CUDA kernel pair, one per wrapper call on a CUDA tensor.
+LAUNCHES = 0
+
+SOURCE = "tpudet_torch/kernels/csrc/nms.cu"
+REPLACES = "tpudet/kernels/nms.py:74"
+
+
+def nms_keep_plain(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
+                   iou_threshold: float, max_outputs: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: ``[B, P, 4]`` score-sorted boxes + ``[B, P]``
+    candidates -> ``(positions [B, max_outputs] int32, valid bool)``, the
+    sorted positions of the first ``max_outputs`` kept boxes (0 where
+    invalid)."""
+    keep = greedy_keep(boxes_sorted, candidate, iou_threshold)
+    order = torch.arange(keep.shape[1], device=keep.device).expand_as(keep)
+    return _select_kept(keep, order, max_outputs)
+
+
+def _lib():
+    lib = _build.load("nms")
+    fn = lib.tpudet_nms
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_float, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def nms_keep_cuda(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
+                  iou_threshold: float, max_outputs: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel: same contract as :func:`nms_keep_plain`."""
+    global LAUNCHES
+    if boxes_sorted.device.type != "cuda" or candidate.device != boxes_sorted.device:
+        raise ValueError("nms_keep_cuda needs boxes and candidates on one CUDA device")
+    if boxes_sorted.dtype != torch.float32 or candidate.dtype != torch.bool:
+        raise TypeError(f"nms_keep_cuda takes f32 boxes and a bool mask, got "
+                        f"{boxes_sorted.dtype}, {candidate.dtype}")
+    b, p = candidate.shape
+    if boxes_sorted.shape != (b, p, 4) or p == 0 or max_outputs <= 0:
+        raise ValueError(f"bad NMS shapes {tuple(boxes_sorted.shape)}, "
+                         f"{tuple(candidate.shape)}, max_outputs={max_outputs}")
+    col_blocks = (p + 63) // 64
+    if col_blocks > 65535 or b > 65535 or col_blocks * 8 > 48 * 1024:
+        raise ValueError(f"NMS of {p} boxes x {b} images exceeds the kernel's grid")
+    boxes_sorted = boxes_sorted.contiguous()
+    candidate = candidate.contiguous()
+    dev = boxes_sorted.device
+    mask = torch.empty((b, p, col_blocks), dtype=torch.int64, device=dev)
+    positions = torch.empty((b, max_outputs), dtype=torch.int32, device=dev)
+    count = torch.empty((b,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib()(boxes_sorted.data_ptr(), candidate.data_ptr(),
+                     mask.data_ptr(), positions.data_ptr(), count.data_ptr(),
+                     b, p, iou_threshold, max_outputs, stream)
+    if err != 0:
+        raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    valid = torch.arange(max_outputs, device=dev)[None, :] < count[:, None]
+    return positions, valid
+
+
+def nms_keep(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
+             iou_threshold: float, max_outputs: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch by device: CUDA -> the kernel, CPU -> the plain version."""
+    if boxes_sorted.device.type == "cuda":
+        return nms_keep_cuda(boxes_sorted, candidate, iou_threshold, max_outputs)
+    if boxes_sorted.device.type == "cpu":
+        return nms_keep_plain(boxes_sorted, candidate, iou_threshold, max_outputs)
+    raise ValueError(f"no NMS for device {boxes_sorted.device}")

@@ -1,0 +1,12 @@
+"""Detector models: NCHW (channels-last) layers over f32 parameters,
+computing in f32 or bf16."""
+
+from tpudet_torch.models.faster_rcnn import FasterRCNN  # noqa: F401
+
+
+def build_model(cfg, device="cuda"):
+    """Detector factory keyed on ``cfg.model``. The port has Faster R-CNN;
+    the other families wait (ROADMAP.md, Queue 1 slice D)."""
+    if cfg.model == "faster_rcnn":
+        return FasterRCNN(cfg, device=device)
+    raise ValueError(f"unknown model {cfg.model!r}: the port has 'faster_rcnn'")

@@ -1,0 +1,281 @@
+"""Faster R-CNN, single-level inference (``tpudet.models.faster_rcnn``).
+
+``DetectorCore`` owns the layers: the backbone to c4, the 1x1 neck, the RPN
+head and the Fast R-CNN head. ``FasterRCNN`` runs the pipeline around them:
+anchors, proposals (top-k, decode, clip, min-size, NMS@0.7), RoI Align on
+the neck map, the head, per-class decode and the class-offset NMS@0.5.
+
+The JAX package writes the per-image steps as functions of one image under
+``jax.vmap``. Here the same functions (same names) take a leading batch
+axis, so each NMS and the RoI pooler is one batched kernel launch per
+predict. Shapes stay static: proposals ``[B, post_nms_topk]`` and
+detections ``[B, max_detections]`` with validity masks; invalid slots carry
+what the JAX functions put there (the entry at index 0).
+
+Only the single-level (C4) path is ported; FPN and training wait for their
+slices (ROADMAP.md, Queue 1 items 8 and 14).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpudet_torch.config import Config
+from tpudet_torch.kernels import class_aware_select, nms_dispatch
+from tpudet_torch.kernels import roi_align as roi_align_kernel
+from tpudet_torch.models.det_head import FastRCNNHead
+from tpudet_torch.models.layers import Conv, init_module
+from tpudet_torch.models.resnet import build_backbone
+from tpudet_torch.models.rpn_head import RPNHead
+from tpudet_torch.ops import anchors as anchor_ops
+from tpudet_torch.ops import boxes as box_ops
+from tpudet_torch.ops.nms import coordinate_offset_for, sort_desc
+
+# Default cap on flattened (box, class) candidates entering the final NMS
+# (ROIConfig.max_nms_candidates overrides it).
+MAX_NMS_CANDIDATES = 1024
+
+
+def _max_canvas_dim(cfg: Config) -> int:
+    """Largest canvas side the config can produce."""
+    d = cfg.data
+    if d.aspect_buckets:
+        return max(max(h, w) for h, w in d.aspect_buckets)
+    return max(d.canvas_height, d.canvas_width)
+
+
+def _nms_offset(cfg: Config) -> float:
+    """Class-offset stride of the final NMS, from the largest canvas."""
+    return coordinate_offset_for(float(_max_canvas_dim(cfg)))
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b, k]]`` for ``x`` ``[B, N, ...]`` and ``idx`` ``[B, K]``."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, idx.long()]
+
+
+class DetectorCore(nn.Module):
+    """Backbone to c4, neck, RPN head and Fast R-CNN head. Parameter names
+    follow the Flax tree (``backbone.*``, ``neck_conv``, ``rpn_head``,
+    ``det_head``)."""
+
+    def __init__(self, cfg: Config, device=None):
+        super().__init__()
+        bb = cfg.backbone
+        if bb.use_fpn:
+            raise NotImplementedError(
+                "backbone.use_fpn=True: the FPN path is not ported yet "
+                "(ROADMAP.md, Queue 1 item 14)")
+        dtype = torch.bfloat16 if bb.dtype == "bfloat16" else torch.float32
+        self.backbone = build_backbone(bb.name, bb.norm, dtype,
+                                       bb.stride_in_1x1, device)
+        feat_ch = self.backbone.channels["c4"]
+        self.neck_conv = None
+        if bb.neck_channels > 0:
+            self.neck_conv = Conv(feat_ch, bb.neck_channels, 1, dtype=dtype,
+                                  device=device)
+            feat_ch = bb.neck_channels
+        self.rpn_head = RPNHead(feat_ch, cfg.anchors.num_anchors_per_cell,
+                                cfg.rpn.conv_channels, dtype, device)
+        s = cfg.roi.output_size
+        self.det_head = FastRCNNHead(s * s * feat_ch, cfg.data.num_classes,
+                                     cfg.roi.fc_dim,
+                                     cfg.roi.class_agnostic_bbox, dtype,
+                                     device)
+
+    def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``[B, H, W, 3]`` images -> ``{"c4": [B, C, H/16, W/16]}`` in
+        channels-last memory format (``.permute(0, 2, 3, 1)`` is the
+        contiguous NHWC map)."""
+        x = images.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        c4 = self.backbone(x, stop_at="c4")["c4"]
+        if self.neck_conv is not None:
+            c4 = F.relu(self.neck_conv(c4))
+        return {"c4": c4}
+
+    def rpn(self, feats: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.rpn_head(feats["c4"])
+
+    def roi_head(self, pooled: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.det_head(pooled)
+
+
+class FasterRCNN(nn.Module):
+    """Pipeline around :class:`DetectorCore`. Runs on ``device`` (CUDA
+    unless the caller passes ``device="cpu"``)."""
+
+    def __init__(self, cfg: Config, device="cuda"):
+        super().__init__()
+        if cfg.rpn.topk_method != "exact":
+            raise NotImplementedError(
+                f"rpn.topk_method={cfg.rpn.topk_method!r}: only 'exact' is "
+                "ported (ROADMAP.md, Queue 1 item 3)")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.core = DetectorCore(cfg, self.device)
+        self._anchors_cache: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def init(self, seed: int = 0) -> "FasterRCNN":
+        """Draw every weight from ``seed`` with the Flax initializers'
+        distributions (the numbers differ from JAX's)."""
+        init_module(self.core, torch.Generator().manual_seed(seed))
+        return self
+
+    # ------------------------------------------------------------- anchors
+    def anchor_boxes(self, canvas_hw: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
+        """``[N, 4]`` anchors over the canvas. SAME-padded stride-2 convs give
+        ``ceil(h / stride)`` cells, so the grid uses ceil too."""
+        if canvas_hw is None:
+            canvas_hw = (self.cfg.data.canvas_height,
+                         self.cfg.data.canvas_width)
+        h, w = int(canvas_hw[0]), int(canvas_hw[1])
+        if (h, w) not in self._anchors_cache:
+            a = self.cfg.anchors
+            grid = anchor_ops.generate_anchors_np(
+                -(-h // a.stride), -(-w // a.stride), a.stride, a.scales,
+                a.aspect_ratios)
+            self._anchors_cache[(h, w)] = torch.from_numpy(grid).to(
+                self.device)
+        return self._anchors_cache[(h, w)]
+
+    # ------------------------------------------------------- proposal path
+    def _generate_proposals_single(self, anchors, logits, deltas, image_hw):
+        """Decode -> clip -> min-size -> top-k -> NMS, for ``[B, N]`` logits
+        and ``[B, N, 4]`` deltas -> boxes ``[B, K, 4]``, scores, valid."""
+        cfg = self.cfg.rpn
+        n = anchors.shape[0]
+        k_pre = min(n, cfg.pre_nms_topk_test)
+        # Select on the logits (sigmoid is monotone) with lax.top_k's tie
+        # order, then sigmoid the survivors.
+        top_logits, idx = sort_desc(logits)
+        top_logits, idx = top_logits[:, :k_pre], idx[:, :k_pre]
+        top_scores = torch.sigmoid(top_logits)
+        if n <= 4 * k_pre:
+            decoded = box_ops.decode_boxes(deltas, anchors[None],
+                                           cfg.box_reg_weights)
+            boxes = _gather_rows(decoded, idx)
+        else:
+            boxes = box_ops.decode_boxes(_gather_rows(deltas, idx),
+                                         anchors[idx], cfg.box_reg_weights)
+        boxes = box_ops.clip_boxes(boxes, image_hw[:, None, :])
+        wh = boxes[..., 2:] - boxes[..., :2]
+        size_ok = (wh[..., 0] > cfg.min_box_size) & (wh[..., 1] > cfg.min_box_size)
+        keep_idx, valid = nms_dispatch(
+            boxes, top_scores, cfg.nms_thresh, cfg.post_nms_topk_test,
+            valid_mask=size_ok, presorted=True)  # the sort above is descending
+        return (_gather_rows(boxes, keep_idx), _gather_rows(top_scores, keep_idx),
+                valid)
+
+    def proposals(self, logits, deltas, image_hw, canvas_hw=None):
+        """Batched proposals: ``(boxes [B, K, 4], scores [B, K], valid)``."""
+        return self._generate_proposals_single(
+            self.anchor_boxes(canvas_hw), logits, deltas, image_hw)
+
+    # ------------------------------------------------------------- pooling
+    def _pool_batch(self, feats: Dict[str, torch.Tensor],
+                    rois: torch.Tensor) -> torch.Tensor:
+        """RoI Align on c4 for all ``B x N`` RoIs in one call: ``rois``
+        ``[B, N, 4]`` in image pixels -> ``[B, N, S, S, C]`` (the JAX
+        ``_pool_batch`` / ``_pool_single`` non-FPN branch)."""
+        roi = self.cfg.roi
+        b, n = rois.shape[:2]
+        fmap = feats["c4"].permute(0, 2, 3, 1).contiguous()  # NHWC, a view
+        fboxes = (rois / float(self.cfg.anchors.stride)).reshape(b * n, 4)
+        image_index = torch.arange(b, dtype=torch.int32, device=rois.device
+                                   ).repeat_interleave(n)
+        pooled = roi_align_kernel.roi_align(
+            fmap, fboxes.contiguous(), image_index, roi.output_size,
+            roi.sampling_ratio)
+        return pooled.reshape((b, n) + pooled.shape[1:])
+
+    # ----------------------------------------------------------- inference
+    def _postprocess_single(self, proposals, prop_valid, cls_logits,
+                            det_deltas, image_hw):
+        """Per-class decode -> score threshold -> class-offset NMS -> top
+        ``max_detections``, for ``[B, P]`` proposals."""
+        probs = torch.softmax(cls_logits, dim=-1)[..., 1:]  # [B, P, C]
+        b, p, c = probs.shape
+        det_deltas = det_deltas.expand(b, p, c, 4)  # class-agnostic: C_box = 1
+        boxes = box_ops.decode_boxes(
+            det_deltas, proposals[:, :, None, :].expand(b, p, c, 4),
+            self.cfg.roi.box_reg_weights)
+        boxes = box_ops.clip_boxes(boxes, image_hw[:, None, None, :])
+        return self._final_nms(boxes, probs, prop_valid)
+
+    def _final_nms(self, boxes, probs, prop_valid):
+        """Flatten the ``[B, P, C]`` (box, class) candidates -> score
+        threshold -> candidate cap -> one class-aware NMS."""
+        cfg = self.cfg.roi
+        b, p, c = probs.shape
+        flat_boxes = boxes.reshape(b, p * c, 4)
+        flat_scores = probs.reshape(b, p * c)
+        flat_classes = torch.arange(1, c + 1, dtype=torch.int32,
+                                    device=probs.device).repeat(p)
+        flat_valid = (prop_valid.repeat_interleave(c, dim=1)
+                      & (flat_scores > cfg.score_thresh))
+        if cfg.max_nms_candidates < 0:
+            cap = p * c
+        else:
+            cap = cfg.max_nms_candidates or MAX_NMS_CANDIDATES
+        k_cand = min(p * c, cap)
+        cand_scores, cand_idx = sort_desc(
+            torch.where(flat_valid, flat_scores, torch.full_like(flat_scores, -1.0)))
+        cand_scores, cand_idx = cand_scores[:, :k_cand], cand_idx[:, :k_cand]
+        cand_boxes = _gather_rows(flat_boxes, cand_idx)
+        cand_classes = flat_classes[cand_idx]
+        keep, out_scores, valid = class_aware_select(
+            cand_boxes, cand_scores, cand_classes, cfg.nms_thresh,
+            cfg.max_detections, valid_mask=cand_scores > 0,
+            method=cfg.nms_method, sigma=cfg.soft_nms_sigma,
+            prune_threshold=cfg.score_thresh,
+            coordinate_offset=_nms_offset(self.cfg))
+        classes = _gather_rows(cand_classes, keep)
+        return (_gather_rows(cand_boxes, keep), out_scores,
+                torch.where(valid, classes, torch.zeros_like(classes)), valid)
+
+    @torch.inference_mode()
+    def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Inference on a preprocessed batch (``image [B, H, W, 3]``,
+        ``image_hw [B, 2]`` f32) -> ``boxes [B, D, 4]``, ``scores [B, D]``,
+        ``classes [B, D]`` (1..C), ``valid [B, D]``, ``num_detections [B]``."""
+        images = batch["image"]
+        image_hw = batch["image_hw"].float()
+        feats = self.core.features(images)
+        rpn_logits, rpn_deltas = self.core.rpn(feats)
+        prop_boxes, prop_scores, prop_valid = self.proposals(
+            rpn_logits, rpn_deltas, image_hw, canvas_hw=images.shape[1:3])
+        if self.cfg.rpn_only:
+            # The RPN as a class-agnostic detector.
+            d = min(self.cfg.roi.max_detections, prop_boxes.shape[1])
+            valid = prop_valid[:, :d]
+            return {
+                "boxes": prop_boxes[:, :d],
+                "scores": torch.where(valid, prop_scores[:, :d],
+                                      torch.zeros_like(prop_scores[:, :d])),
+                "classes": valid.to(torch.int32),
+                "valid": valid,
+                "num_detections": valid.sum(dim=1, dtype=torch.int32),
+            }
+        b, r = prop_boxes.shape[:2]
+        pooled = self._pool_batch(feats, prop_boxes)
+        cls_logits, det_deltas = self.core.roi_head(
+            pooled.reshape((b * r,) + pooled.shape[2:]))
+        boxes, scores, classes, valid = self._postprocess_single(
+            prop_boxes, prop_valid, cls_logits.reshape(b, r, -1),
+            det_deltas.reshape(b, r, det_deltas.shape[1], 4), image_hw)
+        return {
+            "boxes": boxes,
+            "scores": scores,
+            "classes": classes,
+            "valid": valid,
+            "num_detections": valid.sum(dim=1, dtype=torch.int32),
+        }

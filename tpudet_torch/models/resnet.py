@@ -1,0 +1,146 @@
+"""ResNet backbones (``tpudet.models.resnet``).
+
+Tensors are NCHW in ``torch.channels_last`` memory format, so every feature
+map is also a contiguous NHWC view. Module names follow the Flax tree
+(``stem_conv``, ``stage4_block2.conv1``, ``Conv_0``, ...) so a converted
+variables tree loads by name (``models.import_weights``).
+
+Convs compute in the backbone dtype over float32 parameters. The pyramid
+stops at ``stop_at``: the single-level detector reads ``c4`` and never runs
+the ``c5`` stage, whose weights exist only so that the parameter tree has
+the JAX package's shape.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpudet_torch.models.layers import Conv, make_norm
+
+STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3)}
+LEVELS = ("c2", "c3", "c4", "c5")
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck with a projection shortcut on a shape
+    change. ``stride_in_1x1=True`` strides the first 1x1 (Keras/caffe);
+    False strides the 3x3 (torchvision "v1.5")."""
+
+    def __init__(self, in_ch: int, channels: int, stride: int, norm: str,
+                 dtype: torch.dtype, stride_in_1x1: bool = True, device=None):
+        super().__init__()
+        width = channels // 4
+        s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        self.has_proj = in_ch != channels or stride != 1
+        if self.has_proj:
+            self.conv_proj = Conv(in_ch, channels, 1, stride, bias=False,
+                                  dtype=dtype, device=device)
+            self.norm_proj = make_norm(norm, channels, device)
+        self.conv1 = Conv(in_ch, width, 1, s1, bias=False, dtype=dtype,
+                          device=device)
+        self.norm1 = make_norm(norm, width, device)
+        # Flax pads this 3x3 explicitly with (1, 1), not "SAME".
+        self.conv2 = Conv(width, width, 3, s3, padding=1, bias=False,
+                          dtype=dtype, device=device)
+        self.norm2 = make_norm(norm, width, device)
+        self.conv3 = Conv(width, channels, 1, bias=False, dtype=dtype,
+                          device=device)
+        self.norm3 = make_norm(norm, channels, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        y = self.norm3(self.conv3(y))
+        return F.relu(y + shortcut)
+
+
+class ResNet(nn.Module):
+    """ResNet with bottleneck blocks (ResNet-50 by default): 7x7/2 stem,
+    3x3/2 max-pool, stages c2..c5 at strides 4..32."""
+
+    def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3),
+                 norm: str = "frozen_bn", dtype: torch.dtype = torch.float32,
+                 stride_in_1x1: bool = True, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.blocks = tuple(blocks)
+        self.stem_conv = Conv(3, 64, 7, 2, padding=3, bias=False, dtype=dtype,
+                              device=device)
+        self.norm_stem = make_norm(norm, 64, device)
+        in_ch = 64
+        for stage, (n_blocks, ch) in enumerate(
+                zip(self.blocks, (256, 512, 1024, 2048))):
+            for i in range(n_blocks):
+                stride = 2 if (i == 0 and stage > 0) else 1
+                self.add_module(
+                    f"stage{stage + 2}_block{i}",
+                    Bottleneck(in_ch, ch, stride, norm, dtype, stride_in_1x1,
+                               device),
+                )
+                in_ch = ch
+        self.channels = {"c2": 256, "c3": 512, "c4": 1024, "c5": 2048}
+
+    def forward(self, x: torch.Tensor,
+                stop_at: str = "c5") -> Dict[str, torch.Tensor]:
+        """NCHW (channels-last) image -> {"c2": .., up to ``stop_at``}."""
+        x = F.relu(self.norm_stem(self.stem_conv(x.to(self.dtype))))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        feats = {}
+        for stage, n_blocks in enumerate(self.blocks):
+            for i in range(n_blocks):
+                x = getattr(self, f"stage{stage + 2}_block{i}")(x)
+            feats[LEVELS[stage]] = x
+            if LEVELS[stage] == stop_at:
+                break
+        return feats
+
+
+class TinyBackbone(nn.Module):
+    """Five 3x3/2 SAME convs to stride 32, for the CPU tests. Flax names
+    these layers automatically (``Conv_0``, ``AdaptiveGroupNorm_0``, ...);
+    the port uses the same names."""
+
+    def __init__(self, width: int = 32, norm: str = "gn",
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm_kind = {"gn": "AdaptiveGroupNorm",
+                          "frozen_bn": "FrozenBatchNorm"}[norm]
+        in_ch = 3
+        for i in range(5):
+            self.add_module(f"Conv_{i}", Conv(in_ch, width, 3, 2, dtype=dtype,
+                                              device=device))
+            self.add_module(f"{self.norm_kind}_{i}",
+                            make_norm(norm, width, device))
+            in_ch = width
+        self.channels = {name: width for name in LEVELS}
+
+    def forward(self, x: torch.Tensor,
+                stop_at: str = "c5") -> Dict[str, torch.Tensor]:
+        x = x.to(self.dtype)
+        feats = {}
+        for i in range(5):
+            conv = getattr(self, f"Conv_{i}")
+            norm = getattr(self, f"{self.norm_kind}_{i}")
+            x = F.relu(norm(conv(x)))
+            if i > 0:
+                feats[LEVELS[i - 1]] = x
+                if LEVELS[i - 1] == stop_at:
+                    break
+        return feats
+
+
+def build_backbone(name: str, norm: str, dtype: torch.dtype,
+                   stride_in_1x1: bool = True, device=None) -> nn.Module:
+    if name == "tiny":
+        return TinyBackbone(norm=norm, dtype=dtype, device=device)
+    if name in STAGE_BLOCKS:
+        return ResNet(STAGE_BLOCKS[name], norm=norm, dtype=dtype,
+                      stride_in_1x1=stride_in_1x1, device=device)
+    raise ValueError(f"unknown backbone {name!r}: the port has 'resnet50' "
+                     "and 'tiny'")

@@ -1,0 +1,43 @@
+"""Anchor grid generation (``tpudet.ops.anchors``; Faster R-CNN §3.1.1).
+
+Anchors are a pure function of static shapes, so they are built with NumPy
+once per canvas and moved to the device by the caller.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+
+def base_anchors_np(
+    scales: Sequence[float], aspect_ratios: Sequence[float]
+) -> np.ndarray:
+    """[A, 4] zero-centered base anchors, scale varying slowest:
+    [(s0,r0), (s0,r1), ..., (s1,r0), ...]. For ratio r (h/w) the anchor is
+    ``w = s / sqrt(r)``, ``h = s * sqrt(r)``."""
+    out = []
+    for s in scales:
+        for r in aspect_ratios:
+            w = s / np.sqrt(r)
+            h = s * np.sqrt(r)
+            out.append([-w / 2.0, -h / 2.0, w / 2.0, h / 2.0])
+    return np.asarray(out, dtype=np.float32)
+
+
+def generate_anchors_np(
+    feat_height: int,
+    feat_width: int,
+    stride: int,
+    scales: Sequence[float],
+    aspect_ratios: Sequence[float],
+) -> np.ndarray:
+    """[H*W*A, 4] anchor grid in input-image pixels, row-major over (y, x, a)."""
+    base = base_anchors_np(scales, aspect_ratios)  # [A, 4]
+    cx = (np.arange(feat_width, dtype=np.float32) + 0.5) * stride
+    cy = (np.arange(feat_height, dtype=np.float32) + 0.5) * stride
+    cxv, cyv = np.meshgrid(cx, cy)  # [H, W]
+    centers = np.stack([cxv, cyv, cxv, cyv], axis=-1)  # [H, W, 4]
+    anchors = centers[:, :, None, :] + base[None, None, :, :]  # [H, W, A, 4]
+    return anchors.reshape(-1, 4)

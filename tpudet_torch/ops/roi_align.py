@@ -1,0 +1,126 @@
+"""RoI Align, plain PyTorch versions (``tpudet.ops.roi_align``).
+
+Canonical aligned RoI Align (Mask R-CNN, Detectron2 convention): boxes in
+feature-map coordinates ``[x1, y1, x2, y2]`` are shifted by -0.5, split
+into ``S x S`` bins, and each bin averages ``r x r`` bilinear samples.
+Samples outside ``[-1, dim]`` contribute zero; samples inside are clamped to
+``[0, dim - 1]``.
+
+``roi_align`` is the gather form: the CPU path of the pooler and the
+reference of the Hopper kernel in ``tpudet_torch.kernels.roi_align``.
+``roi_align_mxu`` is the two-einsum form the JAX package runs on the TPU;
+the port keeps it for the tests and as a timing reference only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _sample_grid(starts, extents, size, s, r):
+    """Sample coordinates along one axis: ``[K, s*r]`` clamped positions +
+    validity (the Detectron2 border rule).
+
+    The divisions are by tensors on the boxes' device: PyTorch's CUDA
+    kernels turn a division by a Python scalar into a multiply by its
+    reciprocal, an ulp away from the true division the CPU, JAX and the
+    CUDA kernel make (an ulp of a sample position shows as ~2e-5 on a
+    feature map with steep gradients)."""
+    dev = starts.device
+    s_div = torch.tensor(float(s), device=dev)
+    r_div = torch.tensor(float(r), device=dev)
+    grid = (
+        torch.arange(s, dtype=torch.float32, device=dev)[:, None]
+        + (torch.arange(r, dtype=torch.float32, device=dev)[None, :] + 0.5)
+        / r_div
+    ).reshape(-1)  # [s*r]
+    pos = (starts - 0.5)[:, None] + grid[None, :] * (
+        extents.clamp(min=1e-6) / s_div)[:, None]
+    valid = (pos >= -1.0) & (pos <= size)
+    return pos.clamp(0, size - 1), valid
+
+
+def roi_align(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    output_size: int,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """One image: ``[H, W, C]``, ``[N, 4]`` -> ``[N, S, S, C]`` in the
+    features' dtype (sampling and the average run in f32)."""
+    return roi_align_batched(
+        features[None], boxes,
+        torch.zeros(boxes.shape[0], dtype=torch.int32, device=boxes.device),
+        output_size, sampling_ratio,
+    )
+
+
+def roi_align_batched(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    image_index: torch.Tensor,
+    output_size: int,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Batched gather form: ``[B, H, W, C]`` features, ``[K, 4]`` boxes and
+    their ``[K]`` image indices -> ``[K, S, S, C]`` in the features' dtype."""
+    _, h, w, c = features.shape
+    k = boxes.shape[0]
+    s, r = output_size, sampling_ratio
+    boxes = boxes.float()
+    ys, vy = _sample_grid(boxes[:, 1], boxes[:, 3] - boxes[:, 1], h, s, r)
+    xs, vx = _sample_grid(boxes[:, 0], boxes[:, 2] - boxes[:, 0], w, s, r)
+
+    y0 = ys.floor().long().clamp(0, h - 1)
+    x0 = xs.floor().long().clamp(0, w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    x1 = (x0 + 1).clamp(max=w - 1)
+    ly = (ys - y0.float())[:, :, None, None]  # [K, s*r, 1, 1]
+    lx = (xs - x0.float())[:, None, :, None]  # [K, 1, s*r, 1]
+
+    img = image_index.long()[:, None, None]
+
+    def corner(yi, xi):  # [K, s*r, s*r, C] in f32
+        return features[img, yi[:, :, None], xi[:, None, :]].float()
+
+    top = corner(y0, x0) * (1.0 - lx) + corner(y0, x1) * lx
+    bot = corner(y1, x0) * (1.0 - lx) + corner(y1, x1) * lx
+    sampled = top * (1.0 - ly) + bot * ly
+    vmask = (vy[:, :, None] & vx[:, None, :])[..., None]
+    sampled = torch.where(vmask, sampled, torch.zeros_like(sampled))
+    pooled = sampled.reshape(k, s, r, s, r, c).mean(dim=(2, 4))
+    return pooled.to(features.dtype)
+
+
+def _interp_weights(pos, valid, size):
+    """[K, S] positions -> [K, S, size] bilinear weight rows, zeroed where
+    the sample is out of range."""
+    idx = torch.arange(size, dtype=pos.dtype, device=pos.device)
+    wts = (1.0 - (pos[:, :, None] - idx[None, None, :]).abs()).clamp(min=0.0)
+    return wts * valid[:, :, None]
+
+
+def roi_align_mxu(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    output_size: int,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoI Align as two contractions with separable bin-weight rows (the
+    JAX package's TPU formulation). One image: ``[H, W, C]``, ``[N, 4]`` ->
+    ``[N, S, S, C]``."""
+    h, w = features.shape[0], features.shape[1]
+    n = boxes.shape[0]
+    s, r = output_size, sampling_ratio
+    boxes = boxes.float()
+    ys, vy = _sample_grid(boxes[:, 1], boxes[:, 3] - boxes[:, 1], h, s, r)
+    xs, vx = _sample_grid(boxes[:, 0], boxes[:, 2] - boxes[:, 0], w, s, r)
+    wy = _interp_weights(ys, vy, h).reshape(n, s, r, h).mean(dim=2)
+    wx = _interp_weights(xs, vx, w).reshape(n, s, r, w).mean(dim=2)
+    wy = wy.to(features.dtype)
+    wx = wx.to(features.dtype)
+    if w >= h:
+        t1 = torch.einsum("ntw,hwc->nthc", wx, features)
+        return torch.einsum("nsh,nthc->nstc", wy, t1)
+    t1 = torch.einsum("nsh,hwc->nswc", wy, features)
+    return torch.einsum("ntw,nswc->nstc", wx, t1)
