@@ -7,21 +7,34 @@ Phases, one line of output each (a failed check exits non-zero and prints
 no result):
 
 1. the card's name and power limit; TF32 off for the f32 comparisons;
-2. the CUDA kernels built from ``tpudet_torch/kernels/csrc`` with nvcc;
+2. the CUDA kernels built from ``tpudet_torch/kernels/csrc`` with nvcc,
+   one process per source, in parallel;
 3. the NMS kernel against its plain PyTorch version on the card, at the
    shapes voc_r50 inference gives it (32 x 6000 presorted proposals at 0.7
-   -> 300, 32 x 1024 class-shifted candidates at 0.5 -> 100), on sparse
-   and on clustered scenes (where the walk must cross most blocks), and on
+   -> 300, 32 x 1024 class-shifted candidates at 0.5 -> 100) and those
+   coco_r101_fpn gives it (32 x 4608 level-shifted proposals at 0.7 ->
+   300, 32 x 1024 candidates of 80 classes at 0.5 -> 100), on sparse and
+   on clustered scenes (where the walk must cross most blocks), and on
    edge cases: kept indices must be equal;
 4. the RoI Align kernel against its plain version at [32, 40, 40, 256] x
    300 RoIs per image, S = 7, r = 2, in f32 and bf16;
-5. voc_r50 inference at full width (ResNet-50 to c4, neck 256, RPN 512, fc
+5. the FPN RoI Align kernel against its plain version at the 832x832
+   pyramid ([32, 208, 208, 256] .. [32, 26, 26, 256]) x 300 RoIs per image
+   with levels from ``fpn_assign_levels(fit_window=56)``, in f32 and bf16;
+6. voc_r50 inference at full width (ResNet-50 to c4, neck 256, RPN 512, fc
    1024, 20 classes, bf16 backbone) through ``make_eval_step`` on uint8
    canvases drawn from a seed: b = 8 on the 640x640 and 640x1024 buckets
    with the kernels' launch counts, a small f32 input held against the same
    model on the CPU (the plain versions), and ms per batch at b = 8 and 32;
-6. a ``torch.profiler`` trace of one b=32 640x640 predict: device time by
-   kernel and by kind, and the device's busy share.
+7. coco_r101_fpn inference at full width (ResNet-101 to c5, FPN 256 p2..p6,
+   RPN 256, blocked per-level top-1000, level-offset NMS to 300, windowed
+   RoI Align at window 56, fc 1024, 80 classes, bf16 backbone) the same
+   way: b = 8 on the 832x832 and 832x1344 buckets with launch counts, a
+   small f32 input against the CPU with the count of RoIs whose FPN level
+   differs between the card and the CPU, ms per batch at b = 8 and 32;
+8. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
+   832x832 coco_r101_fpn): device time by kernel and by kind, and the
+   device's busy share.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -49,6 +62,7 @@ NMS_OPS_PER_PAIR = 13
 # f32 operations per output value of RoI Align and per sample: three for
 # each of the two horizontal lerps and the vertical one, one accumulate.
 ROI_OPS_PER_SAMPLE = 10
+KERNELS = ("nms", "roi_align", "roi_align_window")
 # Head kernels drawn wider than Flax's normal(0.01)/normal(0.001): at init
 # the softmax sits near 1/21, below score_thresh 0.05, and no detection
 # would reach the final NMS. The head inputs have an rms near 1 at this
@@ -130,15 +144,45 @@ def nms_work(keep, max_out):
     return reach, int((kept_before * needed).sum())
 
 
+def fpn_proposal_scene(gen, b, scene, device="cuda"):
+    """coco_r101_fpn's proposal NMS input on the 832x832 bucket: per image
+    the top 1000 of p2..p5 and all 507 of p6, each level shifted by level *
+    4096, in random score order, padded to 4608 with non-candidates."""
+    import torch
+
+    sizes = (1000, 1000, 1000, 1000, 507)
+    levels = []
+    for level, n in enumerate(sizes, start=1):
+        if scene == "sparse":
+            boxes = random_boxes(gen, (b, n), 832, 832, device="cpu")
+        else:  # few objects per level: the walk crosses every block
+            boxes = clustered_boxes(gen, b, n, 832, 832,
+                                    [4 + i % 8 for i in range(b)],
+                                    device="cpu")
+        levels.append(boxes + level * 4096.0)
+    boxes = torch.cat(levels, dim=1)
+    order = torch.stack([torch.randperm(boxes.shape[1], generator=gen)
+                         for _ in range(b)])
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    pad = 4608 - boxes.shape[1]
+    boxes = torch.cat([boxes, torch.zeros(b, pad, 4)], dim=1)
+    cand = torch.rand(b, 4608, generator=gen) > 0.05
+    cand[:, -pad:] = False
+    return boxes.contiguous().to(device), cand.to(device)
+
+
 def nms_scenes(b=32, device="cuda"):
     """The NMS inputs of phase 3, ``{(call, scene): (boxes, candidates, thr,
-    max_outputs)}``, at the two main-path shapes. Proposals: 6000 presorted
-    boxes, ~5% masked by the min-size test, 0.7 -> 300. Final: 1024
-    candidates of 20 classes shifted by class * 4096, 0.5 -> 100.
-    Sparse scenes are uniform boxes, where the walk reaches max_outputs
-    keeps within a few hundred boxes. Clustered scenes are jittered copies
-    of a few objects, where the walk crosses most of the 64-box blocks:
-    some images end with fewer than max_outputs keeps, some reach it late."""
+    max_outputs)}``, at the main paths' shapes. voc_r50 proposals: 6000
+    presorted boxes, ~5% masked by the min-size test, 0.7 -> 300. voc_r50
+    final: 1024 candidates of 20 classes shifted by class * 4096, 0.5 ->
+    100. coco_r101_fpn proposals: 4608 level-shifted boxes (see
+    ``fpn_proposal_scene``), 0.7 -> 300; final: 1024 candidates of 80
+    classes, 0.5 -> 100. Sparse scenes are uniform boxes, where the walk
+    reaches max_outputs keeps within a few hundred boxes. Clustered scenes
+    are jittered copies of a few objects, where the walk crosses most of
+    the 64-box blocks: some images end with fewer than max_outputs keeps,
+    some reach it late."""
     import torch
 
     from tpudet_torch.ops import nms as tnms
@@ -161,6 +205,24 @@ def nms_scenes(b=32, device="cuda"):
         calls[("proposals", scene)] = (props[scene], cand_p, 0.7, 300)
         shifted = tnms.class_offset_boxes(dets[scene], classes, 4096.0)
         calls[("final", scene)] = (shifted.contiguous(), cand_d, 0.5, 100)
+    # Each image's candidates carry 5 of the 80 classes, as a scene holds a
+    # few kinds of object; offsets reach 80 * 4096.
+    pick = torch.randint(0, 5, (b, 1024), generator=gen)
+    fpn_classes = torch.gather(
+        torch.stack([torch.randperm(80, generator=gen)[:5] + 1
+                     for _ in range(b)]), 1, pick).to(device)
+    for scene in ("sparse", "clustered"):
+        calls[("fpn proposals", scene)] = fpn_proposal_scene(
+            gen, b, scene, device) + (0.7, 300)
+        if scene == "sparse":
+            dets = random_boxes(gen, (b, 1024), 832, 832, lo=8.0, hi=200.0,
+                                device=device)
+        else:
+            dets = clustered_boxes(gen, b, 1024, 832, 832,
+                                   [1 + i % 4 for i in range(b)],
+                                   device=device)
+        shifted = tnms.class_offset_boxes(dets, fpn_classes, 4096.0)
+        calls[("fpn final", scene)] = (shifted.contiguous(), cand_d, 0.5, 100)
     return calls
 
 
@@ -186,12 +248,13 @@ def phase_build():
     from tpudet_torch.kernels import _build
 
     start = time.perf_counter()
-    _build.build(["nms", "roi_align"])  # one nvcc per source, in parallel
-    for name in ("nms", "roi_align"):
+    _build.build(KERNELS)  # one nvcc per source, in parallel
+    for name in KERNELS:
         _build.load(name)
     seconds = time.perf_counter() - start
-    print(f"build: nvcc {' '.join(_build.BASE_FLAGS)} -> nms, roi_align in "
-          f"{seconds:.2f} s ({_build.BUILD_DIR.relative_to(HERE)})", flush=True)
+    print(f"build: nvcc {' '.join(_build.BASE_FLAGS)} -> {', '.join(KERNELS)} "
+          f"in {seconds:.2f} s ({_build.BUILD_DIR.relative_to(HERE)})",
+          flush=True)
 
 
 def phase_nms():
@@ -201,8 +264,11 @@ def phase_nms():
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.ops import nms as tnms
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-             "bound_ms": 0.0, "err": 0.0}
+    # Sums over the clustered scenes of each path's two calls.
+    total = {path: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+                    "ops_ms": 0.0, "bound_ms": 0.0}
+             for path in ("voc_r50", "coco_r101_fpn")}
+    max_err = 0.0
     for (name, scene), (boxes, cand, thr, k) in nms_scenes().items():
         b, p = cand.shape
         pos, valid = knms.nms_keep_cuda(boxes, cand, thr, k)
@@ -212,7 +278,7 @@ def phase_nms():
         # differing valid flags where that is larger; 0 when equal.
         err = max(int((pos - ref_pos).abs().max()),
                   int((valid != ref_valid).sum()))
-        total["err"] = max(total["err"], float(err))
+        max_err = max(max_err, float(err))
         check(err == 0, f"NMS {name} {scene}: kernel and plain version keep "
                         f"different boxes (mismatch {err})")
         reach, pairs = nms_work(tnms.greedy_keep(boxes, cand, thr), k)
@@ -232,10 +298,11 @@ def phase_nms():
         plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
                            iters=2, warmup=1)
         if scene == "clustered":
+            path = "coco_r101_fpn" if name.startswith("fpn") else "voc_r50"
             for key, value in (("ms", ms), ("plain_ms", plain_ms),
                                ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                                ("bound_ms", max(bytes_ms, ops_ms))):
-                total[key] += value
+                total[path][key] += value
         print(f"nms {name} {scene}: b={b} P={p} thr={thr} -> {k}: indices "
               f"equal, kept/image {int(valid.sum(1).min())}.."
               f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
@@ -268,7 +335,11 @@ def phase_nms():
                                                                ref[1]),
               f"NMS edge case '{label}' differs from the plain version")
     print(f"nms edge cases: {len(cases)} equal to the plain version", flush=True)
-    return total
+    for path, t in total.items():
+        print(f"nms {path}, both calls, clustered: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.6f} ms",
+              flush=True)
+    return total, max_err
 
 
 def phase_roi_align():
@@ -328,13 +399,110 @@ def phase_roi_align():
     return result
 
 
-def voc_model(dtype: str, device="cuda", seed: int = 0):
+def touched_cells(rois, levels, maps, s, r):
+    """Feature cells of each level map that the RoI Align samples read
+    (the bilinear corners of every valid sample), each counted once."""
+    import torch
+
+    from tpudet_torch.models.faster_rcnn import POOL_STRIDES
+    from tpudet_torch.ops.roi_align import _sample_grid
+
+    b, n = levels.shape
+    total = 0
+    for level, (fmap, stride) in enumerate(zip(maps, POOL_STRIDES)):
+        h, w = fmap.shape[1:3]
+        at = (levels == level).reshape(-1)
+        boxes = rois.reshape(-1, 4) / stride
+
+        def lines(start, extent, size):
+            pos, valid = _sample_grid(start, extent, size, s, r)
+            lo = pos.floor().long().clamp(0, size - 1)
+            hot = torch.zeros(b * n, size, device=rois.device)
+            for cell in (lo, (lo + 1).clamp(max=size - 1)):
+                hot.scatter_add_(1, cell, valid.float())
+            return (hot > 0).float() * at[:, None]
+
+        rows = lines(boxes[:, 1], boxes[:, 3] - boxes[:, 1], h).reshape(b, n, h)
+        cols = lines(boxes[:, 0], boxes[:, 2] - boxes[:, 0], w).reshape(b, n, w)
+        total += int((torch.bmm(rows.transpose(1, 2), cols) > 0).sum())
+    return total
+
+
+def phase_roi_align_window():
+    """The FPN RoI Align kernel at coco_r101_fpn's 832x832 shapes."""
+    import torch
+
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.models.faster_rcnn import POOL_STRIDES
+    from tpudet_torch.ops.roi_align import fpn_assign_levels
+
+    gen = torch.Generator().manual_seed(3)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(3)
+    b, n, c, s, sr = 32, 300, 256, 7, 2
+    feats32 = [torch.randn(b, side, side, c, generator=cuda_gen, device="cuda")
+               for side in (208, 104, 52, 26)]
+    # Image-pixel RoIs of 8-800 px on the 832x832 canvas, and every 20th a
+    # 4-px-wide or -tall sliver of 200-800 px that the window bumps up.
+    rois = random_boxes(gen, (b, n), 832, 832, lo=8.0, hi=800.0)
+    length = 200.0 + torch.rand(b, n // 20, generator=gen) * 600.0
+    sliver = rois[:, ::20].clone()
+    sliver[..., 2] = sliver[..., 0] + 4.0
+    sliver[..., 3] = (sliver[..., 1] + length.cuda()).clamp(max=832.0)
+    sliver[1::2] = sliver[1::2][..., [1, 0, 3, 2]]  # half of them wide
+    rois[:, ::20] = sliver
+    rois = rois.contiguous()
+    levels = (fpn_assign_levels(rois, fit_window=56) - 2).contiguous()
+    bumped = int((levels != fpn_assign_levels(rois) - 2).sum())
+    hist = torch.bincount(levels.reshape(-1), minlength=4).tolist()
+    result = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        feats = [f.to(dtype) for f in feats32]
+        args = (feats, POOL_STRIDES, rois, levels, s, sr)
+        out = krw.roi_align_window_cuda(*args)
+        ref = krw.roi_align_window_plain(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.float32:
+            ok, tol = bool((err <= 1e-5).all()), "atol 1e-5"
+        else:
+            ok = bool((err <= 2 ** -7 * ref.float().abs() + 1e-6).all())
+            tol = "one bf16 ulp (rtol 2^-7)"
+        check(ok, f"FPN RoI Align {name}: kernel differs from the plain "
+                  f"version by {err.max().item():.3e}")
+        del ref
+        ms = time_ms(lambda: krw.roi_align_window_cuda(*args))
+        plain_ms = time_ms(lambda: krw.roi_align_window_plain(*args),
+                           iters=3, warmup=1)
+        size = feats[0].element_size()
+        cells = touched_cells(rois, levels, feats, s, sr)
+        all_cells = sum(f.numel() // c for f in feats)
+        bytes_moved = (cells * c * size + rois.numel() * 4 + levels.numel() * 4
+                       + out.numel() * size)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = out.numel() * sr * sr * ROI_OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+        result[name] = {"ms": ms, "plain_ms": plain_ms, "err": err.max().item(),
+                        "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+        print(f"roi_align_window {name}: levels [{b}, 208..26, 208..26, {c}] "
+              f"x {n} RoIs/image (per level {hist}, {bumped} bumped by the "
+              f"window), S={s} r={sr}: max err {err.max().item():.3e} ({tol}) "
+              f"| kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}: output "
+              f"{out.numel() * size / 1e6:.1f} MB + the {cells} of {all_cells} "
+              f"feature cells the samples touch, {cells * c * size / 1e6:.1f} "
+              f"MB; operations {ops_ms:.4f})", flush=True)
+        del out
+    return result
+
+
+def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
+    """The preset at full width with random weights from ``seed`` and the
+    head kernels drawn wider (``HEAD_STD``)."""
     import torch
 
     from tpudet_torch.cli.common import preset_config
     from tpudet_torch.models import build_model
 
-    cfg = preset_config("voc_r50")
+    cfg = preset_config(preset)
     cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
     model = build_model(cfg, device=device).init(seed=seed)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -410,20 +578,22 @@ def phase_main_path(card):
 
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
     from tpudet_torch.train.step import make_eval_step
 
-    cfg, model = voc_model("bfloat16")
+    cfg, model = preset_model("voc_r50", "bfloat16")
     step = make_eval_step(model, cfg)
     batches = {"640x640": canvases(8, 640, 640, seed=3),
                "640x1024": canvases(8, 640, 1024, seed=4)}
     torch.cuda.synchronize()
     # The main path: counts set to 0 just before, read just after.
-    knms.LAUNCHES = 0
-    kra.LAUNCHES = 0
+    knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
     outs = {name: step(batch) for name, batch in batches.items()}
     torch.cuda.synchronize()
-    launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES}
-    check(launches == {"nms": 2 * len(batches), "roi_align": len(batches)},
+    launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
+                "roi_align_window": krw.LAUNCHES}
+    check(launches == {"nms": 2 * len(batches), "roi_align": len(batches),
+                       "roi_align_window": 0},
           f"main path launches {launches}: expected 2 NMS and 1 RoI Align "
           "per predict")
     for name, out in outs.items():
@@ -436,8 +606,8 @@ def phase_main_path(card):
     # Reference on a small input: the f32 model with the kernels on the
     # card against the same weights on the CPU, where every wrapper runs
     # its plain version.
-    cfg32, model32 = voc_model("float32")
-    cpu_cfg, cpu_model = voc_model("float32", device="cpu")
+    cfg32, model32 = preset_model("voc_r50", "float32")
+    cpu_cfg, cpu_model = preset_model("voc_r50", "float32", device="cpu")
     cpu_model.load_state_dict(model32.state_dict())
     small = canvases(2, 256, 256, seed=5)
     gpu_out = make_eval_step(model32, cfg32)(small)
@@ -465,24 +635,122 @@ def phase_main_path(card):
     return launches, step
 
 
+def level_mismatches(model, batch):
+    """RoIs (valid proposals of ``batch``) whose FPN level differs between
+    the card and the CPU, and the number of RoIs."""
+    import torch
+
+    from tpudet_torch.data.preprocess import device_preprocess
+    from tpudet_torch.ops.roi_align import fpn_assign_levels
+
+    with torch.inference_mode():
+        x = device_preprocess(model.cfg, batch)
+        feats = model.core.features(x["image"])
+        boxes, _, valid = model.proposals(*model.core.rpn(feats),
+                                          x["image_hw"].float(),
+                                          canvas_hw=x["image"].shape[1:3])
+    window = model.cfg.roi.window
+    card = fpn_assign_levels(boxes, fit_window=window).cpu()
+    cpu = fpn_assign_levels(boxes.cpu(), fit_window=window)
+    valid = valid.cpu()
+    return int((card != cpu)[valid].sum()), int(valid.sum())
+
+
+def phase_fpn_path(card):
+    """coco_r101_fpn inference at full width through ``make_eval_step``."""
+    import torch
+
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.train.step import make_eval_step
+
+    cfg, model = preset_model("coco_r101_fpn", "bfloat16")
+    step = make_eval_step(model, cfg)
+    batches = {"832x832": canvases(8, 832, 832, seed=13),
+               "832x1344": canvases(8, 832, 1344, seed=14)}
+    torch.cuda.synchronize()
+    # The main path: counts set to 0 just before, read just after.
+    knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    outs = {name: step(batch) for name, batch in batches.items()}
+    torch.cuda.synchronize()
+    launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
+                "roi_align_window": krw.LAUNCHES}
+    check(launches == {"nms": 2 * len(batches), "roi_align": 0,
+                       "roi_align_window": len(batches)},
+          f"FPN path launches {launches}: expected 2 NMS, 1 FPN RoI Align "
+          "and no single-level RoI Align per predict")
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        print(f"coco_r101_fpn bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}", flush=True)
+    print(f"FPN path launches: {json.dumps(launches)} over {len(batches)} "
+          "predicts", flush=True)
+    mismatched, rois = 0, 0
+    for batch in batches.values():
+        m, n = level_mismatches(model, batch)
+        mismatched, rois = mismatched + m, rois + n
+
+    # Reference on a small input: the f32 model with the kernels on the
+    # card against the same weights on the CPU (the plain versions).
+    cfg32, model32 = preset_model("coco_r101_fpn", "float32")
+    cpu_cfg, cpu_model = preset_model("coco_r101_fpn", "float32", device="cpu")
+    cpu_model.load_state_dict(model32.state_dict())
+    small = canvases(2, 256, 256, seed=15)
+    gpu_out = make_eval_step(model32, cfg32)(small)
+    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
+        {k: v.cpu() for k, v in small.items()})
+    gpu_out = {k: v.cpu() for k, v in gpu_out.items()}
+    check(bool((cpu_out["num_detections"] > 0).all()), "FPN reference: no "
+          "detections")
+    check(same_detections(gpu_out, cpu_out), "f32 FPN predict on the card "
+          "differs from the plain versions on the CPU")
+    m, n = level_mismatches(model32, small)
+    mismatched, rois = mismatched + m, rois + n
+    print(f"FPN reference: f32 b=2 256x256 predict on the card equals the CPU "
+          f"plain path (detections {cpu_out['num_detections'].tolist()}); FPN "
+          f"levels (fit window {cfg.roi.window}) differing between the card "
+          f"and the CPU: {mismatched} of {rois} proposals (bf16 b=8 on both "
+          "buckets and the f32 reference)", flush=True)
+    del model32, cpu_model
+
+    torch.cuda.reset_peak_memory_stats()
+    for name, (h, w), sizes in (("832x832", (832, 832), (8, 32)),
+                                ("832x1344", (832, 1344), (8,))):
+        for b in sizes:
+            batch = batches[name] if b == 8 else canvases(b, h, w, seed=16)
+            ms = time_ms(lambda: step(batch), iters=10, warmup=3)
+            print(f"coco_r101_fpn bf16 predict b={b} {name}: {ms:.2f} "
+                  f"ms/batch, {1e3 * b / ms:.1f} img/s (uint8 canvases on "
+                  f"the card, preprocess included) | {card}", flush=True)
+    print(f"peak device memory (FPN timings): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches, mismatched, step
+
+
 KINDS = (
     ("nms kernel", ("nms_mask_kernel", "nms_reduce_kernel")),
+    ("roi_align_window kernel", ("roi_align_window_fwd_kernel",)),
     ("roi_align kernel", ("roi_align_fwd_kernel",)),
+    # Ahead of "convolution", whose "nhwc" key their names also hold.
+    ("max-pool and nearest upsample", ("max_pool", "upsample")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd",
                      "nhwc", "fprop")),
-    ("matmul", ("gemm", "cutlass", "cublas")),
+    # cuBLAS GEMMs (nvjet_*): the head's FC layers and the 1x1
+    # convolutions cuDNN hands to cuBLAS.
+    ("matmul", ("gemm", "cutlass", "cublas", "nvjet")),
     ("sort and top-k", ("sort", "radix", "topk", "scan")),
 )
 
 
-def phase_profile(card, step):
-    """One b=32 640x640 predict of the main path's ``step`` under
+def phase_profile(card, step, label, h, w):
+    """One b=32 ``h x w`` predict of a main path's ``step`` under
     torch.profiler: device time by kernel and by kind, and the device's
     busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batch = canvases(32, 640, 640, seed=6)
+    batch = canvases(32, h, w, seed=6)
     for _ in range(3):
         step(batch)
     torch.cuda.synchronize()
@@ -504,7 +772,8 @@ def phase_profile(card, step):
                     "other (elementwise, copies, reductions)")
         by_kind[kind] = (by_kind.get(kind, 0.0)
                          + e.time_range.elapsed_us() / 1e3)
-    print(f"profile b=32 640x640 predict: wall {wall_ms:.2f} ms, device busy "
+    print(f"profile {label} b=32 {h}x{w} predict: wall {wall_ms:.2f} ms, "
+          f"device busy "
           f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f}%), "
           f"{len(kernels)} kernel launches | {card}", flush=True)
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
@@ -531,30 +800,35 @@ def main() -> None:
           "this checkout")
     card = phase_device()
     phase_build()
-    nms = phase_nms()
+    nms, nms_err = phase_nms()
     roi = phase_roi_align()
-    launches, step = phase_main_path(card)
-    phase_profile(card, step)
+    roi_window = phase_roi_align_window()
+    voc_launches, voc_step = phase_main_path(card)
+    fpn_launches, mismatched, fpn_step = phase_fpn_path(card)
+    phase_profile(card, voc_step, "voc_r50", 640, 640)
+    phase_profile(card, fpn_step, "coco_r101_fpn", 832, 832)
 
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
 
-    bf16 = roi["bf16"]
+    def entry(name, module, launches, m, err):
+        return {"name": name, "route": "cuda", "source": module.SOURCE,
+                "replaces": module.REPLACES, "launches": launches,
+                "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": max(m["bytes_ms"], m["ops_ms"]),
+                "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"]
+                else "operations", "library_ms": None}
+
+    # NMS: launches over both main paths; times of voc_r50's two calls on
+    # clustered scenes (coco_r101_fpn's are printed in phase 3).
     kernels = [
-        {"name": "nms", "route": "cuda", "source": knms.SOURCE,
-         "replaces": knms.REPLACES, "launches": launches["nms"],
-         "max_abs_err": nms["err"], "ms": nms["ms"],
-         "plain_ms": nms["plain_ms"],
-         "bound_ms": nms["bound_ms"],
-         "bound_by": "operations" if nms["ops_ms"] >= nms["bytes_ms"]
-         else "bytes", "library_ms": None},
-        {"name": "roi_align", "route": "cuda", "source": kra.SOURCE,
-         "replaces": kra.REPLACES, "launches": launches["roi_align"],
-         "max_abs_err": bf16["err"], "ms": bf16["ms"],
-         "plain_ms": bf16["plain_ms"],
-         "bound_ms": max(bf16["bytes_ms"], bf16["ops_ms"]),
-         "bound_by": "bytes" if bf16["bytes_ms"] >= bf16["ops_ms"]
-         else "operations", "library_ms": None},
+        entry("nms", knms, voc_launches["nms"] + fpn_launches["nms"],
+              nms["voc_r50"], nms_err),
+        entry("roi_align", kra, voc_launches["roi_align"], roi["bf16"],
+              roi["bf16"]["err"]),
+        entry("roi_align_window", krw, fpn_launches["roi_align_window"],
+              roi_window["bf16"], roi_window["bf16"]["err"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -7,7 +7,7 @@ machine with one (and without JAX, which ``tests/conftest.py`` imports):
 
 Shapes here are small and ragged (box counts that are not a multiple of the
 64-box block, channel counts that are not a multiple of 32); ``chip_smoke.py``
-covers the main path's shapes.
+covers the main paths' shapes.
 """
 
 import pytest
@@ -16,7 +16,9 @@ import torch
 from tpudet_torch import kernels as tk
 from tpudet_torch.kernels import nms as knms
 from tpudet_torch.kernels import roi_align as kra
+from tpudet_torch.kernels import roi_align_window as krw
 from tpudet_torch.ops import nms as tnms
+from tpudet_torch.ops.roi_align import fpn_assign_levels
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +88,38 @@ def test_roi_align_kernel_equals_plain(cuda, dtype, c, s, r):
         assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [40, 256])
+def test_roi_align_window_kernel_equals_plain(cuda, dtype, c):
+    """A 4-level pyramid of a 104 x 168 canvas, 3 images x 7 RoIs with
+    fit-bumped levels, a sliver and a RoI whose level names no map."""
+    gen = torch.Generator().manual_seed(c)
+    feats = [torch.randn(3, h, w, c, generator=gen).to(dtype)
+             for h, w in ((26, 42), (13, 21), (7, 11), (4, 6))]
+    rois = boxes(gen, 3, 7, extent=100.0)
+    rois[0, 0] = torch.tensor([3.0, 4.0, 5.0, 100.0])  # a sliver
+    levels = fpn_assign_levels(rois, fit_window=24) - 2
+    levels[1, 2] = 7
+    args = ([f.to(cuda) for f in feats], (4.0, 8.0, 16.0, 32.0),
+            rois.to(cuda), levels.to(cuda), 7, 2)
+    out = krw.roi_align_window_cuda(*args).cpu().float()
+    ref = krw.roi_align_window_plain(*args).cpu().float()
+    assert (out[1, 2] == 0).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    else:  # one rounding of the same f32 sum: at most one bf16 ulp apart
+        assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
+
+
+def test_fpn_levels_on_card_equal_cpu(cuda):
+    gen = torch.Generator().manual_seed(3)
+    rois = boxes(gen, 4, 5000, extent=1300.0) * torch.rand(
+        4, 5000, 1, generator=gen) * 3
+    for fit in (0, 56):
+        assert torch.equal(fpn_assign_levels(rois.to(cuda), fit_window=fit).cpu(),
+                           fpn_assign_levels(rois, fit_window=fit))
+
+
 def test_predict_on_card_equals_plain_path(cuda):
     from tpudet_torch.config import tiny_test_config
     from tpudet_torch.models import build_model
@@ -100,6 +134,35 @@ def test_predict_on_card_equals_plain_path(cuda):
     batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
              "image_hw": torch.tensor([[128.0, 128.0], [100.0, 128.0]])}
     out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+    ref = cpu.predict(batch)
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    assert (ref["num_detections"] > 0).all()
+    torch.testing.assert_close(out["boxes"].cpu(), ref["boxes"], rtol=1e-4,
+                               atol=1e-3)
+    torch.testing.assert_close(out["scores"].cpu(), ref["scores"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_fpn_predict_on_card_equals_plain_path(cuda):
+    import dataclasses
+
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.models import build_model
+
+    cfg = tiny_test_config(use_fpn=True)
+    cfg = cfg.replace(roi=dataclasses.replace(cfg.roi, pooler="roi_align_window",
+                                              window=24))
+    card = build_model(cfg, device=cuda).init(seed=0)
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        cpu.core.det_head.cls.weight.normal_(0, 1.0, generator=gen)
+    card.load_state_dict(cpu.state_dict())
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [100.0, 128.0]])}
+    before = krw.LAUNCHES
+    out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+    assert krw.LAUNCHES == before + 1
     ref = cpu.predict(batch)
     assert torch.equal(out["valid"].cpu(), ref["valid"])
     assert (ref["num_detections"] > 0).all()

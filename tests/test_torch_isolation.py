@@ -65,10 +65,32 @@ def test_config_defaults_equal_jax(group):
             assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
 
 
+# The fields the FPN slice reads: present in the port, with JAX's defaults.
+FPN_FIELDS = {
+    "BackboneConfig": ("use_fpn",),
+    "AnchorConfig": ("fpn_strides", "fpn_scales", "fpn_octave_scales",
+                     "num_fpn_anchors_per_cell"),
+    "RPNConfig": ("fpn_pre_nms_topk_per_level_test", "topk_method",
+                  "topk_block_size"),
+    "ROIConfig": ("pooler", "window"),
+}
+
+
+@pytest.mark.parametrize("group", sorted(FPN_FIELDS))
+def test_fpn_config_fields_equal_jax(group):
+    port = getattr(tconfig, group)()
+    ref = getattr(jconfig, group)()
+    for name in FPN_FIELDS[group]:
+        assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
+
+
 def test_tiny_test_config_equals_jax_fields():
-    port, ref = tconfig.tiny_test_config(), jconfig.tiny_test_config()
-    for group in ("data", "backbone", "anchors", "rpn", "roi"):
-        for f in dataclasses.fields(getattr(port, group)):
-            assert (getattr(getattr(port, group), f.name)
-                    == getattr(getattr(ref, group), f.name)), f"{group}.{f.name}"
-    assert port.use_pallas == ref.use_pallas
+    for use_fpn in (False, True):
+        port = tconfig.tiny_test_config(use_fpn=use_fpn)
+        ref = jconfig.tiny_test_config(use_fpn=use_fpn)
+        for group in ("data", "backbone", "anchors", "rpn", "roi"):
+            for f in dataclasses.fields(getattr(port, group)):
+                assert (getattr(getattr(port, group), f.name)
+                        == getattr(getattr(ref, group), f.name)), \
+                    f"{group}.{f.name}"
+        assert port.use_pallas == ref.use_pallas

@@ -90,7 +90,7 @@ def test_anchor_grids_equal_jax():
 @pytest.mark.parametrize("canvas_hw", [(640, 1024), (100, 72)])
 def test_model_anchor_boxes_ceil_grid(canvas_hw):
     # Canvases not divisible by the stride use ceil(h / 16) cells.
-    jm = JaxFasterRCNN(preset_jax_voc())
+    jm = JaxFasterRCNN(preset_jax("voc_r50"))
     tm = build_model(preset_config("voc_r50"), device="cpu")
     ref = np.asarray(jm.anchor_boxes(canvas_hw))
     out = tm.anchor_boxes(canvas_hw)
@@ -98,20 +98,27 @@ def test_model_anchor_boxes_ceil_grid(canvas_hw):
     close(out, ref)
 
 
-def preset_jax_voc():
+def preset_jax(name):
     from tpudet.cli.common import preset_config as jax_preset
 
-    return jax_preset("voc_r50")
+    return jax_preset(name)
 
 
-def test_voc_r50_preset_equals_jax():
-    port, ref = preset_config("voc_r50"), preset_jax_voc()
+def assert_preset_equals_jax(name):
+    """Every field the port's config has equals the JAX preset's."""
+    port, ref = preset_config(name), preset_jax(name)
     for group in ("data", "backbone", "anchors", "rpn", "roi"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), f"{group}.{f.name}"
+    assert port.use_pallas == ref.use_pallas and port.rpn_only == ref.rpn_only
+
+
+def test_voc_r50_preset_equals_jax():
+    assert_preset_equals_jax("voc_r50")
+    assert_preset_equals_jax("coco_r101_fpn")
     with pytest.raises(ValueError):
-        preset_config("coco_r101_fpn")
+        preset_config("coco_maskrcnn_r50_fpn")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

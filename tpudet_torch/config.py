@@ -1,10 +1,10 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
-the single-level Faster R-CNN inference path reads).
+Faster R-CNN inference reads, single-level and FPN).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
-defaults equal. Groups and fields the port does not run yet (training,
-FPN, the other families) are left out until their slice lands.
+defaults equal. Groups and fields the port does not run yet (training, the
+other families, TPU-only knobs) are left out until their slice lands.
 """
 
 from __future__ import annotations
@@ -33,11 +33,13 @@ class DataConfig:
 class BackboneConfig:
     """Conv feature extractor."""
 
-    name: str = "resnet50"  # "resnet50" | "tiny" (tests)
-    # Only the single-level (C4) path is ported; True raises at build.
+    name: str = "resnet50"  # "resnet50" | "resnet101" | "tiny" (tests)
+    # False: the single c4 map (stride 16) through the neck; True: FPN
+    # p2..p6 (models/fpn.py).
     use_fpn: bool = False
     norm: str = "frozen_bn"  # "frozen_bn" | "gn"
     # 1x1 conv + ReLU reducing c4 before the RPN/RoI path; 0 disables.
+    # Not read with FPN, whose levels are already 256 wide.
     neck_channels: int = 256
     # Compute dtype of convs and matmuls; parameters stay float32.
     dtype: str = "float32"  # "float32" | "bfloat16"
@@ -53,10 +55,19 @@ class AnchorConfig:
     scales: Tuple[float, ...] = (128.0, 256.0, 512.0)
     aspect_ratios: Tuple[float, ...] = (0.5, 1.0, 2.0)
     stride: int = 16
+    # FPN: one base scale per level at these strides (p2..p6), each times
+    # the octave multipliers (Faster R-CNN FPN keeps the single 1.0).
+    fpn_strides: Tuple[int, ...] = (4, 8, 16, 32, 64)
+    fpn_scales: Tuple[float, ...] = (32.0, 64.0, 128.0, 256.0, 512.0)
+    fpn_octave_scales: Tuple[float, ...] = (1.0,)
 
     @property
     def num_anchors_per_cell(self) -> int:
         return len(self.scales) * len(self.aspect_ratios)
+
+    @property
+    def num_fpn_anchors_per_cell(self) -> int:
+        return len(self.fpn_octave_scales) * len(self.aspect_ratios)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,15 +80,30 @@ class RPNConfig:
     nms_thresh: float = 0.7
     min_box_size: float = 0.0
     box_reg_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
-    # Only "exact" (a stable full sort, lax.top_k's tie order) is ported.
+    # FPN: pre-NMS top-k per level, NMS within each level (level-offset),
+    # post-NMS top-N over the union; 0 -> one global top-k over the pyramid.
+    fpn_pre_nms_topk_per_level_test: int = 1000
+    # Pre-NMS top-k: "exact" (a stable full sort, lax.top_k's tie order) or
+    # "blocked" (ops.selection.blocked_top_k, bit-identical to "exact");
+    # "approx" (a TPU PartialReduce knob) raises NotImplementedError.
     topk_method: str = "exact"
+    # Row width of the first stage of topk_method="blocked".
+    topk_block_size: int = 8192
 
 
 @dataclasses.dataclass(frozen=True)
 class ROIConfig:
-    """RoI pooling, Fast R-CNN head and inference post-processing. The
-    port has one pooler, the RoI Align kernel, so ``pooler`` is not here."""
+    """RoI pooling, Fast R-CNN head and inference post-processing."""
 
+    # "roi_align": the single-level RoI Align kernel, or with FPN each RoI
+    # pooled at its FPN-paper level; "roi_align_window" (FPN): the same
+    # pooling kernel with the level bumped until the RoI spans at most
+    # window - 12 cells (ops.roi_align.fpn_assign_levels). The JAX
+    # package's other poolers raise NotImplementedError.
+    pooler: str = "roi_align"
+    # Fit window of pooler="roi_align_window", in cells; every canvas side
+    # must satisfy side / 32 <= window - 12 (checked at model build).
+    window: int = 56
     output_size: int = 7
     sampling_ratio: int = 2  # samples per bin side
     fc_dim: int = 1024
@@ -112,7 +138,8 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def tiny_test_config(canvas: int = 128, num_classes: int = 3) -> Config:
+def tiny_test_config(canvas: int = 128, num_classes: int = 3,
+                     use_fpn: bool = False) -> Config:
     """Small config for the CPU tests: tiny backbone, small canvas (the
     inference fields of ``tpudet.config.tiny_test_config``)."""
     return Config(
@@ -121,7 +148,7 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3) -> Config:
             canvas_height=canvas,
             canvas_width=canvas,
         ),
-        backbone=BackboneConfig(name="tiny", norm="gn"),
+        backbone=BackboneConfig(name="tiny", use_fpn=use_fpn, norm="gn"),
         anchors=AnchorConfig(scales=(32.0, 64.0), aspect_ratios=(0.5, 1.0, 2.0)),
         rpn=RPNConfig(
             conv_channels=64,

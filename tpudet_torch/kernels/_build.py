@@ -3,8 +3,9 @@
 
 Each source is its own shared library with a plain C interface, built at
 first CUDA use into ``build/tpudet_torch_kernels/`` at the repository root
-and keyed by a hash of the source and the flags, so a fresh checkout builds
-them on first use and an edited source builds anew. Importing this module
+and keyed by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so a fresh checkout builds them on first use and an edited
+source or header builds anew. Importing this module
 needs no compiler: the CPU path never calls it.
 """
 
@@ -44,9 +45,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives for this source."""
+    """Where the library built from ``csrc/<name>.cu`` lives for this source
+    and these headers."""
     digest = hashlib.sha256()
     digest.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(BASE_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

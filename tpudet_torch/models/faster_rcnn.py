@@ -1,9 +1,12 @@
-"""Faster R-CNN, single-level inference (``tpudet.models.faster_rcnn``).
+"""Faster R-CNN inference, single-level and FPN
+(``tpudet.models.faster_rcnn``).
 
-``DetectorCore`` owns the layers: the backbone to c4, the 1x1 neck, the RPN
-head and the Fast R-CNN head. ``FasterRCNN`` runs the pipeline around them:
-anchors, proposals (top-k, decode, clip, min-size, NMS@0.7), RoI Align on
-the neck map, the head, per-class decode and the class-offset NMS@0.5.
+``DetectorCore`` owns the layers: the backbone (to c4 with the 1x1 neck, or
+to c5 with the FPN), the RPN head (shared over p2..p6 with FPN) and the
+Fast R-CNN head. ``FasterRCNN`` runs the pipeline around them: anchors,
+proposals (top-k, decode, clip, min-size, NMS@0.7; with FPN top-k per level
+and level-offset NMS), RoI Align (with FPN each RoI at its level), the head,
+per-class decode and the class-offset NMS@0.5.
 
 The JAX package writes the per-image steps as functions of one image under
 ``jax.vmap``. Here the same functions (same names) take a leading batch
@@ -12,32 +15,41 @@ predict. Shapes stay static: proposals ``[B, post_nms_topk]`` and
 detections ``[B, max_detections]`` with validity masks; invalid slots carry
 what the JAX functions put there (the entry at index 0).
 
-Only the single-level (C4) path is ported; FPN and training wait for their
-slices (ROADMAP.md, Queue 1 items 8 and 14).
+Training waits for its slice (ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tpudet_torch.config import Config
 from tpudet_torch.kernels import class_aware_select, nms_dispatch
+from tpudet_torch.kernels import batched_nms_dispatch
 from tpudet_torch.kernels import roi_align as roi_align_kernel
+from tpudet_torch.kernels import roi_align_window as roi_align_window_kernel
 from tpudet_torch.models.det_head import FastRCNNHead
+from tpudet_torch.models.fpn import FPN
 from tpudet_torch.models.layers import Conv, init_module
 from tpudet_torch.models.resnet import build_backbone
 from tpudet_torch.models.rpn_head import RPNHead
 from tpudet_torch.ops import anchors as anchor_ops
 from tpudet_torch.ops import boxes as box_ops
+from tpudet_torch.ops import selection
 from tpudet_torch.ops.nms import coordinate_offset_for, sort_desc
+from tpudet_torch.ops.roi_align import fpn_assign_levels
 
 # Default cap on flattened (box, class) candidates entering the final NMS
 # (ROIConfig.max_nms_candidates overrides it).
 MAX_NMS_CANDIDATES = 1024
+# FPN levels that pool RoIs (p6 only proposes) and their strides.
+POOL_LEVELS = ("p2", "p3", "p4", "p5")
+POOL_STRIDES = (4.0, 8.0, 16.0, 32.0)
+POOLERS = ("roi_align", "roi_align_window")
 
 
 def _max_canvas_dim(cfg: Config) -> int:
@@ -60,28 +72,31 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class DetectorCore(nn.Module):
-    """Backbone to c4, neck, RPN head and Fast R-CNN head. Parameter names
-    follow the Flax tree (``backbone.*``, ``neck_conv``, ``rpn_head``,
-    ``det_head``)."""
+    """Backbone, neck (single-level) or FPN, RPN head and Fast R-CNN head.
+    Parameter names follow the Flax tree (``backbone.*``, ``neck_conv``,
+    ``fpn.*``, ``rpn_head``, ``det_head``)."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         bb = cfg.backbone
-        if bb.use_fpn:
-            raise NotImplementedError(
-                "backbone.use_fpn=True: the FPN path is not ported yet "
-                "(ROADMAP.md, Queue 1 item 14)")
         dtype = torch.bfloat16 if bb.dtype == "bfloat16" else torch.float32
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
                                        bb.stride_in_1x1, device)
-        feat_ch = self.backbone.channels["c4"]
         self.neck_conv = None
-        if bb.neck_channels > 0:
-            self.neck_conv = Conv(feat_ch, bb.neck_channels, 1, dtype=dtype,
-                                  device=device)
-            feat_ch = bb.neck_channels
-        self.rpn_head = RPNHead(feat_ch, cfg.anchors.num_anchors_per_cell,
-                                cfg.rpn.conv_channels, dtype, device)
+        self.fpn = None
+        if bb.use_fpn:
+            self.fpn = FPN(self.backbone.channels, dtype=dtype, device=device)
+            feat_ch = self.fpn.channels
+            num_anchors = cfg.anchors.num_fpn_anchors_per_cell
+        else:
+            feat_ch = self.backbone.channels["c4"]
+            num_anchors = cfg.anchors.num_anchors_per_cell
+            if bb.neck_channels > 0:
+                self.neck_conv = Conv(feat_ch, bb.neck_channels, 1,
+                                      dtype=dtype, device=device)
+                feat_ch = bb.neck_channels
+        self.rpn_head = RPNHead(feat_ch, num_anchors, cfg.rpn.conv_channels,
+                                dtype, device)
         s = cfg.roi.output_size
         self.det_head = FastRCNNHead(s * s * feat_ch, cfg.data.num_classes,
                                      cfg.roi.fc_dim,
@@ -89,11 +104,14 @@ class DetectorCore(nn.Module):
                                      device)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """``[B, H, W, 3]`` images -> ``{"c4": [B, C, H/16, W/16]}`` in
-        channels-last memory format (``.permute(0, 2, 3, 1)`` is the
-        contiguous NHWC map)."""
+        """``[B, H, W, 3]`` images -> ``{"c4": [B, C, H/16, W/16]}``, or
+        with FPN ``{"p2": .., "p6": ..}``, in channels-last memory format
+        (``.permute(0, 2, 3, 1)`` of c4 and p2..p5 is the contiguous NHWC
+        map)."""
         x = images.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
+        if self.fpn is not None:
+            return self.fpn(self.backbone(x, stop_at="c5"))
         c4 = self.backbone(x, stop_at="c4")["c4"]
         if self.neck_conv is not None:
             c4 = F.relu(self.neck_conv(c4))
@@ -101,7 +119,11 @@ class DetectorCore(nn.Module):
 
     def rpn(self, feats: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.rpn_head(feats["c4"])
+        """The shared head over every level in name order (c4, or p2..p6,
+        the order of the anchors), concatenated."""
+        outs = [self.rpn_head(feats[name]) for name in sorted(feats)]
+        return (torch.cat([o[0] for o in outs], dim=1),
+                torch.cat([o[1] for o in outs], dim=1))
 
     def roi_head(self, pooled: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,10 +136,27 @@ class FasterRCNN(nn.Module):
 
     def __init__(self, cfg: Config, device="cuda"):
         super().__init__()
-        if cfg.rpn.topk_method != "exact":
+        if cfg.rpn.topk_method == "approx":
             raise NotImplementedError(
-                f"rpn.topk_method={cfg.rpn.topk_method!r}: only 'exact' is "
-                "ported (ROADMAP.md, Queue 1 item 3)")
+                "rpn.topk_method='approx' is a TPU PartialReduce knob and is "
+                "not ported (ROADMAP.md, Queue 1 item 3); 'blocked' is exact")
+        if cfg.rpn.topk_method not in ("exact", "blocked"):
+            raise ValueError(f"rpn.topk_method={cfg.rpn.topk_method!r}: "
+                             "expected 'exact' or 'blocked'")
+        if cfg.roi.pooler not in POOLERS:
+            raise NotImplementedError(
+                f"roi.pooler={cfg.roi.pooler!r}: the port has {POOLERS} "
+                "(ROADMAP.md, Queue 1 item 4)")
+        if cfg.roi.pooler == "roi_align_window" and cfg.backbone.use_fpn:
+            max_dim = _max_canvas_dim(cfg)
+            # Even a canvas-sized RoI must fit the window at p5 (stride 32),
+            # or the fit-bumped level assignment has no level to give it.
+            if max_dim / 32.0 > cfg.roi.window - 12:
+                raise ValueError(
+                    f"roi.window={cfg.roi.window} too small for canvases up "
+                    f"to {max_dim}px: need window >= "
+                    f"{int(-(-max_dim // 32)) + 12} so p5-level RoIs fit "
+                    "(or use pooler='roi_align')")
         self.cfg = cfg
         self.device = torch.device(device)
         self.core = DetectorCore(cfg, self.device)
@@ -130,34 +169,60 @@ class FasterRCNN(nn.Module):
         return self
 
     # ------------------------------------------------------------- anchors
-    def anchor_boxes(self, canvas_hw: Optional[Tuple[int, int]] = None
-                     ) -> torch.Tensor:
-        """``[N, 4]`` anchors over the canvas. SAME-padded stride-2 convs give
-        ``ceil(h / stride)`` cells, so the grid uses ceil too."""
+    def _canvas(self, canvas_hw) -> Tuple[int, int]:
         if canvas_hw is None:
             canvas_hw = (self.cfg.data.canvas_height,
                          self.cfg.data.canvas_width)
-        h, w = int(canvas_hw[0]), int(canvas_hw[1])
+        return int(canvas_hw[0]), int(canvas_hw[1])
+
+    def anchor_boxes(self, canvas_hw: Optional[Tuple[int, int]] = None
+                     ) -> torch.Tensor:
+        """``[N, 4]`` anchors over the canvas; with FPN the levels' grids
+        concatenated in level order. SAME-padded stride-2 convs give
+        ``ceil(h / stride)`` cells, so the grids use ceil too."""
+        h, w = self._canvas(canvas_hw)
         if (h, w) not in self._anchors_cache:
             a = self.cfg.anchors
-            grid = anchor_ops.generate_anchors_np(
-                -(-h // a.stride), -(-w // a.stride), a.stride, a.scales,
-                a.aspect_ratios)
+            if self.cfg.backbone.use_fpn:
+                grid = np.concatenate([
+                    anchor_ops.generate_anchors_np(
+                        -(-h // s), -(-w // s), s,
+                        [sc * o for o in a.fpn_octave_scales],
+                        a.aspect_ratios)
+                    for s, sc in zip(a.fpn_strides, a.fpn_scales)])
+            else:
+                grid = anchor_ops.generate_anchors_np(
+                    -(-h // a.stride), -(-w // a.stride), a.stride, a.scales,
+                    a.aspect_ratios)
             self._anchors_cache[(h, w)] = torch.from_numpy(grid).to(
                 self.device)
         return self._anchors_cache[(h, w)]
 
+    def anchor_level_sizes(self, canvas_hw: Optional[Tuple[int, int]] = None):
+        """Anchors per FPN level, in the order of :meth:`anchor_boxes`."""
+        h, w = self._canvas(canvas_hw)
+        a = self.cfg.anchors
+        per_cell = a.num_fpn_anchors_per_cell
+        return [(-(-h // s)) * (-(-w // s)) * per_cell for s in a.fpn_strides]
+
     # ------------------------------------------------------- proposal path
+    def _pre_nms_topk(self, scores, k):
+        """Top-k along the last axis with ``lax.top_k``'s tie order, by the
+        configured method (both exact)."""
+        if self.cfg.rpn.topk_method == "blocked":
+            return selection.blocked_top_k(scores, k,
+                                           self.cfg.rpn.topk_block_size)
+        return selection.top_k(scores, k)
+
     def _generate_proposals_single(self, anchors, logits, deltas, image_hw):
         """Decode -> clip -> min-size -> top-k -> NMS, for ``[B, N]`` logits
         and ``[B, N, 4]`` deltas -> boxes ``[B, K, 4]``, scores, valid."""
         cfg = self.cfg.rpn
         n = anchors.shape[0]
         k_pre = min(n, cfg.pre_nms_topk_test)
-        # Select on the logits (sigmoid is monotone) with lax.top_k's tie
-        # order, then sigmoid the survivors.
-        top_logits, idx = sort_desc(logits)
-        top_logits, idx = top_logits[:, :k_pre], idx[:, :k_pre]
+        # Select on the logits (sigmoid is monotone), then sigmoid the
+        # survivors.
+        top_logits, idx = self._pre_nms_topk(logits, k_pre)
         top_scores = torch.sigmoid(top_logits)
         if n <= 4 * k_pre:
             decoded = box_ops.decode_boxes(deltas, anchors[None],
@@ -175,18 +240,76 @@ class FasterRCNN(nn.Module):
         return (_gather_rows(boxes, keep_idx), _gather_rows(top_scores, keep_idx),
                 valid)
 
+    def _generate_proposals_single_fpn(self, anchors, level_sizes, logits,
+                                       deltas, image_hw):
+        """FPN protocol: top-k per level on the logits, sigmoid, decode and
+        clip the survivors, then NMS within each level (level-offset NMS
+        over the union, padded to a multiple of 512) -> boxes ``[B, K, 4]``,
+        scores (0 where invalid), valid."""
+        cfg = self.cfg.rpn
+        b = logits.shape[0]
+        dev = logits.device
+        cand_boxes, cand_scores, cand_levels = [], [], []
+        start = 0
+        for li, n_l in enumerate(level_sizes):
+            sl = slice(start, start + n_l)
+            start += n_l
+            top_l, idx = self._pre_nms_topk(
+                logits[:, sl], min(n_l, cfg.fpn_pre_nms_topk_per_level_test))
+            dec = box_ops.decode_boxes(_gather_rows(deltas[:, sl], idx),
+                                       anchors[sl][idx], cfg.box_reg_weights)
+            cand_boxes.append(box_ops.clip_boxes(dec, image_hw[:, None, :]))
+            cand_scores.append(torch.sigmoid(top_l))
+            cand_levels.append(torch.full(top_l.shape, li + 1,
+                                          dtype=torch.int32, device=dev))
+        boxes = torch.cat(cand_boxes, dim=1)
+        top_scores = torch.cat(cand_scores, dim=1)
+        levels = torch.cat(cand_levels, dim=1)
+        pad = (-boxes.shape[1]) % 512
+        if pad:
+            boxes = torch.cat([boxes, boxes.new_zeros(b, pad, 4)], dim=1)
+            top_scores = torch.cat([top_scores,
+                                    top_scores.new_full((b, pad), -1.0)], dim=1)
+            levels = torch.cat([levels, levels.new_zeros(b, pad)], dim=1)
+        wh = boxes[..., 2:] - boxes[..., :2]
+        size_ok = (wh[..., 0] > cfg.min_box_size) & (wh[..., 1] > cfg.min_box_size)
+        keep_idx, valid = batched_nms_dispatch(
+            boxes, top_scores, levels, cfg.nms_thresh, cfg.post_nms_topk_test,
+            valid_mask=size_ok, coordinate_offset=_nms_offset(self.cfg))
+        kept_scores = _gather_rows(top_scores, keep_idx)
+        return (_gather_rows(boxes, keep_idx),
+                torch.where(valid, kept_scores, torch.zeros_like(kept_scores)),
+                valid)
+
     def proposals(self, logits, deltas, image_hw, canvas_hw=None):
         """Batched proposals: ``(boxes [B, K, 4], scores [B, K], valid)``."""
-        return self._generate_proposals_single(
-            self.anchor_boxes(canvas_hw), logits, deltas, image_hw)
+        anchors = self.anchor_boxes(canvas_hw)
+        if (self.cfg.backbone.use_fpn
+                and self.cfg.rpn.fpn_pre_nms_topk_per_level_test > 0):
+            return self._generate_proposals_single_fpn(
+                anchors, self.anchor_level_sizes(canvas_hw), logits, deltas,
+                image_hw)
+        return self._generate_proposals_single(anchors, logits, deltas,
+                                               image_hw)
 
     # ------------------------------------------------------------- pooling
     def _pool_batch(self, feats: Dict[str, torch.Tensor],
                     rois: torch.Tensor) -> torch.Tensor:
-        """RoI Align on c4 for all ``B x N`` RoIs in one call: ``rois``
+        """RoI Align for all ``B x N`` RoIs in one kernel call: ``rois``
         ``[B, N, 4]`` in image pixels -> ``[B, N, S, S, C]`` (the JAX
-        ``_pool_batch`` / ``_pool_single`` non-FPN branch)."""
+        ``_pool_batch`` / ``_pool_single``). Single-level: on c4. FPN: each
+        RoI at its level of p2..p5, fit-bumped to ``roi.window`` with
+        ``pooler="roi_align_window"``; with ``"roi_align"`` this is the
+        value of the JAX package's all-level masked sum."""
         roi = self.cfg.roi
+        if self.cfg.backbone.use_fpn:
+            fit = roi.window if roi.pooler == "roi_align_window" else 0
+            levels = fpn_assign_levels(rois, fit_window=fit) - 2
+            maps = [feats[name].permute(0, 2, 3, 1).contiguous()  # NHWC views
+                    for name in POOL_LEVELS]
+            return roi_align_window_kernel.roi_align_window(
+                maps, POOL_STRIDES, rois.contiguous(), levels.contiguous(),
+                roi.output_size, roi.sampling_ratio)
         b, n = rois.shape[:2]
         fmap = feats["c4"].permute(0, 2, 3, 1).contiguous()  # NHWC, a view
         fboxes = (rois / float(self.cfg.anchors.stride)).reshape(b * n, 4)

@@ -7,8 +7,8 @@ variables tree loads by name (``models.import_weights``).
 
 Convs compute in the backbone dtype over float32 parameters. The pyramid
 stops at ``stop_at``: the single-level detector reads ``c4`` and never runs
-the ``c5`` stage, whose weights exist only so that the parameter tree has
-the JAX package's shape.
+the ``c5`` stage (its weights exist so that the parameter tree has the JAX
+package's shape); the FPN detector reads c2..c5.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from torch import nn
 
 from tpudet_torch.models.layers import Conv, make_norm
 
-STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3)}
+STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
 LEVELS = ("c2", "c3", "c4", "c5")
 
 
@@ -60,7 +60,7 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet with bottleneck blocks (ResNet-50 by default): 7x7/2 stem,
+    """ResNet with bottleneck blocks (``STAGE_BLOCKS``): 7x7/2 stem,
     3x3/2 max-pool, stages c2..c5 at strides 4..32."""
 
     def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3),
@@ -142,5 +142,5 @@ def build_backbone(name: str, norm: str, dtype: torch.dtype,
     if name in STAGE_BLOCKS:
         return ResNet(STAGE_BLOCKS[name], norm=norm, dtype=dtype,
                       stride_in_1x1=stride_in_1x1, device=device)
-    raise ValueError(f"unknown backbone {name!r}: the port has 'resnet50' "
-                     "and 'tiny'")
+    raise ValueError(f"unknown backbone {name!r}: the port has "
+                     f"{sorted(STAGE_BLOCKS)} and 'tiny'")

@@ -10,10 +10,17 @@ Samples outside ``[-1, dim]`` contribute zero; samples inside are clamped to
 reference of the Hopper kernel in ``tpudet_torch.kernels.roi_align``.
 ``roi_align_mxu`` is the two-einsum form the JAX package runs on the TPU;
 the port keeps it for the tests and as a timing reference only.
+
+FPN: ``fpn_assign_levels`` picks each RoI's level and ``roi_align_levels``
+pools each RoI once at it (the reference of the Hopper kernel in
+``tpudet_torch.kernels.roi_align_window``).
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
 
@@ -124,3 +131,98 @@ def roi_align_mxu(
         return torch.einsum("nsh,nthc->nstc", wy, t1)
     t1 = torch.einsum("nsh,hwc->nswc", wy, features)
     return torch.einsum("ntw,nswc->nstc", wx, t1)
+
+
+# The f32 constants XLA folds ``x / 224``, ``x / (window - 12)`` and
+# ``log2(x) = log(x) / log(2)`` into: multiplies by f32 reciprocals.
+_INV_LN2 = float(np.float32(1.0) / np.float32(np.log(np.float32(2.0))))
+
+
+def _f32_recip(x: float) -> float:
+    return float(np.float32(1.0) / np.float32(x))
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """``a * b + c`` with one rounding to f32, as a fused multiply-add:
+    the f32 product is exact in f64 (``b`` and ``c`` are f32 values)."""
+    return (a.double() * b + c).float()
+
+
+def _log_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``log`` rounded from f64, so the CPU and the card agree."""
+    return torch.log(x.double()).float()
+
+
+def fpn_assign_levels(
+    boxes: torch.Tensor,
+    min_level: int = 2,
+    max_level: int = 5,
+    canonical_scale: float = 224.0,
+    canonical_level: int = 4,
+    fit_window: int = 0,
+) -> torch.Tensor:
+    """FPN-paper level ``floor(k0 + log2(sqrt(area) / 224))`` of ``[..., 4]``
+    image-pixel boxes, clipped to ``[min_level, max_level]``, as int32.
+
+    ``fit_window > 0`` bumps each RoI up to the first level where its longer
+    side spans at most ``fit_window - 12`` cells (``ceil(log2(max(span, 1)
+    / (fit_window - 12)))``), as ``tpudet.ops.roi_align.fpn_assign_levels``
+    does for its windowed pooler.
+
+    The level is a discrete decision, so it repeats the f32 arithmetic of
+    the JAX function as XLA compiles it under ``jit``: both divisions by a
+    constant become multiplies by the f32 reciprocal, ``log2`` is ``log``
+    times ``1/ln 2``, and the two multiply-adds (``sqrt(area) * (1/224) +
+    1e-8`` and ``log(.) * (1/ln 2) + 4``) are fused. The f32 ``log`` is
+    rounded from f64, which the CPU and CUDA both compute to within an ulp
+    of f64, so both devices round it alike."""
+    boxes = boxes.float()
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    areas = w.clamp(min=0.0) * h.clamp(min=0.0)
+    x = _fma_f32(torch.sqrt(areas), _f32_recip(canonical_scale), 1e-8)
+    k = torch.floor(_fma_f32(_log_f32(x), _INV_LN2, float(canonical_level)))
+    k = k.clamp(min_level, max_level).to(torch.int32)
+    if fit_window:
+        if fit_window <= 12:
+            raise ValueError(f"fit_window={fit_window} must exceed the 12-cell "
+                             "window slack (use window >= 24)")
+        span = torch.maximum(w, h).clamp(min=1.0)
+        y = span * torch.tensor(_f32_recip(fit_window - 12), device=span.device)
+        need = torch.ceil(_log_f32(y) * torch.tensor(_INV_LN2, device=y.device))
+        k = torch.maximum(k, need.to(torch.int32)).clamp(min_level, max_level)
+    return k
+
+
+def roi_align_levels(
+    features: Sequence[torch.Tensor],
+    strides: Sequence[float],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    output_size: int,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """Multi-level RoI Align, each RoI pooled once at its own level:
+    ``[B, H_l, W_l, C]`` maps, ``[B, N, 4]`` image-pixel boxes and ``[B, N]``
+    0-based levels -> ``[B, N, S, S, C]`` in the features' dtype. A RoI whose
+    level names no map pools to zeros.
+
+    The value of the JAX package's windowed pooler and of its all-level
+    masked sum under the same levels: each level's RoIs go through the
+    gather form on ``boxes / stride`` and back to their places."""
+    b, n = boxes.shape[:2]
+    dev = boxes.device
+    c = features[0].shape[-1]
+    s = output_size
+    flat_boxes = boxes.reshape(b * n, 4).float()
+    flat_levels = levels.reshape(b * n)
+    image_index = torch.arange(b, dtype=torch.int32, device=dev
+                               ).repeat_interleave(n)
+    out = torch.zeros((b * n, s, s, c), dtype=features[0].dtype, device=dev)
+    for level, (feat, stride) in enumerate(zip(features, strides)):
+        sel = torch.nonzero(flat_levels == level).squeeze(1)
+        if sel.numel():
+            out[sel] = roi_align_batched(
+                feat, flat_boxes[sel] / torch.tensor(float(stride), device=dev),
+                image_index[sel], s, sampling_ratio)
+    return out.reshape(b, n, s, s, c)
