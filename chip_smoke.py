@@ -32,9 +32,20 @@ no result):
    way: b = 8 on the 832x832 and 832x1344 buckets with launch counts, a
    small f32 input against the CPU with the count of RoIs whose FPN level
    differs between the card and the CPU, ms per batch at b = 8 and 32;
-8. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
-   832x832 coco_r101_fpn): device time by kernel and by kind, and the
-   device's busy share.
+8. the deformable attention kernel against its plain version at the
+   shapes coco_deformable_detr_r50 gives it on the 832x832 bucket (an
+   encoder layer at b=8: Q = N = 14,365 over levels 104^2 .. 13^2, 8 heads
+   of D = 32, 4 levels x 4 points; a decoder layer: Q = 300), with bf16 and
+   f32 values, about a tenth of the samples outside their level;
+9. coco_deformable_detr_r50 inference at full width (ResNet-50 to c5, 4
+   levels of 256, 6+6 layers, 300 queries, box refinement, 80 classes, bf16
+   backbone) the same way: b = 8 on the 832x832 and 832x1344 buckets with
+   launch counts (12 deformable attention launches, no NMS or RoI Align),
+   where its samples land, a small f32 input against the CPU, ms per batch
+   at b = 8 and 32;
+10. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
+    832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50): device time
+    by kernel and by kind, and the device's busy share.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -62,12 +73,32 @@ NMS_OPS_PER_PAIR = 13
 # f32 operations per output value of RoI Align and per sample: three for
 # each of the two horizontal lerps and the vertical one, one accumulate.
 ROI_OPS_PER_SAMPLE = 10
-KERNELS = ("nms", "roi_align", "roi_align_window")
+# f32 operations of the deformable attention kernel: per sample, its
+# position (two multiplies, two subtracts, two floors, two subtracts) and
+# four corner weights (two subtracts, a multiply, the attention multiply
+# each); per corner with a nonzero weight and output channel, a multiply
+# and an add.
+DEFORM_OPS_PER_SAMPLE = 24
+DEFORM_OPS_PER_CORNER_CHANNEL = 2
+# coco_deformable_detr_r50's levels on the 832x832 bucket (strides 8..64).
+DEFORM_SHAPES = ((104, 104), (52, 52), (26, 26), (13, 13))
+KERNELS = ("nms", "roi_align", "roi_align_window", "deform_attn")
 # Head kernels drawn wider than Flax's normal(0.01)/normal(0.001): at init
 # the softmax sits near 1/21, below score_thresh 0.05, and no detection
 # would reach the final NMS. The head inputs have an rms near 1 at this
 # init, so these widths give logits and deltas of a few units.
 HEAD_STD = {"objectness": 0.1, "cls": 0.15, "bbox": 0.05}
+# Deformable DETR kernels drawn wider than Flax's init, where the init is
+# degenerate. The offset and attention-weight kernels are zero (every query
+# samples the same directional probe, uniformly weighted): over a query of
+# rms ~1.6 and d = 256 these widths give offsets of ~2 cells and attention
+# logits of ~1. The class heads sit at the focal prior (sigmoid 0.01, below
+# score_thresh 0.05): 0.1 gives logits of std ~1.6 around it, so ~15% of
+# the (query, class) pairs pass and every image fills its 100 detections.
+# The last box layer is zero (every box its reference): 0.03 gives deltas
+# of a few tenths.
+DETR_STD = {"sampling_offsets": 0.08, "attention_weights": 0.04,
+            "class_head": 0.1, "bbox_out": 0.03}
 
 
 def fail(message: str) -> None:
@@ -494,9 +525,28 @@ def phase_roi_align_window():
     return result
 
 
+def wide_layers(model):
+    """(layer, std) of the layers drawn wider than Flax's init."""
+    core = model.core
+    if model.cfg.model == "deformable_detr":
+        for name, module in core.named_modules():
+            last = name.split(".")[-1]
+            if last in ("sampling_offsets", "attention_weights"):
+                yield module, DETR_STD[last]
+            elif last.startswith("class_head"):
+                yield module, DETR_STD["class_head"]
+            elif last.startswith("bbox_head"):
+                yield module.out, DETR_STD["bbox_out"]
+        return
+    yield core.rpn_head.objectness, HEAD_STD["objectness"]
+    yield core.det_head.cls, HEAD_STD["cls"]
+    yield core.det_head.bbox, HEAD_STD["bbox"]
+
+
 def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
     """The preset at full width with random weights from ``seed`` and the
-    head kernels drawn wider (``HEAD_STD``)."""
+    kernels that Flax's init leaves degenerate drawn wider (``HEAD_STD``,
+    ``DETR_STD``)."""
     import torch
 
     from tpudet_torch.cli.common import preset_config
@@ -506,12 +556,10 @@ def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
     cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
     model = build_model(cfg, device=device).init(seed=seed)
     gen = torch.Generator().manual_seed(seed + 1)
-    heads = {"objectness": model.core.rpn_head.objectness,
-             "cls": model.core.det_head.cls, "bbox": model.core.det_head.bbox}
     with torch.no_grad():
-        for name, layer in heads.items():
+        for layer, std in wide_layers(model):
             draw = torch.randn(layer.weight.shape, generator=gen)
-            layer.weight.copy_(draw * HEAD_STD[name])
+            layer.weight.copy_(draw * std)
     return cfg, model
 
 
@@ -573,6 +621,28 @@ def same_detections(port, ref):
     return True
 
 
+def card_equals_cpu(preset, seed, label):
+    """Reference on a small input: the f32 preset with the kernels on the
+    card against the same weights on the CPU, where every wrapper runs its
+    plain version. Returns the card model, the input and the detection
+    counts."""
+    from tpudet_torch.train.step import make_eval_step
+
+    cfg32, model32 = preset_model(preset, "float32")
+    cpu_cfg, cpu_model = preset_model(preset, "float32", device="cpu")
+    cpu_model.load_state_dict(model32.state_dict())
+    small = canvases(2, 256, 256, seed=seed)
+    gpu_out = {k: v.cpu()
+               for k, v in make_eval_step(model32, cfg32)(small).items()}
+    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
+        {k: v.cpu() for k, v in small.items()})
+    check(bool((cpu_out["num_detections"] > 0).all()),
+          f"{label} reference: no detections")
+    check(same_detections(gpu_out, cpu_out), f"f32 {label} predict on the "
+          "card differs from the plain versions on the CPU")
+    return model32, small, cpu_out["num_detections"].tolist()
+
+
 def phase_main_path(card):
     import torch
 
@@ -603,24 +673,9 @@ def phase_main_path(card):
     print(f"main path launches: {json.dumps(launches)} over "
           f"{len(batches)} predicts", flush=True)
 
-    # Reference on a small input: the f32 model with the kernels on the
-    # card against the same weights on the CPU, where every wrapper runs
-    # its plain version.
-    cfg32, model32 = preset_model("voc_r50", "float32")
-    cpu_cfg, cpu_model = preset_model("voc_r50", "float32", device="cpu")
-    cpu_model.load_state_dict(model32.state_dict())
-    small = canvases(2, 256, 256, seed=5)
-    gpu_out = make_eval_step(model32, cfg32)(small)
-    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
-        {k: v.cpu() for k, v in small.items()})
-    gpu_out = {k: v.cpu() for k, v in gpu_out.items()}
-    check(bool((cpu_out["num_detections"] > 0).all()), "reference: no detections")
-    check(same_detections(gpu_out, cpu_out),
-          "f32 predict on the card differs from the plain versions on the CPU")
+    _, _, dets = card_equals_cpu("voc_r50", 5, "voc_r50")
     print(f"reference: f32 b=2 256x256 predict on the card equals the CPU "
-          f"plain path (detections {cpu_out['num_detections'].tolist()})",
-          flush=True)
-    del model32, cpu_model
+          f"plain path (detections {dets})", flush=True)
 
     torch.backends.cudnn.benchmark = True
     for name, (h, w) in (("640x640", (640, 640)), ("640x1024", (640, 1024))):
@@ -691,28 +746,15 @@ def phase_fpn_path(card):
         m, n = level_mismatches(model, batch)
         mismatched, rois = mismatched + m, rois + n
 
-    # Reference on a small input: the f32 model with the kernels on the
-    # card against the same weights on the CPU (the plain versions).
-    cfg32, model32 = preset_model("coco_r101_fpn", "float32")
-    cpu_cfg, cpu_model = preset_model("coco_r101_fpn", "float32", device="cpu")
-    cpu_model.load_state_dict(model32.state_dict())
-    small = canvases(2, 256, 256, seed=15)
-    gpu_out = make_eval_step(model32, cfg32)(small)
-    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
-        {k: v.cpu() for k, v in small.items()})
-    gpu_out = {k: v.cpu() for k, v in gpu_out.items()}
-    check(bool((cpu_out["num_detections"] > 0).all()), "FPN reference: no "
-          "detections")
-    check(same_detections(gpu_out, cpu_out), "f32 FPN predict on the card "
-          "differs from the plain versions on the CPU")
+    model32, small, dets = card_equals_cpu("coco_r101_fpn", 15, "FPN")
     m, n = level_mismatches(model32, small)
     mismatched, rois = mismatched + m, rois + n
     print(f"FPN reference: f32 b=2 256x256 predict on the card equals the CPU "
-          f"plain path (detections {cpu_out['num_detections'].tolist()}); FPN "
+          f"plain path (detections {dets}); FPN "
           f"levels (fit window {cfg.roi.window}) differing between the card "
           f"and the CPU: {mismatched} of {rois} proposals (bf16 b=8 on both "
           "buckets and the f32 reference)", flush=True)
-    del model32, cpu_model
+    del model32
 
     torch.cuda.reset_peak_memory_stats()
     for name, (h, w), sizes in (("832x832", (832, 832), (8, 32)),
@@ -728,12 +770,221 @@ def phase_fpn_path(card):
     return launches, mismatched, step
 
 
+def deform_scene(gen, b, refs, heads=8, points=4, shapes=DEFORM_SHAPES,
+                 sigma=0.08):
+    """Locations and weights as a deformable attention layer gives them:
+    each query's samples scattered N(0, sigma) (normalized) around its
+    reference ``refs [Q, 2]``, so about a tenth leave their level (the
+    zero-padding path) and neighbouring queries sample neighbouring cells;
+    weights softmaxed over L x P."""
+    import torch
+
+    q, lv = refs.shape[0], len(shapes)
+    loc = (refs[None, :, None, None, None, :]
+           + torch.randn(b, q, heads, lv, points, 2, generator=gen) * sigma)
+    weights = torch.softmax(torch.randn(b, q, heads, lv * points,
+                                        generator=gen), dim=-1)
+    return (loc.cuda().contiguous(),
+            weights.reshape(b, q, heads, lv, points).cuda().contiguous())
+
+
+def deform_work(values, shapes, loc, weights):
+    """What these inputs need of the deformable attention: the value rows
+    that nonzero-weight corners touch (each read once), locations and
+    weights read once, the f32 output written once; the operations of
+    every sample and of every nonzero corner per channel. Also the share of
+    samples outside their level."""
+    import torch
+
+    from tpudet_torch.ops.deform_attn import (
+        _corner_index_weight,
+        level_start_offsets,
+    )
+
+    b, n, h, d = values.shape
+    offsets, _ = level_start_offsets(shapes)
+    idx, cw = _corner_index_weight(loc, weights, shapes, offsets)
+    used = cw != 0
+    rows = idx + (torch.arange(b, device=idx.device)[:, None, None, None] * h
+                  + torch.arange(h, device=idx.device)[None, None, :, None]
+                  ) * n
+    touched = torch.zeros(b * h * n, dtype=torch.bool, device=idx.device)
+    touched[rows[used]] = True
+    q = loc.shape[1]
+    bytes_moved = (int(touched.sum()) * d * values.element_size()
+                   + loc.numel() * 4 + weights.numel() * 4 + b * q * h * d * 4)
+    ops = (weights.numel() * DEFORM_OPS_PER_SAMPLE
+           + int(used.sum()) * d * DEFORM_OPS_PER_CORNER_CHANNEL)
+    outside = float(((loc < 0) | (loc > 1)).any(-1).float().mean())
+    return (bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3,
+            outside, float(touched.float().mean()))
+
+
+def phase_deform_attn():
+    """The deformable attention kernel at coco_deformable_detr_r50's
+    832x832 shapes: an encoder layer (b=8, Q = N = 14,365) and a decoder
+    layer (Q = 300), bf16 and f32 values."""
+    import torch
+
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.ops.deform_attn import level_reference_points
+
+    gen = torch.Generator().manual_seed(21)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(21)
+    b, heads, d = 8, 8, 32
+    n = sum(hl * wl for hl, wl in DEFORM_SHAPES)
+    values32 = torch.randn(b, n, heads, d, generator=cuda_gen, device="cuda")
+    scenes = {"encoder": deform_scene(gen, b,
+                                      level_reference_points(DEFORM_SHAPES)),
+              "decoder": deform_scene(gen, b,
+                                      torch.rand(300, 2, generator=gen) * 0.9
+                                      + 0.05)}
+    result = {}
+    for call, (loc, weights) in scenes.items():
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            values = values32.to(dtype)
+            args = (values, DEFORM_SHAPES, loc, weights)
+            out = kda.ms_deform_attn_cuda(*args)
+            ref = kda.ms_deform_attn_plain(*args)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            # Same f32 arithmetic per corner, f32 accumulation on both
+            # sides, other summation order.
+            check(err <= 1e-5, f"deform_attn {call} {name}: kernel differs "
+                               f"from the plain version by {err:.3e}")
+            del ref
+            ms = time_ms(lambda: kda.ms_deform_attn_cuda(*args))
+            plain_ms = time_ms(lambda: kda.ms_deform_attn_plain(*args),
+                               iters=3, warmup=1)
+            bytes_ms, ops_ms, outside, touched = deform_work(*args)
+            result[(call, name)] = {"ms": ms, "plain_ms": plain_ms,
+                                    "err": err, "bytes_ms": bytes_ms,
+                                    "ops_ms": ops_ms}
+            print(f"deform_attn {call} {name}: values [{b}, {n}, {heads}, {d}]"
+                  f", Q={loc.shape[1]}, levels {DEFORM_SHAPES}, 4 points: "
+                  f"max err {err:.3e} (atol 1e-5), samples outside their "
+                  f"level {100 * outside:.1f}%, value rows touched "
+                  f"{100 * touched:.1f}% | kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+                  f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})",
+                  flush=True)
+            del out
+    return result
+
+
+def sampling_stats(model, batch, step):
+    """Where one predict's deformable attention samples land: per call the
+    share of samples outside their level and their spread (rms distance
+    from the centroid of each (query, head, level)'s points, in cells of
+    that level). Measured by wrapping the kernel's entry for one predict;
+    its launches are not the main path's."""
+    import torch
+
+    from tpudet_torch.kernels import deform_attn as kda
+
+    stats = []
+    original = kda.ms_deform_attn_cuda
+
+    def recording(values, shapes, loc, weights):
+        size = torch.tensor([[wl, hl] for hl, wl in shapes],
+                            dtype=torch.float32, device=loc.device)
+        cells = loc * size[:, None, :]  # [B, Q, H, L, P, 2]
+        spread = (cells - cells.mean(dim=-2, keepdim=True)).square().sum(-1)
+        stats.append((float(((loc < 0) | (loc > 1)).any(-1).float().mean()),
+                      float(spread.mean().sqrt())))
+        return original(values, shapes, loc, weights)
+
+    kda.ms_deform_attn_cuda = recording
+    try:
+        step(batch)
+    finally:
+        kda.ms_deform_attn_cuda = original
+    return stats
+
+
+def phase_detr_path(card):
+    """coco_deformable_detr_r50 inference at full width through
+    ``make_eval_step``."""
+    import torch
+
+    from tpudet_torch.data.preprocess import device_preprocess
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.train.step import make_eval_step
+
+    cfg, model = preset_model("coco_deformable_detr_r50", "bfloat16")
+    step = make_eval_step(model, cfg)
+    batches = {"832x832": canvases(8, 832, 832, seed=23),
+               "832x1344": canvases(8, 832, 1344, seed=24)}
+    torch.cuda.synchronize()
+    # The main path: counts set to 0 just before, read just after.
+    kda.LAUNCHES = knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    outs = {name: step(batch) for name, batch in batches.items()}
+    torch.cuda.synchronize()
+    launches = {"deform_attn": kda.LAUNCHES, "nms": knms.LAUNCHES,
+                "roi_align": kra.LAUNCHES, "roi_align_window": krw.LAUNCHES}
+    layers = cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
+    check(launches == {"deform_attn": layers * len(batches), "nms": 0,
+                       "roi_align": 0, "roi_align_window": 0},
+          f"Deformable DETR path launches {launches}: expected {layers} "
+          "deformable attention launches and no NMS or RoI Align per predict")
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        print(f"coco_deformable_detr_r50 bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}", flush=True)
+    print(f"Deformable DETR path launches: {json.dumps(launches)} over "
+          f"{len(batches)} predicts", flush=True)
+    stats = sampling_stats(model, batches["832x832"], step)
+    enc, dec = stats[:cfg.deformable_detr.enc_layers], stats[
+        cfg.deformable_detr.enc_layers:]
+    check(len(stats) == layers and all(s > 0.5 for _, s in stats)
+          and all(o > 0 for o, _ in enc),
+          f"samples do not spread or reach past the grid: {stats}")
+    print("Deformable DETR samples (b=8 832x832, random weights widened per "
+          f"DETR_STD {DETR_STD}): outside their level, encoder "
+          f"{', '.join(f'{100 * o:.1f}%' for o, _ in enc)}, decoder "
+          f"{', '.join(f'{100 * o:.1f}%' for o, _ in dec)}; spread (rms cells "
+          f"from each point set's centroid) encoder "
+          f"{', '.join(f'{s:.2f}' for _, s in enc)}, decoder "
+          f"{', '.join(f'{s:.2f}' for _, s in dec)}", flush=True)
+
+    _, _, dets = card_equals_cpu("coco_deformable_detr_r50", 25,
+                                 "Deformable DETR")
+    print(f"Deformable DETR reference: f32 b=2 256x256 predict on the card "
+          f"equals the CPU plain path (detections {dets})", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for name, (h, w), sizes in (("832x832", (832, 832), (8, 32)),
+                                ("832x1344", (832, 1344), (8,))):
+        for b in sizes:
+            batch = batches[name] if b == 8 else canvases(b, h, w, seed=26)
+            ms = time_ms(lambda: step(batch), iters=10, warmup=3)
+            x = device_preprocess(cfg, batch)
+            with torch.inference_mode():
+                feats_ms = time_ms(lambda: model.core._multi_scale(
+                    x["image"], x["image_hw"]), iters=10, warmup=3)
+            print(f"coco_deformable_detr_r50 bf16 predict b={b} {name}: "
+                  f"{ms:.2f} ms/batch, {1e3 * b / ms:.1f} img/s (uint8 "
+                  f"canvases on the card, preprocess included; multi-scale "
+                  f"features alone {feats_ms:.2f} ms: backbone, projections, "
+                  f"masked GroupNorm, embeddings) | {card}", flush=True)
+    print(f"peak device memory (Deformable DETR timings): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches, step
+
+
 KINDS = (
+    ("deform_attn kernel", ("ms_deform_attn_fwd_kernel",)),
     ("nms kernel", ("nms_mask_kernel", "nms_reduce_kernel")),
     ("roi_align_window kernel", ("roi_align_window_fwd_kernel",)),
     ("roi_align kernel", ("roi_align_fwd_kernel",)),
     # Ahead of "convolution", whose "nhwc" key their names also hold.
     ("max-pool and nearest upsample", ("max_pool", "upsample")),
+    # f32 GEMMs outside the tensor cores (sm80_xmma_gemm_f32f32_*, TF32
+    # off): ahead of "convolution", whose "xmma" key they also hold.
+    ("matmul", ("xmma_gemm",)),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd",
                      "nhwc", "fprop")),
     # cuBLAS GEMMs (nvjet_*): the head's FC layers and the 1x1
@@ -805,9 +1056,13 @@ def main() -> None:
     roi_window = phase_roi_align_window()
     voc_launches, voc_step = phase_main_path(card)
     fpn_launches, mismatched, fpn_step = phase_fpn_path(card)
+    deform = phase_deform_attn()
+    detr_launches, detr_step = phase_detr_path(card)
     phase_profile(card, voc_step, "voc_r50", 640, 640)
     phase_profile(card, fpn_step, "coco_r101_fpn", 832, 832)
+    phase_profile(card, detr_step, "coco_deformable_detr_r50", 832, 832)
 
+    from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -830,6 +1085,14 @@ def main() -> None:
         entry("roi_align_window", krw, fpn_launches["roi_align_window"],
               roi_window["bf16"], roi_window["bf16"]["err"]),
     ]
+    # Deformable attention: one encoder and one decoder launch of the main
+    # path (bf16 values, b=8, 832x832), summed.
+    pair = [deform[(call, "bf16")] for call in ("encoder", "decoder")]
+    kernels.append(entry(
+        "deform_attn", kda, detr_launches["deform_attn"],
+        {key: sum(m[key] for m in pair)
+         for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
+        max(m["err"] for m in deform.values())))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

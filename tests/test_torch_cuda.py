@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tpudet_torch import kernels as tk
+from tpudet_torch.kernels import deform_attn as kda
 from tpudet_torch.kernels import nms as knms
 from tpudet_torch.kernels import roi_align as kra
 from tpudet_torch.kernels import roi_align_window as krw
@@ -170,3 +171,89 @@ def test_fpn_predict_on_card_equals_plain_path(cuda):
                                atol=1e-3)
     torch.testing.assert_close(out["scores"].cpu(), ref["scores"], rtol=1e-4,
                                atol=1e-4)
+
+
+def deform_inputs(gen, b, q, heads, d, level_shapes, points, dtype,
+                  outside=0.1):
+    """N(0, 1) values; locations with about ``outside`` of the samples out of
+    their level (the zero-padding path); weights softmaxed over L x P."""
+    n = sum(h * w for h, w in level_shapes)
+    lv = len(level_shapes)
+    values = torch.randn(b, n, heads, d, generator=gen).to(dtype)
+    span = outside / 4  # per axis, each side: 1 - (1 - 2 * span)^2 ~ outside
+    loc = (torch.rand(b, q, heads, lv, points, 2, generator=gen)
+           * (1 + 2 * span) - span)
+    weights = torch.softmax(torch.randn(b, q, heads, lv * points,
+                                        generator=gen), dim=-1)
+    return values, loc, weights.reshape(b, q, heads, lv, points)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d,points,shapes", [
+    (8, 32, 4, ((20, 28), (10, 14), (5, 7), (3, 4))),
+    (4, 8, 2, ((16, 16), (8, 8), (4, 4), (2, 2))),
+    (2, 40, 3, ((1, 9), (6, 5), (2, 3))),  # a 1 x W level, D > 32
+    (36, 32, 2, ((4, 5),)),  # H * D > 1024: threads loop over channels
+])
+def test_deform_attn_kernel_equals_plain(cuda, dtype, heads, d, points,
+                                         shapes):
+    gen = torch.Generator().manual_seed(heads * d)
+    values, loc, weights = deform_inputs(gen, 2, 37, heads, d, shapes,
+                                         points, dtype)
+    args = (values.to(cuda), shapes, loc.to(cuda), weights.to(cuda))
+    before = kda.LAUNCHES
+    out = kda.ms_deform_attn_cuda(*args).cpu()
+    assert kda.LAUNCHES == before + 1
+    ref = kda.ms_deform_attn_plain(*args).cpu()
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    # Same f32 arithmetic per corner, other summation order.
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert (out != 0).any()
+
+
+def test_deform_attn_kernel_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(0)
+    shapes = ((4, 4),) * 5
+    values, loc, weights = deform_inputs(gen, 1, 3, 2, 8, shapes, 2,
+                                         torch.float32)
+    with pytest.raises(ValueError, match="levels"):
+        kda.ms_deform_attn_cuda(values.to(cuda), shapes, loc.to(cuda),
+                                weights.to(cuda))
+    with pytest.raises(ValueError, match="CUDA"):
+        kda.ms_deform_attn_cuda(values, shapes[:4], loc[:, :, :, :4],
+                                weights[:, :, :, :4])
+
+
+def test_deformable_detr_predict_on_card_equals_plain_path(cuda):
+    import dataclasses
+
+    from tpudet_torch.config import tiny_deformable_detr_config
+    from tpudet_torch.models import build_model
+
+    for refine in (False, True):
+        cfg = tiny_deformable_detr_config()
+        cfg = cfg.replace(deformable_detr=dataclasses.replace(
+            cfg.deformable_detr, with_box_refine=refine))
+        card = build_model(cfg, device=cuda).init(seed=0)
+        cpu = build_model(cfg, device="cpu").init(seed=0)
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():  # spread the samples and the class scores
+            for name, p in cpu.core.named_parameters():
+                if name.endswith(("sampling_offsets.weight",
+                                  "attention_weights.weight")):
+                    p.normal_(0, 0.1, generator=gen)
+                elif "class_head" in name and name.endswith("weight"):
+                    p.normal_(0, 0.5, generator=gen)
+        card.load_state_dict(cpu.state_dict())
+        batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+                 "image_hw": torch.tensor([[128.0, 128.0], [96.0, 112.0]])}
+        before = kda.LAUNCHES
+        out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+        assert kda.LAUNCHES == before + 4  # 2 encoder + 2 decoder layers
+        ref = cpu.predict(batch)
+        assert torch.equal(out["valid"].cpu(), ref["valid"])
+        assert (ref["num_detections"] > 0).all()
+        torch.testing.assert_close(out["boxes"].cpu(), ref["boxes"],
+                                   rtol=1e-4, atol=1e-3)
+        torch.testing.assert_close(out["scores"].cpu(), ref["scores"],
+                                   rtol=1e-4, atol=1e-4)

@@ -1,0 +1,121 @@
+"""``from_flax_variables`` on the trees of both families: the 3-D
+``DenseGeneral`` kernels of Flax attention, LayerNorm scales and the bare
+embedding parameters of Deformable DETR, and Faster R-CNN trees mapped
+exactly as before those rules existed."""
+
+import dataclasses
+
+import flax
+import flax.linen as fnn
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tpudet import config as jconfig
+from tpudet.cli.common import preset_config as jax_preset
+from tpudet.models import build_model as jax_build_model
+from tpudet_torch.cli.common import preset_config
+from tpudet_torch.models import build_model
+from tpudet_torch.models.detr import MultiHeadDotProductAttention
+from tpudet_torch.models.import_weights import from_flax_variables
+
+torch.set_num_threads(2)
+
+
+def numpy_tree(variables):
+    return flax.core.unfreeze(jax.tree_util.tree_map(np.asarray, variables))
+
+
+def test_attention_kernels_map_to_flattened_heads():
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (2, 7, 32)).astype(np.float32)
+    kv = rng.normal(0, 1, (2, 5, 32)).astype(np.float32)
+    jm = fnn.MultiHeadDotProductAttention(num_heads=4, qkv_features=32)
+    v = numpy_tree(jm.init(jax.random.key(0), x, kv, kv))
+    v = jax.tree_util.tree_map(
+        lambda a: rng.normal(0, 0.3, a.shape).astype(np.float32), v)
+    p = v["params"]
+    assert p["query"]["kernel"].shape == (32, 4, 8)
+    assert p["query"]["bias"].shape == (4, 8)
+    assert p["out"]["kernel"].shape == (4, 8, 32)
+    sd = from_flax_variables(v)
+    np.testing.assert_array_equal(sd["query.weight"].numpy(),
+                                  p["query"]["kernel"].reshape(32, 32).T)
+    np.testing.assert_array_equal(sd["value.bias"].numpy(),
+                                  p["value"]["bias"].reshape(32))
+    np.testing.assert_array_equal(sd["out.weight"].numpy(),
+                                  p["out"]["kernel"].reshape(32, 32).T)
+    tm = MultiHeadDotProductAttention(32, 4, torch.float32)
+    tm.load_state_dict(sd)  # strict
+    ref = np.asarray(jm.apply(v, x, kv, kv))
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x), torch.from_numpy(kv),
+                 torch.from_numpy(kv))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+
+
+def test_layer_norm_scale_and_embeddings_map():
+    tree = {"params": {
+        "dec0": {"norm1": {"scale": np.full(4, 2.0, np.float32),
+                           "bias": np.ones(4, np.float32)}},
+        "input_norm0": {"scale": np.full(4, 3.0, np.float32)},
+        "backbone": {"AdaptiveGroupNorm_0": {"GroupNorm_0": {
+            "scale": np.full(4, 5.0, np.float32)}}},
+        "level_embed": np.arange(8, dtype=np.float32).reshape(2, 4),
+    }, "constants": {"backbone": {"norm1": {
+        "scale": np.full(4, 7.0, np.float32)}}}}
+    sd = from_flax_variables(tree)
+    assert set(sd) == {"dec0.norm1.weight", "dec0.norm1.bias",
+                       "input_norm0.weight", "backbone.AdaptiveGroupNorm_0.scale",
+                       "level_embed", "backbone.norm1.scale"}
+    assert (sd["dec0.norm1.weight"] == 2).all()
+    assert (sd["backbone.norm1.scale"] == 7).all()  # a FrozenBN buffer
+    np.testing.assert_array_equal(sd["level_embed"].numpy(),
+                                  tree["params"]["level_embed"])
+
+
+def first_rule(variables):
+    """The mapping for Faster R-CNN trees: GroupNorm_0 dropped, conv kernels
+    HWIO -> OIHW, every other kernel transposed, the rest unchanged."""
+    out = {}
+    for collection in ("params", "constants"):
+        flat = flax.traverse_util.flatten_dict(variables.get(collection, {}))
+        for path, leaf in flat.items():
+            path = tuple(p for p in path if p != "GroupNorm_0")
+            arr = np.asarray(leaf, np.float32)
+            if path[-1] == "kernel":
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                path = path[:-1] + ("weight",)
+            out[".".join(path)] = arr
+    return out
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny_fpn", "tiny_frozen_bn"])
+def test_faster_rcnn_trees_map_as_before(name):
+    cfg = jconfig.tiny_test_config(use_fpn=name == "tiny_fpn")
+    if name == "tiny_frozen_bn":
+        cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                       norm="frozen_bn"))
+    v = numpy_tree(jax.jit(jax_build_model(cfg).init)(jax.random.key(0)))
+    sd = from_flax_variables(v)
+    want = first_rule(v)
+    assert set(sd) == set(want)
+    for key, arr in want.items():
+        np.testing.assert_array_equal(sd[key].numpy(), arr)
+
+
+def test_full_preset_tree_loads_by_name():
+    """Every parameter of ``coco_deformable_detr_r50`` (ResNet-50, 6+6
+    layers, per-layer heads) maps onto the port's model, names and shapes,
+    strictly."""
+    jm = jax_build_model(jax_preset("coco_deformable_detr_r50"))
+    shapes = jax.eval_shape(jm.init, jax.random.key(0))
+    zeros = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), flax.core.unfreeze(shapes))
+    model = build_model(preset_config("coco_deformable_detr_r50"),
+                        device="cpu")
+    model.core.load_state_dict(from_flax_variables(zeros))  # strict
+    assert model.core.dec5.self_attn.out.weight.shape == (256, 256)
+    assert hasattr(model.core, "class_head5") and hasattr(model.core,
+                                                          "bbox_head5")

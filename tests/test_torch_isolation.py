@@ -54,7 +54,7 @@ def test_sources_import_no_jax_and_no_tpudet():
 
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
-                                   "Config"])
+                                   "DeformableDETRConfig", "Config"])
 def test_config_defaults_equal_jax(group):
     port = getattr(tconfig, group)()
     ref = getattr(jconfig, group)()
@@ -94,3 +94,17 @@ def test_tiny_test_config_equals_jax_fields():
                         == getattr(getattr(ref, group), f.name)), \
                     f"{group}.{f.name}"
         assert port.use_pallas == ref.use_pallas
+
+
+def test_tiny_deformable_detr_config_equals_jax_fields():
+    port = tconfig.tiny_deformable_detr_config()
+    ref = jconfig.tiny_deformable_detr_config()
+    assert port.model == ref.model == "deformable_detr"
+    for group in ("data", "backbone", "deformable_detr"):
+        for f in dataclasses.fields(getattr(port, group)):
+            assert (getattr(getattr(port, group), f.name)
+                    == getattr(getattr(ref, group), f.name)), \
+                f"{group}.{f.name}"
+    # Every JAX field of the group is in the port.
+    assert ({f.name for f in dataclasses.fields(ref.deformable_detr)}
+            == {f.name for f in dataclasses.fields(port.deformable_detr)})

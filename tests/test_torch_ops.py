@@ -107,7 +107,9 @@ def preset_jax(name):
 def assert_preset_equals_jax(name):
     """Every field the port's config has equals the JAX preset's."""
     port, ref = preset_config(name), preset_jax(name)
-    for group in ("data", "backbone", "anchors", "rpn", "roi"):
+    assert port.model == ref.model
+    for group in ("data", "backbone", "anchors", "rpn", "roi",
+                  "deformable_detr"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), f"{group}.{f.name}"
@@ -119,6 +121,25 @@ def test_voc_r50_preset_equals_jax():
     assert_preset_equals_jax("coco_r101_fpn")
     with pytest.raises(ValueError):
         preset_config("coco_maskrcnn_r50_fpn")
+
+
+def test_deformable_detr_presets_equal_jax():
+    assert_preset_equals_jax("coco_deformable_detr_r50")
+    assert_preset_equals_jax("deformable_detr_tiny")
+    d = preset_config("coco_deformable_detr_r50").deformable_detr
+    assert (d.d_model, d.num_heads, d.enc_layers, d.dec_layers, d.ffn_dim,
+            d.num_queries, d.num_levels, d.num_points) == (
+                256, 8, 6, 6, 1024, 300, 4, 4)
+    assert d.with_box_refine and d.sampling_gather == "mxu"
+
+
+def test_cxcywh_conversions_equal_jax():
+    b = boxes_pair(9)
+    for name in ("xyxy_to_cxcywh", "cxcywh_to_xyxy"):
+        ref = getattr(jboxes, name)(jnp.asarray(b))
+        close(getattr(tboxes, name)(torch.from_numpy(b)), ref)
+    back = tboxes.cxcywh_to_xyxy(tboxes.xyxy_to_cxcywh(torch.from_numpy(b)))
+    close(back, b, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

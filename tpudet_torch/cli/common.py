@@ -1,5 +1,6 @@
 """Presets of the configurations the port runs (``tpudet.cli.common``'s
-``preset_config`` for ``voc_r50``, ``coco_r101_fpn`` and ``tiny``)."""
+``preset_config`` for ``voc_r50``, ``coco_r101_fpn``,
+``coco_deformable_detr_r50``, ``tiny`` and ``deformable_detr_tiny``)."""
 
 from __future__ import annotations
 
@@ -7,8 +8,10 @@ from tpudet_torch.config import (
     BackboneConfig,
     Config,
     DataConfig,
+    DeformableDETRConfig,
     ROIConfig,
     RPNConfig,
+    tiny_deformable_detr_config,
     tiny_test_config,
 )
 
@@ -42,5 +45,23 @@ def preset_config(name: str) -> Config:
                           topk_method="blocked"),
             roi=ROIConfig(pooler="roi_align_window", window=56),
         )
+    if name == "deformable_detr_tiny":
+        return tiny_deformable_detr_config()
+    if name == "coco_deformable_detr_r50":
+        # Deformable-DETR-R50 on COCO (paper §5: d=256, 8 heads, 6+6 layers,
+        # FFN 1024, 300 queries, 4 levels x 4 points), iterative box
+        # refinement, bf16. C3..C5 + a stride-64 level through the model's
+        # own projections: no FPN, no anchors, no NMS.
+        return Config(
+            model="deformable_detr",
+            data=DataConfig(num_classes=80, canvas_height=1344,
+                            canvas_width=1344, aspect_buckets=COCO_BUCKETS,
+                            max_gt_boxes=100),
+            backbone=BackboneConfig(name="resnet50", use_fpn=False,
+                                    dtype="bfloat16"),
+            deformable_detr=DeformableDETRConfig(with_box_refine=True,
+                                                 sampling_gather="mxu"),
+        )
     raise ValueError(f"unknown preset {name!r}: the port has 'voc_r50', "
-                     "'coco_r101_fpn', 'tiny'")
+                     "'coco_r101_fpn', 'coco_deformable_detr_r50', 'tiny', "
+                     "'deformable_detr_tiny'")

@@ -1,5 +1,6 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
-Faster R-CNN inference reads, single-level and FPN).
+Faster R-CNN inference, single-level and FPN, and Deformable DETR inference
+read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
@@ -24,6 +25,9 @@ class DataConfig:
     # Aspect-ratio buckets: each entry is an (h, w) canvas. The largest side
     # over all buckets bounds every box coordinate (see _nms_offset).
     aspect_buckets: Tuple[Tuple[int, int], ...] = ()
+    # GT boxes are padded to this many per image with a validity mask
+    # (Deformable DETR's build check: num_queries >= max_gt_boxes).
+    max_gt_boxes: int = 100
     # Per-channel normalization (ImageNet RGB means/stds).
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
@@ -120,6 +124,51 @@ class ROIConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeformableDETRConfig:
+    """Deformable DETR (Zhu et al., arXiv:2010.04159): multi-scale
+    deformable attention over C3..C5 + extra strided levels, reference-point
+    box regression with optional per-layer iterative refinement. Every field
+    and default of the JAX package's group; the matching and loss weights
+    are read by training, which waits for its slice."""
+
+    # Transformer (paper §5: d=256, 8 heads, 6+6 layers, FFN 1024,
+    # 300 queries, 4 levels x 4 points).
+    d_model: int = 256
+    num_heads: int = 8
+    enc_layers: int = 6
+    dec_layers: int = 6
+    ffn_dim: int = 1024
+    num_queries: int = 300
+    num_levels: int = 4
+    num_points: int = 4
+    dropout: float = 0.1
+    # Iterative bounding-box refinement (paper §4.4): per-layer heads, each
+    # decoder layer re-estimates the box around the previous layer's.
+    with_box_refine: bool = False
+    # Matching cost and loss weights (appendix A.4), focal loss (training).
+    cost_class: float = 2.0
+    cost_bbox: float = 5.0
+    cost_giou: float = 2.0
+    loss_weight_class: float = 2.0
+    loss_weight_bbox: float = 5.0
+    loss_weight_giou: float = 2.0
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    aux_loss: bool = True
+    # Inference: top-k over the flattened (query, class) sigmoid scores.
+    score_thresh: float = 0.05
+    max_detections: int = 100
+    # "flat", "patch" or "mxu": three TPU formulations of one function; in
+    # the port all three reach the same op (the Hopper kernel on the card).
+    sampling_gather: str = "flat"
+    # Head-shared sampling locations (a model variant with other parameter
+    # shapes): not ported, raises NotImplementedError.
+    shared_sampling_locations: bool = False
+    # Query tile of the TPU's one-hot kernel; kept for parity, not read.
+    mxu_query_tile: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: str = "faster_rcnn"
     data: DataConfig = DataConfig()
@@ -127,6 +176,7 @@ class Config:
     anchors: AnchorConfig = AnchorConfig()
     rpn: RPNConfig = RPNConfig()
     roi: ROIConfig = ROIConfig()
+    deformable_detr: DeformableDETRConfig = DeformableDETRConfig()
     # Kept for parity with the JAX config and never read: the port
     # dispatches by the tensor's device alone (a CUDA tensor goes to the
     # hand-written kernel, a CPU tensor to its plain PyTorch version).
@@ -147,6 +197,7 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
             num_classes=num_classes,
             canvas_height=canvas,
             canvas_width=canvas,
+            max_gt_boxes=10,
         ),
         backbone=BackboneConfig(name="tiny", use_fpn=use_fpn, norm="gn"),
         anchors=AnchorConfig(scales=(32.0, 64.0), aspect_ratios=(0.5, 1.0, 2.0)),
@@ -157,4 +208,21 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
         ),
         roi=ROIConfig(fc_dim=64, max_detections=20),
         use_pallas=False,
+    )
+
+
+def tiny_deformable_detr_config(canvas: int = 128,
+                                num_classes: int = 3) -> Config:
+    """Small Deformable DETR config for the CPU tests (the fields of
+    ``tpudet.config.tiny_deformable_detr_config``): tiny backbone (C3..C5
+    at strides 8/16/32 + one extra stride-64 level), a 2+2-layer transformer
+    of width 32 with 4 heads, 20 queries, 2 points, dropout off."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="deformable_detr",
+        deformable_detr=DeformableDETRConfig(
+            d_model=32, num_heads=4, enc_layers=2, dec_layers=2,
+            ffn_dim=64, num_queries=20, num_levels=4, num_points=2,
+            dropout=0.0, max_detections=20,
+        ),
     )

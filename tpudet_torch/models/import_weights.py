@@ -1,5 +1,5 @@
-"""Weight carry-over from the JAX package: a Flax variables tree -> a
-``DetectorCore`` state dict.
+"""Weight carry-over from the JAX package: a Flax variables tree -> the
+state dict of a model's ``core`` (``DetectorCore``, ``DeformableDETRCore``).
 
 The tree is ``{"params": ..., "constants": ...}`` as nested mappings of
 arrays (numpy, or anything ``np.asarray`` takes). The port's module names
@@ -9,9 +9,17 @@ follow the Flax names, so the mapping is mechanical:
 * a Dense ``kernel`` (``[in, out]``) becomes a Linear ``weight``
   (``[out, in]``); the RoI head flattens NHWC in both packages, so ``fc1``
   needs no row permutation;
+* a ``DenseGeneral`` attention kernel (3-D) becomes a Linear weight over
+  the flattened heads: ``query/key/value`` ``[d, heads, hd]`` ->
+  ``[heads * hd, d]`` with their ``[heads, hd]`` biases flattened, ``out``
+  ``[heads, hd, d]`` -> ``[d, heads * hd]``;
 * the FrozenBN constants ``scale/bias/mean/var`` become buffers of the same
   names;
-* Flax's inner ``GroupNorm_0`` scope of ``AdaptiveGroupNorm_i`` is dropped.
+* Flax's inner ``GroupNorm_0`` scope of ``AdaptiveGroupNorm_i`` is dropped
+  (its ``scale`` keeps the name); every other ``scale`` parameter (Flax's
+  LayerNorm, ``MaskedGroupNorm``) becomes ``weight``;
+* parameters that are no layer's (``level_embed``, ``query_embed``) keep
+  their names and values.
 """
 
 from __future__ import annotations
@@ -31,18 +39,36 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield prefix + (str(key),), value
 
 
+def _kernel_to_weight(arr: np.ndarray, layer: str) -> np.ndarray:
+    """A Flax kernel -> the port's weight: HWIO -> OIHW, ``[in, out]`` ->
+    ``[out, in]``, and the 3-D attention kernels over flattened heads."""
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    if arr.ndim == 3:
+        if layer == "out":  # [heads, hd, d] contracts over (heads, hd)
+            return arr.reshape(-1, arr.shape[-1]).T
+        return arr.reshape(arr.shape[0], -1).T  # [d, heads, hd]
+    return arr.T
+
+
 def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params", "constants"}`` tree -> ``DetectorCore.state_dict()``
+    """Flax ``{"params", "constants"}`` tree -> ``model.core.state_dict()``
     layout (load with ``model.core.load_state_dict(sd)``)."""
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "constants"):
         for path, leaf in _flatten(variables.get(collection, {})):
+            group_norm = "GroupNorm_0" in path
             path = tuple(p for p in path if p != "GroupNorm_0")
             arr = np.array(leaf, dtype=np.float32)
             name = path[-1]
             if name == "kernel":
                 name = "weight"
-                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+                arr = _kernel_to_weight(arr, path[-2])
+            elif name == "bias" and arr.ndim == 2:  # DenseGeneral [heads, hd]
+                arr = arr.reshape(-1)
+            elif (name == "scale" and collection == "params"
+                  and not group_norm):
+                name = "weight"
             key = ".".join(path[:-1] + (name,))
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

@@ -1,6 +1,6 @@
 """Shared building blocks (``tpudet.models.layers``): convolution and dense
 layers that compute in a given dtype over float32 parameters, Flax's
-initializers, and the two normalizations.
+initializers, the two backbone normalizations and Flax's LayerNorm.
 
 Tensors are NCHW in ``torch.channels_last`` memory format inside the
 backbone, so an NHWC view of any feature map is a free permute.
@@ -171,6 +171,33 @@ class AdaptiveGroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """Flax's ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (torch's
+    default is 1e-5), statistics in f32 as ``E[x^2] - E[x]^2`` clamped at
+    0, and an f32 output whatever the input dtype (Flax promotes to the f32
+    parameters): a bf16 input comes out f32."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6, device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        mean2 = (x * x).mean(dim=-1, keepdim=True)
+        var = (mean2 - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return (x - mean) * mul + self.bias
+
+
 def make_norm(kind: str, channels: int, device=None) -> nn.Module:
     if kind == "frozen_bn":
         return FrozenBatchNorm(channels, device=device)
@@ -183,5 +210,6 @@ def init_module(module: nn.Module, generator: torch.Generator) -> None:
     """Redraw every layer of ``module`` from ``generator``, in registration
     order."""
     for m in module.modules():
-        if isinstance(m, (Conv, Dense, FrozenBatchNorm, AdaptiveGroupNorm)):
+        if isinstance(m, (Conv, Dense, FrozenBatchNorm, AdaptiveGroupNorm,
+                          LayerNorm)):
             m.reset_parameters(generator)

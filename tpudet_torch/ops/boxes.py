@@ -1,4 +1,5 @@
-"""Box geometry: area, IoU, encode/decode, clip (``tpudet.ops.boxes``).
+"""Box geometry: area, IoU, encode/decode, cxcywh conversions, clip
+(``tpudet.ops.boxes``).
 
 Boxes are ``[x1, y1, x2, y2]`` in absolute pixels; width is ``x2 - x1`` (no
 +1). Deltas follow Faster R-CNN §3.1.2, optionally scaled per coordinate.
@@ -89,6 +90,22 @@ def decode_boxes(
     return torch.stack(
         [x - 0.5 * w, y - 0.5 * h, x + 0.5 * w, y + 0.5 * h], dim=-1
     )
+
+
+def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    """Corner boxes -> (center_x, center_y, width, height), the DETR
+    regression parameterization."""
+    w = boxes[..., 2] - boxes[..., 0]
+    h = boxes[..., 3] - boxes[..., 1]
+    return torch.stack(
+        [boxes[..., 0] + 0.5 * w, boxes[..., 1] + 0.5 * h, w, h], dim=-1)
+
+
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """(center_x, center_y, width, height) -> corner boxes."""
+    cx, cy, w, h = boxes[..., 0], boxes[..., 1], boxes[..., 2], boxes[..., 3]
+    return torch.stack(
+        [cx - 0.5 * w, cy - 0.5 * h, cx + 0.5 * w, cy + 0.5 * h], dim=-1)
 
 
 def clip_boxes(boxes: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:
