@@ -43,9 +43,28 @@ no result):
    launch counts (12 deformable attention launches, no NMS or RoI Align),
    where its samples land, a small f32 input against the CPU, ms per batch
    at b = 8 and 32;
-10. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
-    832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50): device time
-    by kernel and by kind, and the device's busy share.
+10. the deformable attention backward kernel against ``torch.autograd.grad``
+    through the plain version, at the train step's 832x832 shapes (the
+    encoder's Q = N = 14,365 and the decoder's Q = 300 at b=8), bf16 and f32
+    values: value, location and attention-weight gradients;
+11. coco_deformable_detr_r50 training at full width through
+    ``create_train_state`` and ``make_train_step``: the preset's own train
+    config (AdamW 2e-4, backbone 0.1x, clip 0.1, warmup) and plain init, bf16,
+    dropout 0.1, b=8 832x832 uint8 canvases normalized by
+    ``device_preprocess`` with 1-20 planted boxes per image, 20 steps: every
+    loss, ms per step, img/s, the matcher's ms, the launches per step (12
+    forward and 12 backward deformable attention launches), peak memory;
+12. one f32 b=2 256x256 train step of the full preset (dropout 0) on the
+    card against the same step on the CPU plain path: equal matches, the
+    loss, every gradient and every parameter after the AdamW update;
+13. the tiny learning check (``tests/test_deformable_detr.py``'s
+    ``test_loss_decreases_and_trains``): 20 AdamW steps of
+    ``deformable_detr_tiny`` on planted boxes, the last loss under 0.6x the
+    first;
+14. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
+    832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50) and of one b=8
+    832x832 coco_deformable_detr_r50 train step: device time by kernel and
+    by kind, and the device's busy share.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -80,8 +99,17 @@ ROI_OPS_PER_SAMPLE = 10
 # and an add.
 DEFORM_OPS_PER_SAMPLE = 24
 DEFORM_OPS_PER_CORNER_CHANNEL = 2
+# ... and of its backward: per sample the position (8), per corner its
+# bilinear weight, the two derivative factors and their signs (4), the
+# three field accumulations (6), the forward's weight (1), then the four
+# final multiplies; per corner inside the grid and channel, the dot
+# product's multiply-add and dV's multiply and atomic add.
+DEFORM_BWD_OPS_PER_SAMPLE = 8 + 4 * 11 + 4
+DEFORM_BWD_OPS_PER_CORNER_CHANNEL = 4
 # coco_deformable_detr_r50's levels on the 832x832 bucket (strides 8..64).
 DEFORM_SHAPES = ((104, 104), (52, 52), (26, 26), (13, 13))
+# Sources under tpudet_torch/kernels/csrc (deform_attn.cu holds the
+# forward and the backward kernel).
 KERNELS = ("nms", "roi_align", "roi_align_window", "deform_attn")
 # Head kernels drawn wider than Flax's normal(0.01)/normal(0.001): at init
 # the softmax sits near 1/21, below score_thresh 0.05, and no detection
@@ -99,6 +127,9 @@ HEAD_STD = {"objectness": 0.1, "cls": 0.15, "bbox": 0.05}
 # of a few tenths.
 DETR_STD = {"sampling_offsets": 0.08, "attention_weights": 0.04,
             "class_head": 0.1, "bbox_out": 0.03}
+# The f32 train reference's tolerance on each parameter after one AdamW
+# step, as a fraction of how far the step moved it (phase_train_reference).
+PARAM_TOL = 0.1
 
 
 def fail(message: str) -> None:
@@ -788,12 +819,10 @@ def deform_scene(gen, b, refs, heads=8, points=4, shapes=DEFORM_SHAPES,
             weights.reshape(b, q, heads, lv, points).cuda().contiguous())
 
 
-def deform_work(values, shapes, loc, weights):
-    """What these inputs need of the deformable attention: the value rows
-    that nonzero-weight corners touch (each read once), locations and
-    weights read once, the f32 output written once; the operations of
-    every sample and of every nonzero corner per channel. Also the share of
-    samples outside their level."""
+def deform_census(values, shapes, loc, weights):
+    """Where these inputs' samples land: the value rows that corners with a
+    nonzero weight touch (each counted once), the number of such corners,
+    the share of samples outside their level and of value rows touched."""
     import torch
 
     from tpudet_torch.ops.deform_attn import (
@@ -810,14 +839,44 @@ def deform_work(values, shapes, loc, weights):
                   ) * n
     touched = torch.zeros(b * h * n, dtype=torch.bool, device=idx.device)
     touched[rows[used]] = True
-    q = loc.shape[1]
-    bytes_moved = (int(touched.sum()) * d * values.element_size()
-                   + loc.numel() * 4 + weights.numel() * 4 + b * q * h * d * 4)
-    ops = (weights.numel() * DEFORM_OPS_PER_SAMPLE
-           + int(used.sum()) * d * DEFORM_OPS_PER_CORNER_CHANNEL)
     outside = float(((loc < 0) | (loc > 1)).any(-1).float().mean())
+    return (int(touched.sum()), int(used.sum()), outside,
+            float(touched.float().mean()))
+
+
+def deform_work(values, shapes, loc, weights):
+    """What these inputs need of the deformable attention forward: the
+    touched value rows read once, locations and weights read once, the f32
+    output written once; the operations of every sample and of every
+    nonzero corner per channel. Also where the samples land."""
+    rows, corners, outside, touched = deform_census(values, shapes, loc,
+                                                    weights)
+    b, q, h = loc.shape[:3]
+    d = values.shape[-1]
+    bytes_moved = (rows * d * values.element_size() + loc.numel() * 4
+                   + weights.numel() * 4 + b * q * h * d * 4)
+    ops = (weights.numel() * DEFORM_OPS_PER_SAMPLE
+           + corners * d * DEFORM_OPS_PER_CORNER_CHANNEL)
     return (bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3,
-            outside, float(touched.float().mean()))
+            outside, touched)
+
+
+def deform_backward_work(values, shapes, loc, weights):
+    """... and of its backward: the touched value rows read once, the value
+    gradient written once in the values' dtype over all of ``[B, N, H, D]``
+    (the dense output the function must produce; the kernel's f32
+    accumulator is its own choice, not the function's), locations, weights
+    and the f32 cotangent read once, the location and weight gradients
+    written once."""
+    rows, corners, _, _ = deform_census(values, shapes, loc, weights)
+    b, q, h = loc.shape[:3]
+    d = values.shape[-1]
+    bytes_moved = ((rows * d + values.numel()) * values.element_size()
+                   + 2 * (loc.numel() + weights.numel()) * 4
+                   + b * q * h * d * 4)
+    ops = (weights.numel() * DEFORM_BWD_OPS_PER_SAMPLE
+           + corners * d * DEFORM_BWD_OPS_PER_CORNER_CHANNEL)
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
 def phase_deform_attn():
@@ -869,6 +928,95 @@ def phase_deform_attn():
                   f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})",
                   flush=True)
             del out
+    return result
+
+
+def plain_deform_grads(values, shapes, loc, weights, grad_out):
+    """The reference gradients: ``torch.autograd.grad`` through the plain
+    version (its forward included), with the values widened to f32: the
+    plain forward widens its gathered corners exactly, so this is the same
+    function, and its f32 value gradient is what the kernel sums before its
+    one cast to the values' dtype."""
+    import torch
+
+    from tpudet_torch.kernels import deform_attn as kda
+
+    v = values.float().requires_grad_()
+    loc = loc.clone().requires_grad_()
+    weights = weights.clone().requires_grad_()
+    out = kda.ms_deform_attn_plain(v, shapes, loc, weights)
+    return torch.autograd.grad(out, (v, loc, weights), grad_out)
+
+
+def phase_deform_backward():
+    """The deformable attention backward kernel at a coco_deformable_detr_r50
+    train step's 832x832 shapes: an encoder layer (b=8, Q = N = 14,365) and
+    a decoder layer (Q = 300), bf16 and f32 values, against autograd through
+    the plain version."""
+    import torch
+
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.ops.deform_attn import level_reference_points
+
+    gen = torch.Generator().manual_seed(31)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(31)
+    b, heads, d = 8, 8, 32
+    n = sum(hl * wl for hl, wl in DEFORM_SHAPES)
+    values32 = torch.randn(b, n, heads, d, generator=cuda_gen, device="cuda")
+    scenes = {"encoder": deform_scene(gen, b,
+                                      level_reference_points(DEFORM_SHAPES)),
+              "decoder": deform_scene(gen, b,
+                                      torch.rand(300, 2, generator=gen) * 0.9
+                                      + 0.05)}
+    result = {}
+    for call, (loc, weights) in scenes.items():
+        grad_out = torch.randn(b, loc.shape[1], heads, d, generator=cuda_gen,
+                               device="cuda")
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            values = values32.to(dtype)
+            args = (values, DEFORM_SHAPES, loc, weights)
+            grads = kda.ms_deform_attn_backward_cuda(*args, grad_out)
+            refs = plain_deform_grads(*args, grad_out)
+            torch.cuda.synchronize()
+            errs = {}
+            for label, got, ref in zip(("dV", "dloc", "dweights"), grads, refs):
+                err = (got.float() - ref).abs()
+                scale = float(ref.abs().max())
+                if label == "dV" and dtype == torch.bfloat16:
+                    # One rounding of the same f32 sum: one bf16 ulp.
+                    ok = bool((err <= 2 ** -8 * ref.abs() + 1e-5 * scale).all())
+                else:
+                    # f32 sums of the same products in other orders (dV's
+                    # atomics, the warp's dot products): 1e-5 of the
+                    # largest magnitude (dloc carries the factor W_l).
+                    ok = bool((err <= 1e-5 * ref.abs() + 1e-5 * scale).all())
+                check(ok, f"deform_attn backward {call} {name} {label}: "
+                          f"kernel differs from autograd through the plain "
+                          f"version by {float(err.max()):.3e} (largest "
+                          f"{scale:.3e})")
+                errs[label] = (float(err.max()), scale)
+            del refs
+            ms = time_ms(lambda: kda.ms_deform_attn_backward_cuda(*args,
+                                                                  grad_out))
+            plain_ms = time_ms(lambda: plain_deform_grads(*args, grad_out),
+                               iters=3, warmup=1)
+            bytes_ms, ops_ms = deform_backward_work(*args)
+            # The JSON's error: the largest over the f32 sums (the bf16
+            # value gradient's rounding is bounded above, not counted).
+            err = max(e for label, (e, _) in errs.items()
+                      if not (label == "dV" and dtype == torch.bfloat16))
+            result[(call, name)] = {"ms": ms, "plain_ms": plain_ms,
+                                    "err": err, "bytes_ms": bytes_ms,
+                                    "ops_ms": ops_ms}
+            print(f"deform_attn backward {call} {name}: values [{b}, {n}, "
+                  f"{heads}, {d}], Q={loc.shape[1]}, 4 levels x 4 points: "
+                  + ", ".join(f"{label} max err {e:.3e} of {sc:.3e}"
+                              for label, (e, sc) in errs.items())
+                  + f" | kernel {ms:.4f} ms, plain (autograd through the "
+                  f"plain forward) {plain_ms:.2f} ms, bound "
+                  f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
+                  f"operations {ops_ms:.4f})", flush=True)
+            del grads
     return result
 
 
@@ -975,8 +1123,250 @@ def phase_detr_path(card):
     return launches, step
 
 
+def planted_batch(cfg, b, h, w, seed, boxes=(1, 20)):
+    """A training batch on the card: uint8 canvases of noise with a valid
+    region per image (``canvases``), ``boxes[0]..boxes[1]`` ground-truth
+    boxes per image drawn from ``seed`` inside it and painted in a colour of
+    their class, padded to ``data.max_gt_boxes``; normalized by
+    ``device_preprocess``."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.data.preprocess import device_preprocess
+
+    batch = canvases(b, h, w, seed)
+    rng = np.random.default_rng(seed + 1000)
+    g, num_classes = cfg.data.max_gt_boxes, cfg.data.num_classes
+    colours = rng.integers(0, 256, (num_classes + 1, 3))
+    image = batch["image"].cpu().numpy()
+    gt = np.zeros((b, g, 4), np.float32)
+    classes = np.zeros((b, g), np.int32)
+    valid = np.zeros((b, g), bool)
+    for i, (ih, iw) in enumerate(batch["image_hw"].cpu().numpy()):
+        k = int(rng.integers(boxes[0], boxes[1] + 1))
+        size = rng.uniform(0.1, 0.5, (k, 2)) * (iw, ih)
+        x1 = rng.uniform(0, iw - size[:, 0])
+        y1 = rng.uniform(0, ih - size[:, 1])
+        gt[i, :k] = np.stack([x1, y1, x1 + size[:, 0], y1 + size[:, 1]], -1)
+        classes[i, :k] = rng.integers(1, num_classes + 1, k)
+        valid[i, :k] = True
+        for (a, c, e, f), cls in zip(gt[i, :k].astype(int), classes[i, :k]):
+            image[i, c:f, a:e] = colours[cls]
+    batch = {"image": torch.from_numpy(image).cuda(),
+             "image_hw": batch["image_hw"],
+             "gt_boxes": torch.from_numpy(gt).cuda(),
+             "gt_classes": torch.from_numpy(classes).cuda(),
+             "gt_valid": torch.from_numpy(valid).cuda()}
+    return device_preprocess(cfg, batch)
+
+
+def phase_train_path(card):
+    """coco_deformable_detr_r50 training at full width: the preset's train
+    config and plain init through ``create_train_state`` and
+    ``make_train_step``, bf16, dropout 0.1, b=8 832x832, 20 steps."""
+    import math
+
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.models import build_model
+    from tpudet_torch.ops import hungarian
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config("coco_deformable_detr_r50")
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.train, seed=0)
+    step = make_train_step(model, cfg)
+    batch = planted_batch(cfg, 8, 832, 832, seed=41)
+    steps, layers = 20, cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hungarian.SECONDS = 0.0
+    # The main path: counts set to 0 just before, read just after.
+    kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
+    knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    times, losses = [], []
+    for i in range(steps):
+        start = time.perf_counter()
+        state, metrics = step(state, batch)
+        values = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(values["loss"])
+        check(math.isfinite(values["loss"]), f"train step {i}: loss "
+                                             f"{values['loss']}")
+        print(f"train coco_deformable_detr_r50 bf16 b=8 832x832 step {i}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+              + f" | {times[-1]:.2f} ms", flush=True)
+    torch.cuda.synchronize()
+    launches = {"deform_attn": kda.LAUNCHES,
+                "deform_attn_backward": kda.BACKWARD_LAUNCHES,
+                "nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
+                "roi_align_window": krw.LAUNCHES}
+    check(launches == {"deform_attn": layers * steps,
+                       "deform_attn_backward": layers * steps, "nms": 0,
+                       "roi_align": 0, "roi_align_window": 0},
+          f"train path launches {launches}: expected {layers} forward and "
+          f"{layers} backward deformable attention launches per step")
+    matcher_ms = hungarian.SECONDS / steps * 1e3
+    ms = sum(times[5:]) / len(times[5:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"coco_deformable_detr_r50 bf16 train b=8 832x832 (preset AdamW, "
+          f"dropout {cfg.deformable_detr.dropout}, 1-20 boxes/image): "
+          f"{ms:.2f} ms/step over steps 5..{steps - 1} (first {times[0]:.2f} "
+          f"ms), {8e3 / ms:.1f} img/s, matcher (host, lockstep over "
+          f"{cfg.deformable_detr.dec_layers} layers x 8 images) "
+          f"{matcher_ms:.2f} ms/step, launches per step "
+          f"{launches['deform_attn'] // steps} forward + "
+          f"{launches['deform_attn_backward'] // steps} backward, peak device "
+          f"memory {peak:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"| {card}", flush=True)
+    return launches, (lambda: step(state, batch))
+
+
+def phase_train_reference():
+    """One f32 b=2 256x256 train step of the full preset (dropout 0: the
+    card's and the CPU's generators draw other masks) on the card against
+    the same step on the CPU, where every wrapper runs its plain version."""
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train import losses as train_losses
+    from tpudet_torch.train.state import create_train_state, lr_schedule
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config("coco_deformable_detr_r50")
+    cfg = cfg.replace(
+        backbone=dataclasses.replace(cfg.backbone, dtype="float32"),
+        deformable_detr=dataclasses.replace(cfg.deformable_detr, dropout=0.0))
+    batch = planted_batch(cfg, 2, 256, 256, seed=43, boxes=(2, 8))
+    runs = {}
+    original = train_losses.hungarian_masked
+    kda.BACKWARD_LAUNCHES = 0
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        state = create_train_state(model, cfg.train, seed=0, device=device)
+        # A copy: on the CPU ``.cpu()`` returns the parameter itself.
+        before = {k: p.detach().clone().cpu() for k, p in state.params.items()}
+        matches = []
+
+        def recording(cost, valid):
+            matches.append(original(cost, valid).cpu())
+            return matches[-1].to(cost.device)
+
+        train_losses.hungarian_masked = recording
+        try:
+            state, metrics = make_train_step(model, cfg, device=device)(
+                state, {k: v.to(device) for k, v in batch.items()})
+        finally:
+            train_losses.hungarian_masked = original
+        runs[device] = {
+            "loss": float(metrics["loss"]), "matches": matches,
+            "before": before,
+            "grads": {k: p.grad.detach().cpu() for k, p in state.params.items()},
+            "params": {k: p.detach().cpu() for k, p in state.params.items()}}
+        del model, state
+    card, cpu = runs["cuda"], runs["cpu"]
+    layers = cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
+    check(kda.BACKWARD_LAUNCHES == layers,
+          f"f32 train step: {kda.BACKWARD_LAUNCHES} backward launches on the "
+          f"card, expected {layers}")
+    check(all(torch.equal(a, b) for a, b in zip(card["matches"], cpu["matches"]))
+          and len(card["matches"]) == len(cpu["matches"]) == 1,
+          "f32 train step: the card's matches differ from the CPU's")
+    rel_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(rel_loss <= 1e-4, f"f32 train step: loss {card['loss']} on the card, "
+                            f"{cpu['loss']} on the CPU")
+
+    # Gradients: each within 1e-2 of its norm (f32 on both sides; the
+    # convolution, GroupNorm and GEMM reductions run in other orders and
+    # some cancel: ~1e-3 measured). A gradient that is zero in exact
+    # arithmetic (behind freeze_stem; the self-attention key biases, which a
+    # softmax ignores; whatever only the zero-initialized offset, attention
+    # and box layers read) is rounding noise or zero on both sides, so each
+    # norm is floored at 1e-6 of the global (clipped) gradient norm.
+    # Parameters after the update, outside those noise gradients: each
+    # within PARAM_TOL of how far the CPU's update moved it, as
+    # tests/test_torch_cuda.py holds the tiny model's. This first AdamW step
+    # moves each element by about lr * sign(g) (Adam's first step divides g
+    # by its own magnitude), so an element whose gradient lies within the
+    # two sides' rounding difference of 0 may move 2 lr apart; a share s of
+    # such elements gives 2 sqrt(s) of the move.
+    global_norm = float(torch.stack([g.norm() for g in cpu["grads"].values()]
+                                    ).norm())
+    floor = 1e-6 * global_norm
+    grad_err, param_err, noise = {}, {}, []
+    for k, g in cpu["grads"].items():
+        grad_err[k] = (float((card["grads"][k] - g).norm())
+                       / max(float(g.norm()), floor))
+        if float(g.norm()) <= floor:
+            noise.append(k)
+            continue
+        p = cpu["params"][k]
+        moved = float((p - cpu["before"][k]).norm())
+        param_err[k] = float((card["params"][k] - p).norm()) / moved
+    worst = {"gradient": max(grad_err.items(), key=lambda kv: kv[1]),
+             "parameter": max(param_err.items(), key=lambda kv: kv[1])}
+    check(worst["gradient"][1] <= 1e-2 and worst["parameter"][1] <= PARAM_TOL,
+          f"f32 train step: card and CPU differ: {worst}")
+    ranked = sorted(param_err.items(), key=lambda kv: -kv[1])
+    print(f"train reference: f32 b=2 256x256 step of the full preset "
+          f"(dropout 0, TF32 off) on the card against the CPU plain path: "
+          f"matches equal ({int((cpu['matches'][0] < 300).sum())} matched "
+          f"pairs over {cfg.deformable_detr.dec_layers} layers), loss "
+          f"{card['loss']:.6f} vs {cpu['loss']:.6f} (rel {rel_loss:.2e}); "
+          f"worst gradient error {worst['gradient'][1]:.2e} of its norm "
+          f"({worst['gradient'][0]}, tolerance 1e-2); parameters after the "
+          f"AdamW update (lr {lr_schedule(cfg.train)(0):.3e}), difference "
+          f"over how far the CPU's moved them (tolerance {PARAM_TOL}): "
+          + ", ".join(f"{k} {e:.2e}" for k, e in ranked[:5])
+          + f", median {ranked[len(ranked) // 2][1]:.2e} over "
+          f"{len(ranked)} parameters; {len(noise)} gradients zero or below "
+          f"1e-6 of the global norm {global_norm:.4f}, not compared: "
+          f"{', '.join(noise)}", flush=True)
+    return worst
+
+
+def phase_tiny_learning():
+    """``test_loss_decreases_and_trains`` of the JAX package on the card: 20
+    AdamW steps of deformable_detr_tiny on planted boxes."""
+    import math
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config("deformable_detr_tiny")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, optimizer="adamw", learning_rate=1e-3, warmup_steps=0,
+        grad_clip_norm=0.1, weight_decay=1e-4))
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.train, seed=0)
+    step = make_train_step(model, cfg)
+    batch = planted_batch(cfg, 2, 128, 128, seed=47, boxes=(1, 3))
+    losses = []
+    for _ in range(20):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    first, last = losses[0], losses[-1]
+    check(math.isfinite(first) and first < 40.0 and last < 0.6 * first,
+          f"tiny learning check: loss {first} -> {last} (needs < 0.6x)")
+    print(f"tiny learning check: deformable_detr_tiny AdamW 1e-3, 20 steps on "
+          f"planted boxes: loss {first:.4f} -> {last:.4f} "
+          f"({last / first:.3f}x, needs < 0.6x)", flush=True)
+
+
 KINDS = (
     ("deform_attn kernel", ("ms_deform_attn_fwd_kernel",)),
+    ("deform_attn backward kernel", ("ms_deform_attn_bwd_kernel",)),
     ("nms kernel", ("nms_mask_kernel", "nms_reduce_kernel")),
     ("roi_align_window kernel", ("roi_align_window_fwd_kernel",)),
     ("roi_align kernel", ("roi_align_fwd_kernel",)),
@@ -994,24 +1384,27 @@ KINDS = (
 )
 
 
-def phase_profile(card, step, label, h, w):
-    """One b=32 ``h x w`` predict of a main path's ``step`` under
+def phase_profile(card, label, run, warmup=3):
+    """One call of ``run`` (a main path's predict or train step) under
     torch.profiler: device time by kernel and by kind, and the device's
     busy share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batch = canvases(32, h, w, seed=6)
-    for _ in range(3):
-        step(batch)
+    for _ in range(warmup):
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        step(batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
+    # Device events, less the ranges that record_function annotations
+    # (the optimizer's step) put on the device timeline.
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
     check(bool(kernels), "profiler: no device events (time with CUDA events)")
     device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     by_name, by_kind = {}, {}
@@ -1023,7 +1416,7 @@ def phase_profile(card, step, label, h, w):
                     "other (elementwise, copies, reductions)")
         by_kind[kind] = (by_kind.get(kind, 0.0)
                          + e.time_range.elapsed_us() / 1e3)
-    print(f"profile {label} b=32 {h}x{w} predict: wall {wall_ms:.2f} ms, "
+    print(f"profile {label}: wall {wall_ms:.2f} ms, "
           f"device busy "
           f"{device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f}%), "
           f"{len(kernels)} kernel launches | {card}", flush=True)
@@ -1058,18 +1451,31 @@ def main() -> None:
     fpn_launches, mismatched, fpn_step = phase_fpn_path(card)
     deform = phase_deform_attn()
     detr_launches, detr_step = phase_detr_path(card)
-    phase_profile(card, voc_step, "voc_r50", 640, 640)
-    phase_profile(card, fpn_step, "coco_r101_fpn", 832, 832)
-    phase_profile(card, detr_step, "coco_deformable_detr_r50", 832, 832)
+    deform_bwd = phase_deform_backward()
+    train_launches, train_run = phase_train_path(card)
+    phase_train_reference()
+    phase_tiny_learning()
+    for label, step, (h, w) in (("voc_r50", voc_step, (640, 640)),
+                                ("coco_r101_fpn", fpn_step, (832, 832)),
+                                ("coco_deformable_detr_r50", detr_step,
+                                 (832, 832))):
+        batch = canvases(32, h, w, seed=6)
+        phase_profile(card, f"{label} b=32 {h}x{w} predict",
+                      lambda: step(batch))
+    phase_profile(card, "coco_deformable_detr_r50 b=8 832x832 train step",
+                  train_run, warmup=1)
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
 
-    def entry(name, module, launches, m, err):
+    def entry(name, module, by_path, m, err):
+        """``launches`` sums the paths' counts; ``launches_by_path`` keeps
+        each path's own (each zeroed just before its path)."""
         return {"name": name, "route": "cuda", "source": module.SOURCE,
-                "replaces": module.REPLACES, "launches": launches,
+                "replaces": module.REPLACES,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": max(m["bytes_ms"], m["ops_ms"]),
                 "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"]
@@ -1078,21 +1484,32 @@ def main() -> None:
     # NMS: launches over both main paths; times of voc_r50's two calls on
     # clustered scenes (coco_r101_fpn's are printed in phase 3).
     kernels = [
-        entry("nms", knms, voc_launches["nms"] + fpn_launches["nms"],
+        entry("nms", knms, {"voc_r50 predict": voc_launches["nms"],
+                            "coco_r101_fpn predict": fpn_launches["nms"]},
               nms["voc_r50"], nms_err),
-        entry("roi_align", kra, voc_launches["roi_align"], roi["bf16"],
-              roi["bf16"]["err"]),
-        entry("roi_align_window", krw, fpn_launches["roi_align_window"],
+        entry("roi_align", kra, {"voc_r50 predict": voc_launches["roi_align"]},
+              roi["bf16"], roi["bf16"]["err"]),
+        entry("roi_align_window", krw,
+              {"coco_r101_fpn predict": fpn_launches["roi_align_window"]},
               roi_window["bf16"], roi_window["bf16"]["err"]),
     ]
-    # Deformable attention: one encoder and one decoder launch of the main
-    # path (bf16 values, b=8, 832x832), summed.
-    pair = [deform[(call, "bf16")] for call in ("encoder", "decoder")]
-    kernels.append(entry(
-        "deform_attn", kda, detr_launches["deform_attn"],
-        {key: sum(m[key] for m in pair)
-         for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
-        max(m["err"] for m in deform.values())))
+    # Deformable attention, forward and backward: one encoder and one
+    # decoder launch (bf16 values, b=8, 832x832), summed; forward launches
+    # over the predict and train paths, backward over the train path.
+    detr = "coco_deformable_detr_r50"
+    for name, result, by_path in (
+            ("deform_attn", deform,
+             {f"{detr} predict": detr_launches["deform_attn"],
+              f"{detr} train": train_launches["deform_attn"]}),
+            ("deform_attn_backward", deform_bwd,
+             {f"{detr} train": train_launches["deform_attn_backward"]})):
+        pair = [result[(call, "bf16")] for call in ("encoder", "decoder")]
+        kernels.append(entry(
+            name, kda, by_path,
+            {key: sum(m[key] for m in pair)
+             for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
+            max(m["err"] for m in result.values())))
+    kernels[-1]["replaces"] = kda.BACKWARD_REPLACES
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -211,6 +211,88 @@ def test_deform_attn_kernel_equals_plain(cuda, dtype, heads, d, points,
     assert (out != 0).any()
 
 
+def plain_grads(values, shapes, loc, weights, grad_out):
+    """The reference gradients: ``torch.autograd.grad`` through the plain
+    version, with the values widened to f32 (the plain forward widens its
+    gathered corners exactly, so this is the same function; its f32 value
+    gradient is what the kernel sums before its one cast)."""
+    v = values.float().requires_grad_()
+    loc = loc.clone().requires_grad_()
+    weights = weights.clone().requires_grad_()
+    out = kda.ms_deform_attn_plain(v, shapes, loc, weights)
+    return torch.autograd.grad(out, (v, loc, weights), grad_out)
+
+
+def on_borders(loc, shapes):
+    """Puts some samples exactly on their level's edges and cell centres:
+    x in {0, 1} (half a cell outside the first and last column), the first
+    cell's centre, and just outside the grid."""
+    for li, (hl, wl) in enumerate(shapes):
+        for p, value in enumerate((0.0, 1.0, 0.5 / wl, -0.5 / wl, 1.0 + 0.5 / wl)):
+            if p < loc.shape[4]:
+                loc[:, ::3, :, li, p, 0] = value
+                loc[:, 1::3, :, li, p, 1] = min(max(value, 0.0), 1.0)
+    return loc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,q,heads,d,points,shapes", [
+    (2, 37, 8, 32, 4, ((20, 28), (10, 14), (5, 7), (3, 4))),
+    (2, 37, 4, 8, 2, ((16, 16), (8, 8), (4, 4), (2, 2))),
+    (2, 37, 2, 40, 3, ((1, 9), (6, 5), (2, 3))),  # a 1 x W level, D > 32
+    (1, 1, 3, 8, 5, ((4, 5), (2, 3))),  # Q = 1
+    (2, 5, 36, 32, 2, ((4, 5),)),  # 36 heads: warps loop over heads
+])
+def test_deform_attn_backward_kernel_equals_plain(cuda, dtype, b, q, heads, d,
+                                                  points, shapes):
+    gen = torch.Generator().manual_seed(heads * d + q)
+    values, loc, weights = deform_inputs(gen, b, q, heads, d, shapes, points,
+                                         dtype, outside=0.2)
+    loc = on_borders(loc, shapes)
+    grad_out = torch.randn(b, q, heads, d, generator=gen)
+    args = (values.to(cuda), shapes, loc.to(cuda), weights.to(cuda))
+    before = kda.BACKWARD_LAUNCHES
+    dv, dloc, dw = kda.ms_deform_attn_backward_cuda(*args, grad_out.to(cuda))
+    assert kda.BACKWARD_LAUNCHES == before + 1
+    assert dv.dtype == dtype and dloc.dtype == dw.dtype == torch.float32
+    ref_v, ref_loc, ref_w = (g.cpu() for g in plain_grads(*args,
+                                                          grad_out.to(cuda)))
+    # f32 sums of the same products in other orders (atomics for dV, a warp
+    # butterfly for the corner dot products): within 1e-5 of each
+    # gradient's largest magnitude (dloc carries the factor W_l).
+    for got, ref in ((dloc, ref_loc), (dw, ref_w)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-5,
+                                   atol=1e-5 * ref.abs().max().item())
+    if dtype == torch.float32:
+        torch.testing.assert_close(dv.cpu(), ref_v, rtol=1e-5,
+                                   atol=1e-5 * ref_v.abs().max().item())
+    else:  # one rounding of the f32 sum: at most one bf16 ulp apart
+        err = (dv.cpu().float() - ref_v).abs()
+        assert (err <= 2 ** -8 * ref_v.abs() + 1e-5 * ref_v.abs().max()).all()
+    assert (ref_loc != 0).any() and (ref_v != 0).any()
+
+
+def test_deform_attn_autograd_runs_both_kernels(cuda):
+    """``ms_deform_attn`` on CUDA tensors that need gradients: one forward
+    and one backward launch, and the gradients of the backward kernel."""
+    gen = torch.Generator().manual_seed(5)
+    shapes = ((6, 7), (3, 4))
+    values, loc, weights = deform_inputs(gen, 2, 9, 4, 8, shapes, 2,
+                                         torch.float32)
+    inputs = [x.to(cuda).requires_grad_() for x in (values, loc, weights)]
+    grad_out = torch.randn(2, 9, 4, 8, generator=gen).to(cuda)
+    before = (kda.LAUNCHES, kda.BACKWARD_LAUNCHES)
+    out = kda.ms_deform_attn(inputs[0], shapes, inputs[1], inputs[2])
+    grads = torch.autograd.grad(out, inputs, grad_out)
+    assert (kda.LAUNCHES, kda.BACKWARD_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    direct = kda.ms_deform_attn_backward_cuda(
+        *(x.detach() for x in inputs[:1]), shapes,
+        *(x.detach() for x in inputs[1:]), grad_out)
+    for got, ref in zip(grads, direct):
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
 def test_deform_attn_kernel_rejects_what_it_does_not_take(cuda):
     gen = torch.Generator().manual_seed(0)
     shapes = ((4, 4),) * 5
@@ -222,6 +304,12 @@ def test_deform_attn_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         kda.ms_deform_attn_cuda(values, shapes[:4], loc[:, :, :, :4],
                                 weights[:, :, :, :4])
+    args = (values[:, :64].contiguous().to(cuda), shapes[:4],
+            loc[:, :, :, :4].contiguous().to(cuda),
+            weights[:, :, :, :4].contiguous().to(cuda))
+    with pytest.raises(ValueError, match="cotangent"):
+        kda.ms_deform_attn_backward_cuda(
+            *args, torch.zeros(1, 3, 2, 8, dtype=torch.bfloat16, device=cuda))
 
 
 def test_deformable_detr_predict_on_card_equals_plain_path(cuda):
@@ -257,3 +345,54 @@ def test_deformable_detr_predict_on_card_equals_plain_path(cuda):
                                    rtol=1e-4, atol=1e-3)
         torch.testing.assert_close(out["scores"].cpu(), ref["scores"],
                                    rtol=1e-4, atol=1e-4)
+
+
+def test_deformable_detr_train_step_on_card_equals_plain_path(cuda):
+    """Two AdamW steps of the tiny Deformable DETR (f32, dropout 0) on the
+    card, through both deformable attention kernels, against the same steps
+    on the CPU plain path: losses within 1e-5 relative, parameters after
+    the updates within 1e-2 of how far they moved (Adam amplifies the
+    rounding of near-zero gradient elements) where the gradient is not
+    rounding noise."""
+    import dataclasses
+
+    from tpudet_torch.config import tiny_deformable_detr_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = tiny_deformable_detr_config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, optimizer="adamw", learning_rate=1e-3, warmup_steps=0,
+        grad_clip_norm=0.1, weight_decay=1e-4))
+    gen = torch.Generator().manual_seed(2)
+    boxes = torch.tensor([[[10.0, 12.0, 60.0, 70.0], [40.0, 30.0, 120.0, 90.0],
+                           [0.0, 0.0, 0.0, 0.0]]] * 2)
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [96.0, 112.0]]),
+             "gt_boxes": boxes, "gt_classes": torch.tensor([[1, 3, 0]] * 2),
+             "gt_valid": torch.tensor([[True, True, False]] * 2)}
+    runs = {}
+    for device in (cuda, "cpu"):
+        model = build_model(cfg, device=device)
+        state = create_train_state(model, cfg.train, seed=0, device=device)
+        before = {k: v.detach().clone() for k, v in state.params.items()}
+        step = make_train_step(model, cfg, device=device)
+        launches = (kda.LAUNCHES, kda.BACKWARD_LAUNCHES)
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+        launched = (kda.LAUNCHES - launches[0],
+                    kda.BACKWARD_LAUNCHES - launches[1])
+        grads = {k: p.grad.cpu() for k, p in state.params.items()}
+        runs[str(device)] = (losses, launched, before, grads,
+                             {k: p.detach().cpu()
+                              for k, p in state.params.items()})
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    assert card[1] == (8, 8) and cpu[1] == (0, 0)  # 4 layers x 2 steps
+    for a, b in zip(card[0], cpu[0]):
+        assert a == pytest.approx(b, rel=1e-5)
+    floor = 1e-6 * float(torch.stack([g.norm() for g in cpu[3].values()]).norm())
+    for name, p in cpu[4].items():
+        if float(cpu[3][name].norm()) <= floor:
+            continue
+        moved = float((p - cpu[2][name].cpu()).norm())
+        assert float((card[4][name] - p).norm()) <= 1e-2 * moved, name

@@ -230,8 +230,12 @@ def test_build_checks_and_unported_parts():
         tdd.DeformableDETR(cfg.replace(deformable_detr=dataclasses.replace(
             dd, sampling_gather="patch", shared_sampling_locations=True)),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.loss({})
+    # The loss is ported; in training mode with dropout it needs the
+    # generator that draws the masks.
+    dropping = tdd.DeformableDETR(cfg.replace(
+        deformable_detr=dataclasses.replace(dd, dropout=0.1)), device="cpu")
+    with pytest.raises(ValueError, match="Generator"):
+        dropping.loss({})
 
 
 def test_init_draws_flax_initializers():

@@ -54,7 +54,8 @@ def test_sources_import_no_jax_and_no_tpudet():
 
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
-                                   "DeformableDETRConfig", "Config"])
+                                   "DeformableDETRConfig", "TrainConfig",
+                                   "Config"])
 def test_config_defaults_equal_jax(group):
     port = getattr(tconfig, group)()
     ref = getattr(jconfig, group)()
@@ -88,7 +89,7 @@ def test_tiny_test_config_equals_jax_fields():
     for use_fpn in (False, True):
         port = tconfig.tiny_test_config(use_fpn=use_fpn)
         ref = jconfig.tiny_test_config(use_fpn=use_fpn)
-        for group in ("data", "backbone", "anchors", "rpn", "roi"):
+        for group in ("data", "backbone", "anchors", "rpn", "roi", "train"):
             for f in dataclasses.fields(getattr(port, group)):
                 assert (getattr(getattr(port, group), f.name)
                         == getattr(getattr(ref, group), f.name)), \
@@ -100,7 +101,7 @@ def test_tiny_deformable_detr_config_equals_jax_fields():
     port = tconfig.tiny_deformable_detr_config()
     ref = jconfig.tiny_deformable_detr_config()
     assert port.model == ref.model == "deformable_detr"
-    for group in ("data", "backbone", "deformable_detr"):
+    for group in ("data", "backbone", "deformable_detr", "train"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), \

@@ -109,7 +109,7 @@ def assert_preset_equals_jax(name):
     port, ref = preset_config(name), preset_jax(name)
     assert port.model == ref.model
     for group in ("data", "backbone", "anchors", "rpn", "roi",
-                  "deformable_detr"):
+                  "deformable_detr", "train"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), f"{group}.{f.name}"

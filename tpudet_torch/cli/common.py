@@ -11,6 +11,7 @@ from tpudet_torch.config import (
     DeformableDETRConfig,
     ROIConfig,
     RPNConfig,
+    TrainConfig,
     tiny_deformable_detr_config,
     tiny_test_config,
 )
@@ -51,7 +52,8 @@ def preset_config(name: str) -> Config:
         # Deformable-DETR-R50 on COCO (paper §5: d=256, 8 heads, 6+6 layers,
         # FFN 1024, 300 queries, 4 levels x 4 points), iterative box
         # refinement, bf16. C3..C5 + a stride-64 level through the model's
-        # own projections: no FPN, no anchors, no NMS.
+        # own projections: no FPN, no anchors, no NMS. Trains with AdamW at
+        # 2e-4 (the backbone at 0.1x), weight decay 1e-4, grad clip 0.1.
         return Config(
             model="deformable_detr",
             data=DataConfig(num_classes=80, canvas_height=1344,
@@ -61,6 +63,9 @@ def preset_config(name: str) -> Config:
                                     dtype="bfloat16"),
             deformable_detr=DeformableDETRConfig(with_box_refine=True,
                                                  sampling_gather="mxu"),
+            train=TrainConfig(optimizer="adamw", learning_rate=2e-4,
+                              weight_decay=1e-4, grad_clip_norm=0.1,
+                              backbone_lr_factor=0.1),
         )
     raise ValueError(f"unknown preset {name!r}: the port has 'voc_r50', "
                      "'coco_r101_fpn', 'coco_deformable_detr_r50', 'tiny', "

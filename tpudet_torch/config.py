@@ -1,11 +1,13 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
 Faster R-CNN inference, single-level and FPN, and Deformable DETR inference
-read).
+and training read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
 defaults equal. Groups and fields the port does not run yet (training, the
-other families, TPU-only knobs) are left out until their slice lands.
+other families, TPU-only knobs) are left out until their slice lands;
+``TrainConfig`` has every field of the JAX group, though the port reads only
+the optimizer, schedule, EMA, accumulation, freeze and seed fields so far.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ class BackboneConfig:
     # 1x1 conv + ReLU reducing c4 before the RPN/RoI path; 0 disables.
     # Not read with FPN, whose levels are already 256 wide.
     neck_channels: int = 256
+    # Training: no gradient into the ResNet stem and stage c2 (their
+    # parameters still take weight decay). The tiny backbone ignores it.
+    freeze_stem: bool = True
     # Compute dtype of convs and matmuls; parameters stay float32.
     dtype: str = "float32"  # "float32" | "bfloat16"
     # True: stride on the first 1x1 of a bottleneck (Keras/caffe);
@@ -128,8 +133,7 @@ class DeformableDETRConfig:
     """Deformable DETR (Zhu et al., arXiv:2010.04159): multi-scale
     deformable attention over C3..C5 + extra strided levels, reference-point
     box regression with optional per-layer iterative refinement. Every field
-    and default of the JAX package's group; the matching and loss weights
-    are read by training, which waits for its slice."""
+    and default of the JAX package's group."""
 
     # Transformer (paper §5: d=256, 8 heads, 6+6 layers, FFN 1024,
     # 300 queries, 4 levels x 4 points).
@@ -169,6 +173,51 @@ class DeformableDETRConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and loop (``tpudet.config.TrainConfig``: every
+    field and default). The checkpoint, logging, mesh and ``bf16`` fields
+    are kept for parity and not read yet."""
+
+    batch_size: int = 2  # global batch size (per optimizer update)
+    # Split each batch into this many microbatches (strided rows, as the
+    # JAX step's reshape takes them) and apply one averaged update.
+    accum_steps: int = 1
+    # "sgd" | "adam" | "adamw": adamw decays decoupled, after the Adam
+    # moments; sgd and adam add weight_decay * p to the gradient (coupled).
+    optimizer: str = "sgd"
+    learning_rate: float = 1e-3
+    momentum: float = 0.9
+    weight_decay: float = 5e-4
+    # Scales the backbone's whole update (decay included) after the
+    # optimizer core: a param group whose lr is multiplied by it.
+    backbone_lr_factor: float = 1.0
+    # "step" (lr * lr_gamma at each milestone) or "cosine" (half-cosine to
+    # lr_min_factor * learning_rate at total_steps), after a linear warmup.
+    lr_schedule: str = "step"
+    lr_min_factor: float = 0.0
+    lr_milestones: Tuple[int, ...] = (60000,)
+    lr_gamma: float = 0.1
+    warmup_steps: int = 500
+    warmup_factor: float = 1.0 / 3.0
+    total_steps: int = 80000
+    # EMA of the parameters (0 disables); decay ramps in as
+    # min(ema_decay, (1 + n) / (10 + n)) after n updates.
+    ema_decay: float = 0.0
+    grad_clip_norm: float = 0.0  # 0 disables; optax.clip_by_global_norm
+    seed: int = 0
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 1000
+    keep_checkpoints: int = 3
+    log_every: int = 20
+    num_data_shards: int = -1
+    num_model_shards: int = 1
+    bf16: bool = False
+    # Slash-joined parameter prefixes (the Flax tree's paths, e.g.
+    # "backbone") that never change: no gradient, no update, no decay.
+    freeze: Tuple[str, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: str = "faster_rcnn"
     data: DataConfig = DataConfig()
@@ -177,6 +226,7 @@ class Config:
     rpn: RPNConfig = RPNConfig()
     roi: ROIConfig = ROIConfig()
     deformable_detr: DeformableDETRConfig = DeformableDETRConfig()
+    train: TrainConfig = TrainConfig()
     # Kept for parity with the JAX config and never read: the port
     # dispatches by the tensor's device alone (a CUDA tensor goes to the
     # hand-written kernel, a CPU tensor to its plain PyTorch version).
@@ -199,7 +249,8 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
             canvas_width=canvas,
             max_gt_boxes=10,
         ),
-        backbone=BackboneConfig(name="tiny", use_fpn=use_fpn, norm="gn"),
+        backbone=BackboneConfig(name="tiny", use_fpn=use_fpn, norm="gn",
+                                freeze_stem=False),
         anchors=AnchorConfig(scales=(32.0, 64.0), aspect_ratios=(0.5, 1.0, 2.0)),
         rpn=RPNConfig(
             conv_channels=64,
@@ -207,6 +258,7 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
             post_nms_topk_test=64,
         ),
         roi=ROIConfig(fc_dim=64, max_detections=20),
+        train=TrainConfig(batch_size=2, checkpoint_every=10**9),
         use_pallas=False,
     )
 

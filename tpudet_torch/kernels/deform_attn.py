@@ -1,21 +1,29 @@
-"""Multi-scale deformable attention: the Hopper kernel
-(``csrc/deform_attn.cu``) and its plain PyTorch version.
+"""Multi-scale deformable attention: the Hopper kernels
+(``csrc/deform_attn.cu``, forward and backward) and their plain PyTorch
+version.
 
-Replaces ``tpudet/kernels/deform_attn_mxu.py::_fwd_banded_kernel`` and
-``::_fwd_flat_kernel`` (reached through ``ms_deform_attn_mxu``), the forward
-of TPU kernel 4. The TPU kernels contract one-hot selectors with each
-level's value map on the matrix unit because the TPU cannot gather; their
-banded/flat split, bf16 hi/lo operands and the rule that the head dim
-divide 128 are TPU workarounds. On Hopper the bilinear 4-corner gather is
-the natural form: one launch samples all levels for every query of the
-batch, through a by-value table of (H_l, W_l, start offset); threads run
-over the ``H * D`` output channels and each sample's corners and weights
-are computed once per block in shared memory.
+The forward replaces ``tpudet/kernels/deform_attn_mxu.py::_fwd_banded_kernel``
+and ``::_fwd_flat_kernel``, the backward ``::_bwd_banded_kernel`` and
+``::_bwd_flat_kernel`` (all reached through ``ms_deform_attn_mxu`` and its
+custom VJP). The TPU kernels contract one-hot selectors with each level's
+value map on the matrix unit because the TPU cannot gather; their
+banded/flat split, bf16 hi/lo operands, per-axis weight-gradient outputs and
+the rule that the head dim divide 128 are TPU workarounds. On Hopper the
+bilinear 4-corner gather is the natural form: one launch samples all levels
+for every query of the batch, through a by-value table of (H_l, W_l, start
+offset); the forward's threads run over the ``H * D`` output channels, the
+backward's warps over heads, and each sample's corners and weights are
+computed once per block in shared memory.
 
-What bounds it on the H100: bytes (values, locations and weights read
-once, the f32 output written once). The design writes each output value
-once, accumulates in f32 in registers and reads bf16 or f32 values as they
-are. The backward kernels wait for Deformable DETR training.
+What bounds them on the H100: bytes (values, locations and weights read
+once, the f32 output -- or the gradients and the f32 value gradient --
+written once). The forward writes each output value once and accumulates in
+f32 in registers; the backward adds into an f32 value gradient with atomics
+and casts it once to the values' dtype.
+
+``ms_deform_attn`` is the differentiable entry: on the card an autograd
+Function runs the forward kernel and, for the gradients, the backward
+kernel; on the CPU autograd runs through the plain version.
 """
 
 from __future__ import annotations
@@ -32,54 +40,54 @@ from tpudet_torch.ops.deform_attn import (
     ms_deform_attn_batched as ms_deform_attn_plain,
 )
 
-# Launches of the CUDA kernel, one per wrapper call on a CUDA tensor.
+# Launches of the CUDA kernels, one per wrapper call on CUDA tensors.
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
 SOURCE = "tpudet_torch/kernels/csrc/deform_attn.cu"
 REPLACES = "tpudet/kernels/deform_attn_mxu.py:173"
+BACKWARD_REPLACES = ("tpudet/kernels/deform_attn_mxu.py:244 and "
+                     "tpudet/kernels/deform_attn_mxu.py:319")
 
 MAX_LEVELS = 4  # kMaxLevels of the CUDA source
-# Static shared memory a block may take without an opt-in: 32 bytes (four
-# corner rows and four weights) per sample of one query.
-MAX_SAMPLES = 48 * 1024 // 32
+# Static shared memory a block may take without an opt-in: the forward keeps
+# 32 bytes (four corner rows and four weights) per sample of one query, the
+# backward 64 (rows, weights and their x and y derivatives) plus the
+# query's f32 cotangent.
+SMEM_BYTES = 48 * 1024
+MAX_SAMPLES = SMEM_BYTES // 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-__all__ = ["ms_deform_attn", "ms_deform_attn_cuda", "ms_deform_attn_plain"]
+__all__ = ["ms_deform_attn", "ms_deform_attn_cuda",
+           "ms_deform_attn_backward_cuda", "ms_deform_attn_plain"]
 
 
 def _lib():
     lib = _build.load("deform_attn")
-    fn = lib.tpudet_ms_deform_attn_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.POINTER(ctypes.c_int)] * 3
-                       + [ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    fwd, bwd = lib.tpudet_ms_deform_attn_forward, lib.tpudet_ms_deform_attn_backward
+    if fwd.argtypes is None:
+        tail = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
+                + [ctypes.c_int, ctypes.c_void_p])
+        fwd.argtypes = [ctypes.c_void_p] * 4 + tail
+        bwd.argtypes = [ctypes.c_void_p] * 7 + tail
+        fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
 
 
-def ms_deform_attn_cuda(values: torch.Tensor,
-                        level_shapes: Sequence[Tuple[int, int]],
-                        locations: torch.Tensor,
-                        weights: torch.Tensor) -> torch.Tensor:
-    """The kernel: ``values [B, N, H, D]`` (f32 or bf16), ``locations
-    [B, Q, H, L, P, 2]`` f32, ``weights [B, Q, H, L, P]`` f32, all
-    contiguous on one CUDA device -> ``[B, Q, H, D]`` f32."""
-    global LAUNCHES
+def _check(values, level_shapes, locations, weights, name):
+    """Device, dtype, shape and layout checks shared by both kernels."""
     dev = values.device
     if dev.type != "cuda" or locations.device != dev or weights.device != dev:
-        raise ValueError("ms_deform_attn_cuda needs all inputs on one CUDA "
-                         "device")
+        raise ValueError(f"{name} needs all inputs on one CUDA device")
     if values.dtype not in _DTYPES:
-        raise TypeError(f"ms_deform_attn_cuda takes f32 or bf16 values, got "
-                        f"{values.dtype}")
+        raise TypeError(f"{name} takes f32 or bf16 values, got {values.dtype}")
     if locations.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError("ms_deform_attn_cuda takes f32 locations and weights")
+        raise TypeError(f"{name} takes f32 locations and weights")
     b, n, h, d = values.shape
     q, lv, p = locations.shape[1], locations.shape[3], locations.shape[4]
     if not 1 <= lv <= MAX_LEVELS or len(level_shapes) != lv:
-        raise ValueError(f"ms_deform_attn_cuda takes 1..{MAX_LEVELS} levels, "
-                         f"got {len(level_shapes)} shapes for {lv} levels")
+        raise ValueError(f"{name} takes 1..{MAX_LEVELS} levels, got "
+                         f"{len(level_shapes)} shapes for {lv} levels")
     offsets, total = level_start_offsets(level_shapes)
     if total != n:
         raise ValueError(f"level_shapes {tuple(level_shapes)} sum to {total} "
@@ -88,22 +96,37 @@ def ms_deform_attn_cuda(values: torch.Tensor,
             or weights.shape != (b, q, h, lv, p)):
         raise ValueError(f"bad deformable attention shapes {tuple(values.shape)}"
                          f", {tuple(locations.shape)}, {tuple(weights.shape)}")
+    if not (values.is_contiguous() and locations.is_contiguous()
+            and weights.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous values, locations and "
+                         "weights")
+    ints = ctypes.c_int * lv
+    table = (ints(*(hl for hl, _ in level_shapes)),
+             ints(*(wl for _, wl in level_shapes)), ints(*offsets))
+    return (b, n, q, h, d, lv, p), table
+
+
+def ms_deform_attn_cuda(values: torch.Tensor,
+                        level_shapes: Sequence[Tuple[int, int]],
+                        locations: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """The forward kernel: ``values [B, N, H, D]`` (f32 or bf16), ``locations
+    [B, Q, H, L, P, 2]`` f32, ``weights [B, Q, H, L, P]`` f32, all
+    contiguous on one CUDA device -> ``[B, Q, H, D]`` f32."""
+    global LAUNCHES
+    dims, table = _check(values, level_shapes, locations, weights,
+                         "ms_deform_attn_cuda")
+    b, n, q, h, d, lv, p = dims
     if h * lv * p > MAX_SAMPLES:
         raise ValueError(f"ms_deform_attn_cuda takes at most {MAX_SAMPLES} "
                          f"samples per query, got H*L*P = {h * lv * p}")
-    if not (values.is_contiguous() and locations.is_contiguous()
-            and weights.is_contiguous()):
-        raise ValueError("ms_deform_attn_cuda needs contiguous values, "
-                         "locations and weights")
+    dev = values.device
     out = torch.empty((b, q, h, d), dtype=torch.float32, device=dev)
-    ints = ctypes.c_int * lv
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(
+        err = _lib()[0](
             values.data_ptr(), locations.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), b, n, q, h, d, lv, p,
-            ints(*(hl for hl, _ in level_shapes)),
-            ints(*(wl for _, wl in level_shapes)), ints(*offsets),
+            out.data_ptr(), b, n, q, h, d, lv, p, *table,
             _DTYPES[values.dtype], stream)
     if err != 0:
         raise RuntimeError(f"deformable attention kernel launch failed: "
@@ -112,13 +135,77 @@ def ms_deform_attn_cuda(values: torch.Tensor,
     return out
 
 
+def ms_deform_attn_backward_cuda(values: torch.Tensor,
+                                 level_shapes: Sequence[Tuple[int, int]],
+                                 locations: torch.Tensor,
+                                 weights: torch.Tensor,
+                                 grad_out: torch.Tensor):
+    """The backward kernel: the forward's inputs and the f32 cotangent
+    ``grad_out [B, Q, H, D]`` -> ``(d_values [B, N, H, D]`` in the values'
+    dtype (summed in f32, cast once), ``d_locations``, ``d_weights)`` f32 in
+    the shapes of the inputs."""
+    global BACKWARD_LAUNCHES
+    dims, table = _check(values, level_shapes, locations, weights,
+                         "ms_deform_attn_backward_cuda")
+    b, n, q, h, d, lv, p = dims
+    if h * lv * p * 64 + h * d * 4 > SMEM_BYTES:
+        raise ValueError(f"ms_deform_attn_backward_cuda: H*L*P = {h * lv * p} "
+                         f"samples and H*D = {h * d} channels per query "
+                         f"exceed {SMEM_BYTES} bytes of shared memory")
+    if (grad_out.device != values.device or grad_out.dtype != torch.float32
+            or grad_out.shape != (b, q, h, d) or not grad_out.is_contiguous()):
+        raise ValueError(f"ms_deform_attn_backward_cuda needs a contiguous f32 "
+                         f"cotangent [{b}, {q}, {h}, {d}] on the values' "
+                         f"device, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+    dev = values.device
+    grad_values = torch.zeros((b, n, h, d), dtype=torch.float32, device=dev)
+    grad_loc = torch.empty_like(locations)
+    grad_weights = torch.empty_like(weights)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib()[1](
+            values.data_ptr(), locations.data_ptr(), weights.data_ptr(),
+            grad_out.data_ptr(), grad_values.data_ptr(), grad_loc.data_ptr(),
+            grad_weights.data_ptr(), b, n, q, h, d, lv, p, *table,
+            _DTYPES[values.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"deformable attention backward kernel launch "
+                           f"failed: cudaError {err}")
+    BACKWARD_LAUNCHES += 1
+    return grad_values.to(values.dtype), grad_loc, grad_weights
+
+
+class _MSDeformAttnCUDA(torch.autograd.Function):
+    """The forward kernel, with the backward kernel for its gradients."""
+
+    @staticmethod
+    def forward(ctx, values, locations, weights, level_shapes):
+        ctx.level_shapes = level_shapes
+        ctx.save_for_backward(values, locations, weights)
+        return ms_deform_attn_cuda(values, level_shapes, locations, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        values, locations, weights = ctx.saved_tensors
+        grads = ms_deform_attn_backward_cuda(
+            values, ctx.level_shapes, locations, weights,
+            grad_out.to(torch.float32).contiguous())
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
 def ms_deform_attn(values: torch.Tensor,
                    level_shapes: Sequence[Tuple[int, int]],
                    locations: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
-    """Dispatch by device: CUDA -> the kernel, CPU -> the plain version."""
+    """Dispatch by device: CUDA -> the kernels (the backward one when
+    autograd asks for gradients; under ``no_grad`` or ``inference_mode``
+    nothing is recorded), CPU -> the plain version (autograd runs through
+    it)."""
     if values.device.type == "cuda":
-        return ms_deform_attn_cuda(values, level_shapes, locations, weights)
+        return _MSDeformAttnCUDA.apply(values, locations, weights,
+                                       tuple(level_shapes))
     if values.device.type == "cpu":
         return ms_deform_attn_plain(values, level_shapes, locations, weights)
     raise ValueError(f"no deformable attention for device {values.device}")

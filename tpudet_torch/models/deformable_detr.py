@@ -1,5 +1,5 @@
-"""Deformable DETR inference (``tpudet.models.deformable_detr``; Zhu et al.,
-arXiv:2010.04159).
+"""Deformable DETR (``tpudet.models.deformable_detr``; Zhu et al.,
+arXiv:2010.04159): inference and the training loss.
 
 The backbone's C3..C5 and extra stride-2 levels are projected to
 ``d_model``, normalized over their valid positions only and flattened into
@@ -7,13 +7,18 @@ one multi-scale token sequence. A post-norm encoder of deformable
 self-attention and a decoder of dense query self-attention plus deformable
 cross-attention follow; each decoder layer's heads give sigmoid class
 logits and (cx, cy, w, h) boxes around the layer's reference points
-(re-estimated layer by layer under ``with_box_refine``). Inference is a
-top-k over the (query, class) sigmoid scores: no NMS.
+(re-estimated layer by layer under ``with_box_refine``, each layer's
+reference detached from the previous layer's boxes). Inference is a top-k
+over the (query, class) sigmoid scores: no NMS. Training matches queries to
+ground truth per decoder layer and image (``train.losses``), with dropout
+at Flax's sites when the model is in training mode and a generator is
+passed.
 
 Every multi-scale deformable attention runs through
-``tpudet_torch.kernels.deform_attn`` (the Hopper kernel on the card, its
-plain version on the CPU): one launch per ``MSDeformAttn`` call, 12 per
-predict at 6+6 layers.
+``tpudet_torch.kernels.deform_attn`` (the Hopper kernels on the card, its
+plain version on the CPU): one forward launch per ``MSDeformAttn`` call, 12
+per predict or train step at 6+6 layers, and one backward launch per call in
+a train step.
 
 Dtypes follow the JAX package's flow: the value projection, ``out``, the
 FFN, the dense attention and the box MLP's first two layers compute in the
@@ -26,8 +31,7 @@ input down again.
 Module names follow the Flax tree (``enc0.deform_attn.sampling_offsets``,
 ``dec0.self_attn.query``, ``class_head0``, ``bbox_head0.fc0``,
 ``input_proj0``, ``extra_norm0``, ``level_embed``, ``query_embed``, ...), so
-a converted variables tree loads by name. Training waits for its slice
-(ROADMAP.md, Queue 1).
+a converted variables tree loads by name.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from tpudet_torch.models.layers import (
     Conv,
     Dense,
     LayerNorm,
+    dropout,
     init_module,
     normal_,
 )
@@ -61,6 +66,7 @@ from tpudet_torch.ops.deform_attn import (
     level_reference_points,
     sampling_offset_init_bias,
 )
+from tpudet_torch.train import losses
 
 GATHERS = ("flat", "patch", "mxu")
 LevelShapes = Tuple[Tuple[int, int], ...]
@@ -181,51 +187,62 @@ class MSDeformAttn(nn.Module):
 class DeformableEncoderLayer(nn.Module):
     """Post-norm encoder layer: deformable self-attention over the
     multi-scale tokens (query = token + positional/level embedding,
-    reference = the token's own center), then the FFN."""
+    reference = the token's own center), then the FFN; dropout on both
+    branches and inside the FFN when a generator is passed."""
 
     def __init__(self, d_model, num_heads, num_levels, num_points, ffn_dim,
-                 dtype, gather="flat", shared_locations=False, device=None):
+                 dtype, gather="flat", shared_locations=False, device=None,
+                 dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.deform_attn = MSDeformAttn(d_model, num_heads, num_levels,
                                         num_points, dtype, gather,
                                         shared_locations, device)
         self.norm1 = LayerNorm(d_model, device=device)
-        self.ffn = _FFN(d_model, ffn_dim, dtype, device)
+        self.ffn = _FFN(d_model, ffn_dim, dtype, device, dropout)
         self.norm2 = LayerNorm(d_model, device=device)
 
-    def forward(self, src, pos, ref_xy, valid_tokens, level_shapes):
+    def forward(self, src, pos, ref_xy, valid_tokens, level_shapes,
+                generator=None):
         attn = self.deform_attn(src + pos, ref_xy, None, src, valid_tokens,
                                 level_shapes)
-        src = self.norm1(src + attn)
-        return self.norm2(src + self.ffn(src))
+        src = self.norm1(src + dropout(attn, self.dropout, generator))
+        ffn = self.ffn(src, generator)
+        return self.norm2(src + dropout(ffn, self.dropout, generator))
 
 
 class DeformableDecoderLayer(nn.Module):
     """Post-norm decoder layer: dense query self-attention (q = k =
     tgt + query_pos, v = tgt), deformable cross-attention into the
-    multi-scale memory, the FFN."""
+    multi-scale memory, the FFN; dropout on the attention probabilities,
+    on the three branches and inside the FFN when a generator is passed."""
 
     def __init__(self, d_model, num_heads, num_levels, num_points, ffn_dim,
-                 dtype, gather="flat", shared_locations=False, device=None):
+                 dtype, gather="flat", shared_locations=False, device=None,
+                 dropout=0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MultiHeadDotProductAttention(d_model, num_heads,
-                                                      dtype, device)
+                                                      dtype, device, dropout)
         self.norm1 = LayerNorm(d_model, device=device)
         self.cross_attn = MSDeformAttn(d_model, num_heads, num_levels,
                                        num_points, dtype, gather,
                                        shared_locations, device)
         self.norm2 = LayerNorm(d_model, device=device)
-        self.ffn = _FFN(d_model, ffn_dim, dtype, device)
+        self.ffn = _FFN(d_model, ffn_dim, dtype, device, dropout)
         self.norm3 = LayerNorm(d_model, device=device)
 
     def forward(self, tgt, query_pos, memory, ref_xy, ref_wh, valid_tokens,
-                level_shapes):
+                level_shapes, generator=None):
+        rate = self.dropout
         q = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(q, q, tgt))
+        attn = self.self_attn(q, q, tgt, generator)
+        tgt = self.norm1(tgt + dropout(attn, rate, generator))
         attn = self.cross_attn(tgt + query_pos, ref_xy, ref_wh, memory,
                                valid_tokens, level_shapes)
-        tgt = self.norm2(tgt + attn)
-        return self.norm3(tgt + self.ffn(tgt))
+        tgt = self.norm2(tgt + dropout(attn, rate, generator))
+        ffn = self.ffn(tgt, generator)
+        return self.norm3(tgt + dropout(ffn, rate, generator))
 
 
 class _BoxMLP(nn.Module):
@@ -255,7 +272,8 @@ class DeformableDETRCore(nn.Module):
         self.cfg = cfg
         self.dtype = dtype
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
-                                       bb.stride_in_1x1, device)
+                                       bb.stride_in_1x1, device,
+                                       freeze_stem=bb.freeze_stem)
         channels = self.backbone.channels
         groups = min(32, d.d_model)
         # 1x1 conv + masked GroupNorm on C3..C5; each extra level a 3x3/2
@@ -280,7 +298,7 @@ class DeformableDETRCore(nn.Module):
                      num_levels=d.num_levels, num_points=d.num_points,
                      ffn_dim=d.ffn_dim, dtype=dtype, gather=d.sampling_gather,
                      shared_locations=d.shared_sampling_locations,
-                     device=device)
+                     device=device, dropout=d.dropout)
         for i in range(d.enc_layers):
             self.add_module(f"enc{i}", DeformableEncoderLayer(**layer))
         for i in range(d.dec_layers):
@@ -364,11 +382,13 @@ class DeformableDETRCore(nn.Module):
                 torch.stack(ratios, dim=1))
 
     # ------------------------------------------------------------- forward
-    def forward(self, images: torch.Tensor, image_hw: torch.Tensor
+    def forward(self, images: torch.Tensor, image_hw: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[B, H, W, 3]`` images, ``[B, 2]`` f32 (h, w) -> per decoder
         layer ``[Ldec, B, Q, C]`` class logits and ``[Ldec, B, Q, 4]``
-        (cx, cy, w, h) boxes normalized by each image's true extent."""
+        (cx, cy, w, h) boxes normalized by each image's true extent.
+        ``generator`` (None: no dropout) draws every dropout mask."""
         d = self.cfg.deformable_detr
         src, pos, valid_tokens, level_shapes, valid_ratios = (
             self._multi_scale(images, image_hw))
@@ -383,7 +403,8 @@ class DeformableDETRCore(nn.Module):
         ref_valid = centers[None] / own_ratio.clamp(min=1e-6)
         enc_ref = ref_valid[:, :, None, :] * valid_ratios[:, None, :, :]
         for layer in self._layers("enc", d.enc_layers):
-            src = layer(src, pos, enc_ref, valid_tokens, level_shapes)
+            src = layer(src, pos, enc_ref, valid_tokens, level_shapes,
+                        generator)
 
         qe = self.query_embed
         qpos = qe[None, :, :d.d_model].expand(b, -1, -1).to(self.dtype)
@@ -400,7 +421,7 @@ class DeformableDETRCore(nn.Module):
                     [valid_ratios, valid_ratios], dim=-1)[:, None, :, :]
                 ref_xy, ref_wh = scaled[..., :2], scaled[..., 2:]
             tgt = layer(tgt, qpos, src, ref_xy, ref_wh, valid_tokens,
-                        level_shapes)
+                        level_shapes, generator)
             hi = i if d.with_box_refine else 0
             logits = getattr(self, f"class_head{hi}")(tgt.to(torch.float32))
             delta = getattr(self, f"bbox_head{hi}")(tgt)
@@ -413,7 +434,9 @@ class DeformableDETRCore(nn.Module):
             all_logits.append(logits)
             all_boxes.append(boxes)
             if d.with_box_refine:
-                ref = boxes
+                # Each layer refines around the previous layer's boxes
+                # without backpropagating into them.
+                ref = boxes.detach()
         return torch.stack(all_logits), torch.stack(all_boxes)
 
 
@@ -462,11 +485,59 @@ class DeformableDETR(nn.Module):
         self.core.reset_parameters(generator)
         return self
 
-    def loss(self, batch):
-        raise NotImplementedError(
-            "Deformable DETR training (matcher, deformable_detr_set_loss, the "
-            "deformable attention backward) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 23)")
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The set loss on a preprocessed batch (``image``, ``image_hw``,
+        ``gt_boxes [B, G, 4]`` xyxy pixels, ``gt_classes [B, G]`` 1..C,
+        ``gt_valid [B, G]``) -> ``(total, metrics)``, as
+        ``tpudet.models.DeformableDETR.loss``: ground truth in normalized
+        cxcywh by each image's true extent, the focal-matched set loss per
+        (decoder layer, image) -- the last layer only without ``aux_loss``
+        -- each term over layer 0's matched pairs, the weighted per-layer
+        sums added up. Dropout runs when the model is in training mode and
+        ``deformable_detr.dropout > 0``; its masks come from ``generator``
+        (on the model's device), which must then be given."""
+        cfg = self.cfg
+        d = cfg.deformable_detr
+        if self.training and d.dropout > 0.0:
+            if generator is None:
+                raise ValueError(
+                    f"deformable_detr.dropout={d.dropout} in training mode "
+                    "draws its masks from a torch.Generator: pass one on "
+                    f"{self.device} (or call model.eval())")
+        else:
+            generator = None
+        hw = batch["image_hw"].to(torch.float32)
+        logits, boxes = self.core(batch["image"], hw, generator)
+        if not d.aux_loss:
+            logits, boxes = logits[-1:], boxes[-1:]
+        norm = torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]],
+                           dim=-1)[:, None, :]
+        gt_n = box_ops.xyxy_to_cxcywh(batch["gt_boxes"].to(torch.float32)) / norm
+        layers = logits.shape[0]
+        focal_s, l1_s, gi_s, npos = losses.deformable_detr_set_loss(
+            logits, boxes, gt_n.expand(layers, -1, -1, -1),
+            batch["gt_classes"].expand(layers, -1, -1),
+            batch["gt_valid"].to(torch.bool).expand(layers, -1, -1),
+            cost_class=d.cost_class, cost_bbox=d.cost_bbox,
+            cost_giou=d.cost_giou, alpha=d.focal_alpha, gamma=d.focal_gamma)
+        # Every term over the matched pairs of the batch (layer 0's count).
+        total_pos = npos[0].sum().clamp(min=1.0)
+        cls_loss = focal_s.sum(dim=1) / total_pos             # [Ldec]
+        l1_loss = l1_s.sum(dim=1) / total_pos
+        giou_loss = gi_s.sum(dim=1) / total_pos
+        layer_losses = (d.loss_weight_class * cls_loss
+                        + d.loss_weight_bbox * l1_loss
+                        + d.loss_weight_giou * giou_loss)
+        total = layer_losses.sum()
+        return total, {
+            "loss": total,
+            "focal_cls_loss": cls_loss[-1],
+            "l1_box_loss": l1_loss[-1],
+            "giou_box_loss": giou_loss[-1],
+            "num_gt": npos[-1].mean(),
+        }
 
     def _predict_single(self, logits: torch.Tensor, boxes_n: torch.Tensor,
                         image_hw: torch.Tensor):

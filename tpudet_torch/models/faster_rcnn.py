@@ -81,7 +81,8 @@ class DetectorCore(nn.Module):
         bb = cfg.backbone
         dtype = torch.bfloat16 if bb.dtype == "bfloat16" else torch.float32
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
-                                       bb.stride_in_1x1, device)
+                                       bb.stride_in_1x1, device,
+                                       freeze_stem=bb.freeze_stem)
         self.neck_conv = None
         self.fpn = None
         if bb.use_fpn:

@@ -20,6 +20,9 @@ follow the Flax names, so the mapping is mechanical:
   LayerNorm, ``MaskedGroupNorm``) becomes ``weight``;
 * parameters that are no layer's (``level_embed``, ``query_embed``) keep
   their names and values.
+
+``flax_param_ndims`` gives each port parameter the ndim of its Flax leaf,
+for the optimizer's weight-decay mask.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
+
+from tpudet_torch.models.detr import MultiHeadDotProductAttention
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -72,3 +78,21 @@ def from_flax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (name,))
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def flax_param_ndims(module: nn.Module) -> Dict[str, int]:
+    """Each parameter of ``module`` (a model's ``core``) -> the ndim of its
+    leaf in the Flax params tree, which the JAX optimizer's weight-decay
+    mask reads (``ndim >= 2`` decays). They agree but for the multi-head
+    attention projections: Flax keeps the ``query``/``key``/``value`` biases
+    as DenseGeneral ``[heads, hd]`` (ndim 2, decayed; the port's are
+    flattened to 1-D) and the four kernels as 3-D."""
+    ndims = {name: p.ndim for name, p in module.named_parameters()}
+    for name, m in module.named_modules():
+        if isinstance(m, MultiHeadDotProductAttention):
+            prefix = f"{name}." if name else ""
+            for proj in ("query", "key", "value"):
+                ndims[f"{prefix}{proj}.weight"] = 3
+                ndims[f"{prefix}{proj}.bias"] = 2
+            ndims[f"{prefix}out.weight"] = 3
+    return ndims

@@ -1,6 +1,7 @@
 """Shared building blocks (``tpudet.models.layers``): convolution and dense
 layers that compute in a given dtype over float32 parameters, Flax's
-initializers, the two backbone normalizations and Flax's LayerNorm.
+initializers, the two backbone normalizations, Flax's LayerNorm and Flax's
+dropout over an explicit generator.
 
 Tensors are NCHW in ``torch.channels_last`` memory format inside the
 backbone, so an NHWC view of any feature map is a free permute.
@@ -196,6 +197,21 @@ class LayerNorm(nn.Module):
         var = (mean2 - mean * mean).clamp(min=0.0)
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         return (x - mean) * mul + self.bias
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: each entry kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, the rest zeroed. The mask is drawn
+    from ``generator`` (on ``x``'s device) alone; ``generator`` None is
+    Flax's ``deterministic=True`` and returns ``x``."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def make_norm(kind: str, channels: int, device=None) -> nn.Module:

@@ -61,14 +61,17 @@ class Bottleneck(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet with bottleneck blocks (``STAGE_BLOCKS``): 7x7/2 stem,
-    3x3/2 max-pool, stages c2..c5 at strides 4..32."""
+    3x3/2 max-pool, stages c2..c5 at strides 4..32. ``freeze_stem`` detaches
+    c2, so no gradient reaches the stem or stage c2."""
 
     def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3),
                  norm: str = "frozen_bn", dtype: torch.dtype = torch.float32,
-                 stride_in_1x1: bool = True, device=None):
+                 stride_in_1x1: bool = True, freeze_stem: bool = True,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.blocks = tuple(blocks)
+        self.freeze_stem = freeze_stem
         self.stem_conv = Conv(3, 64, 7, 2, padding=3, bias=False, dtype=dtype,
                               device=device)
         self.norm_stem = make_norm(norm, 64, device)
@@ -94,6 +97,10 @@ class ResNet(nn.Module):
         for stage, n_blocks in enumerate(self.blocks):
             for i in range(n_blocks):
                 x = getattr(self, f"stage{stage + 2}_block{i}")(x)
+            if stage == 0 and self.freeze_stem:
+                # No gradient into the stem and stage c2 (their
+                # parameters get none; weight decay still moves them).
+                x = x.detach()
             feats[LEVELS[stage]] = x
             if LEVELS[stage] == stop_at:
                 break
@@ -136,11 +143,15 @@ class TinyBackbone(nn.Module):
 
 
 def build_backbone(name: str, norm: str, dtype: torch.dtype,
-                   stride_in_1x1: bool = True, device=None) -> nn.Module:
+                   stride_in_1x1: bool = True, device=None,
+                   freeze_stem: bool = True) -> nn.Module:
+    """``freeze_stem`` stops the gradient after stage c2 of a ResNet, as
+    the JAX package does; the tiny backbone ignores it, as JAX's does."""
     if name == "tiny":
         return TinyBackbone(norm=norm, dtype=dtype, device=device)
     if name in STAGE_BLOCKS:
         return ResNet(STAGE_BLOCKS[name], norm=norm, dtype=dtype,
-                      stride_in_1x1=stride_in_1x1, device=device)
+                      stride_in_1x1=stride_in_1x1, freeze_stem=freeze_stem,
+                      device=device)
     raise ValueError(f"unknown backbone {name!r}: the port has "
                      f"{sorted(STAGE_BLOCKS)} and 'tiny'")

@@ -1,4 +1,4 @@
-"""Box geometry: area, IoU, encode/decode, cxcywh conversions, clip
+"""Box geometry: area, IoU, GIoU, encode/decode, cxcywh conversions, clip
 (``tpudet.ops.boxes``).
 
 Boxes are ``[x1, y1, x2, y2]`` in absolute pixels; width is ``x2 - x1`` (no
@@ -17,9 +17,12 @@ BBOX_XFORM_CLIP = math.log(1000.0 / 16.0)
 
 
 def area(boxes: torch.Tensor) -> torch.Tensor:
-    """[..., 4] -> [...]: box areas (0 for degenerate boxes)."""
-    w = (boxes[..., 2] - boxes[..., 0]).clamp(min=0.0)
-    h = (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0)
+    """[..., 4] -> [...]: box areas (0 for degenerate boxes). ``maximum``
+    against a zero tensor, not ``clamp``: a tie at zero width splits the
+    gradient as ``jnp.maximum``'s does."""
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    w = torch.maximum(boxes[..., 2] - boxes[..., 0], zero)
+    h = torch.maximum(boxes[..., 3] - boxes[..., 1], zero)
     return w * h
 
 
@@ -90,6 +93,34 @@ def decode_boxes(
     return torch.stack(
         [x - 0.5 * w, y - 0.5 * h, x + 0.5 * w, y + 0.5 * h], dim=-1
     )
+
+
+def elementwise_giou(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """``[..., 4]`` broadcast pairs -> ``[...]`` generalized IoU
+    (Rezatofighi et al., arXiv:1902.09630): IoU - |hull \\ union| / |hull|,
+    in [-1, 1], in JAX's formula and order (``maximum``, as ``area``)."""
+    zero = torch.zeros((), dtype=b1.dtype, device=b1.device)
+    tiny = torch.full((), 1e-9, dtype=b1.dtype, device=b1.device)
+    x1 = torch.maximum(b1[..., 0], b2[..., 0])
+    y1 = torch.maximum(b1[..., 1], b2[..., 1])
+    x2 = torch.minimum(b1[..., 2], b2[..., 2])
+    y2 = torch.minimum(b1[..., 3], b2[..., 3])
+    inter = torch.maximum(x2 - x1, zero) * torch.maximum(y2 - y1, zero)
+    union = area(b1) + area(b2) - inter
+    iou = inter / torch.maximum(union, tiny)
+    hx1 = torch.minimum(b1[..., 0], b2[..., 0])
+    hy1 = torch.minimum(b1[..., 1], b2[..., 1])
+    hx2 = torch.maximum(b1[..., 2], b2[..., 2])
+    hy2 = torch.maximum(b1[..., 3], b2[..., 3])
+    hull = torch.maximum(hx2 - hx1, zero) * torch.maximum(hy2 - hy1, zero)
+    return iou - (hull - union) / torch.maximum(hull, tiny)
+
+
+def pairwise_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """``[..., N, 4]`` x ``[..., M, 4]`` -> ``[..., N, M]`` GIoU of every
+    pair (the DETR matching cost's term). JAX's function takes one ``[N,
+    4]`` x ``[M, 4]`` pair; this one any leading axes."""
+    return elementwise_giou(boxes1[..., :, None, :], boxes2[..., None, :, :])
 
 
 def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:

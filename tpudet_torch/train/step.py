@@ -1,18 +1,124 @@
-"""Inference step (``tpudet.train.step.make_eval_step``).
+"""Train and inference steps (``tpudet.train.step``).
 
-JAX's step is a jitted ``(variables, batch) -> detections``. Here the
-weights live in the model, so the step is ``batch -> detections``; it moves
-the batch to the model's device and runs under ``torch.inference_mode``.
+JAX's steps are jitted functions of ``(state or variables, batch)``. Here
+the weights live in the model: ``make_train_step`` returns ``step(state,
+batch) -> (state, metrics)``, which updates the state's model in place, and
+``make_eval_step`` returns ``batch -> detections`` under
+``torch.inference_mode``. Both move the batch to the model's device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from tpudet_torch.config import Config
 from tpudet_torch.data.preprocess import device_preprocess
+from tpudet_torch.train.state import (
+    TrainState,
+    ema_decay_at,
+    freeze_mask,
+    lr_schedule,
+)
+
+
+def _step_seed(seed: int, step: int, micro: int) -> int:
+    """The seed of the dropout generator of microbatch ``micro`` of update
+    ``step``: deterministic in ``(train.seed, step, micro)`` and unrelated
+    across them, as JAX's ``fold_in`` chain is (the bits differ)."""
+    return int(np.random.SeedSequence([seed, step, micro]).generate_state(
+        1, np.uint64)[0])
+
+
+def make_train_step(model, cfg: Config, device="cuda"
+                    ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """``step(state, batch) -> (state, metrics)`` on a preprocessed batch
+    (``image`` normalized, ``image_hw``, ``gt_boxes``, ``gt_classes``,
+    ``gt_valid``; tensors or arrays), as the JAX step with
+    ``fused_preprocess=False``:
+
+    * ``train.accum_steps`` microbatches of strided rows (rows ``a``,
+      ``a + accum``, ...), their gradients summed and divided by the count,
+      their metrics averaged;
+    * frozen parameters' gradients dropped before the ``grad_norm`` metric
+      (the norm of the gradients before clipping);
+    * clipping by global norm as ``optax.clip_by_global_norm``: ``g / norm *
+      max_norm`` when the norm is at least ``max_norm``, else unchanged;
+    * the rate of update ``n`` is ``schedule(n)`` times each group's factor;
+    * the EMA ``e + (1 - d) * (p - e)`` with the decay after the update.
+
+    Runs on ``device`` (CUDA unless the caller passes "cpu"), where the
+    state's model must be."""
+    tcfg = cfg.train
+    device = torch.device(device)
+    if model.device != device:
+        raise ValueError(f"make_train_step(device={device}): the model lives "
+                         f"on {model.device} (create_train_state moves it)")
+    accum = max(1, tcfg.accum_steps)
+    if accum > 1 and tcfg.batch_size % accum:
+        raise ValueError(f"train.batch_size {tcfg.batch_size} not divisible by "
+                         f"train.accum_steps {accum}")
+    schedule = lr_schedule(tcfg)
+    frozen = freeze_mask(model.core, tcfg.freeze)
+    trainable = [p for name, p in model.core.named_parameters()
+                 if not frozen[name]]
+    frozen_params = [p for name, p in model.core.named_parameters()
+                     if frozen[name]]
+    max_norm = tcfg.grad_clip_norm
+
+    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
+                 for k, v in batch.items()}
+        if batch["image"].shape[0] % accum:
+            raise ValueError(f"batch of {batch['image'].shape[0]} not "
+                             f"divisible by train.accum_steps {accum}")
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        per_micro = []
+        for a in range(accum):
+            micro = ({k: v[a::accum] for k, v in batch.items()}
+                     if accum > 1 else batch)
+            generator = torch.Generator(device=device).manual_seed(
+                _step_seed(tcfg.seed, state.step, a))
+            loss, metrics = model.loss(micro, generator)
+            loss.backward()
+            per_micro.append({k: v.detach() for k, v in metrics.items()})
+        for p in frozen_params:
+            p.grad = None
+        grads = []
+        for p in trainable:
+            if p.grad is None:  # behind freeze_stem: optax sees zeros
+                p.grad = torch.zeros_like(p)
+            elif accum > 1:
+                p.grad.div_(accum)
+            grads.append(p.grad)
+        grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        if max_norm > 0:
+            keep = grad_norm < max_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g, g / grad_norm * max_norm))
+        lr = schedule(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr * group["lr_factor"]
+        state.optimizer.step()
+        state.step += 1
+        if tcfg.ema_decay > 0:
+            if state.ema_params is None:
+                raise ValueError("train.ema_decay > 0 but the state has no "
+                                 "EMA: create it with create_train_state")
+            keep_ema = ema_decay_at(tcfg, state.step)
+            with torch.no_grad():
+                for name, p in model.core.named_parameters():
+                    e = state.ema_params[name]
+                    e.add_((p - e) * (1.0 - keep_ema))
+        metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
+                   for k in per_micro[0]}
+        metrics["grad_norm"] = grad_norm
+        return state, metrics
+
+    return step_fn
 
 
 def make_eval_step(model, cfg: Config, fused_preprocess: bool = True
