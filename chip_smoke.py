@@ -11,7 +11,8 @@ no result):
    one process per source, in parallel;
 3. the NMS kernel against its plain PyTorch version on the card, at the
    shapes voc_r50 inference gives it (32 x 6000 presorted proposals at 0.7
-   -> 300, 32 x 1024 class-shifted candidates at 0.5 -> 100) and those
+   -> 300, 32 x 1024 class-shifted candidates at 0.5 -> 100), voc_r50
+   training gives it (8 x 12,000 proposals at 0.7 -> 2,000) and those
    coco_r101_fpn gives it (32 x 4608 level-shifted proposals at 0.7 ->
    300, 32 x 1024 candidates of 80 classes at 0.5 -> 100), on sparse and
    on clustered scenes (where the walk must cross most blocks), and on
@@ -61,10 +62,30 @@ no result):
     ``test_loss_decreases_and_trains``): 20 AdamW steps of
     ``deformable_detr_tiny`` on planted boxes, the last loss under 0.6x the
     first;
-14. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
+14. the RoI Align backward kernel against ``torch.autograd.grad`` through
+    the plain version at the voc_r50 train step's shape (c4 [8, 40, 40,
+    256], 1,024 sampled RoIs, S = 7, r = 2), bf16 and f32 features;
+15. voc_r50 training at full width through ``create_train_state`` and
+    ``make_train_step``: the preset's train config (SGD 1e-3, momentum 0.9,
+    decay 5e-4, warmup 500) and plain init, bf16 backbone, b=8 640x640
+    planted boxes, 20 steps: every loss, ms per step, img/s, peak memory and
+    the launches per step (NMS 1, RoI Align forward 1 and backward 1);
+16. one f32 b=2 320x320 train step of the full voc_r50 preset on the card
+    against the CPU plain path with the same sampler draws (numpy): equal
+    proposal keeps, samples and labels, the loss, every gradient and every
+    parameter after the SGD update;
+17. the Faster R-CNN tiny learning check (``tests/test_train.py``'s
+    ``test_train_step_decreases_loss``: tiny_test_config, SGD 0.02, 25
+    steps on one planted batch), the last loss under 0.413x the first
+    (the JAX package's own fall on the CPU);
+18. the precision probe (``python -m tpudet_torch.kernels.precision_probe``'s
+    stages A/B/C on the tensor cores): stage A exact, stage C inside the
+    contract, stage B's error printed, each stage against the plain version;
+19. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
     832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50) and of one b=8
-    832x832 coco_deformable_detr_r50 train step: device time by kernel and
-    by kind, and the device's busy share.
+    train step of each of coco_deformable_detr_r50 (832x832) and voc_r50
+    (640x640): device time by kernel and by kind, and the device's busy
+    share.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -85,6 +106,8 @@ HERE = Path(__file__).resolve().parent
 # the tensor cores, which is what the NMS and RoI Align arithmetic runs on.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# ... and the dense bf16 tensor-core rate (the precision probe's product).
+BF16_OPS_PER_S = 989e12
 # f32 operations per pairwise IoU test as the NMS kernel evaluates it: two
 # min, two max, two subtracts and two clamps for the overlap, one multiply,
 # the union's add and subtract, one divide, one compare (box areas aside).
@@ -108,9 +131,14 @@ DEFORM_BWD_OPS_PER_SAMPLE = 8 + 4 * 11 + 4
 DEFORM_BWD_OPS_PER_CORNER_CHANNEL = 4
 # coco_deformable_detr_r50's levels on the 832x832 bucket (strides 8..64).
 DEFORM_SHAPES = ((104, 104), (52, 52), (26, 26), (13, 13))
-# Sources under tpudet_torch/kernels/csrc (deform_attn.cu holds the
-# forward and the backward kernel).
-KERNELS = ("nms", "roi_align", "roi_align_window", "deform_attn")
+# f32 operations of the RoI Align backward per pooled value and sample:
+# the cotangent times each corner's weight (the weights are per sample, not
+# per channel) and the add into that corner.
+ROI_BWD_OPS_PER_SAMPLE = 8
+# Sources under tpudet_torch/kernels/csrc (deform_attn.cu and roi_align.cu
+# hold a forward and a backward kernel each).
+KERNELS = ("nms", "roi_align", "roi_align_window", "deform_attn",
+           "precision_probe")
 # Head kernels drawn wider than Flax's normal(0.01)/normal(0.001): at init
 # the softmax sits near 1/21, below score_thresh 0.05, and no detection
 # would reach the final NMS. The head inputs have an rms near 1 at this
@@ -238,7 +266,8 @@ def nms_scenes(b=32, device="cuda"):
     max_outputs)}``, at the main paths' shapes. voc_r50 proposals: 6000
     presorted boxes, ~5% masked by the min-size test, 0.7 -> 300. voc_r50
     final: 1024 candidates of 20 classes shifted by class * 4096, 0.5 ->
-    100. coco_r101_fpn proposals: 4608 level-shifted boxes (see
+    100. voc_r50 train proposals: 8 x 12,000 boxes, 0.7 -> 2,000.
+    coco_r101_fpn proposals: 4608 level-shifted boxes (see
     ``fpn_proposal_scene``), 0.7 -> 300; final: 1024 candidates of 80
     classes, 0.5 -> 100. Sparse scenes are uniform boxes, where the walk
     reaches max_outputs keeps within a few hundred boxes. Clustered scenes
@@ -267,6 +296,15 @@ def nms_scenes(b=32, device="cuda"):
         calls[("proposals", scene)] = (props[scene], cand_p, 0.7, 300)
         shifted = tnms.class_offset_boxes(dets[scene], classes, 4096.0)
         calls[("final", scene)] = (shifted.contiguous(), cand_d, 0.5, 100)
+    # voc_r50 training: 12,000 of the 14,400 anchors at 640x640 per image,
+    # b=8, 0.7 -> 2,000 (the walk's bitmask is 18 MB per image).
+    train = {"sparse": random_boxes(gen, (8, 12000), 640, 640, device=device),
+             "clustered": clustered_boxes(gen, 8, 12000, 640, 640,
+                                          [150 + 10 * i for i in range(8)],
+                                          device=device)}
+    cand_t = (torch.rand(8, 12000, generator=gen) > 0.05).to(device)
+    for scene in ("sparse", "clustered"):
+        calls[("train proposals", scene)] = (train[scene], cand_t, 0.7, 2000)
     # Each image's candidates carry 5 of the 80 classes, as a scene holds a
     # few kinds of object; offsets reach 80 * 4096.
     pick = torch.randint(0, 5, (b, 1024), generator=gen)
@@ -329,7 +367,7 @@ def phase_nms():
     # Sums over the clustered scenes of each path's two calls.
     total = {path: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
                     "ops_ms": 0.0, "bound_ms": 0.0}
-             for path in ("voc_r50", "coco_r101_fpn")}
+             for path in ("voc_r50", "voc_r50 train", "coco_r101_fpn")}
     max_err = 0.0
     for (name, scene), (boxes, cand, thr, k) in nms_scenes().items():
         b, p = cand.shape
@@ -360,7 +398,8 @@ def phase_nms():
         plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
                            iters=2, warmup=1)
         if scene == "clustered":
-            path = "coco_r101_fpn" if name.startswith("fpn") else "voc_r50"
+            path = ("coco_r101_fpn" if name.startswith("fpn") else
+                    "voc_r50 train" if name.startswith("train") else "voc_r50")
             for key, value in (("ms", ms), ("plain_ms", plain_ms),
                                ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                                ("bound_ms", max(bytes_ms, ops_ms))):
@@ -398,7 +437,7 @@ def phase_nms():
               f"NMS edge case '{label}' differs from the plain version")
     print(f"nms edge cases: {len(cases)} equal to the plain version", flush=True)
     for path, t in total.items():
-        print(f"nms {path}, both calls, clustered: kernel {t['ms']:.4f} ms, "
+        print(f"nms {path}, its calls, clustered: kernel {t['ms']:.4f} ms, "
               f"plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.6f} ms",
               flush=True)
     return total, max_err
@@ -1364,8 +1403,370 @@ def phase_tiny_learning():
           f"({last / first:.3f}x, needs < 0.6x)", flush=True)
 
 
+def phase_roi_align_backward():
+    """The RoI Align backward kernel at the voc_r50 train step's shape: c4
+    [8, 40, 40, 256] (b=8 640x640), 128 sampled RoIs per image, S=7, r=2,
+    bf16 and f32 features, against autograd through the plain version."""
+    import torch
+
+    from tpudet_torch.kernels import roi_align as kra
+
+    gen = torch.Generator().manual_seed(51)
+    b, h, w, c, r, s, sr = 8, 40, 40, 256, 128, 7, 2
+    feat32 = torch.randn(b, h, w, c, generator=gen).cuda()
+    # Sampled RoIs: a quarter at most foreground around a few objects, the
+    # rest anywhere (background), some across the border; feature cells.
+    rois = (random_boxes(gen, (b, r), 640, 640, lo=8.0, hi=500.0)
+            .reshape(-1, 4) / 16.0)
+    rois[::37] += torch.tensor([-30.0, -30.0, 0.0, 0.0], device="cuda") / 16.0
+    rois = rois.contiguous()
+    index = torch.arange(b, dtype=torch.int32, device="cuda").repeat_interleave(r)
+    cot32 = torch.randn(b * r, s, s, c, generator=gen).cuda()
+    result = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        feat, cot = feat32.to(dtype), cot32.to(dtype).contiguous()
+
+        def kernel():
+            return kra.roi_align_backward_cuda(cot, rois, index, feat.shape,
+                                               dtype, sr)
+
+        def plain():
+            # Autograd through the plain forward, the features widened to
+            # f32 (exact): the f32 sum the kernel rounds once.
+            f = feat.float().requires_grad_()
+            return torch.autograd.grad(
+                kra.roi_align_plain(f, rois, index, s, sr), f, cot.float())[0]
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs()
+        if dtype == torch.float32:
+            # f32 atomics add the same products in another order.
+            ok, tol = bool((err <= 1e-5).all()), "atol 1e-5"
+        else:
+            # One rounding of the same f32 sum: half a bf16 ulp, plus the
+            # f32 order.
+            ok = bool((err <= 2 ** -8 * ref.abs() + 1e-5).all())
+            tol = "one bf16 ulp of the f32 sum"
+        check(ok, f"RoI Align backward {name}: kernel differs from autograd "
+                  f"through the plain version by {err.max().item():.3e}")
+        del got, ref
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        size = feat.element_size()
+        # The least traffic: the cotangent read once, the gradient written
+        # once, dense, in the features' dtype (the kernel's f32 accumulator
+        # is its own choice, not the function's); boxes and indices.
+        bytes_moved = (cot.numel() * size + feat.numel() * size
+                       + rois.numel() * 4 + index.numel() * 4)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = (cot.numel() * sr * sr * ROI_BWD_OPS_PER_SAMPLE
+                  / F32_OPS_PER_S * 1e3)
+        atomics = cot.numel() * sr * sr * 4
+        result[name] = {"ms": ms, "plain_ms": plain_ms,
+                        "err": err.max().item(), "bytes_ms": bytes_ms,
+                        "ops_ms": ops_ms}
+        print(f"roi_align backward {name}: cotangent [{b * r}, {s}, {s}, {c}] "
+              f"-> dFeatures [{b}, {h}, {w}, {c}], r={sr}: max err "
+              f"{err.max().item():.3e} ({tol}) | kernel {ms:.4f} ms "
+              f"({atomics / 1e6:.1f} M f32 atomics), plain (autograd through "
+              f"the plain forward) {plain_ms:.2f} ms, bound "
+              f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}: "
+              f"cotangent {cot.numel() * size / 1e6:.1f} MB + gradient "
+              f"{feat.numel() * size / 1e6:.1f} MB; operations {ops_ms:.4f})",
+              flush=True)
+    return result
+
+
+def phase_voc_train_path(card):
+    """voc_r50 training at full width: the preset's train config and plain
+    init through ``create_train_state`` and ``make_train_step``, bf16
+    backbone, b=8 640x640 planted boxes, 20 steps."""
+    import math
+
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config("voc_r50")
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                   dtype="bfloat16"))
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.train, seed=0)
+    step = make_train_step(model, cfg)
+    batch = planted_batch(cfg, 8, 640, 640, seed=53)
+    steps = 20
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: counts set to 0 just before, read just after.
+    knms.LAUNCHES = kra.LAUNCHES = kra.BACKWARD_LAUNCHES = 0
+    krw.LAUNCHES = kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
+    times, losses = [], []
+    for i in range(steps):
+        start = time.perf_counter()
+        state, metrics = step(state, batch)
+        values = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        losses.append(values["loss"])
+        check(all(math.isfinite(v) for v in values.values()),
+              f"voc_r50 train step {i}: {values}")
+        print(f"train voc_r50 bf16 b=8 640x640 step {i}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+              + f" | {times[-1]:.2f} ms", flush=True)
+    torch.cuda.synchronize()
+    launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
+                "roi_align_backward": kra.BACKWARD_LAUNCHES,
+                "roi_align_window": krw.LAUNCHES, "deform_attn": kda.LAUNCHES,
+                "deform_attn_backward": kda.BACKWARD_LAUNCHES}
+    check(launches == {"nms": steps, "roi_align": steps,
+                       "roi_align_backward": steps, "roi_align_window": 0,
+                       "deform_attn": 0, "deform_attn_backward": 0},
+          f"voc_r50 train path launches {launches}: expected 1 NMS, 1 RoI "
+          "Align forward and 1 backward per step")
+    ms = sum(times[5:]) / len(times[5:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"voc_r50 bf16 train b=8 640x640 (preset SGD, planted 1-20 "
+          f"boxes/image): {ms:.2f} ms/step over steps 5..{steps - 1} (first "
+          f"{times[0]:.2f} ms), {8e3 / ms:.1f} img/s, launches per step "
+          f"{launches['nms'] // steps} NMS + {launches['roi_align'] // steps} "
+          f"RoI Align forward + {launches['roi_align_backward'] // steps} "
+          f"backward, peak device memory {peak:.2f} GiB, loss "
+          f"{losses[0]:.4f} (step 0) -> {losses[-1]:.4f} (step "
+          f"{steps - 1}) | {card}", flush=True)
+    return launches, (lambda: step(state, batch))
+
+
+def phase_voc_train_reference():
+    """One f32 b=2 320x320 train step of the full voc_r50 preset on the
+    card against the same step on the CPU, where every wrapper runs its
+    plain version, the samplers given the same draws (numpy, once)."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.models import build_model
+    from tpudet_torch.models import faster_rcnn as tfr
+    from tpudet_torch.train.state import create_train_state, lr_schedule
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config("voc_r50")
+    # 320x320: the preset's 128-512 px anchors fit inside the images, so
+    # the RPN samples positives (at 128x128 every anchor crosses the border).
+    batch = planted_batch(cfg, 2, 320, 320, seed=55, boxes=(2, 8))
+    rng = np.random.default_rng(56)
+    shapes = build_model(cfg, device="cpu").draw_shapes(2, (320, 320))
+    draws = {k: tuple(torch.from_numpy(rng.random(shape, dtype=np.float32))
+                      for _ in range(2)) for k, shape in shapes.items()}
+    original_nms = tfr.nms_dispatch
+    runs = {}
+    kra.BACKWARD_LAUNCHES = 0
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        state = create_train_state(model, cfg.train, seed=0, device=device)
+        # A copy: on the CPU ``.cpu()`` returns the parameter itself.
+        before = {k: p.detach().clone().cpu() for k, p in state.params.items()}
+        seen = {}
+
+        def recording(name, fn):
+            def wrapped(*args, **kw):
+                out = fn(*args, **kw)
+                seen[name] = [t.cpu() for t in out]
+                return out
+            return wrapped
+
+        loss_fn = model.loss
+        on_dev = {k: tuple(d.to(device) for d in v) for k, v in draws.items()}
+        model.loss = lambda b, generator=None: loss_fn(b, draws=on_dev)
+        for name in ("_rpn_targets_single", "_roi_targets_single"):
+            setattr(model, name, recording(name, getattr(model, name)))
+        tfr.nms_dispatch = recording("proposal keeps", original_nms)
+        try:
+            state, metrics = make_train_step(model, cfg, device=device)(
+                state, {k: v.to(device) for k, v in batch.items()})
+        finally:
+            tfr.nms_dispatch = original_nms
+        runs[device] = {
+            "loss": float(metrics["loss"]), "seen": seen, "before": before,
+            "grads": {k: p.grad.detach().cpu() for k, p in state.params.items()
+                      if p.grad is not None},
+            "params": {k: p.detach().cpu() for k, p in state.params.items()}}
+        del model, state
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(kra.BACKWARD_LAUNCHES == 1, f"f32 voc_r50 train step: "
+          f"{kra.BACKWARD_LAUNCHES} RoI Align backward launches, expected 1")
+    # Each stage's outputs by name; a target's regression deltas and matched
+    # ground truth mean something only on its sampled positives (a
+    # background row's argmax over near-equal IoUs may go either way).
+    fields = {"proposal keeps": (("keep", "valid"), None),
+              "_rpn_targets_single": (("idx", "is_pos", "valid", "deltas"),
+                                      lambda t: t[1] & t[2]),
+              "_roi_targets_single": (("boxes", "classes", "deltas", "is_fg",
+                                       "valid", "matched"),
+                                      lambda t: t[3] & t[4])}
+    for key, (names, positives) in fields.items():
+        mask = positives(cpu["seen"][key]) if positives else None
+        for name, a, b in zip(names, card["seen"][key], cpu["seen"][key]):
+            if name in ("deltas", "matched"):
+                a, b = a[mask], b[mask]
+            if a.dtype.is_floating_point:
+                bad = ~torch.isclose(a, b, rtol=1e-4, atol=1e-3)
+            else:  # keep positions, sample indices, labels, masks
+                bad = a != b
+            check(not bad.any(), f"f32 voc_r50 train step: {key} {name} "
+                  f"differ between the card and the CPU at {int(bad.sum())} "
+                  f"of {bad.numel()}: {a[bad][:8].tolist()} vs "
+                  f"{b[bad][:8].tolist()}")
+    rel_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(rel_loss <= 1e-4, f"f32 voc_r50 train step: loss {card['loss']} on "
+                            f"the card, {cpu['loss']} on the CPU")
+    # Gradients within 1e-2 of their norms (f32 both sides, convolutions and
+    # GEMMs summed in other orders), floored at 1e-6 of the global norm;
+    # parameters after the update outside those noise gradients within
+    # PARAM_TOL of how far the CPU's update moved them (PR 4's rule).
+    check(set(card["grads"]) == set(cpu["grads"]),
+          "f32 voc_r50 train step: different parameters got gradients")
+    global_norm = float(torch.stack([g.norm() for g in cpu["grads"].values()]
+                                    ).norm())
+    floor = 1e-6 * global_norm
+    grad_err, param_err, noise = {}, {}, []
+    for k, g in cpu["grads"].items():
+        grad_err[k] = (float((card["grads"][k] - g).norm())
+                       / max(float(g.norm()), floor))
+        if float(g.norm()) <= floor:
+            noise.append(k)
+            continue
+        p = cpu["params"][k]
+        param_err[k] = (float((card["params"][k] - p).norm())
+                        / float((p - cpu["before"][k]).norm()))
+    worst = {"gradient": max(grad_err.items(), key=lambda kv: kv[1]),
+             "parameter": max(param_err.items(), key=lambda kv: kv[1])}
+    check(worst["gradient"][1] <= 1e-2 and worst["parameter"][1] <= PARAM_TOL,
+          f"f32 voc_r50 train step: card and CPU differ: {worst}")
+    keeps = card["seen"]["proposal keeps"][1]
+    rpn, roi = card["seen"]["_rpn_targets_single"], card["seen"]["_roi_targets_single"]
+    print(f"voc_r50 train reference: f32 b=2 320x320 step of the full preset "
+          f"(TF32 off) on the card against the CPU plain path, same draws: "
+          f"proposal keeps equal ({keeps.sum(1).tolist()} kept), RPN samples "
+          f"equal ({(rpn[1] & rpn[2]).sum(1).tolist()} positive), RoI samples "
+          f"and labels equal ({(roi[3] & roi[4]).sum(1).tolist()} foreground); "
+          f"loss {card['loss']:.6f} vs {cpu['loss']:.6f} (rel {rel_loss:.2e});"
+          f" worst gradient error {worst['gradient'][1]:.2e} of its norm "
+          f"({worst['gradient'][0]}, tolerance 1e-2); parameters after the "
+          f"SGD update (lr {lr_schedule(cfg.train)(0):.3e}), worst "
+          f"{worst['parameter'][1]:.2e} of how far they moved "
+          f"({worst['parameter'][0]}, tolerance {PARAM_TOL}); {len(noise)} "
+          f"gradients below 1e-6 of the global norm {global_norm:.4f} not "
+          "compared", flush=True)
+
+
+# The fall the Faster R-CNN tiny learning check requires (last loss over
+# first): the JAX package's own fall in test_train_step_decreases_loss
+# (2.3365 -> 0.9656 on the CPU, as
+# tests/test_torch_faster_rcnn_step.py::test_tiny_learning_check_tracks_jax
+# prints it).
+LEARNING_RATIO = 0.413
+
+
+def phase_faster_rcnn_tiny_learning():
+    """``test_train_step_decreases_loss`` of the JAX package on the card:
+    tiny_test_config, SGD 0.02 with no warmup and decay 1e-4, 25 steps on
+    one planted batch."""
+    import math
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config("tiny")
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, learning_rate=0.02, warmup_steps=0, weight_decay=1e-4))
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.train, seed=0)
+    step = make_train_step(model, cfg)
+    batch = planted_batch(cfg, 2, 128, 128, seed=57, boxes=(1, 4))
+    losses = []
+    for _ in range(25):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    first, last = losses[0], losses[-1]
+    check(all(math.isfinite(x) for x in losses)
+          and last < LEARNING_RATIO * first,
+          f"Faster R-CNN tiny learning check: loss {first} -> {last} (needs "
+          f"< {LEARNING_RATIO}x): {losses}")
+    print(f"Faster R-CNN tiny learning check: tiny_test_config SGD 0.02, 25 "
+          f"steps on planted boxes: loss {first:.4f} -> {last:.4f} "
+          f"({last / first:.3f}x, needs < {LEARNING_RATIO}x)", flush=True)
+
+
+def phase_precision_probe():
+    """The precision probe's three stages on the tensor cores through its
+    entry point's ``run_probe``, each stage's kernel output against the
+    plain version, and the one-pass kernel's time beside ``torch.matmul``
+    on the bf16 operands."""
+    import torch
+
+    from tpudet_torch.kernels import precision_probe as kpp
+
+    # The probe's path: counts set to 0 just before, read just after.
+    kpp.LAUNCHES = 0
+    lines, failed, outs = kpp.run_probe("cuda")
+    torch.cuda.synchronize()
+    launches = kpp.LAUNCHES
+    check(launches == 3, f"precision probe: {launches} launches, expected 3")
+    for line in lines:
+        print(f"precision probe {json.dumps(line)}", flush=True)
+    check(not failed and lines[0]["max_abs"] == 0.0,
+          f"precision probe: stage A not exact or stage C outside the "
+          f"contract: {lines}")
+    max_err = 0.0
+    for stage, (x, m, split, _) in kpp.probe_inputs().items():
+        ref = kpp.precision_probe_plain(x.cuda(), m.cuda(), split).cpu()
+        err = float((outs[stage] - ref).abs().max())
+        # Stage A selects bf16 values: exact. B and C add the same exact
+        # bf16 products in f32 in another order.
+        tol = 0.0 if stage.startswith("A") else 1e-5
+        check(err <= tol, f"precision probe {stage}: kernel differs from the "
+                          f"plain version by {err:.3e} (tolerance {tol})")
+        max_err = max(max_err, err)
+    x, m, _, _ = kpp.probe_inputs()["B_f32_data_single_pass_DEFAULT"]
+    x, m = x.cuda(), m.cuda()
+    xb, mb = x.to(torch.bfloat16), m.to(torch.bfloat16)
+    ms = time_ms(lambda: kpp.precision_probe_cuda(x, m, False), iters=200,
+                 warmup=10)
+    split_ms = time_ms(lambda: kpp.precision_probe_cuda(x, m, True), iters=200,
+                       warmup=10)
+    plain_ms = time_ms(lambda: kpp.precision_probe_plain(x, m, False),
+                       iters=200, warmup=10)
+    library_ms = time_ms(lambda: torch.matmul(xb, mb), iters=200, warmup=10)
+    out_numel = x.shape[0] * m.shape[1]
+    bytes_ms = (x.numel() + m.numel() + out_numel) * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * x.shape[0] * x.shape[1] * m.shape[1] / BF16_OPS_PER_S * 1e3
+    print(f"precision probe kernel: [{x.shape[0]}, {x.shape[1]}] . "
+          f"[{m.shape[0]}, {m.shape[1]}] f32 in, bf16 tensor cores, f32 "
+          f"accumulation: equal to the plain version (max err {max_err:.3e}) "
+          f"| one pass {ms:.4f} ms, split {split_ms:.4f} ms, plain (bf16 "
+          f"rounding, f32 matmul) {plain_ms:.4f} ms, torch.matmul on the "
+          f"bf16 operands {library_ms:.4f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, operations "
+          f"{ops_ms:.6f})", flush=True)
+    return launches, {"ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
+                      "ops_ms": ops_ms, "library_ms": library_ms,
+                      "err": max_err}
+
+
 KINDS = (
     ("deform_attn kernel", ("ms_deform_attn_fwd_kernel",)),
+    ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
     ("deform_attn backward kernel", ("ms_deform_attn_bwd_kernel",)),
     ("nms kernel", ("nms_mask_kernel", "nms_reduce_kernel")),
     ("roi_align_window kernel", ("roi_align_window_fwd_kernel",)),
@@ -1426,6 +1827,12 @@ def phase_profile(card, label, run, warmup=3):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     for name, (n, ms) in top:
         print(f"  {ms:8.3f} ms {n:5d}x  {name[:110]}", flush=True)
+    # Where the host spends the wall time the device idles (self time of
+    # each op, profiler overhead included).
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:8]:
+        print(f"  host {e.self_cpu_time_total / 1e3:8.3f} ms {e.count:5d}x  "
+              f"{e.key[:100]}", flush=True)
 
 
 def main() -> None:
@@ -1455,6 +1862,11 @@ def main() -> None:
     train_launches, train_run = phase_train_path(card)
     phase_train_reference()
     phase_tiny_learning()
+    roi_bwd = phase_roi_align_backward()
+    voc_train_launches, voc_train_run = phase_voc_train_path(card)
+    phase_voc_train_reference()
+    phase_faster_rcnn_tiny_learning()
+    probe_launches, probe = phase_precision_probe()
     for label, step, (h, w) in (("voc_r50", voc_step, (640, 640)),
                                 ("coco_r101_fpn", fpn_step, (832, 832)),
                                 ("coco_deformable_detr_r50", detr_step,
@@ -1464,9 +1876,12 @@ def main() -> None:
                       lambda: step(batch))
     phase_profile(card, "coco_deformable_detr_r50 b=8 832x832 train step",
                   train_run, warmup=1)
+    phase_profile(card, "voc_r50 bf16 b=8 640x640 train step", voc_train_run,
+                  warmup=1)
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import precision_probe as kpp
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
 
@@ -1481,14 +1896,21 @@ def main() -> None:
                 "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"]
                 else "operations", "library_ms": None}
 
-    # NMS: launches over both main paths; times of voc_r50's two calls on
-    # clustered scenes (coco_r101_fpn's are printed in phase 3).
+    # NMS: launches over the main paths; times of voc_r50's two predict
+    # calls on clustered scenes (the others are printed in phase 3).
     kernels = [
         entry("nms", knms, {"voc_r50 predict": voc_launches["nms"],
-                            "coco_r101_fpn predict": fpn_launches["nms"]},
+                            "coco_r101_fpn predict": fpn_launches["nms"],
+                            "voc_r50 train": voc_train_launches["nms"]},
               nms["voc_r50"], nms_err),
-        entry("roi_align", kra, {"voc_r50 predict": voc_launches["roi_align"]},
+        entry("roi_align", kra,
+              {"voc_r50 predict": voc_launches["roi_align"],
+               "voc_r50 train": voc_train_launches["roi_align"]},
               roi["bf16"], roi["bf16"]["err"]),
+        # The backward at the voc_r50 train step's shape, bf16 features.
+        entry("roi_align_backward", kra,
+              {"voc_r50 train": voc_train_launches["roi_align_backward"]},
+              roi_bwd["bf16"], max(m["err"] for m in roi_bwd.values())),
         entry("roi_align_window", krw,
               {"coco_r101_fpn predict": fpn_launches["roi_align_window"]},
               roi_window["bf16"], roi_window["bf16"]["err"]),
@@ -1510,6 +1932,12 @@ def main() -> None:
              for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
             max(m["err"] for m in result.values())))
     kernels[-1]["replaces"] = kda.BACKWARD_REPLACES
+    # The probe's one-pass product; library_ms: torch.matmul on the bf16
+    # operands (one cuBLAS call).
+    kernels.append(dict(entry("precision_probe", kpp,
+                              {"precision probe": probe_launches}, probe,
+                              probe["err"]),
+                        library_ms=probe["library_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,59 @@ def test_roi_align_window_kernel_equals_plain(cuda, dtype, c):
         assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,s,r", [(40, 7, 2), (256, 5, 3), (8, 1, 1)])
+def test_roi_align_backward_kernel_equals_plain_autograd(cuda, dtype, c, s, r):
+    """The features' gradient through the autograd Function (forward and
+    backward kernels) against autograd through the plain version on the
+    same card: RoIs across the border, off the map and of zero width."""
+    gen = torch.Generator().manual_seed(c + 1)
+    feat = torch.randn(3, 11, 19, c, generator=gen).to(dtype).to(cuda)
+    rois = boxes(gen, 3, 9, extent=18.0).reshape(-1, 4) / 4 - 1
+    rois[0] = torch.tensor([3.0, 4.0, 3.0, 9.0])  # zero width
+    rois[1] = torch.tensor([-9.0, -8.0, -2.0, -1.5])  # off the map
+    rois = rois.to(cuda)
+    index = torch.arange(3, dtype=torch.int32).repeat_interleave(9).to(cuda)
+    cot = torch.randn(27, s, s, c, generator=gen).to(dtype).to(cuda)
+    before = kra.BACKWARD_LAUNCHES
+    f = feat.clone().requires_grad_()
+    (got,) = torch.autograd.grad(kra.roi_align(f, rois, index, s, r), f, cot)
+    assert kra.BACKWARD_LAUNCHES == before + 1 and got.dtype == dtype
+    f32 = feat.float().requires_grad_()
+    (ref,) = torch.autograd.grad(kra.roi_align_plain(f32, rois, index, s, r),
+                                 f32, cot.float())
+    got = got.float()
+    if dtype == torch.float32:  # f32 atomics in another order
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    else:  # one rounding of the same f32 sum: at most one bf16 ulp apart
+        assert ((got - ref).abs() <= 2 ** -8 * ref.abs() + 1e-5).all()
+    assert ref.abs().max() > 0
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_precision_probe_kernel_equals_plain(cuda, split):
+    """Tensor-core bf16 products with f32 accumulation against the plain
+    version's f32 products of the same bf16 operands, on ragged data and a
+    0/1 selector (exact)."""
+    from tpudet_torch.kernels import precision_probe as kpp
+
+    gen = torch.Generator().manual_seed(int(split))
+    x = torch.randn(48, 96, generator=gen) * 3
+    m = (torch.rand(96, 32, generator=gen) < 0.1).float()
+    out = kpp.precision_probe_cuda(x.to(cuda), m.to(cuda), split).cpu()
+    ref = kpp.precision_probe_plain(x, m, split)
+    torch.testing.assert_close(out, ref, rtol=1e-6, atol=1e-5)
+    sel = torch.zeros(48, 96)
+    sel[torch.arange(48), torch.randint(0, 96, (48,), generator=gen)] = 1.0
+    v = torch.randn(96, 32, generator=gen).to(torch.bfloat16)
+    exact = kpp.precision_probe_cuda(sel.to(cuda), v.to(cuda), split).cpu()
+    assert torch.equal(exact, sel @ v.float())
+    lines, failed, _ = kpp.run_probe(cuda)
+    assert not failed and [ln["stage"][0] for ln in lines] == ["A", "B", "C"]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kpp.precision_probe_cuda(x[:40].to(cuda), m.to(cuda), split)
+
+
 def test_fpn_levels_on_card_equal_cpu(cuda):
     gen = torch.Generator().manual_seed(3)
     rois = boxes(gen, 4, 5000, extent=1300.0) * torch.rand(
@@ -396,3 +449,65 @@ def test_deformable_detr_train_step_on_card_equals_plain_path(cuda):
             continue
         moved = float((p - cpu[2][name].cpu()).norm())
         assert float((card[4][name] - p).norm()) <= 1e-2 * moved, name
+
+
+def test_faster_rcnn_train_step_on_card_equals_plain_path(cuda):
+    """One SGD step of the tiny Faster R-CNN (f32) on the card, through the
+    NMS kernel and both RoI Align kernels, against the same step on the CPU
+    plain path, the samplers given the same draws: equal samples, loss within
+    1e-5 relative, each gradient within 1e-3 of its norm and each parameter
+    after the update within 1e-2 of how far it moved (gradients that are
+    rounding noise aside)."""
+    import numpy as np
+
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = tiny_test_config()
+    gen = torch.Generator().manual_seed(3)
+    boxes = torch.tensor([[[10.0, 12.0, 60.0, 70.0], [40.0, 30.0, 120.0, 90.0]]
+                          + [[0.0] * 4] * 8] * 2)
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [96.0, 112.0]]),
+             "gt_boxes": boxes, "gt_classes": torch.tensor([[1, 3] + [0] * 8] * 2),
+             "gt_valid": torch.tensor([[True, True] + [False] * 8] * 2)}
+    rng = np.random.default_rng(4)
+    shapes = build_model(cfg, device="cpu").draw_shapes(2, (128, 128))
+    draws = {k: tuple(torch.from_numpy(rng.random(s, dtype=np.float32))
+                      for _ in range(2)) for k, s in shapes.items()}
+    runs = {}
+    for device in (cuda, "cpu"):
+        model = build_model(cfg, device=device)
+        state = create_train_state(model, cfg.train, seed=0, device=device)
+        before = {k: v.detach().clone().cpu() for k, v in state.params.items()}
+        original, samples = model.loss, []
+        on_dev = {k: tuple(d.to(device) for d in v) for k, v in draws.items()}
+        model.loss = lambda b, generator=None: original(b, draws=on_dev)
+        roi_targets = model._roi_targets_single
+        model._roi_targets_single = lambda *a: samples.append(
+            roi_targets(*a)) or samples[-1]
+        counts = (knms.LAUNCHES, kra.LAUNCHES, kra.BACKWARD_LAUNCHES)
+        _, metrics = make_train_step(model, cfg, device=device)(state, batch)
+        launched = tuple(c - c0 for c, c0 in zip(
+            (knms.LAUNCHES, kra.LAUNCHES, kra.BACKWARD_LAUNCHES), counts))
+        runs[str(device)] = (float(metrics["loss"]), launched, before,
+                             {k: p.grad.cpu() for k, p in state.params.items()},
+                             {k: p.detach().cpu() for k, p in state.params.items()},
+                             [s.cpu() for s in samples[0][1:]])
+    card, cpu = runs[str(cuda)], runs["cpu"]
+    assert card[1] == (1, 1, 1) and cpu[1] == (0, 0, 0)
+    for a, b in zip(card[5], cpu[5]):  # classes, deltas, fg, valid, matches
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        else:
+            assert torch.equal(a, b)
+    assert card[0] == pytest.approx(cpu[0], rel=1e-5)
+    floor = 1e-6 * float(torch.stack([g.norm() for g in cpu[3].values()]).norm())
+    for name, g in cpu[3].items():
+        if float(g.norm()) <= floor:
+            continue
+        assert float((card[3][name] - g).norm()) <= 1e-3 * float(g.norm()), name
+        moved = float((cpu[4][name] - cpu[2][name]).norm())
+        assert float((card[4][name] - cpu[4][name]).norm()) <= 1e-2 * moved, name

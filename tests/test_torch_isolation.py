@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor any module of
-the JAX package, and its config keeps the JAX package's defaults."""
+the JAX package or of ``scripts/`` (whose probe imports JAX), nor does
+``chip_smoke.py``; and its config keeps the JAX package's defaults."""
 
 import ast
 import dataclasses
@@ -15,6 +16,8 @@ from tpudet_torch import config as tconfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tpudet_torch"
+# Top-level names neither the port nor chip_smoke.py may import.
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tpudet", "scripts")
 
 
 def test_import_loads_no_jax_and_no_tpudet_module():
@@ -30,14 +33,11 @@ def test_import_loads_no_jax_and_no_tpudet_module():
                          capture_output=True, text=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    loaded = result["loaded"]
-    for banned in ("jax", "jaxlib", "flax", "optax", "orbax"):
-        assert banned not in loaded
-    assert not [m for m in loaded if m == "tpudet" or m.startswith("tpudet.")]
+    assert not [m for m in result["loaded"] if m.split(".")[0] in BANNED]
 
 
 def test_sources_import_no_jax_and_no_tpudet():
-    for path in PORT.rglob("*.py"):
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -47,8 +47,7 @@ def test_sources_import_no_jax_and_no_tpudet():
             else:
                 continue
             for name in names:
-                top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "flax", "optax", "tpudet"), \
+                assert name.split(".")[0] not in BANNED, \
                     f"{path.relative_to(ROOT)} imports {name}"
 
 
@@ -62,7 +61,8 @@ def test_config_defaults_equal_jax(group):
     fields = [f.name for f in dataclasses.fields(port)]
     for name in fields:
         assert hasattr(ref, name), f"{group}.{name} is not a JAX field"
-        if group != "Config" or name in ("model", "use_pallas", "rpn_only"):
+        if group != "Config" or name in ("model", "use_pallas", "rpn_only",
+                                         "det_only"):
             assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
 
 

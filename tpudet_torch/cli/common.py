@@ -35,15 +35,15 @@ def preset_config(name: str) -> Config:
         )
     if name == "coco_r101_fpn":
         # ResNet-101 + FPN on COCO, bf16: RPN 256 wide, blocked per-level
-        # top-1000, 300 proposals, each RoI pooled once at its fit-bumped
-        # level (window 56 covers the 1344-px canvases at p5).
+        # top-1000, 300 proposals (1000 in training), each RoI pooled once at
+        # its fit-bumped level (window 56 covers the 1344-px canvases at p5).
         return Config(
             data=DataConfig(num_classes=80, canvas_height=1344,
                             canvas_width=1344, aspect_buckets=COCO_BUCKETS),
             backbone=BackboneConfig(name="resnet101", use_fpn=True,
                                     dtype="bfloat16"),
-            rpn=RPNConfig(conv_channels=256, post_nms_topk_test=300,
-                          topk_method="blocked"),
+            rpn=RPNConfig(conv_channels=256, post_nms_topk_train=1000,
+                          post_nms_topk_test=300, topk_method="blocked"),
             roi=ROIConfig(pooler="roi_align_window", window=56),
         )
     if name == "deformable_detr_tiny":

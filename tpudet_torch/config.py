@@ -1,11 +1,11 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
-Faster R-CNN inference, single-level and FPN, and Deformable DETR inference
-and training read).
+Faster R-CNN inference, single-level and FPN, single-level Faster R-CNN
+training, and Deformable DETR inference and training read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
-defaults equal. Groups and fields the port does not run yet (training, the
-other families, TPU-only knobs) are left out until their slice lands;
+defaults equal. Groups and fields the port does not run yet (the other
+families, TPU-only knobs) are left out until their slice lands;
 ``TrainConfig`` has every field of the JAX group, though the port reads only
 the optimizer, schedule, EMA, accumulation, freeze and seed fields so far.
 """
@@ -81,9 +81,13 @@ class AnchorConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RPNConfig:
-    """RPN head and proposal generation (inference knobs)."""
+    """RPN head, proposal generation and the RPN's training targets."""
 
     conv_channels: int = 512
+    # Proposals: decode -> clip -> min-size -> pre-NMS top-k -> NMS ->
+    # post-NMS top-N, with the train or test counts.
+    pre_nms_topk_train: int = 12000
+    post_nms_topk_train: int = 2000
     pre_nms_topk_test: int = 6000
     post_nms_topk_test: int = 300
     nms_thresh: float = 0.7
@@ -91,7 +95,19 @@ class RPNConfig:
     box_reg_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
     # FPN: pre-NMS top-k per level, NMS within each level (level-offset),
     # post-NMS top-N over the union; 0 -> one global top-k over the pyramid.
+    fpn_pre_nms_topk_per_level_train: int = 2000
     fpn_pre_nms_topk_per_level_test: int = 1000
+    # Targets (Faster R-CNN §3.1.2): positive at IoU >= fg or the best
+    # anchor of a ground-truth box, negative below bg, else ignored.
+    fg_iou_thresh: float = 0.7
+    bg_iou_thresh: float = 0.3
+    # Sampling (§3.1.3): this many anchors per image, up to this share
+    # positive.
+    batch_size_per_image: int = 256
+    positive_fraction: float = 0.5
+    loss_weight_box: float = 1.0
+    # Anchors that cross the image's border are ignored in training.
+    ignore_cross_boundary: bool = True
     # Pre-NMS top-k: "exact" (a stable full sort, lax.top_k's tie order) or
     # "blocked" (ops.selection.blocked_top_k, bit-identical to "exact");
     # "approx" (a TPU PartialReduce knob) raises NotImplementedError.
@@ -126,6 +142,15 @@ class ROIConfig:
     soft_nms_sigma: float = 0.5
     # Candidate cap for the final NMS: 0 -> 1024, -1 -> all P*C candidates.
     max_nms_candidates: int = 0
+    # Training targets (Fast R-CNN §2.3): foreground at IoU >= fg,
+    # background in [bg_lo, bg_hi), else ignored; this many RoIs per image,
+    # up to this share foreground; the ground truth joins the proposals.
+    fg_iou_thresh: float = 0.5
+    bg_iou_thresh_hi: float = 0.5
+    bg_iou_thresh_lo: float = 0.0
+    batch_size_per_image: int = 128
+    positive_fraction: float = 0.25
+    append_gt: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,8 +256,12 @@ class Config:
     # dispatches by the tensor's device alone (a CUDA tensor goes to the
     # hand-written kernel, a CPU tensor to its plain PyTorch version).
     use_pallas: bool = True
-    # Predict returns the proposals as class-agnostic detections.
+    # Predict returns the proposals as class-agnostic detections; training
+    # computes the RPN's losses only.
     rpn_only: bool = False
+    # Training computes the detection head's losses only, over proposals
+    # from an RPN that train.freeze must hold fixed ("rpn_head").
+    det_only: bool = False
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -241,7 +270,7 @@ class Config:
 def tiny_test_config(canvas: int = 128, num_classes: int = 3,
                      use_fpn: bool = False) -> Config:
     """Small config for the CPU tests: tiny backbone, small canvas (the
-    inference fields of ``tpudet.config.tiny_test_config``)."""
+    fields of ``tpudet.config.tiny_test_config``)."""
     return Config(
         data=DataConfig(
             num_classes=num_classes,
@@ -254,10 +283,13 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
         anchors=AnchorConfig(scales=(32.0, 64.0), aspect_ratios=(0.5, 1.0, 2.0)),
         rpn=RPNConfig(
             conv_channels=64,
+            pre_nms_topk_train=512,
+            post_nms_topk_train=128,
             pre_nms_topk_test=256,
             post_nms_topk_test=64,
+            batch_size_per_image=64,
         ),
-        roi=ROIConfig(fc_dim=64, max_detections=20),
+        roi=ROIConfig(fc_dim=64, batch_size_per_image=32, max_detections=20),
         train=TrainConfig(batch_size=2, checkpoint_every=10**9),
         use_pallas=False,
     )

@@ -1,8 +1,10 @@
-// Aligned RoI Align forward for Hopper (sm_90a), batched over images.
+// Aligned RoI Align forward and backward for Hopper (sm_90a), batched over
+// images.
 //
-// Replaces tpudet/kernels/roi_align.py::_roi_align_kernel. Input: features
-// [B, H, W, C] NHWC (f32 or bf16), RoIs [K, 4] f32 (x1, y1, x2, y2) in
-// feature coordinates and their image indices [K] int32. Output:
+// The forward replaces tpudet/kernels/roi_align.py::_roi_align_kernel.
+// Input: features [B, H, W, C] NHWC (f32 or bf16), RoIs [K, 4] f32
+// (x1, y1, x2, y2) in feature coordinates and their image indices [K]
+// int32. Output:
 // [K, S, S, C] in the features' dtype. The sampling rule and arithmetic are
 // in roi_align_common.cuh.
 //
@@ -48,14 +50,65 @@ __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
 }
 
 template <typename T>
+__global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
+                                     const float* __restrict__ rois,
+                                     const int* __restrict__ image_index,
+                                     float* __restrict__ grad_feat, int H,
+                                     int W, int C, int S, int R) {
+  const int k = blockIdx.x / S;
+  const int ph = blockIdx.x % S;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+
+  const float* roi = rois + static_cast<size_t>(k) * 4;
+  const float box[4] = {roi[0], roi[1], roi[2], roi[3]};
+  const tpudet::RoiGeometry geo(box, S, R);
+  const float inv = 1.0f / static_cast<float>(R * R);
+  float* gf = grad_feat + static_cast<size_t>(image_index[k]) * H * W * C + c;
+  const T* g = grad_out + (static_cast<size_t>(k) * S + ph) * S * C + c;
+  for (int pw = 0; pw < S; ++pw) {
+    const float gv = tpudet::to_f32(g[static_cast<size_t>(pw) * C]) * inv;
+    for (int u = 0; u < R; ++u) {
+      const tpudet::Axis ay = geo.row(ph, u, H);
+      const float gy0 = gv * (1.0f - ay.frac);
+      const float gy1 = gv * ay.frac;
+      for (int v = 0; v < R; ++v) {
+        const tpudet::Axis ax = geo.col(pw, v, W);
+        if (!(ay.valid && ax.valid)) continue;
+        const size_t r0 = static_cast<size_t>(ay.lo) * W;
+        const size_t r1 = static_cast<size_t>(ay.hi) * W;
+        atomicAdd(gf + (r0 + ax.lo) * C, gy0 * (1.0f - ax.frac));
+        atomicAdd(gf + (r0 + ax.hi) * C, gy0 * ax.frac);
+        atomicAdd(gf + (r1 + ax.lo) * C, gy1 * (1.0f - ax.frac));
+        atomicAdd(gf + (r1 + ax.hi) * C, gy1 * ax.frac);
+      }
+    }
+  }
+}
+
+int threads_for(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
+
+template <typename T>
 int launch(const void* feat, const float* rois, const int* image_index,
            void* out, int K, int H, int W, int C, int S, int R,
            cudaStream_t stream) {
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
+  const int threads = threads_for(C);
   dim3 grid(K * S, (C + threads - 1) / threads);
   roi_align_fwd_kernel<T><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(feat), rois, image_index, static_cast<T*>(out),
       H, W, C, S, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_backward(const void* grad_out, const float* rois,
+                    const int* image_index, float* grad_feat, int K, int H,
+                    int W, int C, int S, int R, cudaStream_t stream) {
+  const int threads = threads_for(C);
+  dim3 grid(K * S, (C + threads - 1) / threads);
+  roi_align_bwd_kernel<T><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(grad_out), rois, image_index, grad_feat, H, W, C,
+      S, R);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -73,5 +126,24 @@ extern "C" int tpudet_roi_align_forward(const void* feat, const float* rois,
   if (dtype == 1)
     return launch<__nv_bfloat16>(feat, rois, image_index, out, K, H, W, C, S,
                                  R, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// grad_out: [K, S, S, C] in `dtype` (0 = float32, 1 = bfloat16); grad_feat:
+// a zeroed f32 [B, H, W, C] accumulator. Returns cudaGetLastError() after
+// the launch (K == 0 launches nothing).
+extern "C" int tpudet_roi_align_backward(const void* grad_out,
+                                         const float* rois,
+                                         const int* image_index,
+                                         float* grad_feat, int K, int H,
+                                         int W, int C, int S, int R,
+                                         int dtype, cudaStream_t stream) {
+  if (K == 0) return 0;
+  if (dtype == 0)
+    return launch_backward<float>(grad_out, rois, image_index, grad_feat, K,
+                                  H, W, C, S, R, stream);
+  if (dtype == 1)
+    return launch_backward<__nv_bfloat16>(grad_out, rois, image_index,
+                                          grad_feat, K, H, W, C, S, R, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

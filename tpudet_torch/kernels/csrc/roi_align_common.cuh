@@ -1,12 +1,14 @@
-// Aligned RoI Align of one output row, shared by roi_align.cu (one map)
-// and roi_align_window.cu (a pyramid, each RoI at its own level).
+// Aligned RoI Align of one output row, shared by roi_align.cu (one map,
+// forward and backward) and roi_align_window.cu (a pyramid, each RoI at its
+// own level).
 //
 // One thread pools one channel: the S bins of output row `ph`, each the
 // mean of R x R bilinear samples in f32. Samples outside [-1, dim] count as
 // zero, samples inside are clamped to [0, dim - 1] (the Detectron2 rule of
 // tpudet/ops/roi_align.py:118-123). The arithmetic and its order are those
 // of the plain version (tpudet_torch/ops/roi_align.py::roi_align_batched);
-// the libraries build with -fmad=false so nothing is contracted.
+// the libraries build with -fmad=false so nothing is contracted. The
+// backward places its samples with the same geometry (RoiGeometry).
 
 #pragma once
 
@@ -44,6 +46,32 @@ __device__ __forceinline__ Axis sample_axis(float pos, int size) {
   return a;
 }
 
+// Where the R x R samples of a RoI's bins fall. box: (x1, y1, x2, y2) in
+// the map's cells; the bins split it S x S after the -0.5 shift.
+struct RoiGeometry {
+  float x1, y1, bin_w, bin_h;
+  int R;
+
+  __device__ __forceinline__ RoiGeometry(const float box[4], int S, int R_)
+      : x1(box[0] - 0.5f),
+        y1(box[1] - 0.5f),
+        bin_w(fmaxf(box[2] - box[0], 1e-6f) / static_cast<float>(S)),
+        bin_h(fmaxf(box[3] - box[1], 1e-6f) / static_cast<float>(S)),
+        R(R_) {}
+
+  // Sample u of bin row ph, on a map of H rows.
+  __device__ __forceinline__ Axis row(int ph, int u, int H) const {
+    const float gy = static_cast<float>(ph) + (static_cast<float>(u) + 0.5f) / R;
+    return sample_axis(y1 + gy * bin_h, H);
+  }
+
+  // Sample v of bin column pw, on a map of W columns.
+  __device__ __forceinline__ Axis col(int pw, int v, int W) const {
+    const float gx = static_cast<float>(pw) + (static_cast<float>(v) + 0.5f) / R;
+    return sample_axis(x1 + gx * bin_w, W);
+  }
+};
+
 // f: the [H, W, C] map of the RoI's image, offset to this thread's channel.
 // box: (x1, y1, x2, y2) in that map's cells. out: element (ph, 0) of the
 // RoI's [S, S, C] output at this channel; bin pw goes to out[pw * C].
@@ -52,20 +80,15 @@ __device__ __forceinline__ void roi_align_row(const T* __restrict__ f,
                                               const float box[4], int H,
                                               int W, int C, int S, int R,
                                               int ph, T* __restrict__ out) {
-  const float x1 = box[0] - 0.5f;
-  const float y1 = box[1] - 0.5f;
-  const float bin_w = fmaxf(box[2] - box[0], 1e-6f) / static_cast<float>(S);
-  const float bin_h = fmaxf(box[3] - box[1], 1e-6f) / static_cast<float>(S);
+  const RoiGeometry geo(box, S, R);
   const float inv = 1.0f / static_cast<float>(R * R);
 
   for (int pw = 0; pw < S; ++pw) {
     float acc = 0.0f;
     for (int u = 0; u < R; ++u) {
-      const float gy = static_cast<float>(ph) + (static_cast<float>(u) + 0.5f) / R;
-      const Axis ay = sample_axis(y1 + gy * bin_h, H);
+      const Axis ay = geo.row(ph, u, H);
       for (int v = 0; v < R; ++v) {
-        const float gx = static_cast<float>(pw) + (static_cast<float>(v) + 0.5f) / R;
-        const Axis ax = sample_axis(x1 + gx * bin_w, W);
+        const Axis ax = geo.col(pw, v, W);
         if (!(ay.valid && ax.valid)) continue;
         const float v00 = to_f32(f[(static_cast<size_t>(ay.lo) * W + ax.lo) * C]);
         const float v01 = to_f32(f[(static_cast<size_t>(ay.lo) * W + ax.hi) * C]);

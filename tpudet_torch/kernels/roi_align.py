@@ -1,5 +1,5 @@
-"""RoI Align forward: the Hopper kernel (``csrc/roi_align.cu``) and its
-plain PyTorch version.
+"""RoI Align forward and backward: the Hopper kernels (``csrc/roi_align.cu``)
+and their plain PyTorch version.
 
 Replaces ``tpudet/kernels/roi_align.py::_roi_align_kernel`` (reached
 through ``roi_align_pallas``). The TPU kernel keeps one image's feature map
@@ -13,6 +13,19 @@ What bounds it on the H100: bytes, the pooled output written once (the
 feature map is read from L2, where one image's map fits many times over).
 The design writes each output value once, accumulates in f32 in registers,
 and reads bf16 or f32 input as it is.
+
+The backward gives the features' gradient (boxes and image indices are
+data, as the JAX package's proposals are). The TPU kernel has no VJP: the
+JAX package trains through the einsum form's transpose. Here the same
+layout (block per RoI and output row, threads over channels) scatters each
+sample's share of the cotangent to its four corners with f32 atomics into a
+``[B, H, W, C]`` accumulator, cast once to the features' dtype. Its bound
+is bytes (the cotangent read once, the gradient written once); the atomics
+on cells that overlapping RoIs share set its pace.
+
+``roi_align`` is the differentiable entry: on the card an autograd Function
+runs the forward kernel and, for the gradient, the backward kernel; on the
+CPU autograd runs through the plain version.
 """
 
 from __future__ import annotations
@@ -25,24 +38,41 @@ from tpudet_torch.kernels import _build
 # The plain version: the gather form in ``ops.roi_align``, batched.
 from tpudet_torch.ops.roi_align import roi_align_batched as roi_align_plain
 
-# Launches of the CUDA kernel, one per wrapper call on a CUDA tensor.
+# Launches of the CUDA kernels, one per wrapper call on CUDA tensors.
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
 SOURCE = "tpudet_torch/kernels/csrc/roi_align.cu"
+# The backward replaces the gradient of the same TPU kernel (it has none of
+# its own).
 REPLACES = "tpudet/kernels/roi_align.py:32"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-__all__ = ["roi_align", "roi_align_cuda", "roi_align_plain"]
+__all__ = ["roi_align", "roi_align_cuda", "roi_align_backward_cuda",
+           "roi_align_plain"]
 
 
 def _lib():
     lib = _build.load("roi_align")
-    fn = lib.tpudet_roi_align_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    fwd, bwd = lib.tpudet_roi_align_forward, lib.tpudet_roi_align_backward
+    if fwd.argtypes is None:
+        fwd.argtypes = bwd.argtypes = ([ctypes.c_void_p] * 4
+                                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fwd.restype = bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _check_rois(boxes, image_index, dev, name):
+    if boxes.device != dev or image_index.device != dev:
+        raise ValueError(f"{name} needs all inputs on one CUDA device")
+    if boxes.dtype != torch.float32 or image_index.dtype != torch.int32:
+        raise TypeError(f"{name} takes f32 boxes and int32 image indices")
+    if boxes.shape != (image_index.shape[0], 4):
+        raise ValueError(f"bad RoI shapes {tuple(boxes.shape)}, "
+                         f"{tuple(image_index.shape)}")
+    if not (boxes.is_contiguous() and image_index.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous boxes and indices")
 
 
 def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
@@ -53,41 +83,101 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
     ``[K, S, S, C]`` in the features' dtype."""
     global LAUNCHES
     dev = features.device
-    if dev.type != "cuda" or boxes.device != dev or image_index.device != dev:
+    if dev.type != "cuda":
         raise ValueError("roi_align_cuda needs all inputs on one CUDA device")
     if features.dtype not in _DTYPES:
         raise TypeError(f"roi_align_cuda takes f32 or bf16 features, got {features.dtype}")
-    if boxes.dtype != torch.float32 or image_index.dtype != torch.int32:
-        raise TypeError("roi_align_cuda takes f32 boxes and int32 image indices")
-    if features.dim() != 4 or boxes.shape != (image_index.shape[0], 4):
-        raise ValueError(f"bad RoI Align shapes {tuple(features.shape)}, "
-                         f"{tuple(boxes.shape)}, {tuple(image_index.shape)}")
-    if not (features.is_contiguous() and boxes.is_contiguous()
-            and image_index.is_contiguous()):
-        raise ValueError("roi_align_cuda needs contiguous NHWC features, boxes "
-                         "and indices")
+    if features.dim() != 4 or not features.is_contiguous():
+        raise ValueError(f"roi_align_cuda needs contiguous NHWC features, got "
+                         f"{tuple(features.shape)}")
+    _check_rois(boxes, image_index, dev, "roi_align_cuda")
     _, h, w, c = features.shape
     k = boxes.shape[0]
     s, r = output_size, sampling_ratio
     out = torch.empty((k, s, s, c), dtype=features.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(features.data_ptr(), boxes.data_ptr(),
-                     image_index.data_ptr(), out.data_ptr(),
-                     k, h, w, c, s, r, _DTYPES[features.dtype], stream)
+        err = _lib()[0](features.data_ptr(), boxes.data_ptr(),
+                        image_index.data_ptr(), out.data_ptr(),
+                        k, h, w, c, s, r, _DTYPES[features.dtype], stream)
     if err != 0:
         raise RuntimeError(f"RoI Align kernel launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
 
 
+def roi_align_backward_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
+                            image_index: torch.Tensor, feature_shape,
+                            dtype: torch.dtype,
+                            sampling_ratio: int = 2) -> torch.Tensor:
+    """The backward kernel: the cotangent ``[K, S, S, C]`` (f32 or bf16) of
+    :func:`roi_align_cuda` on ``[B, H, W, C]`` = ``feature_shape`` features
+    and the same boxes and indices -> the features' gradient in ``dtype``,
+    summed in f32 and cast once."""
+    global BACKWARD_LAUNCHES
+    dev = grad_out.device
+    if dev.type != "cuda":
+        raise ValueError("roi_align_backward_cuda needs all inputs on one "
+                         "CUDA device")
+    if grad_out.dtype not in _DTYPES or dtype not in _DTYPES:
+        raise TypeError(f"roi_align_backward_cuda takes f32 or bf16, got "
+                        f"{grad_out.dtype} -> {dtype}")
+    _check_rois(boxes, image_index, dev, "roi_align_backward_cuda")
+    b, h, w, c = feature_shape
+    k = boxes.shape[0]
+    s = grad_out.shape[1] if grad_out.dim() == 4 else 0
+    if grad_out.shape != (k, s, s, c) or not grad_out.is_contiguous():
+        raise ValueError(f"roi_align_backward_cuda needs a contiguous "
+                         f"cotangent [{k}, S, S, {c}], got "
+                         f"{tuple(grad_out.shape)}")
+    grad = torch.zeros((b, h, w, c), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib()[1](grad_out.data_ptr(), boxes.data_ptr(),
+                        image_index.data_ptr(), grad.data_ptr(),
+                        k, h, w, c, s, sampling_ratio,
+                        _DTYPES[grad_out.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"RoI Align backward kernel launch failed: "
+                           f"cudaError {err}")
+    BACKWARD_LAUNCHES += 1
+    return grad.to(dtype)
+
+
+class _RoIAlignCUDA(torch.autograd.Function):
+    """The forward kernel, with the backward kernel for the features'
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, features, boxes, image_index, output_size,
+                sampling_ratio):
+        ctx.feature_shape = tuple(features.shape)
+        ctx.dtype = features.dtype
+        ctx.sampling_ratio = sampling_ratio
+        ctx.save_for_backward(boxes, image_index)
+        return roi_align_cuda(features, boxes, image_index, output_size,
+                              sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        boxes, image_index = ctx.saved_tensors
+        grad = None
+        if ctx.needs_input_grad[0]:
+            grad = roi_align_backward_cuda(
+                grad_out.contiguous(), boxes, image_index, ctx.feature_shape,
+                ctx.dtype, ctx.sampling_ratio)
+        return grad, None, None, None, None
+
+
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               image_index: torch.Tensor, output_size: int,
               sampling_ratio: int = 2) -> torch.Tensor:
-    """Dispatch by device: CUDA -> the kernel, CPU -> the plain version."""
+    """Dispatch by device: CUDA -> the kernels (the backward one when
+    autograd asks for the features' gradient), CPU -> the plain version
+    (autograd runs through it)."""
     if features.device.type == "cuda":
-        return roi_align_cuda(features, boxes, image_index, output_size,
-                              sampling_ratio)
+        return _RoIAlignCUDA.apply(features, boxes, image_index, output_size,
+                                   sampling_ratio)
     if features.device.type == "cpu":
         return roi_align_plain(features, boxes, image_index, output_size,
                                sampling_ratio)

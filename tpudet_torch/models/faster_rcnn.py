@@ -1,4 +1,4 @@
-"""Faster R-CNN inference, single-level and FPN
+"""Faster R-CNN inference, single-level and FPN, and single-level training
 (``tpudet.models.faster_rcnn``).
 
 ``DetectorCore`` owns the layers: the backbone (to c4 with the 1x1 neck, or
@@ -15,7 +15,16 @@ predict. Shapes stay static: proposals ``[B, post_nms_topk]`` and
 detections ``[B, max_detections]`` with validity masks; invalid slots carry
 what the JAX functions put there (the entry at index 0).
 
-Training waits for its slice (ROADMAP.md, Queue 1 item 8).
+Training (``loss``): RPN targets (match at 0.7/0.3 with the best anchor of
+each ground-truth box, cross-boundary anchors ignored, 256 sampled),
+training-mode proposals (12,000 -> 2,000) with no gradient, RoI targets
+(ground truth appended, match at 0.5, 128 sampled, a quarter foreground),
+RoI Align of the sampled RoIs (differentiable in the features: on the card
+its backward is a kernel too) and the two stages' losses. The samplers'
+uniform draws come from a ``torch.Generator`` or are handed in
+(``draws``), since torch cannot repeat ``jax.random``'s stream. FPN
+training needs the windowed pooler's backward and raises
+NotImplementedError (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudet_torch.config import Config
+from tpudet_torch.train import losses as L
 from tpudet_torch.kernels import class_aware_select, nms_dispatch
 from tpudet_torch.kernels import batched_nms_dispatch
 from tpudet_torch.kernels import roi_align as roi_align_kernel
@@ -40,8 +50,10 @@ from tpudet_torch.models.rpn_head import RPNHead
 from tpudet_torch.ops import anchors as anchor_ops
 from tpudet_torch.ops import boxes as box_ops
 from tpudet_torch.ops import selection
+from tpudet_torch.ops.matchers import match_boxes
 from tpudet_torch.ops.nms import coordinate_offset_for, sort_desc
 from tpudet_torch.ops.roi_align import fpn_assign_levels
+from tpudet_torch.ops.samplers import draw_uniforms, sample_balanced
 
 # Default cap on flattened (box, class) candidates entering the final NMS
 # (ROIConfig.max_nms_candidates overrides it).
@@ -161,7 +173,7 @@ class FasterRCNN(nn.Module):
         self.cfg = cfg
         self.device = torch.device(device)
         self.core = DetectorCore(cfg, self.device)
-        self._anchors_cache: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._anchors_cache: Dict[Tuple[int, int, str], torch.Tensor] = {}
 
     def init(self, seed: int = 0) -> "FasterRCNN":
         """Draw every weight from ``seed`` with the Flax initializers'
@@ -182,7 +194,8 @@ class FasterRCNN(nn.Module):
         concatenated in level order. SAME-padded stride-2 convs give
         ``ceil(h / stride)`` cells, so the grids use ceil too."""
         h, w = self._canvas(canvas_hw)
-        if (h, w) not in self._anchors_cache:
+        key = (h, w, str(self.device))  # create_train_state may move the model
+        if key not in self._anchors_cache:
             a = self.cfg.anchors
             if self.cfg.backbone.use_fpn:
                 grid = np.concatenate([
@@ -195,9 +208,8 @@ class FasterRCNN(nn.Module):
                 grid = anchor_ops.generate_anchors_np(
                     -(-h // a.stride), -(-w // a.stride), a.stride, a.scales,
                     a.aspect_ratios)
-            self._anchors_cache[(h, w)] = torch.from_numpy(grid).to(
-                self.device)
-        return self._anchors_cache[(h, w)]
+            self._anchors_cache[key] = torch.from_numpy(grid).to(self.device)
+        return self._anchors_cache[key]
 
     def anchor_level_sizes(self, canvas_hw: Optional[Tuple[int, int]] = None):
         """Anchors per FPN level, in the order of :meth:`anchor_boxes`."""
@@ -215,12 +227,15 @@ class FasterRCNN(nn.Module):
                                            self.cfg.rpn.topk_block_size)
         return selection.top_k(scores, k)
 
-    def _generate_proposals_single(self, anchors, logits, deltas, image_hw):
+    def _generate_proposals_single(self, anchors, logits, deltas, image_hw,
+                                   training=False):
         """Decode -> clip -> min-size -> top-k -> NMS, for ``[B, N]`` logits
         and ``[B, N, 4]`` deltas -> boxes ``[B, K, 4]``, scores, valid."""
         cfg = self.cfg.rpn
         n = anchors.shape[0]
-        k_pre = min(n, cfg.pre_nms_topk_test)
+        k_pre = min(n, cfg.pre_nms_topk_train if training
+                    else cfg.pre_nms_topk_test)
+        k_post = cfg.post_nms_topk_train if training else cfg.post_nms_topk_test
         # Select on the logits (sigmoid is monotone), then sigmoid the
         # survivors.
         top_logits, idx = self._pre_nms_topk(logits, k_pre)
@@ -236,18 +251,21 @@ class FasterRCNN(nn.Module):
         wh = boxes[..., 2:] - boxes[..., :2]
         size_ok = (wh[..., 0] > cfg.min_box_size) & (wh[..., 1] > cfg.min_box_size)
         keep_idx, valid = nms_dispatch(
-            boxes, top_scores, cfg.nms_thresh, cfg.post_nms_topk_test,
+            boxes, top_scores, cfg.nms_thresh, k_post,
             valid_mask=size_ok, presorted=True)  # the sort above is descending
         return (_gather_rows(boxes, keep_idx), _gather_rows(top_scores, keep_idx),
                 valid)
 
     def _generate_proposals_single_fpn(self, anchors, level_sizes, logits,
-                                       deltas, image_hw):
+                                       deltas, image_hw, training=False):
         """FPN protocol: top-k per level on the logits, sigmoid, decode and
         clip the survivors, then NMS within each level (level-offset NMS
         over the union, padded to a multiple of 512) -> boxes ``[B, K, 4]``,
         scores (0 where invalid), valid."""
         cfg = self.cfg.rpn
+        k_level = (cfg.fpn_pre_nms_topk_per_level_train if training
+                   else cfg.fpn_pre_nms_topk_per_level_test)
+        k_post = cfg.post_nms_topk_train if training else cfg.post_nms_topk_test
         b = logits.shape[0]
         dev = logits.device
         cand_boxes, cand_scores, cand_levels = [], [], []
@@ -255,8 +273,7 @@ class FasterRCNN(nn.Module):
         for li, n_l in enumerate(level_sizes):
             sl = slice(start, start + n_l)
             start += n_l
-            top_l, idx = self._pre_nms_topk(
-                logits[:, sl], min(n_l, cfg.fpn_pre_nms_topk_per_level_test))
+            top_l, idx = self._pre_nms_topk(logits[:, sl], min(n_l, k_level))
             dec = box_ops.decode_boxes(_gather_rows(deltas[:, sl], idx),
                                        anchors[sl][idx], cfg.box_reg_weights)
             cand_boxes.append(box_ops.clip_boxes(dec, image_hw[:, None, :]))
@@ -275,23 +292,27 @@ class FasterRCNN(nn.Module):
         wh = boxes[..., 2:] - boxes[..., :2]
         size_ok = (wh[..., 0] > cfg.min_box_size) & (wh[..., 1] > cfg.min_box_size)
         keep_idx, valid = batched_nms_dispatch(
-            boxes, top_scores, levels, cfg.nms_thresh, cfg.post_nms_topk_test,
+            boxes, top_scores, levels, cfg.nms_thresh, k_post,
             valid_mask=size_ok, coordinate_offset=_nms_offset(self.cfg))
         kept_scores = _gather_rows(top_scores, keep_idx)
         return (_gather_rows(boxes, keep_idx),
                 torch.where(valid, kept_scores, torch.zeros_like(kept_scores)),
                 valid)
 
-    def proposals(self, logits, deltas, image_hw, canvas_hw=None):
-        """Batched proposals: ``(boxes [B, K, 4], scores [B, K], valid)``."""
+    def proposals(self, logits, deltas, image_hw, canvas_hw=None,
+                  training=False):
+        """Batched proposals with the test or (``training``) train counts:
+        ``(boxes [B, K, 4], scores [B, K], valid)``. The inputs are
+        detached: the second stage takes proposals as data."""
         anchors = self.anchor_boxes(canvas_hw)
+        logits, deltas = logits.detach(), deltas.detach()
         if (self.cfg.backbone.use_fpn
                 and self.cfg.rpn.fpn_pre_nms_topk_per_level_test > 0):
             return self._generate_proposals_single_fpn(
                 anchors, self.anchor_level_sizes(canvas_hw), logits, deltas,
-                image_hw)
+                image_hw, training)
         return self._generate_proposals_single(anchors, logits, deltas,
-                                               image_hw)
+                                               image_hw, training)
 
     # ------------------------------------------------------------- pooling
     def _pool_batch(self, feats: Dict[str, torch.Tensor],
@@ -320,6 +341,156 @@ class FasterRCNN(nn.Module):
             fmap, fboxes.contiguous(), image_index, roi.output_size,
             roi.sampling_ratio)
         return pooled.reshape((b, n) + pooled.shape[1:])
+
+    # ------------------------------------------------------------ training
+    def draw_shapes(self, b: int, canvas_hw=None) -> Dict[str, Tuple[int, int]]:
+        """The ``[B, N]`` shape of each sampler's two uniform draws: the RPN
+        samples among the anchors, the RoI stage among the training
+        proposals (and the appended ground truth)."""
+        n_roi = self.cfg.rpn.post_nms_topk_train
+        if self.cfg.roi.append_gt:
+            n_roi += self.cfg.data.max_gt_boxes
+        return {"rpn": (b, self.anchor_boxes(canvas_hw).shape[0]),
+                "roi": (b, n_roi)}
+
+    def draw_samples(self, generator: torch.Generator, b: int,
+                     canvas_hw=None) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        """``{"rpn": (pos_draws, tie_draws), "roi": (...)}`` from
+        ``generator`` (on the model's device), in the shapes of
+        :meth:`draw_shapes`."""
+        return {stage: draw_uniforms(generator, *shape)
+                for stage, shape in self.draw_shapes(b, canvas_hw).items()}
+
+    def _rpn_targets_single(self, anchors, gt_boxes, gt_valid, image_hw,
+                            draws):
+        """Per image of the batch: match, ignore cross-boundary anchors,
+        sample -> ``(idx [B, K], is_pos, valid, target_deltas [B, K, 4])``."""
+        cfg = self.cfg.rpn
+        iou = box_ops.pairwise_iou(anchors, gt_boxes)  # [B, A, G]
+        matched, labels = match_boxes(iou, cfg.fg_iou_thresh,
+                                      cfg.bg_iou_thresh, gt_valid=gt_valid,
+                                      allow_low_quality=True)
+        if cfg.ignore_cross_boundary:
+            inside = anchor_ops.anchor_validity_mask_np(
+                anchors, image_hw[:, 0:1], image_hw[:, 1:2])
+            labels = torch.where(inside, labels, torch.full_like(labels, -1))
+        idx, is_pos, valid = sample_balanced(labels, *draws,
+                                             cfg.batch_size_per_image,
+                                             cfg.positive_fraction)
+        mgt = torch.gather(matched, 1, idx.long())
+        target_deltas = box_ops.encode_boxes(
+            _gather_rows(gt_boxes, mgt), anchors[idx.long()],
+            cfg.box_reg_weights)
+        return idx, is_pos, valid, target_deltas
+
+    def _roi_targets_single(self, proposals, prop_valid, gt_boxes, gt_classes,
+                            gt_valid, draws):
+        """Per image of the batch: append the ground truth, match at 0.5,
+        sample -> ``(boxes [B, K, 4], target_classes, target_deltas,
+        is_fg, valid, mgt)`` (``mgt``: each RoI's matched ground truth,
+        meaningful where ``is_fg & valid``)."""
+        cfg = self.cfg.roi
+        if cfg.append_gt:
+            proposals = torch.cat([proposals, gt_boxes], dim=1)
+            prop_valid = torch.cat([prop_valid, gt_valid], dim=1)
+        iou = box_ops.pairwise_iou(proposals, gt_boxes)
+        matched, labels = match_boxes(iou, cfg.fg_iou_thresh,
+                                      cfg.bg_iou_thresh_hi, gt_valid=gt_valid,
+                                      bg_thresh_lo=cfg.bg_iou_thresh_lo)
+        labels = torch.where(prop_valid, labels, torch.full_like(labels, -1))
+        idx, is_fg, valid = sample_balanced(labels, *draws,
+                                            cfg.batch_size_per_image,
+                                            cfg.positive_fraction)
+        boxes = _gather_rows(proposals, idx)
+        mgt = torch.gather(matched, 1, idx.long())
+        target_deltas = box_ops.encode_boxes(_gather_rows(gt_boxes, mgt), boxes,
+                                             cfg.box_reg_weights)
+        classes = torch.gather(gt_classes, 1, mgt.long()).to(torch.int32)
+        target_classes = torch.where(is_fg & valid, classes,
+                                     torch.zeros_like(classes))
+        return boxes, target_classes, target_deltas, is_fg, valid, mgt
+
+    def _rpn_stage_losses(self, anchors, rpn_logits, rpn_deltas, batch, draws):
+        """RPN targets and losses -> (mean cls loss, mean box loss, mean
+        positive count) over the batch."""
+        idx, is_pos, valid, tgt_deltas = self._rpn_targets_single(
+            anchors, batch["gt_boxes"], batch["gt_valid"], batch["image_hw"],
+            draws)
+        sampled_logits = torch.gather(rpn_logits, 1, idx.long())
+        sampled_deltas = _gather_rows(rpn_deltas, idx)
+        rpn_cls, rpn_box = L.rpn_losses(
+            sampled_logits, sampled_deltas, tgt_deltas, is_pos, valid,
+            box_weight=self.cfg.rpn.loss_weight_box)
+        num_pos = (is_pos & valid).sum(dim=1).to(torch.float32).mean()
+        return rpn_cls.mean(), rpn_box.mean(), num_pos
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward on a preprocessed batch (``image``,
+        ``image_hw``, ``gt_boxes [B, G, 4]`` xyxy pixels, ``gt_classes
+        [B, G]`` 1..C, ``gt_valid [B, G]``) -> ``(total, metrics)``, as
+        ``tpudet.models.FasterRCNN.loss``, with the same metric names in the
+        default, ``rpn_only`` and ``det_only`` modes. The samplers' draws are
+        ``draws`` (shapes of :meth:`draw_shapes`) or come from ``generator``
+        (on the model's device)."""
+        cfg = self.cfg
+        if cfg.backbone.use_fpn:
+            raise NotImplementedError(
+                "FPN training needs the windowed pooler's backward, which "
+                "is not ported yet (ROADMAP.md, Queue 1)")
+        if cfg.rpn_only and cfg.det_only:
+            raise ValueError(
+                "rpn_only and det_only are mutually exclusive training modes")
+        images = batch["image"]
+        b = images.shape[0]
+        canvas = images.shape[1:3]
+        batch = dict(batch, image_hw=batch["image_hw"].to(torch.float32),
+                     gt_boxes=batch["gt_boxes"].to(torch.float32))
+        if draws is None:
+            if generator is None:
+                raise ValueError(
+                    "FasterRCNN.loss samples anchors and RoIs at random: pass "
+                    f"a torch.Generator on {self.device} or the draws")
+            draws = self.draw_samples(generator, b, canvas)
+        anchors = self.anchor_boxes(canvas)
+        feats = self.core.features(images)
+        rpn_logits, rpn_deltas = self.core.rpn(feats)
+
+        if not cfg.det_only:
+            rpn_cls, rpn_box, num_pos = self._rpn_stage_losses(
+                anchors, rpn_logits, rpn_deltas, batch, draws["rpn"])
+        if cfg.rpn_only:
+            total = rpn_cls + rpn_box
+            return total, {"loss": total, "rpn_cls_loss": rpn_cls,
+                           "rpn_box_loss": rpn_box, "num_pos_anchors": num_pos}
+
+        prop_boxes, _, prop_valid = self.proposals(
+            rpn_logits, rpn_deltas, batch["image_hw"], canvas_hw=canvas,
+            training=True)
+        roi_boxes, tgt_cls, tgt_box, is_fg, roi_valid, _ = (
+            self._roi_targets_single(prop_boxes, prop_valid, batch["gt_boxes"],
+                                     batch["gt_classes"], batch["gt_valid"],
+                                     draws["roi"]))
+        pooled = self._pool_batch(feats, roi_boxes)
+        r = roi_boxes.shape[1]
+        cls_logits, det_deltas = self.core.roi_head(
+            pooled.reshape((b * r,) + pooled.shape[2:]))
+        det_cls, det_box = L.detection_losses(
+            cls_logits.reshape(b, r, -1), det_deltas.reshape(b, r, -1, 4),
+            tgt_cls, tgt_box, is_fg, roi_valid)
+        det_cls, det_box = det_cls.mean(), det_box.mean()
+        num_fg = (is_fg & roi_valid).sum(dim=1).to(torch.float32).mean()
+        if cfg.det_only:
+            total = det_cls + det_box
+            return total, {"loss": total, "det_cls_loss": det_cls,
+                           "det_box_loss": det_box, "num_fg_rois": num_fg}
+        total = rpn_cls + rpn_box + det_cls + det_box
+        return total, {"rpn_cls_loss": rpn_cls, "rpn_box_loss": rpn_box,
+                       "det_cls_loss": det_cls, "det_box_loss": det_box,
+                       "num_pos_anchors": num_pos, "num_fg_rois": num_fg,
+                       "loss": total}
 
     # ----------------------------------------------------------- inference
     def _postprocess_single(self, proposals, prop_valid, cls_logits,

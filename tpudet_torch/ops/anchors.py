@@ -41,3 +41,15 @@ def generate_anchors_np(
     centers = np.stack([cxv, cyv, cxv, cyv], axis=-1)  # [H, W, 4]
     anchors = centers[:, :, None, :] + base[None, None, :, :]  # [H, W, A, 4]
     return anchors.reshape(-1, 4)
+
+
+def anchor_validity_mask_np(anchors, image_height, image_width):
+    """True for anchors fully inside the image (Faster R-CNN §3.1.3: ignore
+    cross-boundary anchors during training). Takes NumPy arrays or tensors;
+    ``image_height``/``image_width`` of shape ``[B, 1]`` give ``[B, N]``."""
+    return (
+        (anchors[..., 0] >= 0)
+        & (anchors[..., 1] >= 0)
+        & (anchors[..., 2] <= image_width)
+        & (anchors[..., 3] <= image_height)
+    )

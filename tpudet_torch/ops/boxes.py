@@ -27,15 +27,15 @@ def area(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """IoU matrix between [N, 4] and [M, 4] boxes -> [N, M]; 0 where the
-    union is empty."""
+    """IoU matrix between [..., N, 4] and [..., M, 4] boxes (leading axes
+    broadcast) -> [..., N, M]; 0 where the union is empty."""
     a1 = area(boxes1)
     a2 = area(boxes2)
-    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = (rb - lt).clamp(min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    union = a1[:, None] + a2[None, :] - inter
+    union = a1[..., :, None] + a2[..., None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros_like(inter))
 
 

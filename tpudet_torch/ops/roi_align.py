@@ -70,8 +70,14 @@ def roi_align_batched(
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
     """Batched gather form: ``[B, H, W, C]`` features, ``[K, 4]`` boxes and
-    their ``[K]`` image indices -> ``[K, S, S, C]`` in the features' dtype."""
+    their ``[K]`` image indices -> ``[K, S, S, C]`` in the features' dtype.
+
+    Differentiable in the features: the corners are gathered from an f32
+    view of the map (exact for bf16), so autograd sums the gradient in f32
+    and rounds it once to the features' dtype, as the backward kernel
+    does."""
     _, h, w, c = features.shape
+    feats32 = features.float()  # the tensor itself when already f32
     k = boxes.shape[0]
     s, r = output_size, sampling_ratio
     boxes = boxes.float()
@@ -88,7 +94,7 @@ def roi_align_batched(
     img = image_index.long()[:, None, None]
 
     def corner(yi, xi):  # [K, s*r, s*r, C] in f32
-        return features[img, yi[:, :, None], xi[:, None, :]].float()
+        return feats32[img, yi[:, :, None], xi[:, None, :]]
 
     top = corner(y0, x0) * (1.0 - lx) + corner(y0, x1) * lx
     bot = corner(y1, x0) * (1.0 - lx) + corner(y1, x1) * lx

@@ -1,14 +1,24 @@
-"""Detection losses (``tpudet.train.losses``): the Deformable DETR set loss.
+"""Detection losses (``tpudet.train.losses``): Faster R-CNN's RPN and
+detection-head losses, and the Deformable DETR set loss.
 
-``deformable_detr_set_loss`` is JAX's per-image function with any leading
-axes: the model calls it once over every (decoder layer, image) problem,
-where JAX ``vmap``s the per-image function, so the matcher solves them all
+Each is JAX's per-image function with any leading axes (a batch of images
+where JAX ``vmap``s): the reductions run over the last sample axis and the
+results keep the leading ones. ``deformable_detr_set_loss`` is called once
+over every (decoder layer, image) problem, so the matcher solves them all
 in one lockstep batch.
+
+RPN (Faster R-CNN §3.1.2): binary cross-entropy over the sampled anchors
+and smooth-L1 (beta 1/9) over the positives' deltas, both divided by the
+number of sampled anchors. Detection head (Fast R-CNN §2.3): softmax
+cross-entropy over C + 1 classes and smooth-L1 (beta 1) over the
+foreground rows' matched-class deltas, both divided by the number of
+sampled RoIs. Every loss is 0, not NaN, where nothing is sampled.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from tpudet_torch.ops.boxes import (
     cxcywh_to_xyxy,
@@ -16,6 +26,82 @@ from tpudet_torch.ops.boxes import (
     pairwise_giou,
 )
 from tpudet_torch.ops.hungarian import hungarian_masked
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+              beta: float) -> torch.Tensor:
+    """Elementwise smooth-L1 (Huber): ``0.5 x^2 / beta`` for ``|x| < beta``,
+    else ``|x| - 0.5 beta``; ``|x|`` for ``beta <= 0``."""
+    diff = (pred - target).abs()
+    if beta <= 0.0:
+        return diff
+    return torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
+
+
+def _safe_mean(values: torch.Tensor, mask: torch.Tensor,
+               denom: torch.Tensor = None) -> torch.Tensor:
+    """Sum over the last axis of ``values * mask`` over ``denom`` (default:
+    the mask's count); 0 where ``denom`` is 0."""
+    total = (values * mask).sum(dim=-1)
+    if denom is None:
+        denom = mask.sum(dim=-1)
+    return torch.where(denom > 0, total / denom.clamp(min=1.0),
+                       torch.zeros_like(total))
+
+
+def rpn_losses(
+    logits: torch.Tensor,         # [..., K] objectness of the sampled anchors
+    deltas: torch.Tensor,         # [..., K, 4] their predicted deltas
+    target_deltas: torch.Tensor,  # [..., K, 4] encoded ground truth
+    is_positive: torch.Tensor,    # [..., K] bool
+    valid: torch.Tensor,          # [..., K] bool: real samples
+    box_weight: float = 1.0,
+    beta: float = 1.0 / 9.0,
+):
+    """-> ``(cls_loss [...], box_weight * box_loss [...])``."""
+    valid_f = valid.to(torch.float32)
+    pos_f = (is_positive & valid).to(torch.float32)
+    num_samples = valid_f.sum(dim=-1)
+    # Stable BCE with logits; ``maximum`` against zero splits the gradient
+    # of a zero logit as ``jnp.maximum`` does.
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    cls_per = (torch.maximum(logits, zero) - logits * pos_f
+               + torch.log1p(torch.exp(-logits.abs())))
+    cls_loss = _safe_mean(cls_per, valid_f, denom=num_samples)
+    box_per = smooth_l1(deltas, target_deltas, beta).sum(dim=-1)
+    box_loss = _safe_mean(box_per, pos_f, denom=num_samples)
+    return cls_loss, box_weight * box_loss
+
+
+def detection_losses(
+    cls_logits: torch.Tensor,      # [..., R, C+1]
+    deltas: torch.Tensor,          # [..., R, C_box, 4] (C_box = C or 1)
+    target_classes: torch.Tensor,  # [..., R] int, 0 = background
+    target_deltas: torch.Tensor,   # [..., R, 4]
+    is_foreground: torch.Tensor,   # [..., R] bool
+    valid: torch.Tensor,           # [..., R] bool
+    beta: float = 1.0,
+):
+    """-> ``(cls_loss [...], box_loss [...])``. Each row's box loss reads its
+    target class's delta slot (class c -> slot c - 1; a class-agnostic head
+    has the one slot 0)."""
+    valid_f = valid.to(torch.float32)
+    fg_f = (is_foreground & valid).to(torch.float32)
+    num_samples = valid_f.sum(dim=-1)
+    target = target_classes.long()
+    logp = F.log_softmax(cls_logits, dim=-1)
+    cls_per = -torch.gather(logp, -1, target[..., None])[..., 0]
+    cls_loss = _safe_mean(cls_per, valid_f, denom=num_samples)
+    if deltas.shape[-2] == 1:
+        sel = deltas[..., 0, :]
+    else:
+        slot = (target - 1).clamp(0, deltas.shape[-2] - 1)
+        sel = torch.gather(
+            deltas, -2, slot[..., None, None].expand(*slot.shape, 1, 4)
+        )[..., 0, :]
+    box_per = smooth_l1(sel, target_deltas, beta).sum(dim=-1)
+    box_loss = _safe_mean(box_per, fg_f, denom=num_samples)
+    return cls_loss, box_loss
 
 
 def deformable_detr_set_loss(

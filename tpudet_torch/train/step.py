@@ -25,9 +25,10 @@ from tpudet_torch.train.state import (
 
 
 def _step_seed(seed: int, step: int, micro: int) -> int:
-    """The seed of the dropout generator of microbatch ``micro`` of update
-    ``step``: deterministic in ``(train.seed, step, micro)`` and unrelated
-    across them, as JAX's ``fold_in`` chain is (the bits differ)."""
+    """The seed of the generator of microbatch ``micro`` of update ``step``
+    (Deformable DETR's dropout masks, Faster R-CNN's sampler draws):
+    deterministic in ``(train.seed, step, micro)`` and unrelated across
+    them, as JAX's ``fold_in`` chain is (the bits differ)."""
     return int(np.random.SeedSequence([seed, step, micro]).generate_state(
         1, np.uint64)[0])
 
@@ -52,6 +53,12 @@ def make_train_step(model, cfg: Config, device="cuda"
     Runs on ``device`` (CUDA unless the caller passes "cpu"), where the
     state's model must be."""
     tcfg = cfg.train
+    if cfg.det_only and "rpn_head" not in tcfg.freeze:
+        # det_only gives the RPN no loss gradient: unfrozen, weight decay
+        # alone would move the proposals the detector trains against.
+        raise ValueError("det_only training requires 'rpn_head' in "
+                         "train.freeze (the RPN supplies proposals but "
+                         "receives no gradient)")
     device = torch.device(device)
     if model.device != device:
         raise ValueError(f"make_train_step(device={device}): the model lives "
