@@ -2,6 +2,11 @@
 """Drives the PyTorch port (``tpudet_torch``) on one NVIDIA GPU and checks it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases deform_backward,precision_probe
+    python3 chip_smoke.py --phases deform_backward --compare PARENT_TREE
+
+The first runs everything below; the others run some phases alone (names
+in ``PHASES``), the last in another checkout and in this one by turns.
 
 Phases, one line of output each (a failed check exits non-zero and prints
 no result):
@@ -47,7 +52,9 @@ no result):
 10. the deformable attention backward kernel against ``torch.autograd.grad``
     through the plain version, at the train step's 832x832 shapes (the
     encoder's Q = N = 14,365 and the decoder's Q = 300 at b=8), bf16 and f32
-    values: value, location and attention-weight gradients;
+    values: value, location and attention-weight gradients; how its
+    atomics collide (corners per touched value row, and corners on a row
+    that the same warp already touched);
 11. coco_deformable_detr_r50 training at full width through
     ``create_train_state`` and ``make_train_step``: the preset's own train
     config (AdamW 2e-4, backbone 0.1x, clip 0.1, warmup) and plain init, bf16,
@@ -81,6 +88,8 @@ no result):
 18. the precision probe (``python -m tpudet_torch.kernels.precision_probe``'s
     stages A/B/C on the tensor cores): stage A exact, stage C inside the
     contract, stage B's error printed, each stage against the plain version;
+    eager time per call and device time per call (CUDA-graph replays),
+    each beside ``torch.matmul``'s;
 19. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
     832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50) and of one b=8
     train step of each of coco_deformable_detr_r50 (832x832) and voc_r50
@@ -186,6 +195,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 200, replays: int = 5) -> float:
+    """Device time per call of ``fn`` in ms: ``iters`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events. The host's
+    launch overhead (Python, the dispatcher, ctypes) drops out, so a
+    microsecond kernel and a microsecond library call compare on the card's
+    time alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def random_boxes(gen, shape, height, width, lo=16.0, hi=400.0, device="cuda"):
@@ -900,6 +939,33 @@ def deform_work(values, shapes, loc, weights):
             outside, touched)
 
 
+def corner_repeats(values, shapes, loc, weights):
+    """How the backward's atomics into dV collide on these inputs: the share
+    of a (query, head)'s nonzero-weight corners whose value row an earlier
+    sample of the same (query, head) already touched (what one warp could
+    merge before its atomics), and the mean number of corners that land on
+    each touched (image, head, row) (the additions the atomics serialize on
+    one address)."""
+    import torch
+
+    from tpudet_torch.ops.deform_attn import (
+        _corner_index_weight,
+        level_start_offsets,
+    )
+
+    offsets, _ = level_start_offsets(shapes)
+    idx, cw = _corner_index_weight(loc, weights, shapes, offsets)
+    used = cw != 0
+    # Unused corners get distinct negative rows, so they never repeat.
+    keyed = torch.where(used, idx, -1 - torch.arange(idx.shape[-1],
+                                                     device=idx.device))
+    ordered = keyed.sort(dim=-1).values
+    repeats = int(((ordered[..., 1:] == ordered[..., :-1])
+                   & (ordered[..., 1:] >= 0)).sum())
+    rows, corners, _, _ = deform_census(values, shapes, loc, weights)
+    return repeats / max(corners, 1), corners / max(rows, 1)
+
+
 def deform_backward_work(values, shapes, loc, weights):
     """... and of its backward: the touched value rows read once, the value
     gradient written once in the values' dtype over all of ``[B, N, H, D]``
@@ -1040,6 +1106,7 @@ def phase_deform_backward():
             plain_ms = time_ms(lambda: plain_deform_grads(*args, grad_out),
                                iters=3, warmup=1)
             bytes_ms, ops_ms = deform_backward_work(*args)
+            repeat_share, per_row = corner_repeats(*args)
             # The JSON's error: the largest over the f32 sums (the bf16
             # value gradient's rounding is bounded above, not counted).
             err = max(e for label, (e, _) in errs.items()
@@ -1054,7 +1121,10 @@ def phase_deform_backward():
                   + f" | kernel {ms:.4f} ms, plain (autograd through the "
                   f"plain forward) {plain_ms:.2f} ms, bound "
                   f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, "
-                  f"operations {ops_ms:.4f})", flush=True)
+                  f"operations {ops_ms:.4f}) | corners on a row an earlier "
+                  f"sample of the same (query, head) touched "
+                  f"{100 * repeat_share:.1f}%, corners per touched dV row "
+                  f"{per_row:.2f}", flush=True)
             del grads
     return result
 
@@ -1544,10 +1614,26 @@ def phase_voc_train_path(card):
     return launches, (lambda: step(state, batch))
 
 
-def phase_voc_train_reference():
-    """One f32 b=2 320x320 train step of the full voc_r50 preset on the
-    card against the same step on the CPU, where every wrapper runs its
-    plain version, the samplers given the same draws (numpy, once)."""
+# The stages the f32 voc_r50 reference step records: each stage's outputs
+# by name, and the rows that are its sampled positives. A target's
+# regression deltas and matched ground truth mean something only there (a
+# background row's targets need not agree).
+VOC_REFERENCE_FIELDS = {
+    "proposal keeps": (("keep", "valid"), None),
+    "_rpn_targets_single": (("idx", "is_pos", "valid", "deltas"),
+                            lambda t: t[1] & t[2]),
+    "_roi_targets_single": (("boxes", "classes", "deltas", "is_fg", "valid",
+                             "matched"), lambda t: t[3] & t[4])}
+
+
+def voc_reference_runs(size):
+    """One f32 b=2 ``size`` x ``size`` train step of the full voc_r50 preset
+    on the card and the same step on the CPU, where every wrapper runs its
+    plain version, the samplers given the same draws (numpy, once) ->
+    ``(batch, {"cuda": run, "cpu": run})``: each run's loss, the stages of
+    ``VOC_REFERENCE_FIELDS`` (``seen``), the parameters before and after
+    the update and the gradients. The RoI Align backward's launch count
+    starts from 0."""
     import numpy as np
     import torch
 
@@ -1555,15 +1641,13 @@ def phase_voc_train_reference():
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.models import build_model
     from tpudet_torch.models import faster_rcnn as tfr
-    from tpudet_torch.train.state import create_train_state, lr_schedule
+    from tpudet_torch.train.state import create_train_state
     from tpudet_torch.train.step import make_train_step
 
     cfg = preset_config("voc_r50")
-    # 320x320: the preset's 128-512 px anchors fit inside the images, so
-    # the RPN samples positives (at 128x128 every anchor crosses the border).
-    batch = planted_batch(cfg, 2, 320, 320, seed=55, boxes=(2, 8))
+    batch = planted_batch(cfg, 2, size, size, seed=55, boxes=(2, 8))
     rng = np.random.default_rng(56)
-    shapes = build_model(cfg, device="cpu").draw_shapes(2, (320, 320))
+    shapes = build_model(cfg, device="cpu").draw_shapes(2, (size, size))
     draws = {k: tuple(torch.from_numpy(rng.random(shape, dtype=np.float32))
                       for _ in range(2)) for k, shape in shapes.items()}
     original_nms = tfr.nms_dispatch
@@ -1600,19 +1684,27 @@ def phase_voc_train_reference():
                       if p.grad is not None},
             "params": {k: p.detach().cpu() for k, p in state.params.items()}}
         del model, state
+    return batch, runs
+
+
+def phase_voc_train_reference():
+    """The f32 b=2 320x320 step of ``voc_reference_runs`` on the card
+    against the CPU: proposal keeps, samples and labels equal, loss within
+    1e-4, gradients and the updated parameters within their tolerances."""
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.train.state import lr_schedule
+
+    cfg = preset_config("voc_r50")
+    # 320x320: the preset's 128-512 px anchors fit inside the images, so
+    # the RPN samples positives (at 128x128 every anchor crosses the border).
+    _, runs = voc_reference_runs(320)
     card, cpu = runs["cuda"], runs["cpu"]
     check(kra.BACKWARD_LAUNCHES == 1, f"f32 voc_r50 train step: "
           f"{kra.BACKWARD_LAUNCHES} RoI Align backward launches, expected 1")
-    # Each stage's outputs by name; a target's regression deltas and matched
-    # ground truth mean something only on its sampled positives (a
-    # background row's argmax over near-equal IoUs may go either way).
-    fields = {"proposal keeps": (("keep", "valid"), None),
-              "_rpn_targets_single": (("idx", "is_pos", "valid", "deltas"),
-                                      lambda t: t[1] & t[2]),
-              "_roi_targets_single": (("boxes", "classes", "deltas", "is_fg",
-                                       "valid", "matched"),
-                                      lambda t: t[3] & t[4])}
-    for key, (names, positives) in fields.items():
+    for key, (names, positives) in VOC_REFERENCE_FIELDS.items():
         mask = positives(cpu["seen"][key]) if positives else None
         for name, a, b in zip(names, card["seen"][key], cpu["seen"][key]):
             if name in ("deltas", "matched"):
@@ -1741,26 +1833,41 @@ def phase_precision_probe():
     x, m, _, _ = kpp.probe_inputs()["B_f32_data_single_pass_DEFAULT"]
     x, m = x.cuda(), m.cuda()
     xb, mb = x.to(torch.bfloat16), m.to(torch.bfloat16)
-    ms = time_ms(lambda: kpp.precision_probe_cuda(x, m, False), iters=200,
-                 warmup=10)
-    split_ms = time_ms(lambda: kpp.precision_probe_cuda(x, m, True), iters=200,
-                       warmup=10)
-    plain_ms = time_ms(lambda: kpp.precision_probe_plain(x, m, False),
-                       iters=200, warmup=10)
-    library_ms = time_ms(lambda: torch.matmul(xb, mb), iters=200, warmup=10)
+    runs = {"one pass": lambda: kpp.precision_probe_cuda(x, m, False),
+            "split": lambda: kpp.precision_probe_cuda(x, m, True),
+            "plain": lambda: kpp.precision_probe_plain(x, m, False),
+            "torch.matmul": lambda: torch.matmul(xb, mb)}
+    # Microsecond calls: eager back-to-back calls (the kernels line's ms, as
+    # for every other kernel) time the host's launch path as much as the
+    # card; the device time per call from CUDA-graph replays goes beside.
+    # The shared host's load moves eager times between seconds, so each
+    # call is timed in 5 rounds that take the calls in turn, and the
+    # kernels line takes each call's median round.
+    rounds = [{k: time_ms(fn, iters=200, warmup=10) for k, fn in runs.items()}
+              for _ in range(5)]
+    eager = {k: sorted(r[k] for r in rounds)[2] for k in runs}
+    device = {k: graph_ms(fn) for k, fn in runs.items()}
     out_numel = x.shape[0] * m.shape[1]
     bytes_ms = (x.numel() + m.numel() + out_numel) * 4 / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * x.shape[0] * x.shape[1] * m.shape[1] / BF16_OPS_PER_S * 1e3
     print(f"precision probe kernel: [{x.shape[0]}, {x.shape[1]}] . "
           f"[{m.shape[0]}, {m.shape[1]}] f32 in, bf16 tensor cores, f32 "
           f"accumulation: equal to the plain version (max err {max_err:.3e}) "
-          f"| one pass {ms:.4f} ms, split {split_ms:.4f} ms, plain (bf16 "
-          f"rounding, f32 matmul) {plain_ms:.4f} ms, torch.matmul on the "
-          f"bf16 operands {library_ms:.4f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, operations "
-          f"{ops_ms:.6f})", flush=True)
-    return launches, {"ms": ms, "plain_ms": plain_ms, "bytes_ms": bytes_ms,
-                      "ops_ms": ops_ms, "library_ms": library_ms,
+          "| device ms per call (CUDA graph of 200 calls): "
+          + ", ".join(f"{k} {v:.5f}" for k, v in device.items())
+          + " | eager ms per call (200 calls back to back, median of 5 "
+          "rounds): " + ", ".join(f"{k} {v:.5f} (rounds "
+                                  + " ".join(f"{r[k]:.5f}" for r in rounds)
+                                  + ")" for k, v in eager.items())
+          + f" | bound {max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
+          f"operations {ops_ms:.6f}); plain = bf16 rounding + f32 matmul, "
+          "torch.matmul on the bf16 operands", flush=True)
+    return launches, {"ms": eager["one pass"], "split_ms": eager["split"],
+                      "plain_ms": eager["plain"], "bytes_ms": bytes_ms,
+                      "ops_ms": ops_ms, "library_ms": eager["torch.matmul"],
+                      "device_ms": device["one pass"],
+                      "split_device_ms": device["split"],
+                      "library_device_ms": device["torch.matmul"],
                       "err": max_err}
 
 
@@ -1835,9 +1942,57 @@ def phase_profile(card, label, run, warmup=3):
               f"{e.key[:100]}", flush=True)
 
 
-def main() -> None:
+# Phases that ``--phases`` runs alone (after the device and build phases),
+# each a call on the card's name.
+PHASES = {
+    "deform_backward": lambda card: phase_deform_backward(),
+    "deform_train": lambda card: phase_profile(
+        card, "coco_deformable_detr_r50 b=8 832x832 train step",
+        phase_train_path(card)[1], warmup=1),
+    "precision_probe": lambda card: phase_precision_probe(),
+}
+
+
+def run_phases(names) -> None:
+    """The device and build phases, then ``names`` of PHASES, in order."""
+    card = phase_device()
+    phase_build()
+    for name in names:
+        PHASES[name](card)
+    print(f"phases done: {', '.join(names)}", flush=True)
+
+
+def compare(tree: Path, names) -> None:
+    """``names`` of PHASES in ``tree`` (another checkout whose chip_smoke.py
+    takes ``--phases``, e.g. the parent commit's ``git archive``) and here,
+    each tree's own chip_smoke.py in a process of its own, in the order
+    tree, here, here, tree, on this one card; each builds its own tree's
+    kernels. Output lines carry the tree's label."""
+    for label, where in (("parent", tree), ("change", HERE), ("change", HERE),
+                         ("parent", tree)):
+        proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases",
+                               ",".join(names)], cwd=where,
+                              capture_output=True, text=True, timeout=1200)
+        for line in proc.stdout.splitlines():
+            print(f"[{label}] {line}", flush=True)
+        check(proc.returncode == 0, f"{label} tree {where} failed "
+              f"({proc.returncode}): {proc.stderr[-3000:]}")
+
+
+def main(argv=None) -> None:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", help="comma-separated phases to run alone "
+                        f"(of {', '.join(PHASES)}), with no kernels or result "
+                        "line")
+    parser.add_argument("--compare", metavar="TREE", type=Path,
+                        help="with --phases: run them with TREE's own "
+                        "chip_smoke.py (e.g. the parent commit's git archive) "
+                        "and here, in the order TREE, here, here, TREE")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script runs the port "
              "on a CUDA card")
@@ -1849,6 +2004,14 @@ def main() -> None:
     check(Path(tpudet_torch.__file__).resolve().parent.parent == HERE,
           f"tpudet_torch was imported from {tpudet_torch.__file__}, not from "
           "this checkout")
+    if args.phases:
+        names = args.phases.split(",")
+        check(all(n in PHASES for n in names), f"--phases takes {list(PHASES)}")
+        if args.compare:
+            compare(args.compare.resolve(), names)
+        else:
+            run_phases(names)
+        return
     card = phase_device()
     phase_build()
     nms, nms_err = phase_nms()
@@ -1933,11 +2096,14 @@ def main() -> None:
             max(m["err"] for m in result.values())))
     kernels[-1]["replaces"] = kda.BACKWARD_REPLACES
     # The probe's one-pass product; library_ms: torch.matmul on the bf16
-    # operands (one cuBLAS call).
+    # operands (one cuBLAS call), eager as ms; the *device_ms keys: device
+    # time per call from CUDA-graph replays.
     kernels.append(dict(entry("precision_probe", kpp,
                               {"precision probe": probe_launches}, probe,
                               probe["err"]),
-                        library_ms=probe["library_ms"]))
+                        **{k: probe[k] for k in (
+                            "library_ms", "split_ms", "device_ms",
+                            "split_device_ms", "library_device_ms")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -131,7 +131,7 @@ __global__ void ms_deform_attn_fwd_kernel(LevelTable table,
 // and emit only the per-axis corner-weight gradients, leaving XLA to chain
 // them to the locations and attention weights. Here each sample's four
 // corners give, with dot_c = <g[b, q, h, :], v[corner_c, h, :]>:
-//   dV[corner_c, h, :] += bw_c * aw * g[b, q, h, :]       (atomicAdd, f32)
+//   dV[corner_c, h, :] += bw_c * aw * g[b, q, h, :]       (atomic, f32)
 //   d aw               = sum_c bw_c * dot_c
 //   d loc_x            = W_l * aw * sum_c (+-1) * (fy | 1 - fy) * dot_c
 //   d loc_y            = H_l * aw * sum_c (+-1) * (fx | 1 - fx) * dot_c
@@ -139,107 +139,235 @@ __global__ void ms_deform_attn_fwd_kernel(LevelTable table,
 // the grid is zero (floor has zero derivative): the gradients of the plain
 // version's `where` gates.
 //
-// Layout: the forward's, one block per (image, query). One thread per
-// sample first writes its corners' rows (-1 outside the grid), bilinear
-// weights and their x and y derivatives to shared memory, and the block
-// copies the query's cotangent there. Then one warp per head (heads above
-// 32 loop over the warps) walks the head's L * P samples: for each corner
-// inside the grid its lanes stride over D (any D: 8, 32, 40 ...), a warp
-// butterfly gives dot_c to every lane, and the lanes add bw_c * aw * g into
-// the f32 dV buffer. Lane 0 writes the sample's three field gradients.
+// What bounds it on the H100: not bytes (~0.18 ms of them for an encoder
+// layer of coco_deformable_detr_r50 at b=8 on 832x832) but instructions
+// and latency: that layer has 14.7 M samples, 58.8 M corners and 1.88 G
+// f32 additions into dV.
 //
-// What bounds it on the H100: bytes (value rows touched, locations,
-// weights and the cotangent read once, the field gradients written once,
-// the f32 dV read-modify-written once per touched element). This first
-// design reduces each corner's dot product across a warp and issues one
-// atomic per (corner, channel): making it fast is later work (PERF.md).
-template <typename T>
-__global__ void ms_deform_attn_bwd_kernel(
+// Layout: one warp per (image, query, head), eight to a block. Lane i
+// first stages sample i's four corners (row, bilinear weight and its x and
+// y derivatives; 32 samples at a time) in the warp's shared memory. Then
+// the warp takes one sample at a time with lane = 8 * corner + channel
+// quad: the 4 corners, each over D channels in quads of 4 (D > 32 loops;
+// D % 4 != 0 takes a scalar path). A lane loads its quad of the corner row
+// with one vector load (8 bytes bf16, 16 f32) and adds into dV with one
+// vector atomic (float4: 4 f32 additions in one instruction); 3 shuffles
+// give the corner's dot product, which one lane of the corner stores.
+// Last, lane i sums sample i's four corner terms into its three field
+// gradients, and the warp writes them in coalesced stores. The row loads
+// of 2 samples go out before their products. Instructions and latency
+// bound it more than its atomics do, so the geometry is computed once per
+// sample (not by each of its 32 lanes) and the sample's sums across
+// corners take no shuffles.
+constexpr int kBwdWarps = 8;  // (image, query, head) pairs per block
+constexpr int kChunk = 32;    // samples staged at once, one per lane
+constexpr int kBwdGroup = 2;  // samples whose row loads go out together
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// One corner of a staged sample: its value row (-1 outside the grid), its
+// bilinear weight and that weight's x and y derivatives (all 0 outside).
+struct __align__(16) BwdCorner {
+  int row;
+  float bw, ddx, ddy;
+};
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The n (> 0) values at p, at most 4, as f32: one vector load when kVec
+// (n is then at least 4 and p aligned), else one scalar load each.
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const float* p, int n) {
+  if (kVec) return *reinterpret_cast<const float4*>(p);
+  float4 r = zero4();
+  r.x = p[0];
+  if (n > 1) r.y = p[1];
+  if (n > 2) r.z = p[2];
+  if (n > 3) r.w = p[3];
+  return r;
+}
+
+template <bool kVec>
+__device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p, int n) {
+  if (kVec) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  float4 r = zero4();
+  r.x = __bfloat162float(p[0]);
+  if (n > 1) r.y = __bfloat162float(p[1]);
+  if (n > 2) r.z = __bfloat162float(p[2]);
+  if (n > 3) r.w = __bfloat162float(p[3]);
+  return r;
+}
+
+// dV[p .. p + min(n, 4)) += v: one float4 atomic (sm_90, global memory)
+// when kVec, else one f32 atomic per value.
+template <bool kVec>
+__device__ __forceinline__ void add_quad(float* p, float4 v, int n) {
+  if (kVec) {
+    atomicAdd(reinterpret_cast<float4*>(p), v);
+    return;
+  }
+  atomicAdd(p, v.x);
+  if (n > 1) atomicAdd(p + 1, v.y);
+  if (n > 2) atomicAdd(p + 2, v.z);
+  if (n > 3) atomicAdd(p + 3, v.w);
+}
+
+// Level l's height, width and first row, read with static indices only:
+// a dynamic index into the by-value table copies it to local memory.
+__device__ __forceinline__ void level_dims(const LevelTable& table, int l,
+                                           int* height, int* width,
+                                           int* start) {
+  *height = table.height[0];
+  *width = table.width[0];
+  *start = table.start[0];
+#pragma unroll
+  for (int i = 1; i < kMaxLevels; ++i) {
+    if (l == i) {
+      *height = table.height[i];
+      *width = table.width[i];
+      *start = table.start[i];
+    }
+  }
+}
+
+__device__ __forceinline__ float dot_quad(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(32 * kBwdWarps) ms_deform_attn_bwd_kernel(
     LevelTable table, const T* __restrict__ values,
     const float* __restrict__ loc, const float* __restrict__ attn,
     const float* __restrict__ grad_out, float* __restrict__ grad_values,
     float* __restrict__ grad_loc, float* __restrict__ grad_attn, int N, int Q,
-    int H, int D, int L, int P) {
-  extern __shared__ unsigned char smem[];
-  const int LP = L * P;
-  const int S = H * LP;
-  const int HD = H * D;
-  int* corner_row = reinterpret_cast<int*>(smem);                  // [S][4]
-  float* corner_w = reinterpret_cast<float*>(corner_row + 4 * S);  // [S][4]
-  float* dw_dx = corner_w + 4 * S;                                 // [S][4]
-  float* dw_dy = dw_dx + 4 * S;                                    // [S][4]
-  float* g = dw_dy + 4 * S;                                        // [H * D]
-
-  const int bq = blockIdx.x;  // b * Q + q
-  const int b = bq / Q;
-  const float* loc_q = loc + static_cast<size_t>(bq) * S * 2;
-  const float* attn_q = attn + static_cast<size_t>(bq) * S;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int l = (s / P) % L;
-    const int hl = table.height[l];
-    const int wl = table.width[l];
-    const float x = loc_q[2 * s] * static_cast<float>(wl) - 0.5f;
-    const float y = loc_q[2 * s + 1] * static_cast<float>(hl) - 0.5f;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    const float fx = x - x0f;
-    const float fy = y - y0f;
-    const int x0 = static_cast<int>(x0f);
-    const int y0 = static_cast<int>(y0f);
-    for (int dy = 0; dy < 2; ++dy) {
-      for (int dx = 0; dx < 2; ++dx) {
-        const int cx = x0 + dx;
-        const int cy = y0 + dy;
-        const float wx = dx ? fx : 1.0f - fx;
-        const float wy = dy ? fy : 1.0f - fy;
-        const bool inside = cx >= 0 && cx < wl && cy >= 0 && cy < hl;
-        const int c = 4 * s + dy * 2 + dx;
-        corner_row[c] = inside ? table.start[l] + cy * wl + cx : -1;
-        corner_w[c] = inside ? wx * wy : 0.0f;
-        dw_dx[c] = inside ? (dx ? wy : -wy) : 0.0f;
-        dw_dy[c] = inside ? (dy ? wx : -wx) : 0.0f;
-      }
-    }
-  }
-  const float* g_q = grad_out + static_cast<size_t>(bq) * HD;
-  for (int i = threadIdx.x; i < HD; i += blockDim.x) g[i] = g_q[i];
-  __syncthreads();
-
+    int H, int D, int L, int P, long long pairs) {
+  __shared__ BwdCorner s_corner[kBwdWarps][kChunk][4];
+  __shared__ float s_dot[kBwdWarps][kChunk][4];
+  __shared__ float s_aw[kBwdWarps][kChunk];
+  const int wid = threadIdx.x >> 5;
+  // pair = (b * Q + q) * H + h: the row of the cotangent and of the samples.
+  const long long pair = static_cast<long long>(blockIdx.x) * kBwdWarps + wid;
+  if (pair >= pairs) return;  // the whole warp; the block never syncs
   const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const T* vb = values + static_cast<size_t>(b) * N * HD;
-  float* dvb = grad_values + static_cast<size_t>(b) * N * HD;
-  for (int h = threadIdx.x >> 5; h < H; h += warps) {
-    const float* gh = g + h * D;
-    for (int k = 0; k < LP; ++k) {
-      const int s = h * LP + k;
-      const int l = k / P;
-      const float aw = attn_q[s];
-      float d_aw = 0.0f, d_x = 0.0f, d_y = 0.0f;
-      for (int c = 4 * s; c < 4 * s + 4; ++c) {
-        const int row = corner_row[c];
-        if (row < 0) continue;  // the same for the whole warp
-        const size_t base = static_cast<size_t>(row) * HD + h * D;
-        float dot = 0.0f;
-        for (int dd = lane; dd < D; dd += 32)
-          dot += gh[dd] * to_f32(vb[base + dd]);
-        for (int off = 16; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        d_aw += corner_w[c] * dot;
-        d_x += dw_dx[c] * dot;
-        d_y += dw_dy[c] * dot;
-        const float w = corner_w[c] * aw;  // the forward's corner weight
-        if (w != 0.0f)
-          for (int dd = lane; dd < D; dd += 32)
-            atomicAdd(dvb + base + dd, w * gh[dd]);
+  const int corner = lane >> 3;     // (dx, dy) = (corner & 1, corner >> 1)
+  const int quad = 4 * (lane & 7);  // first channel of the lane's quad
+  const int h = static_cast<int>(pair % H);
+  const int b = static_cast<int>(pair / H / Q);
+  const int LP = L * P;
+  const size_t HD = static_cast<size_t>(H) * D;
+  const size_t head = static_cast<size_t>(b) * N * HD + static_cast<size_t>(h) * D;
+  const T* vb = values + head;
+  float* dvb = grad_values + head;
+  const float* g = grad_out + pair * D;
+  const float4 g0 = quad < D ? load_quad<kVec>(g + quad, D - quad) : zero4();
+
+  for (int k0 = 0; k0 < LP; k0 += kChunk) {
+    const int n = min(kChunk, LP - k0);
+    // 1. Lane i stages sample k0 + i.
+    if (lane < n) {
+      const int k = k0 + lane;
+      int height, width, start;
+      level_dims(table, k / P, &height, &width, &start);
+      const float* xy = loc + (pair * LP + k) * 2;
+      const float x = xy[0] * static_cast<float>(width) - 0.5f;
+      const float y = xy[1] * static_cast<float>(height) - 0.5f;
+      const float x0f = floorf(x);
+      const float y0f = floorf(y);
+      const float fx = x - x0f;
+      const float fy = y - y0f;
+      const int x0 = static_cast<int>(x0f);
+      const int y0 = static_cast<int>(y0f);
+      for (int dy = 0; dy < 2; ++dy) {
+        for (int dx = 0; dx < 2; ++dx) {
+          const int cx = x0 + dx;
+          const int cy = y0 + dy;
+          const float wx = dx ? fx : 1.0f - fx;
+          const float wy = dy ? fy : 1.0f - fy;
+          BwdCorner c = {-1, 0.0f, 0.0f, 0.0f};
+          if (cx >= 0 && cx < width && cy >= 0 && cy < height)
+            c = {start + cy * width + cx, wx * wy, dx ? wy : -wy,
+                 dy ? wx : -wx};
+          s_corner[wid][lane][2 * dy + dx] = c;
+        }
       }
-      if (lane == 0) {
-        const size_t o = static_cast<size_t>(bq) * S + s;
-        grad_attn[o] = d_aw;
-        grad_loc[2 * o] = d_x * aw * static_cast<float>(table.width[l]);
-        grad_loc[2 * o + 1] = d_y * aw * static_cast<float>(table.height[l]);
+      s_aw[wid][lane] = attn[pair * LP + k];
+    }
+    __syncwarp();
+    // 2. The warp takes the staged samples, their row loads in groups.
+    for (int i0 = 0; i0 < n; i0 += kBwdGroup) {
+      BwdCorner c[kBwdGroup];
+      float4 v0[kBwdGroup];  // the corner row's first quad
+#pragma unroll
+      for (int i = 0; i < kBwdGroup; ++i) {
+        c[i] = {-1, 0.0f, 0.0f, 0.0f};
+        v0[i] = zero4();
+        if (i0 + i < n) c[i] = s_corner[wid][i0 + i][corner];
+        if (c[i].row >= 0 && quad < D)
+          v0[i] = load_quad<kVec>(vb + static_cast<size_t>(c[i].row) * HD +
+                                      quad, D - quad);
+      }
+#pragma unroll
+      for (int i = 0; i < kBwdGroup; ++i) {
+        if (i0 + i >= n) break;  // the same for the whole warp
+        float dot = 0.0f;
+        if (c[i].row >= 0 && quad < D) {
+          const T* vr = vb + static_cast<size_t>(c[i].row) * HD;
+          float* dvr = dvb + static_cast<size_t>(c[i].row) * HD;
+          // The forward's corner weight.
+          const float w = c[i].bw * s_aw[wid][i0 + i];
+          dot = dot_quad(g0, v0[i], dot);
+          if (w != 0.0f)
+            add_quad<kVec>(dvr + quad, make_float4(w * g0.x, w * g0.y,
+                                                   w * g0.z, w * g0.w),
+                           D - quad);
+          for (int d = quad + 32; d < D; d += 32) {
+            const float4 gq = load_quad<kVec>(g + d, D - d);
+            dot = dot_quad(gq, load_quad<kVec>(vr + d, D - d), dot);
+            if (w != 0.0f)
+              add_quad<kVec>(dvr + d, make_float4(w * gq.x, w * gq.y,
+                                                  w * gq.z, w * gq.w),
+                             D - d);
+          }
+        }
+        // The corner's dot product over its 8 lanes.
+        dot += __shfl_xor_sync(kFullMask, dot, 4);
+        dot += __shfl_xor_sync(kFullMask, dot, 2);
+        dot += __shfl_xor_sync(kFullMask, dot, 1);
+        if ((lane & 7) == 0) s_dot[wid][i0 + i][corner] = dot;
       }
     }
+    __syncwarp();
+    // 3. Lane i sums sample k0 + i's corners into its field gradients.
+    if (lane < n) {
+      const int k = k0 + lane;
+      float d_aw = 0.0f, d_x = 0.0f, d_y = 0.0f;
+      for (int ci = 0; ci < 4; ++ci) {
+        const BwdCorner cc = s_corner[wid][lane][ci];
+        const float dot = s_dot[wid][lane][ci];
+        d_aw += cc.bw * dot;
+        d_x += cc.ddx * dot;
+        d_y += cc.ddy * dot;
+      }
+      int height, width, start;
+      level_dims(table, k / P, &height, &width, &start);
+      const float aw = s_aw[wid][lane];
+      const long long o = pair * LP + k;
+      grad_attn[o] = d_aw;
+      grad_loc[2 * o] = d_x * aw * static_cast<float>(width);
+      grad_loc[2 * o + 1] = d_y * aw * static_cast<float>(height);
+    }
+    __syncwarp();  // the next chunk's staging overwrites this one's
   }
 }
 
@@ -262,13 +390,25 @@ int launch_backward(const LevelTable& table, const void* values,
                     float* grad_values, float* grad_loc, float* grad_attn,
                     int B, int N, int Q, int H, int D, int L, int P,
                     cudaStream_t stream) {
-  const int threads = 32 * (H < 32 ? H : 32);  // one warp per head
-  const size_t smem = static_cast<size_t>(H) * L * P * 4 *
-                          (sizeof(int) + 3 * sizeof(float)) +
-                      static_cast<size_t>(H) * D * sizeof(float);
-  ms_deform_attn_bwd_kernel<T><<<B * Q, threads, smem, stream>>>(
-      table, static_cast<const T*>(values), loc, attn, grad_out, grad_values,
-      grad_loc, grad_attn, N, Q, H, D, L, P);
+  const long long pairs = static_cast<long long>(B) * Q * H;
+  if (pairs == 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((pairs + kBwdWarps - 1) / kBwdWarps);
+  // Vector loads and atomics need whole, aligned quads of channels.
+  const auto aligned = [](const void* p, size_t bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  const bool vec = D % 4 == 0 && aligned(values, 4 * sizeof(T)) &&
+                   aligned(grad_out, 16) && aligned(grad_values, 16);
+  const T* v = static_cast<const T*>(values);
+  if (vec)
+    ms_deform_attn_bwd_kernel<T, true><<<blocks, 32 * kBwdWarps, 0, stream>>>(
+        table, v, loc, attn, grad_out, grad_values, grad_loc, grad_attn, N, Q,
+        H, D, L, P, pairs);
+  else
+    ms_deform_attn_bwd_kernel<T, false><<<blocks, 32 * kBwdWarps, 0, stream>>>(
+        table, v, loc, attn, grad_out, grad_values, grad_loc, grad_attn, N, Q,
+        H, D, L, P, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 

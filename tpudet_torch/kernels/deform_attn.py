@@ -11,15 +11,17 @@ banded/flat split, bf16 hi/lo operands, per-axis weight-gradient outputs and
 the rule that the head dim divide 128 are TPU workarounds. On Hopper the
 bilinear 4-corner gather is the natural form: one launch samples all levels
 for every query of the batch, through a by-value table of (H_l, W_l, start
-offset); the forward's threads run over the ``H * D`` output channels, the
-backward's warps over heads, and each sample's corners and weights are
-computed once per block in shared memory.
+offset). The forward's threads run over the ``H * D`` output channels of a
+query, with each sample's corners and weights computed once per block in
+shared memory; the backward gives each (query, head) one warp, which
+stages its samples' corners in shared memory once and then takes a sample
+at a time, its lanes over 4 corners x 8 channel quads.
 
-What bounds them on the H100: bytes (values, locations and weights read
-once, the f32 output -- or the gradients and the f32 value gradient --
-written once). The forward writes each output value once and accumulates in
-f32 in registers; the backward adds into an f32 value gradient with atomics
-and casts it once to the values' dtype.
+What bounds them on the H100: the forward, bytes (values, locations and
+weights read once, the f32 output written once; it accumulates in f32 in
+registers). The backward, instructions and latency: it adds into an f32
+value gradient with one vector atomic per lane and corner, and casts it
+once to the values' dtype (for f32 values the accumulator is the result).
 
 ``ms_deform_attn`` is the differentiable entry: on the card an autograd
 Function runs the forward kernel and, for the gradients, the backward
@@ -51,9 +53,8 @@ BACKWARD_REPLACES = ("tpudet/kernels/deform_attn_mxu.py:244 and "
 
 MAX_LEVELS = 4  # kMaxLevels of the CUDA source
 # Static shared memory a block may take without an opt-in: the forward keeps
-# 32 bytes (four corner rows and four weights) per sample of one query, the
-# backward 64 (rows, weights and their x and y derivatives) plus the
-# query's f32 cotangent.
+# 32 bytes (four corner rows and four weights) per sample of one query. The
+# backward stages 32 samples per warp at a time, whatever the shape.
 SMEM_BYTES = 48 * 1024
 MAX_SAMPLES = SMEM_BYTES // 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,16 +143,13 @@ def ms_deform_attn_backward_cuda(values: torch.Tensor,
                                  grad_out: torch.Tensor):
     """The backward kernel: the forward's inputs and the f32 cotangent
     ``grad_out [B, Q, H, D]`` -> ``(d_values [B, N, H, D]`` in the values'
-    dtype (summed in f32, cast once), ``d_locations``, ``d_weights)`` f32 in
-    the shapes of the inputs."""
+    dtype (summed in f32, cast once; f32 values are summed in place),
+    ``d_locations``, ``d_weights)`` f32 in the shapes of the inputs. Any
+    head count, head dim and number of samples per query."""
     global BACKWARD_LAUNCHES
     dims, table = _check(values, level_shapes, locations, weights,
                          "ms_deform_attn_backward_cuda")
     b, n, q, h, d, lv, p = dims
-    if h * lv * p * 64 + h * d * 4 > SMEM_BYTES:
-        raise ValueError(f"ms_deform_attn_backward_cuda: H*L*P = {h * lv * p} "
-                         f"samples and H*D = {h * d} channels per query "
-                         f"exceed {SMEM_BYTES} bytes of shared memory")
     if (grad_out.device != values.device or grad_out.dtype != torch.float32
             or grad_out.shape != (b, q, h, d) or not grad_out.is_contiguous()):
         raise ValueError(f"ms_deform_attn_backward_cuda needs a contiguous f32 "

@@ -9,8 +9,8 @@ Replaces ``scripts/mxu_precision_probe.py::_kernel_single`` and
 rounds: its default one-pass product rounds both operands to bf16, so a 0/1
 selector against bf16 data is exact but f32 data loses ~2^-9 relative,
 which splitting the data into two bf16 parts (``hi + lo``) restores. The
-kernel asks the same of the H100's bf16 tensor cores (``nvcuda::wmma``
-fragments, f32 accumulation). The answer tells a later Hopper kernel that
+kernel asks the same of the H100's bf16 tensor cores (``mma.sync``
+m16n8k16, f32 accumulation). The answer tells a later Hopper kernel that
 puts f32 data through the tensor cores whether it needs the split that
 ``tpudet/kernels/deform_attn_mxu.py::_split`` makes.
 
@@ -21,7 +21,11 @@ C, the same with the split (must keep the contract ``err <= 5e-5 + 1e-3
 script's keys; the entry exits non-zero if stage A or C breaks the contract.
 
 What bounds the kernel on the H100: bytes (the f32 inputs read once and
-the output written once, ~0.92 MB at the probe's shape).
+the output written once, ~0.92 MB at the probe's shape), and below them
+latency: each 16 x 16 output tile's block splits K over its 4 warps, which
+load their fragments straight from global memory, 8 steps at a time. A
+call through the wrapper takes longer on the host than on the card, so
+its host path is kept to the checks, one allocation and the launch.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ REPLACES = "scripts/mxu_precision_probe.py:34"
 
 # The probe's product: [SP, K] . [K, N] (the script's shape).
 SP, K, N = 256, 512, 128
-TILE = 16  # the kernel's output tile and K step
+TILE = 16  # every side must be a multiple of the tensor cores' 16
+_DTYPES = (torch.float32, torch.bfloat16)
 
 __all__ = ["precision_probe", "precision_probe_cuda", "precision_probe_plain",
            "probe_inputs", "run_probe", "main"]
@@ -65,12 +70,17 @@ def precision_probe_plain(x: torch.Tensor, m: torch.Tensor,
     return out
 
 
+_FN = None  # the library's entry, bound on first use
+
+
 def _lib():
-    fn = _build.load("precision_probe").tpudet_precision_probe
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    global _FN
+    if _FN is None:
+        fn = _build.load("precision_probe").tpudet_precision_probe
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _FN = fn
+    return _FN
 
 
 def precision_probe_cuda(x: torch.Tensor, m: torch.Tensor,
@@ -83,24 +93,29 @@ def precision_probe_cuda(x: torch.Tensor, m: torch.Tensor,
     if dev.type != "cuda" or m.device != dev:
         raise ValueError("precision_probe_cuda needs both operands on one "
                          "CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or m.dtype not in (
-            torch.float32, torch.bfloat16):
+    if x.dtype not in _DTYPES or m.dtype not in _DTYPES:
         raise TypeError(f"precision_probe_cuda takes f32 or bf16 operands, got "
                         f"{x.dtype}, {m.dtype}")
     if (x.dim() != 2 or m.dim() != 2 or x.shape[1] != m.shape[0]
-            or any(d % TILE for d in (*x.shape, m.shape[1]))):
+            or x.shape[0] % TILE or x.shape[1] % TILE or m.shape[1] % TILE):
         raise ValueError(f"precision_probe_cuda takes [M, K] . [K, N] with "
                          f"sides multiple of {TILE}, got {tuple(x.shape)}, "
                          f"{tuple(m.shape)}")
-    x = x.float().contiguous()
-    m = m.float().contiguous()
+    # Each call below costs a dispatch even when it returns its input.
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
+    if m.dtype != torch.float32 or not m.is_contiguous():
+        m = m.float().contiguous()
     rows, depth = x.shape
     cols = m.shape[1]
-    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib()(x.data_ptr(), m.data_ptr(), out.data_ptr(), rows, cols,
-                     depth, int(split), stream)
+    out = x.new_empty((rows, cols))
+    # The launch takes microseconds, so the host path is kept short: the C
+    # entry sets the card itself, and the current stream is read as a raw
+    # handle (``torch.cuda.device`` and a ``torch.cuda.Stream`` object each
+    # cost more host time than the kernel's whole run).
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    err = _lib()(x.data_ptr(), m.data_ptr(), out.data_ptr(), rows, cols,
+                 depth, int(split), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"precision probe kernel launch failed: cudaError "
                            f"{err}")
