@@ -2,8 +2,8 @@
 """Drives the PyTorch port (``tpudet_torch``) on one NVIDIA GPU and checks it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phases deform_backward,precision_probe
-    python3 chip_smoke.py --phases deform_backward --compare PARENT_TREE
+    python3 chip_smoke.py --phases nms,deform_attn
+    python3 chip_smoke.py --phases nms,deform_attn --compare PARENT_TREE
 
 The first runs everything below; the others run some phases alone (names
 in ``PHASES``), the last in another checkout and in this one by turns.
@@ -21,7 +21,9 @@ no result):
    coco_r101_fpn gives it (32 x 4608 level-shifted proposals at 0.7 ->
    300, 32 x 1024 candidates of 80 classes at 0.5 -> 100), on sparse and
    on clustered scenes (where the walk must cross most blocks), and on
-   edge cases: kept indices must be equal;
+   edge cases: kept indices must be equal; the device time of each of its
+   two passes (``nms_mask_kernel``, ``nms_reduce_kernel``) at every shape,
+   from torch.profiler;
 4. the RoI Align kernel against its plain version at [32, 40, 40, 256] x
    300 RoIs per image, S = 7, r = 2, in f32 and bf16;
 5. the FPN RoI Align kernel against its plain version at the 832x832
@@ -42,7 +44,9 @@ no result):
    shapes coco_deformable_detr_r50 gives it on the 832x832 bucket (an
    encoder layer at b=8: Q = N = 14,365 over levels 104^2 .. 13^2, 8 heads
    of D = 32, 4 levels x 4 points; a decoder layer: Q = 300), with bf16 and
-   f32 values, about a tenth of the samples outside their level;
+   f32 values, about a tenth of the samples outside their level; the
+   bytes its corner gathers read (every nonzero-weight corner's row of D
+   values) and the rate they imply;
 9. coco_deformable_detr_r50 inference at full width (ResNet-50 to c5, 4
    levels of 256, 6+6 layers, 300 queries, box refinement, 80 classes, bf16
    backbone) the same way: b = 8 on the 832x832 and 832x1344 buckets with
@@ -225,6 +229,30 @@ def graph_ms(fn, iters: int = 200, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def kernel_ms_by_name(fn, names, calls=5):
+    """Device time per call of ``fn`` of the kernels whose names hold each
+    of ``names``, from torch.profiler over ``calls`` calls after one
+    warm-up; None where no such kernel ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in e.name:
+                    total[name] += e.time_range.elapsed_us() / 1e3
+    return {name: (ms / calls if ms > 0 else None)
+            for name, ms in total.items()}
 
 
 def random_boxes(gen, shape, height, width, lo=16.0, hi=400.0, device="cuda"):
@@ -434,6 +462,9 @@ def phase_nms():
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = pairs * NMS_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
         ms = time_ms(lambda: knms.nms_keep_cuda(boxes, cand, thr, k))
+        passes = kernel_ms_by_name(
+            lambda: knms.nms_keep_cuda(boxes, cand, thr, k),
+            ("nms_mask_kernel", "nms_reduce_kernel"))
         plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
                            iters=2, warmup=1)
         if scene == "clustered":
@@ -448,7 +479,11 @@ def phase_nms():
               f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
               f"{int(reach.max())} boxes ({int(blocks.min())}.."
               f"{int(blocks.max())} of {(p + 63) // 64} blocks) | kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+              f"{ms:.4f} ms (device, by pass: "
+              + ", ".join(f"{n} " + ("not measured" if v is None
+                                      else f"{v:.4f} ms")
+                          for n, v in passes.items())
+              + f"), plain {plain_ms:.2f} ms, bound "
               f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
               f"operations {ops_ms:.6f}: {pairs} IoU tests)", flush=True)
 
@@ -926,7 +961,8 @@ def deform_work(values, shapes, loc, weights):
     """What these inputs need of the deformable attention forward: the
     touched value rows read once, locations and weights read once, the f32
     output written once; the operations of every sample and of every
-    nonzero corner per channel. Also where the samples land."""
+    nonzero corner per channel. Also where the samples land, and the count
+    of nonzero-weight corners."""
     rows, corners, outside, touched = deform_census(values, shapes, loc,
                                                     weights)
     b, q, h = loc.shape[:3]
@@ -936,7 +972,7 @@ def deform_work(values, shapes, loc, weights):
     ops = (weights.numel() * DEFORM_OPS_PER_SAMPLE
            + corners * d * DEFORM_OPS_PER_CORNER_CHANNEL)
     return (bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3,
-            outside, touched)
+            outside, touched, corners)
 
 
 def corner_repeats(values, shapes, loc, weights):
@@ -1020,7 +1056,10 @@ def phase_deform_attn():
             ms = time_ms(lambda: kda.ms_deform_attn_cuda(*args))
             plain_ms = time_ms(lambda: kda.ms_deform_attn_plain(*args),
                                iters=3, warmup=1)
-            bytes_ms, ops_ms, outside, touched = deform_work(*args)
+            bytes_ms, ops_ms, outside, touched, corners = deform_work(*args)
+            # What the kernel reads through L2: each nonzero-weight corner's
+            # row of D values, once per (query, head).
+            gathered = corners * d * values.element_size()
             result[(call, name)] = {"ms": ms, "plain_ms": plain_ms,
                                     "err": err, "bytes_ms": bytes_ms,
                                     "ops_ms": ops_ms}
@@ -1030,8 +1069,10 @@ def phase_deform_attn():
                   f"level {100 * outside:.1f}%, value rows touched "
                   f"{100 * touched:.1f}% | kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-                  f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})",
-                  flush=True)
+                  f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); corner "
+                  f"gathers {corners} rows x {d * values.element_size()} B = "
+                  f"{gathered / 1e9:.4f} GB, {gathered / ms / 1e9:.3f} TB/s "
+                  "at the kernel's time", flush=True)
             del out
     return result
 
@@ -1942,13 +1983,32 @@ def phase_profile(card, label, run, warmup=3):
               f"{e.key[:100]}", flush=True)
 
 
+def detr_predict_run():
+    """One b=32 832x832 predict of the bf16 coco_deformable_detr_r50 preset
+    (weights as in phase 9) through ``make_eval_step``, as a call."""
+    from tpudet_torch.train.step import make_eval_step
+
+    cfg, model = preset_model("coco_deformable_detr_r50", "bfloat16")
+    step = make_eval_step(model, cfg)
+    batch = canvases(32, 832, 832, seed=6)
+    return lambda: step(batch)
+
+
 # Phases that ``--phases`` runs alone (after the device and build phases),
 # each a call on the card's name.
 PHASES = {
+    "nms": lambda card: phase_nms(),
+    "deform_attn": lambda card: phase_deform_attn(),
     "deform_backward": lambda card: phase_deform_backward(),
+    "detr_predict": lambda card: phase_profile(
+        card, "coco_deformable_detr_r50 b=32 832x832 predict",
+        detr_predict_run()),
     "deform_train": lambda card: phase_profile(
         card, "coco_deformable_detr_r50 b=8 832x832 train step",
         phase_train_path(card)[1], warmup=1),
+    "voc_train": lambda card: phase_profile(
+        card, "voc_r50 bf16 b=8 640x640 train step",
+        phase_voc_train_path(card)[1], warmup=1),
     "precision_probe": lambda card: phase_precision_probe(),
 }
 

@@ -51,6 +51,55 @@ def test_nms_kernel_equals_plain(cuda, b, n, thr, k):
     assert torch.equal(out[1].cpu(), ref[1])
 
 
+def sparse_boxes(gen, b, n, extent):
+    """Small boxes over a wide field: few overlap, so the walk keeps most."""
+    xy = torch.rand(b, n, 2, generator=gen) * extent
+    return torch.cat([xy, xy + 2 + torch.rand(b, n, 2, generator=gen) * 6],
+                     dim=-1)
+
+
+@pytest.mark.parametrize("case", ["max_out inside a block", "ragged P",
+                                  "diagonal words above 48 KB",
+                                  "all masked", "max_out above the keeps"])
+def test_nms_kernel_walk_edges(cuda, case):
+    """Where the block-at-a-time walk turns: the max_out-th keep inside a
+    64-box block, a last block of 37 boxes, 6,500 boxes (the diagonal
+    words alone take 52 KB), no candidate, and fewer keeps than max_out."""
+    gen = torch.Generator().manual_seed(31)
+    b, n, thr, k = {"max_out inside a block": (3, 300, 0.5, 70),
+                    "ragged P": (2, 1000 + 37, 0.5, 1037),
+                    "diagonal words above 48 KB": (2, 6500, 0.7, 2000),
+                    "all masked": (2, 200, 0.5, 50),
+                    "max_out above the keeps": (2, 150, 0.3, 400)}[case]
+    if case == "max_out inside a block":
+        bx = sparse_boxes(gen, b, n, 2000.0)
+    elif case == "diagonal words above 48 KB":  # jittered copies of 40 boxes
+        base = boxes(gen, b, 40)
+        pick = torch.randint(0, 40, (b, n), generator=gen)
+        bx = (torch.gather(base, 1, pick[..., None].expand(-1, -1, 4))
+              + torch.randn(b, n, 4, generator=gen) * 3)
+    else:
+        bx = boxes(gen, b, n)
+    cand = torch.rand(b, n, generator=gen) > 0.1
+    if case == "all masked":
+        cand[:] = False
+    out = knms.nms_keep_cuda(bx.to(cuda), cand.to(cuda), thr, k)
+    ref = knms.nms_keep_plain(bx, cand, thr, k)
+    assert torch.equal(out[0].cpu(), ref[0])
+    assert torch.equal(out[1].cpu(), ref[1])
+    kept = ref[1].sum(dim=1)
+    if case == "max_out inside a block":
+        last = ref[0][:, k - 1]
+        assert (kept == k).all() and (last % 64 != 63).all()
+    elif case == "diagonal words above 48 KB":
+        # The walk crosses most of the 102 blocks.
+        assert (ref[0].max(dim=1).values > 4000).all()
+    elif case == "all masked":
+        assert (kept == 0).all() and (out[0] == 0).all()
+    elif case == "max_out above the keeps":
+        assert (kept < n).all() and (kept > 0).all()
+
+
 def test_nms_dispatch_on_card_equals_cpu(cuda):
     gen = torch.Generator().manual_seed(7)
     bx = boxes(gen, 2, 300)
@@ -274,7 +323,7 @@ def deform_inputs(gen, b, q, heads, d, level_shapes, points, dtype,
     (8, 32, 4, ((20, 28), (10, 14), (5, 7), (3, 4))),
     (4, 8, 2, ((16, 16), (8, 8), (4, 4), (2, 2))),
     (2, 40, 3, ((1, 9), (6, 5), (2, 3))),  # a 1 x W level, D > 32
-    (36, 32, 2, ((4, 5),)),  # H * D > 1024: threads loop over channels
+    (36, 32, 2, ((4, 5),)),  # 36 heads
 ])
 def test_deform_attn_kernel_equals_plain(cuda, dtype, heads, d, points,
                                          shapes):
@@ -288,6 +337,27 @@ def test_deform_attn_kernel_equals_plain(cuda, dtype, heads, d, points,
     ref = kda.ms_deform_attn_plain(*args).cpu()
     assert out.dtype == torch.float32 and out.shape == ref.shape
     # Same f32 arithmetic per corner, other summation order.
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert (out != 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,q,heads,d,points,shapes", [
+    (2, 37, 3, 6, 3, ((9, 7), (4, 3))),  # D % 4 != 0: the scalar path
+    (1, 9, 2, 68, 17, ((5, 6),)),  # D > 64, 17 points: L * P > 32 samples
+    (1, 1, 3, 8, 5, ((4, 5), (2, 3))),  # Q = 1
+])
+def test_deform_attn_kernel_at_edges(cuda, dtype, b, q, heads, d, points,
+                                     shapes):
+    """The forward's scalar path, its chunked staging and channel loop, and
+    a grid of fewer pairs than one block holds."""
+    gen = torch.Generator().manual_seed(heads * d + q)
+    values, loc, weights = deform_inputs(gen, b, q, heads, d, shapes, points,
+                                         dtype, outside=0.2)
+    args = (values.to(cuda), shapes, on_borders(loc, shapes).to(cuda),
+            weights.to(cuda))
+    out = kda.ms_deform_attn_cuda(*args).cpu()
+    ref = kda.ms_deform_attn_plain(*args).cpu()
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
     assert (out != 0).any()
 
@@ -415,14 +485,15 @@ def test_deform_attn_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="cotangent"):
         kda.ms_deform_attn_backward_cuda(
             *args, torch.zeros(1, 3, 2, 8, dtype=torch.bfloat16, device=cuda))
-    # 100 heads x 4 levels x 4 points: more samples per query than the
-    # forward's shared memory holds; the backward keeps none and takes them.
+    # 100 heads x 4 levels x 4 points: 1,600 samples per query. Both kernels
+    # stage a warp's samples 32 at a time, so they take any count.
     shapes = ((3, 4),) * 4
     values, loc, weights = deform_inputs(gen, 1, 5, 100, 4, shapes, 4,
                                          torch.float32)
-    with pytest.raises(ValueError, match="samples"):
-        kda.ms_deform_attn_cuda(values.to(cuda), shapes, loc.to(cuda),
-                                weights.to(cuda))
+    args = (values.to(cuda), shapes, loc.to(cuda), weights.to(cuda))
+    torch.testing.assert_close(kda.ms_deform_attn_cuda(*args),
+                               kda.ms_deform_attn_plain(*args), rtol=0,
+                               atol=1e-5)
     check_backward(cuda, values, shapes, loc, weights,
                    torch.randn(1, 5, 100, 4, generator=gen))
 

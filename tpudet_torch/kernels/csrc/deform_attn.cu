@@ -19,24 +19,30 @@
 // fx = x - x0, corner weight (fx | 1-fx) * (fy | 1-fy) with the x factor
 // first, zero for a corner outside the grid, then times the attention
 // weight -- the arithmetic of the plain version, in its order (the build
-// passes -fmad=false, so nothing is contracted into an FMA).
+// passes -fmad=false, so nothing is contracted into an FMA); only the
+// order of the sum over corners differs.
 //
-// Layout: one block per (image, query); threads run over the H * D output
-// channels (looping above the block size). The block first computes each
-// of its H * L * P samples' four corner rows and weights once, one thread
-// per sample, into shared memory; then each thread sums its channel over
-// its head's L * P samples, skipping zero-weight corners, in f32, and
-// writes its output once. A head's D threads read one corner row of D
-// contiguous values (64 bytes in bf16 at D = 32).
+// Forward layout: one warp per (image, query, head), kFwdWarps to a block.
+// Lane i stages sample i (32 samples at a time, so any number of samples
+// per query): its four corner rows (-1 outside the grid) and weights, in
+// the warp's shared memory. Then lane = 8 * corner + channel quad: each
+// lane takes its corner of every staged sample with one vector load of 4
+// channels (8 bytes bf16, 16 f32; D > 32 loops over quads, D % 4 != 0
+// takes a scalar path), kFwdGroup samples' loads issued before their
+// multiplies, a predicate (not a branch) for a corner outside the grid,
+// and f32 sums in registers. Two shuffles per channel add the four corner
+// lanes, and the corner-0 lanes store the f32 output in 16-byte stores.
 //
-// What bounds it on the H100: bytes. One encoder layer of
-// coco_deformable_detr_r50 at b=8 on 832x832 (Q = N = 14,365, H = 8, D = 32,
-// L = P = 4) moves ~353 MB at least (values read once, 117.7 MB of
-// locations, 58.8 MB of weights, 117.7 MB of f32 output), ~0.105 ms at
-// 3.35 TB/s; its ~3.8 GFLOP take ~0.056 ms at the f32 rate. This first
-// design reads each corner row once per query from L2 or HBM and loads one
-// value per thread; fusing the location and softmax arithmetic in, vector
-// loads and query tiles that share corner rows are later work (PERF.md).
+// What bounds it on the H100: the bytes the function must move are few
+// (one encoder layer of coco_deformable_detr_r50 at b=8 on 832x832,
+// Q = N = 14,365, H = 8, D = 32, L = P = 4: ~353 MB, values read once,
+// 117.7 MB of locations, 58.8 MB of weights, 117.7 MB of f32 output,
+// ~0.105 ms at 3.35 TB/s); but the gather reads each corner row once per
+// (query, head): 58.8 M rows x 64 bytes = 3.76 GB through L2 in bf16,
+// so the L2's rate is the floor this design can reach. Each warp keeps
+// 4 x kFwdGroup corner rows in flight, so the loads' latency overlaps;
+// sharing corner rows between neighbouring queries of a tile would cut
+// the L2 traffic itself.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -45,130 +51,13 @@
 namespace {
 
 constexpr int kMaxLevels = 4;
+constexpr int kChunk = 32;  // samples staged at once, one per lane
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct LevelTable {
   int height[kMaxLevels];
   int width[kMaxLevels];
   int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__global__ void ms_deform_attn_fwd_kernel(LevelTable table,
-                                          const T* __restrict__ values,
-                                          const float* __restrict__ loc,
-                                          const float* __restrict__ attn,
-                                          float* __restrict__ out, int N,
-                                          int Q, int H, int D, int L, int P) {
-  extern __shared__ unsigned char smem[];
-  const int LP = L * P;
-  const int S = H * LP;  // samples of one query, in (h, l, p) order
-  int* corner_row = reinterpret_cast<int*>(smem);               // [S][4]
-  float* corner_w = reinterpret_cast<float*>(corner_row + 4 * S);  // [S][4]
-
-  const int bq = blockIdx.x;  // b * Q + q
-  const int b = bq / Q;
-  const float* loc_q = loc + static_cast<size_t>(bq) * S * 2;
-  const float* attn_q = attn + static_cast<size_t>(bq) * S;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const int l = (s / P) % L;
-    const int hl = table.height[l];
-    const int wl = table.width[l];
-    const float x = loc_q[2 * s] * static_cast<float>(wl) - 0.5f;
-    const float y = loc_q[2 * s + 1] * static_cast<float>(hl) - 0.5f;
-    const float x0f = floorf(x);
-    const float y0f = floorf(y);
-    const float fx = x - x0f;
-    const float fy = y - y0f;
-    const int x0 = static_cast<int>(x0f);
-    const int y0 = static_cast<int>(y0f);
-    const float aw = attn_q[s];
-    for (int dy = 0; dy < 2; ++dy) {
-      for (int dx = 0; dx < 2; ++dx) {
-        const int cx = x0 + dx;
-        const int cy = y0 + dy;
-        const float wgt = (dx ? fx : 1.0f - fx) * (dy ? fy : 1.0f - fy);
-        const bool inside = cx >= 0 && cx < wl && cy >= 0 && cy < hl;
-        const int c = 4 * s + dy * 2 + dx;
-        corner_w[c] = (inside ? wgt : 0.0f) * aw;
-        corner_row[c] = table.start[l] + min(max(cy, 0), hl - 1) * wl +
-                        min(max(cx, 0), wl - 1);
-      }
-    }
-  }
-  __syncthreads();
-
-  const int HD = H * D;
-  const T* vb = values + static_cast<size_t>(b) * N * HD;
-  float* o = out + static_cast<size_t>(bq) * HD;
-  for (int ch = threadIdx.x; ch < HD; ch += blockDim.x) {
-    const int s0 = (ch / D) * LP;
-    float acc = 0.0f;
-    // (level, corner, point) order, the plain version's corner order.
-    for (int l = 0; l < L; ++l) {
-      for (int c = 0; c < 4; ++c) {
-        for (int p = 0; p < P; ++p) {
-          const int k = 4 * (s0 + l * P + p) + c;
-          const float w = corner_w[k];
-          if (w != 0.0f)
-            acc += w * to_f32(vb[static_cast<size_t>(corner_row[k]) * HD + ch]);
-        }
-      }
-    }
-    o[ch] = acc;
-  }
-}
-
-// Backward: the VJP of the forward above, computed directly.
-//
-// Replaces tpudet/kernels/deform_attn_mxu.py::_bwd_banded_kernel and
-// ::_bwd_flat_kernel. Those rebuild the forward's one-hot selectors,
-// contract them with the cotangent on the matrix unit (bf16 hi/lo splits)
-// and emit only the per-axis corner-weight gradients, leaving XLA to chain
-// them to the locations and attention weights. Here each sample's four
-// corners give, with dot_c = <g[b, q, h, :], v[corner_c, h, :]>:
-//   dV[corner_c, h, :] += bw_c * aw * g[b, q, h, :]       (atomic, f32)
-//   d aw               = sum_c bw_c * dot_c
-//   d loc_x            = W_l * aw * sum_c (+-1) * (fy | 1 - fy) * dot_c
-//   d loc_y            = H_l * aw * sum_c (+-1) * (fx | 1 - fx) * dot_c
-// where bw_c = (fx | 1-fx) * (fy | 1-fy) and every term of a corner outside
-// the grid is zero (floor has zero derivative): the gradients of the plain
-// version's `where` gates.
-//
-// What bounds it on the H100: not bytes (~0.18 ms of them for an encoder
-// layer of coco_deformable_detr_r50 at b=8 on 832x832) but instructions
-// and latency: that layer has 14.7 M samples, 58.8 M corners and 1.88 G
-// f32 additions into dV.
-//
-// Layout: one warp per (image, query, head), eight to a block. Lane i
-// first stages sample i's four corners (row, bilinear weight and its x and
-// y derivatives; 32 samples at a time) in the warp's shared memory. Then
-// the warp takes one sample at a time with lane = 8 * corner + channel
-// quad: the 4 corners, each over D channels in quads of 4 (D > 32 loops;
-// D % 4 != 0 takes a scalar path). A lane loads its quad of the corner row
-// with one vector load (8 bytes bf16, 16 f32) and adds into dV with one
-// vector atomic (float4: 4 f32 additions in one instruction); 3 shuffles
-// give the corner's dot product, which one lane of the corner stores.
-// Last, lane i sums sample i's four corner terms into its three field
-// gradients, and the warp writes them in coalesced stores. The row loads
-// of 2 samples go out before their products. Instructions and latency
-// bound it more than its atomics do, so the geometry is computed once per
-// sample (not by each of its 32 lanes) and the sample's sums across
-// corners take no shuffles.
-constexpr int kBwdWarps = 8;  // (image, query, head) pairs per block
-constexpr int kChunk = 32;    // samples staged at once, one per lane
-constexpr int kBwdGroup = 2;  // samples whose row loads go out together
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// One corner of a staged sample: its value row (-1 outside the grid), its
-// bilinear weight and that weight's x and y derivatives (all 0 outside).
-struct __align__(16) BwdCorner {
-  int row;
-  float bw, ddx, ddy;
 };
 
 __device__ __forceinline__ float4 zero4() {
@@ -204,6 +93,19 @@ __device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p, int n) {
   if (n > 2) r.z = __bfloat162float(p[2]);
   if (n > 3) r.w = __bfloat162float(p[3]);
   return r;
+}
+
+// p[0 .. min(n, 4)) = v: one 16-byte store when kVec, else scalar stores.
+template <bool kVec>
+__device__ __forceinline__ void store_quad(float* p, float4 v, int n) {
+  if (kVec) {
+    *reinterpret_cast<float4*>(p) = v;
+    return;
+  }
+  p[0] = v.x;
+  if (n > 1) p[1] = v.y;
+  if (n > 2) p[2] = v.z;
+  if (n > 3) p[3] = v.w;
 }
 
 // dV[p .. p + min(n, 4)) += v: one float4 atomic (sm_90, global memory)
@@ -244,6 +146,157 @@ __device__ __forceinline__ float dot_quad(float4 a, float4 b, float acc) {
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
 }
+
+// acc += w * v, a multiply and an add per channel (no FMA: -fmad=false).
+__device__ __forceinline__ void axpy_quad(float w, float4 v, float4* acc) {
+  acc->x += w * v.x;
+  acc->y += w * v.y;
+  acc->z += w * v.z;
+  acc->w += w * v.w;
+}
+
+// The sum of x over the four corner lanes of a channel quad (lanes
+// quad, quad + 8, quad + 16, quad + 24).
+__device__ __forceinline__ float corner_sum(float x) {
+  x += __shfl_xor_sync(kFullMask, x, 8);
+  return x + __shfl_xor_sync(kFullMask, x, 16);
+}
+
+constexpr int kFwdWarps = 8;  // (image, query, head) pairs per block
+constexpr int kFwdGroup = 4;  // samples whose corner-row loads go out together
+
+// One corner of a staged sample: its value row (-1 outside the grid) and
+// its weight, bilinear x attention (0 outside).
+struct __align__(8) FwdCorner {
+  int row;
+  float w;
+};
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(32 * kFwdWarps) ms_deform_attn_fwd_kernel(
+    LevelTable table, const T* __restrict__ values,
+    const float* __restrict__ loc, const float* __restrict__ attn,
+    float* __restrict__ out, int N, int Q, int H, int D, int L, int P,
+    long long pairs) {
+  __shared__ FwdCorner s_corner[kFwdWarps][kChunk][4];
+  const int wid = threadIdx.x >> 5;
+  // pair = (b * Q + q) * H + h: the row of the output and of the samples.
+  const long long pair = static_cast<long long>(blockIdx.x) * kFwdWarps + wid;
+  if (pair >= pairs) return;  // the whole warp; the block never syncs
+  const int lane = threadIdx.x & 31;
+  const int corner = lane >> 3;     // (dx, dy) = (corner & 1, corner >> 1)
+  const int quad = 4 * (lane & 7);  // the lane's channels, from d0
+  const int h = static_cast<int>(pair % H);
+  const int b = static_cast<int>(pair / H / Q);
+  const int LP = L * P;
+  const size_t HD = static_cast<size_t>(H) * D;
+  const T* vb = values + static_cast<size_t>(b) * N * HD +
+                static_cast<size_t>(h) * D;
+  for (int d0 = 0; d0 < D; d0 += 32) {  // once when D <= 32
+    const int d = d0 + quad;
+    const bool has = d < D;
+    float4 acc = zero4();
+    for (int k0 = 0; k0 < LP; k0 += kChunk) {
+      const int n = min(kChunk, LP - k0);
+      // 1. Lane i stages sample k0 + i.
+      if (lane < n) {
+        const int k = k0 + lane;
+        int height, width, start;
+        level_dims(table, k / P, &height, &width, &start);
+        const float* xy = loc + (pair * LP + k) * 2;
+        const float x = xy[0] * static_cast<float>(width) - 0.5f;
+        const float y = xy[1] * static_cast<float>(height) - 0.5f;
+        const float x0f = floorf(x);
+        const float y0f = floorf(y);
+        const float fx = x - x0f;
+        const float fy = y - y0f;
+        const int x0 = static_cast<int>(x0f);
+        const int y0 = static_cast<int>(y0f);
+        const float aw = attn[pair * LP + k];
+        for (int dy = 0; dy < 2; ++dy) {
+          for (int dx = 0; dx < 2; ++dx) {
+            const int cx = x0 + dx;
+            const int cy = y0 + dy;
+            const float wgt = (dx ? fx : 1.0f - fx) * (dy ? fy : 1.0f - fy);
+            const bool inside = cx >= 0 && cx < width && cy >= 0 && cy < height;
+            s_corner[wid][lane][2 * dy + dx] = {
+                inside ? start + cy * width + cx : -1,
+                (inside ? wgt : 0.0f) * aw};
+          }
+        }
+      }
+      __syncwarp();
+      // 2. The warp sums the staged samples, kFwdGroup loads at a time.
+      for (int i0 = 0; i0 < n; i0 += kFwdGroup) {
+        FwdCorner c[kFwdGroup];
+        float4 v[kFwdGroup];
+#pragma unroll
+        for (int i = 0; i < kFwdGroup; ++i) {
+          c[i] = i0 + i < n ? s_corner[wid][i0 + i][corner]
+                            : FwdCorner{-1, 0.0f};
+          v[i] = has && c[i].row >= 0
+                     ? load_quad<kVec>(vb + static_cast<size_t>(c[i].row) * HD +
+                                           d, D - d)
+                     : zero4();
+        }
+#pragma unroll
+        for (int i = 0; i < kFwdGroup; ++i) axpy_quad(c[i].w, v[i], &acc);
+      }
+      __syncwarp();  // the next chunk's staging overwrites this one's
+    }
+    acc.x = corner_sum(acc.x);
+    acc.y = corner_sum(acc.y);
+    acc.z = corner_sum(acc.z);
+    acc.w = corner_sum(acc.w);
+    if (corner == 0 && has) store_quad<kVec>(out + pair * D + d, acc, D - d);
+  }
+}
+
+// Backward: the VJP of the forward above, computed directly.
+//
+// Replaces tpudet/kernels/deform_attn_mxu.py::_bwd_banded_kernel and
+// ::_bwd_flat_kernel. Those rebuild the forward's one-hot selectors,
+// contract them with the cotangent on the matrix unit (bf16 hi/lo splits)
+// and emit only the per-axis corner-weight gradients, leaving XLA to chain
+// them to the locations and attention weights. Here each sample's four
+// corners give, with dot_c = <g[b, q, h, :], v[corner_c, h, :]>:
+//   dV[corner_c, h, :] += bw_c * aw * g[b, q, h, :]       (atomic, f32)
+//   d aw               = sum_c bw_c * dot_c
+//   d loc_x            = W_l * aw * sum_c (+-1) * (fy | 1 - fy) * dot_c
+//   d loc_y            = H_l * aw * sum_c (+-1) * (fx | 1 - fx) * dot_c
+// where bw_c = (fx | 1-fx) * (fy | 1-fy) and every term of a corner outside
+// the grid is zero (floor has zero derivative): the gradients of the plain
+// version's `where` gates.
+//
+// What bounds it on the H100: not bytes (~0.18 ms of them for an encoder
+// layer of coco_deformable_detr_r50 at b=8 on 832x832) but instructions
+// and latency: that layer has 14.7 M samples, 58.8 M corners and 1.88 G
+// f32 additions into dV.
+//
+// Layout: one warp per (image, query, head), eight to a block. Lane i
+// first stages sample i's four corners (row, bilinear weight and its x and
+// y derivatives; 32 samples at a time) in the warp's shared memory. Then
+// the warp takes one sample at a time with lane = 8 * corner + channel
+// quad: the 4 corners, each over D channels in quads of 4 (D > 32 loops;
+// D % 4 != 0 takes a scalar path). A lane loads its quad of the corner row
+// with one vector load (8 bytes bf16, 16 f32) and adds into dV with one
+// vector atomic (float4: 4 f32 additions in one instruction); 3 shuffles
+// give the corner's dot product, which one lane of the corner stores.
+// Last, lane i sums sample i's four corner terms into its three field
+// gradients, and the warp writes them in coalesced stores. The row loads
+// of 2 samples go out before their products. Instructions and latency
+// bound it more than its atomics do, so the geometry is computed once per
+// sample (not by each of its 32 lanes) and the sample's sums across
+// corners take no shuffles.
+constexpr int kBwdWarps = 8;  // (image, query, head) pairs per block
+constexpr int kBwdGroup = 2;  // samples whose row loads go out together
+
+// One corner of a staged sample: its value row (-1 outside the grid), its
+// bilinear weight and that weight's x and y derivatives (all 0 outside).
+struct __align__(16) BwdCorner {
+  int row;
+  float bw, ddx, ddy;
+};
 
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(32 * kBwdWarps) ms_deform_attn_bwd_kernel(
@@ -371,16 +424,28 @@ __global__ void __launch_bounds__(32 * kBwdWarps) ms_deform_attn_bwd_kernel(
   }
 }
 
+// Vector loads and stores need whole, aligned quads of channels.
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 template <typename T>
 int launch(const LevelTable& table, const void* values, const float* loc,
            const float* attn, float* out, int B, int N, int Q, int H, int D,
            int L, int P, cudaStream_t stream) {
-  const int HD = H * D;
-  const int threads = HD >= 1024 ? 1024 : ((HD + 31) / 32) * 32;
-  const size_t smem = static_cast<size_t>(H) * L * P * 4 *
-                      (sizeof(int) + sizeof(float));
-  ms_deform_attn_fwd_kernel<T><<<B * Q, threads, smem, stream>>>(
-      table, static_cast<const T*>(values), loc, attn, out, N, Q, H, D, L, P);
+  const long long pairs = static_cast<long long>(B) * Q * H;
+  if (pairs == 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((pairs + kFwdWarps - 1) / kFwdWarps);
+  const bool vec =
+      D % 4 == 0 && aligned(values, 4 * sizeof(T)) && aligned(out, 16);
+  const T* v = static_cast<const T*>(values);
+  if (vec)
+    ms_deform_attn_fwd_kernel<T, true><<<blocks, 32 * kFwdWarps, 0, stream>>>(
+        table, v, loc, attn, out, N, Q, H, D, L, P, pairs);
+  else
+    ms_deform_attn_fwd_kernel<T, false><<<blocks, 32 * kFwdWarps, 0, stream>>>(
+        table, v, loc, attn, out, N, Q, H, D, L, P, pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,10 +459,6 @@ int launch_backward(const LevelTable& table, const void* values,
   if (pairs == 0) return 0;
   const unsigned blocks =
       static_cast<unsigned>((pairs + kBwdWarps - 1) / kBwdWarps);
-  // Vector loads and atomics need whole, aligned quads of channels.
-  const auto aligned = [](const void* p, size_t bytes) {
-    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-  };
   const bool vec = D % 4 == 0 && aligned(values, 4 * sizeof(T)) &&
                    aligned(grad_out, 16) && aligned(grad_values, 16);
   const T* v = static_cast<const T*>(values);

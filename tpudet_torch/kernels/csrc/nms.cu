@@ -5,126 +5,199 @@
 // Output: for each image the sorted positions of the first `max_out` kept
 // boxes [B, max_out] int32 (zero past the count) and the count [B] int32.
 //
-// Pass 1 (nms_mask_kernel): one 64-thread block per (column block, row
-// block, image) with column block >= row block. Thread t holds row box
-// r = 64 * row_block + t and sets bit k of its word when box
-// c = 64 * col_block + k comes later (c > r) and IoU(r, c) > thr.
-// Pass 2 (nms_reduce_kernel): one warp per image walks the sorted boxes in
-// order over a removed bitmap in shared memory (non-candidates start out
-// removed), keeps a box whose bit is clear, ORs its row of words into the
-// bitmap, and stops after `max_out` keeps.
+// Pass 1 (nms_mask_kernel): one 64-thread block per tile (row block, column
+// block >= row block) of the upper triangle, the tiles of all images in
+// one grid. Thread t holds row box r = 64 * row_block + t and sets bit k of
+// its word when box c = 64 * col_block + k comes later (c > r) and
+// IoU(r, c) > thr.
+//
+// Pass 2 (nms_reduce_kernel): one block of kReduceThreads per image walks
+// the sorted boxes a 64-box block at a time over a `removed` bitmap in
+// shared memory (non-candidates start out removed). For block cb, every
+// warp resolves the block in registers from its `removed` word and the
+// block's diagonal words (each box's own word of block cb, in shared
+// memory): the lowest box still in the block is kept and its diagonal word
+// removes the later ones, until the block is done or `max_out` boxes are
+// kept. Then all threads OR the kept boxes' rows, words cb+1 .. , into
+// `removed` (independent loads, all in flight together) while some fetch
+// block cb+1's diagonal words, and the block syncs once. A walk thus waits
+// on one round trip to memory per 64-box block it reaches, not per keep.
 //
 // Bit-exactness: IoU is evaluated in f32 in the order of
 // tpudet/kernels/nms.py:61-71 with round-to-nearest intrinsics (and the
 // library builds with -fmad=false), so no multiply-add is contracted and
 // every keep decision equals the JAX kernel's and the plain PyTorch one.
-// `thr` arrives as a 32-bit float and is compared in f32.
+// A pair whose intersection is 0 has IoU 0 whatever its union, and is
+// decided without the division. `thr` arrives as a 32-bit float and is
+// compared in f32.
 //
 // What bounds it on the H100: the least work is the walk's IoU tests, each
 // box it reaches against the boxes kept before it (set by operations, not
-// bytes: the walk stops after `max_out` keeps). Pass 1 here does more, all
-// O(P^2 / 2) IoUs per image, and takes most of the time; pass 2 is a serial
-// walk per image (one warp, one shared-memory bit test per box, the OR of a
-// kept row spread over the warp's 32 lanes).
+// bytes: the walk stops after `max_out` keeps). Pass 1 does more, all
+// P^2 / 2 IoUs of each image whether or not the walk reaches them, spread
+// over every SM; pass 2 is one block per image and bound by the latency of
+// its chain of 64-box steps.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 64;
+constexpr int kBlock = 64;            // boxes per bitmask word
+constexpr int kReduceThreads = 256;   // pass 2's threads per image
+constexpr int kReduceWarps = kReduceThreads / 32;
+constexpr int kOrLoads = 4;           // loads in flight per thread per round
+constexpr unsigned kFullMask = 0xffffffffu;
 
-__device__ __forceinline__ bool iou_above(const float* a, const float* c,
-                                          float thr) {
-  // a: the earlier (higher-scored) box, c: the later one.
-  const float iw = fmaxf(__fsub_rn(fminf(a[2], c[2]), fmaxf(a[0], c[0])), 0.0f);
-  const float ih = fmaxf(__fsub_rn(fminf(a[3], c[3]), fmaxf(a[1], c[1])), 0.0f);
+__device__ __forceinline__ float4 load_box(const float* p) {
+  return make_float4(p[0], p[1], p[2], p[3]);
+}
+
+__device__ __forceinline__ float box_area(float4 a) {
+  return __fmul_rn(fmaxf(__fsub_rn(a.z, a.x), 0.0f),
+                   fmaxf(__fsub_rn(a.w, a.y), 0.0f));
+}
+
+// a: the earlier (higher-scored) box, c: the later one; ra, ca: their
+// areas from box_area.
+__device__ __forceinline__ bool iou_above(float4 a, float ra, float4 c,
+                                          float ca, float thr) {
+  const float iw = fmaxf(__fsub_rn(fminf(a.z, c.z), fmaxf(a.x, c.x)), 0.0f);
+  const float ih = fmaxf(__fsub_rn(fminf(a.w, c.w), fmaxf(a.y, c.y)), 0.0f);
   const float inter = __fmul_rn(iw, ih);
-  const float ra = __fmul_rn(fmaxf(__fsub_rn(a[2], a[0]), 0.0f),
-                             fmaxf(__fsub_rn(a[3], a[1]), 0.0f));
-  const float ca = __fmul_rn(fmaxf(__fsub_rn(c[2], c[0]), 0.0f),
-                             fmaxf(__fsub_rn(c[3], c[1]), 0.0f));
+  if (inter == 0.0f) return 0.0f > thr;  // 0 / union, or 0 without a union
   const float uni = __fsub_rn(__fadd_rn(ra, ca), inter);
   const float iou = uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
   return iou > thr;
 }
 
-__global__ void nms_mask_kernel(const float* __restrict__ boxes, int P,
-                                int col_blocks, float thr,
-                                unsigned long long* __restrict__ mask) {
-  const int cb = blockIdx.x;
-  const int rb = blockIdx.y;
-  const int b = blockIdx.z;
-  if (cb < rb) return;  // no later box in an earlier block
+// Tile t of an image's upper triangle of n x n tiles, row by row:
+// row rb holds tiles (rb, rb) .. (rb, n - 1) and starts at
+// start(rb) = rb * n - rb * (rb - 1) / 2.
+__device__ __forceinline__ void triangle_tile(int t, int n, int* rb,
+                                              int* cb) {
+  const auto start = [n](long long r) { return r * n - r * (r - 1) / 2; };
+  const double m = 2.0 * n + 1.0;
+  long long r = static_cast<long long>((m - sqrt(m * m - 8.0 * t)) / 2.0);
+  r = max(0ll, min(r, static_cast<long long>(n - 1)));
+  while (r > 0 && start(r) > t) --r;
+  while (r + 1 < n && start(r + 1) <= t) ++r;
+  *rb = static_cast<int>(r);
+  *cb = static_cast<int>(r + (t - start(r)));
+}
+
+__global__ void __launch_bounds__(kBlock) nms_mask_kernel(
+    const float* __restrict__ boxes, int P, int col_blocks, float thr,
+    unsigned long long* __restrict__ mask) {
+  int rb, cb;
+  triangle_tile(blockIdx.x, col_blocks, &rb, &cb);
+  const int b = blockIdx.y;
   const int t = threadIdx.x;
   const float* bx = boxes + static_cast<size_t>(b) * P * 4;
-  __shared__ float col[kBlock][4];
+  __shared__ float4 col[kBlock];
+  __shared__ float col_area[kBlock];
   const int col_n = min(kBlock, P - cb * kBlock);
   const int row_n = min(kBlock, P - rb * kBlock);
   if (t < col_n) {
-    const float* src = bx + static_cast<size_t>(cb * kBlock + t) * 4;
-    col[t][0] = src[0];
-    col[t][1] = src[1];
-    col[t][2] = src[2];
-    col[t][3] = src[3];
+    const float4 c = load_box(bx + static_cast<size_t>(cb * kBlock + t) * 4);
+    col[t] = c;
+    col_area[t] = box_area(c);
   }
   __syncthreads();
   if (t >= row_n) return;
   const int r = rb * kBlock + t;
-  const float* src = bx + static_cast<size_t>(r) * 4;
-  const float a[4] = {src[0], src[1], src[2], src[3]};
+  const float4 a = load_box(bx + static_cast<size_t>(r) * 4);
+  const float ra = box_area(a);
   unsigned long long bits = 0ull;
-  const int start = (cb == rb) ? t + 1 : 0;
-  for (int k = start; k < col_n; ++k) {
-    if (iou_above(a, col[k], thr)) bits |= 1ull << k;
+  const int first = (cb == rb) ? t + 1 : 0;
+  for (int k = first; k < col_n; ++k) {
+    if (iou_above(a, ra, col[k], col_area[k], thr)) bits |= 1ull << k;
   }
   mask[(static_cast<size_t>(b) * P + r) * col_blocks + cb] = bits;
 }
 
-__global__ void nms_reduce_kernel(const unsigned long long* __restrict__ mask,
-                                  const uint8_t* __restrict__ cand, int P,
-                                  int col_blocks, int max_out,
-                                  int* __restrict__ kept_pos,
-                                  int* __restrict__ num_kept) {
-  extern __shared__ unsigned long long removed[];
+__global__ void __launch_bounds__(kReduceThreads) nms_reduce_kernel(
+    const unsigned long long* __restrict__ mask,
+    const uint8_t* __restrict__ cand, int P, int col_blocks, int max_out,
+    int* __restrict__ kept_pos, int* __restrict__ num_kept) {
+  extern __shared__ unsigned long long removed[];  // [col_blocks]
+  __shared__ unsigned long long diag[2][kBlock];   // blocks cb, cb + 1
+  __shared__ uint8_t keep_list[kReduceWarps][kBlock];  // each warp's own
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wid = tid >> 5;
   const uint8_t* c = cand + static_cast<size_t>(b) * P;
-  // A box that is not a candidate starts out removed, so the walk below
-  // reads shared memory only.
-  for (int w = lane; w < col_blocks; w += 32) {
-    const int n_in = min(kBlock, P - w * kBlock);
-    unsigned long long bits = 0ull;
-    for (int k = 0; k < n_in; ++k) {
-      if (!c[w * kBlock + k]) bits |= 1ull << k;
-    }
-    removed[w] = bits;
+  const unsigned long long* m = mask + static_cast<size_t>(b) * P * col_blocks;
+  // Boxes that are not candidates, and the slots past P, start out removed.
+  for (int w = wid; w < col_blocks; w += kReduceWarps) {
+    const int i = w * kBlock + lane;
+    const unsigned lo = __ballot_sync(kFullMask, i >= P || !c[i]);
+    const unsigned hi = __ballot_sync(kFullMask, i + 32 >= P || !c[i + 32]);
+    if (lane == 0)
+      removed[w] = static_cast<unsigned long long>(hi) << 32 | lo;
   }
   int* pos = kept_pos + static_cast<size_t>(b) * max_out;
-  for (int j = lane; j < max_out; j += 32) pos[j] = 0;
-  __syncwarp();
-  const unsigned long long* m = mask + static_cast<size_t>(b) * P * col_blocks;
+  for (int j = tid; j < max_out; j += kReduceThreads) pos[j] = 0;
+  if (tid < kBlock && tid < P)
+    diag[0][tid] = m[static_cast<size_t>(tid) * col_blocks];
+  __syncthreads();
+
   int count = 0;
-  // Every lane runs the same walk: `removed` is read after the last
-  // __syncwarp, so the branch below is warp-uniform.
-  for (int cb = 0; cb < col_blocks && count < max_out; ++cb) {
-    const int n_in = min(kBlock, P - cb * kBlock);
-    for (int k = 0; k < n_in && count < max_out; ++k) {
-      if ((removed[cb] >> k) & 1ull) continue;
-      const int i = cb * kBlock + k;
-      if (lane == 0) pos[count] = i;
-      ++count;
-      const unsigned long long* row = m + static_cast<size_t>(i) * col_blocks;
-      for (int w = cb + lane; w < col_blocks; w += 32) removed[w] |= row[w];
-      __syncwarp();
+  for (int cb = 0; cb < col_blocks; ++cb) {
+    // Threads kBlock .. 2 * kBlock - 1 fetch block cb + 1's diagonal
+    // words; the load is in flight while the block is resolved and ORed.
+    const int next = (cb + 1) * kBlock + tid - kBlock;
+    const bool fetch = tid >= kBlock && tid < 2 * kBlock &&
+                       cb + 1 < col_blocks && next < P;
+    const unsigned long long next_diag =
+        fetch ? m[static_cast<size_t>(next) * col_blocks + cb + 1] : 0ull;
+    // 1. Every warp resolves block cb alike, in registers: `todo` holds
+    //    the boxes of the block that are neither removed nor decided.
+    unsigned long long todo = ~removed[cb];
+    int n_kept = 0;
+    while (todo != 0ull && count + n_kept < max_out) {
+      const int k = __ffsll(static_cast<long long>(todo)) - 1;
+      if (lane == 0) keep_list[wid][n_kept] = static_cast<uint8_t>(k);
+      if (tid == 0) pos[count + n_kept] = cb * kBlock + k;
+      ++n_kept;
+      todo &= ~diag[cb & 1][k];
+      todo &= todo - 1ull;  // box k itself
     }
+    count += n_kept;
+    if (count >= max_out || cb + 1 == col_blocks) break;
+    __syncwarp();  // the warp's keep_list
+    // 2. All threads OR the kept boxes' rows, words cb+1 .., into
+    //    `removed`: element e is (kept box e / words, word e % words).
+    const int words = col_blocks - cb - 1;
+    const int total = n_kept * words;
+    for (int e0 = tid; e0 < total; e0 += kOrLoads * kReduceThreads) {
+      unsigned long long got[kOrLoads];
+      int word[kOrLoads];
+#pragma unroll
+      for (int u = 0; u < kOrLoads; ++u) {
+        const int e = e0 + u * kReduceThreads;
+        got[u] = 0ull;
+        word[u] = 0;
+        if (e < total) {
+          const int row = cb * kBlock + keep_list[wid][e / words];
+          word[u] = cb + 1 + e % words;
+          got[u] = m[static_cast<size_t>(row) * col_blocks + word[u]];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kOrLoads; ++u)
+        if (got[u] != 0ull) atomicOr(&removed[word[u]], got[u]);
+    }
+    if (fetch) diag[(cb + 1) & 1][tid - kBlock] = next_diag;
+    __syncthreads();
   }
-  if (lane == 0) num_kept[b] = count;
+  if (tid == 0) num_kept[b] = count;
 }
 
 }  // namespace
 
-// mask: scratch [B, P, ceil(P/64)] words; only blocks at or right of the
+// mask: scratch [B, P, ceil(P/64)] words; only tiles at or right of the
 // diagonal are written and read. Returns cudaGetLastError() after both
 // launches.
 extern "C" int tpudet_nms(const float* boxes, const uint8_t* cand,
@@ -132,12 +205,15 @@ extern "C" int tpudet_nms(const float* boxes, const uint8_t* cand,
                           int* num_kept, int B, int P, float thr, int max_out,
                           cudaStream_t stream) {
   const int col_blocks = (P + kBlock - 1) / kBlock;
-  dim3 grid1(col_blocks, col_blocks, B);
-  nms_mask_kernel<<<grid1, kBlock, 0, stream>>>(boxes, P, col_blocks, thr, mask);
+  const long long tiles = static_cast<long long>(col_blocks) * (col_blocks + 1) / 2;
+  if (tiles > 0x7fffffffll || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  nms_mask_kernel<<<dim3(static_cast<unsigned>(tiles), B), kBlock, 0, stream>>>(
+      boxes, P, col_blocks, thr, mask);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = static_cast<size_t>(col_blocks) * sizeof(unsigned long long);
-  nms_reduce_kernel<<<B, 32, smem, stream>>>(mask, cand, P, col_blocks,
-                                             max_out, kept_pos, num_kept);
+  nms_reduce_kernel<<<B, kReduceThreads, smem, stream>>>(
+      mask, cand, P, col_blocks, max_out, kept_pos, num_kept);
   return static_cast<int>(cudaGetLastError());
 }

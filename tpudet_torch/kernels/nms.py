@@ -4,18 +4,20 @@ PyTorch version.
 Replaces ``tpudet/kernels/nms.py::_nms_kernel`` (reached through
 ``nms_pallas``). The TPU kernel resolves 128-box tiles with a vectorized
 fixed-point sweep because the TPU is one wide core; on Hopper the work is
-split the other way: a parallel pass builds the IoU > thr bitmask over 64x64
-box blocks for every image at once, and one warp per image walks it in
-score order, stopping at ``max_outputs`` keeps.
+split the other way. Pass 1 builds the IoU > thr bitmask over the upper
+triangle of 64x64 box tiles, every tile of every image in one grid. Pass 2
+gives each image one block, which walks the sorted boxes a 64-box block at
+a time: its warps resolve the block in registers from the boxes' diagonal
+words (the lowest box still in is kept, its word removes later ones), then
+all its threads OR the kept boxes' rows into a ``removed`` bitmap in
+shared memory at once, and the walk stops at ``max_outputs`` keeps.
 
-What bounds it on the H100: the least work is reading the boxes the walk
-reaches once and testing each of them against the boxes kept before it;
-the IoU tests (13 f32 operations each) outweigh the bytes, so operations
-set the bound. This first design does more: pass 1 tests every pair (O(P^2 / 2) IoUs per
-image, most of its time) and pass 2 is serial per image. It keeps the
-serial part to one shared-memory bit test per box and spreads the OR of a
-kept row over 32 lanes; testing only the pairs the walk reaches is later
-work (PERF.md).
+What bounds it on the H100: the least work is testing each box the walk
+reaches against the boxes kept before it; the IoU tests (13 f32
+operations each) outweigh the bytes, so operations set the bound. Pass 1
+does more, every pair of the triangle (P^2 / 2 IoUs per image, decided
+without the division where two boxes do not meet), spread over every SM;
+pass 2 waits on one round trip to memory per 64-box block it reaches.
 
 Decisions are bit-exact against the plain version (and the JAX kernel): f32
 IoU in the JAX operation order, no FMA (``-fmad=false`` and round-to-nearest
@@ -37,6 +39,9 @@ LAUNCHES = 0
 
 SOURCE = "tpudet_torch/kernels/csrc/nms.cu"
 REPLACES = "tpudet/kernels/nms.py:74"
+# Pass 2 keeps one bit per box of an image in shared memory, beside under
+# 2 KB of its own, within the 48 KB a block takes without an opt-in.
+MAX_COL_BLOCKS = (48 * 1024 - 2 * 1024) // 8
 
 
 def nms_keep_plain(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
@@ -77,8 +82,9 @@ def nms_keep_cuda(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
         raise ValueError(f"bad NMS shapes {tuple(boxes_sorted.shape)}, "
                          f"{tuple(candidate.shape)}, max_outputs={max_outputs}")
     col_blocks = (p + 63) // 64
-    if col_blocks > 65535 or b > 65535 or col_blocks * 8 > 48 * 1024:
-        raise ValueError(f"NMS of {p} boxes x {b} images exceeds the kernel's grid")
+    if col_blocks > MAX_COL_BLOCKS or b > 65535:
+        raise ValueError(f"NMS of {p} boxes x {b} images exceeds the kernel's "
+                         f"limits ({64 * MAX_COL_BLOCKS} boxes, 65535 images)")
     boxes_sorted = boxes_sorted.contiguous()
     candidate = candidate.contiguous()
     dev = boxes_sorted.device
