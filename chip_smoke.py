@@ -22,8 +22,9 @@ no result):
    300, 32 x 1024 candidates of 80 classes at 0.5 -> 100), on sparse and
    on clustered scenes (where the walk must cross most blocks), and on
    edge cases: kept indices must be equal; the device time of each of its
-   two passes (``nms_mask_kernel``, ``nms_reduce_kernel``) at every shape,
-   from torch.profiler;
+   kernels at every shape, from torch.profiler (``nms_diag_kernel`` and
+   ``nms_walk_kernel``; a tree before them has the two passes
+   ``nms_mask_kernel`` and ``nms_reduce_kernel``);
 4. the RoI Align kernel against its plain version at [32, 40, 40, 256] x
    300 RoIs per image, S = 7, r = 2, in f32 and bf16;
 5. the FPN RoI Align kernel against its plain version at the 832x832
@@ -152,6 +153,10 @@ ROI_BWD_OPS_PER_SAMPLE = 8
 # hold a forward and a backward kernel each).
 KERNELS = ("nms", "roi_align", "roi_align_window", "deform_attn",
            "precision_probe")
+# The NMS kernels by name: the diagonal words and the walk, and the two
+# passes they replaced (so a comparison with an earlier tree reads both).
+NMS_KERNELS = ("nms_diag_kernel", "nms_walk_kernel", "nms_mask_kernel",
+               "nms_reduce_kernel")
 # Head kernels drawn wider than Flax's normal(0.01)/normal(0.001): at init
 # the softmax sits near 1/21, below score_thresh 0.05, and no detection
 # would reach the final NMS. The head inputs have an rms near 1 at this
@@ -463,8 +468,7 @@ def phase_nms():
         ops_ms = pairs * NMS_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
         ms = time_ms(lambda: knms.nms_keep_cuda(boxes, cand, thr, k))
         passes = kernel_ms_by_name(
-            lambda: knms.nms_keep_cuda(boxes, cand, thr, k),
-            ("nms_mask_kernel", "nms_reduce_kernel"))
+            lambda: knms.nms_keep_cuda(boxes, cand, thr, k), NMS_KERNELS)
         plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
                            iters=2, warmup=1)
         if scene == "clustered":
@@ -479,10 +483,9 @@ def phase_nms():
               f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
               f"{int(reach.max())} boxes ({int(blocks.min())}.."
               f"{int(blocks.max())} of {(p + 63) // 64} blocks) | kernel "
-              f"{ms:.4f} ms (device, by pass: "
-              + ", ".join(f"{n} " + ("not measured" if v is None
-                                      else f"{v:.4f} ms")
-                          for n, v in passes.items())
+              f"{ms:.4f} ms (device, by kernel: "
+              + (", ".join(f"{n} {v:.4f} ms" for n, v in passes.items()
+                           if v is not None) or "not measured")
               + f"), plain {plain_ms:.2f} ms, bound "
               f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
               f"operations {ops_ms:.6f}: {pairs} IoU tests)", flush=True)
@@ -1916,7 +1919,7 @@ KINDS = (
     ("deform_attn kernel", ("ms_deform_attn_fwd_kernel",)),
     ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
     ("deform_attn backward kernel", ("ms_deform_attn_bwd_kernel",)),
-    ("nms kernel", ("nms_mask_kernel", "nms_reduce_kernel")),
+    ("nms kernel", NMS_KERNELS),
     ("roi_align_window kernel", ("roi_align_window_fwd_kernel",)),
     ("roi_align kernel", ("roi_align_fwd_kernel",)),
     # Ahead of "convolution", whose "nhwc" key their names also hold.

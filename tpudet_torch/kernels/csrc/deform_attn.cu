@@ -22,27 +22,27 @@
 // passes -fmad=false, so nothing is contracted into an FMA); only the
 // order of the sum over corners differs.
 //
-// Forward layout: one warp per (image, query, head), kFwdWarps to a block.
-// Lane i stages sample i (32 samples at a time, so any number of samples
-// per query): its four corner rows (-1 outside the grid) and weights, in
-// the warp's shared memory. Then lane = 8 * corner + channel quad: each
-// lane takes its corner of every staged sample with one vector load of 4
-// channels (8 bytes bf16, 16 f32; D > 32 loops over quads, D % 4 != 0
-// takes a scalar path), kFwdGroup samples' loads issued before their
-// multiplies, a predicate (not a branch) for a corner outside the grid,
-// and f32 sums in registers. Two shuffles per channel add the four corner
-// lanes, and the corner-0 lanes store the f32 output in 16-byte stores.
+// Forward layout: one warp per (image, query, head); a block holds
+// kFwdWarps neighbouring queries of one head, which sample neighbouring
+// cells and so share corner rows in L1. Lane i stages sample i (32 samples
+// at a time, so any number of samples per query): its four corner rows
+// (-1 outside the grid) and weights, in the warp's shared memory. Then
+// each lane loads 16 bytes of one corner row per load (8 bf16 or 4 f32
+// channels; D > 32 loops over 32-channel passes, and a D that 16-byte
+// loads do not divide takes a scalar path), so one warp load takes the
+// four corners of 2 samples in bf16 and of 1 in f32; a corner outside the
+// grid is a predicate, not a branch; each lane sums in f32 in registers,
+// and shuffles add the corner (and sample) lanes before 16-byte stores.
 //
 // What bounds it on the H100: the bytes the function must move are few
 // (one encoder layer of coco_deformable_detr_r50 at b=8 on 832x832,
 // Q = N = 14,365, H = 8, D = 32, L = P = 4: ~353 MB, values read once,
 // 117.7 MB of locations, 58.8 MB of weights, 117.7 MB of f32 output,
 // ~0.105 ms at 3.35 TB/s); but the gather reads each corner row once per
-// (query, head): 58.8 M rows x 64 bytes = 3.76 GB through L2 in bf16,
-// so the L2's rate is the floor this design can reach. Each warp keeps
-// 4 x kFwdGroup corner rows in flight, so the loads' latency overlaps;
-// sharing corner rows between neighbouring queries of a tile would cut
-// the L2 traffic itself.
+// (query, head): ~51 M rows of 64 bytes (bf16) through L1 and L2. Their
+// rate, in rows (lines) more than in bytes, sets the time: f32 rows of
+// 128 bytes take about as long. Sharing corner rows between neighbouring
+// queries of a tile in shared memory would cut the rows themselves.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -80,12 +80,13 @@ __device__ __forceinline__ float4 load_quad(const float* p, int n) {
 template <bool kVec>
 __device__ __forceinline__ float4 load_quad(const __nv_bfloat16* p, int n) {
   if (kVec) {
+    // A bf16 value is the upper half of its f32 (exact); p[0] is the low
+    // half of the first word.
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
+    return make_float4(__uint_as_float(raw.x << 16),
+                       __uint_as_float(raw.x & 0xffff0000u),
+                       __uint_as_float(raw.y << 16),
+                       __uint_as_float(raw.y & 0xffff0000u));
   }
   float4 r = zero4();
   r.x = __bfloat162float(p[0]);
@@ -147,23 +148,52 @@ __device__ __forceinline__ float dot_quad(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-// acc += w * v, a multiply and an add per channel (no FMA: -fmad=false).
-__device__ __forceinline__ void axpy_quad(float w, float4 v, float4* acc) {
-  acc->x += w * v.x;
-  acc->y += w * v.y;
-  acc->z += w * v.z;
-  acc->w += w * v.w;
+// The forward's lane layout. A lane loads 16 bytes of a corner row when
+// kVec (kV = 8 bf16 or 4 f32 channels), else 4 channels one at a time; a
+// pass covers 32 channels, kRowLanes lanes per corner row, so one warp
+// load takes the four corners of kSamples samples (2 in bf16, 1 in f32).
+// kGroup loads go out before their multiplies: the counts that ran
+// fastest at coco_deformable_detr_r50's shapes on an H100.
+template <typename T, bool kVec>
+struct FwdLanes {
+  static constexpr int kV = kVec ? 16 / static_cast<int>(sizeof(T)) : 4;
+  static constexpr int kRowLanes = 32 / kV;
+  static constexpr int kSamples = kV / 4;
+  static constexpr int kGroup = sizeof(T) == 2 ? 2 : 1;
+};
+
+// kV values of a corner row at p (n > 0 of them left in the row), as raw
+// bits: one 16-byte load when kVec, else load_quad's scalar loads.
+template <typename T, bool kVec>
+__device__ __forceinline__ uint4 load_raw(const T* p, int n) {
+  if constexpr (kVec) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    const float4 v = load_quad<false>(p, n);
+    return make_uint4(__float_as_uint(v.x), __float_as_uint(v.y),
+                      __float_as_uint(v.z), __float_as_uint(v.w));
+  }
 }
 
-// The sum of x over the four corner lanes of a channel quad (lanes
-// quad, quad + 8, quad + 16, quad + 24).
-__device__ __forceinline__ float corner_sum(float x) {
-  x += __shfl_xor_sync(kFullMask, x, 8);
-  return x + __shfl_xor_sync(kFullMask, x, 16);
+// acc[j] += w * value j of `raw`: a multiply and an add per channel (no
+// FMA: -fmad=false). A bf16 value is the upper half of its f32 (exact).
+template <typename T, bool kVec>
+__device__ __forceinline__ void axpy_raw(
+    float w, uint4 raw, float (&acc)[FwdLanes<T, kVec>::kV]) {
+  const unsigned u[4] = {raw.x, raw.y, raw.z, raw.w};
+  if constexpr (FwdLanes<T, kVec>::kV == 8) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[2 * j] += w * __uint_as_float(u[j] << 16);
+      acc[2 * j + 1] += w * __uint_as_float(u[j] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[j] += w * __uint_as_float(u[j]);
+  }
 }
 
 constexpr int kFwdWarps = 8;  // (image, query, head) pairs per block
-constexpr int kFwdGroup = 4;  // samples whose corner-row loads go out together
 
 // One corner of a staged sample: its value row (-1 outside the grid) and
 // its weight, bilinear x attention (0 outside).
@@ -176,26 +206,34 @@ template <typename T, bool kVec>
 __global__ void __launch_bounds__(32 * kFwdWarps) ms_deform_attn_fwd_kernel(
     LevelTable table, const T* __restrict__ values,
     const float* __restrict__ loc, const float* __restrict__ attn,
-    float* __restrict__ out, int N, int Q, int H, int D, int L, int P,
-    long long pairs) {
+    float* __restrict__ out, int N, int Q, int H, int D, int L, int P) {
   __shared__ FwdCorner s_corner[kFwdWarps][kChunk][4];
   const int wid = threadIdx.x >> 5;
+  // Block (b * tiles + tile) * H + h takes queries kFwdWarps * tile .. of
+  // head h, a warp each: neighbouring queries sample neighbouring cells, so
+  // they share corner rows in L1.
+  const int tiles = (Q + kFwdWarps - 1) / kFwdWarps;
+  const int h = static_cast<int>(blockIdx.x % H);
+  const long long bt = blockIdx.x / H;
+  const int b = static_cast<int>(bt / tiles);
+  const int q = static_cast<int>(bt % tiles) * kFwdWarps + wid;
+  if (q >= Q) return;  // the whole warp; the block never syncs
   // pair = (b * Q + q) * H + h: the row of the output and of the samples.
-  const long long pair = static_cast<long long>(blockIdx.x) * kFwdWarps + wid;
-  if (pair >= pairs) return;  // the whole warp; the block never syncs
+  const long long pair = (static_cast<long long>(b) * Q + q) * H + h;
+  using Lanes = FwdLanes<T, kVec>;
+  constexpr int kV = Lanes::kV;
   const int lane = threadIdx.x & 31;
-  const int corner = lane >> 3;     // (dx, dy) = (corner & 1, corner >> 1)
-  const int quad = 4 * (lane & 7);  // the lane's channels, from d0
-  const int h = static_cast<int>(pair % H);
-  const int b = static_cast<int>(pair / H / Q);
+  const int group = lane % Lanes::kRowLanes;  // the lane's kV channels
+  const int corner = (lane / Lanes::kRowLanes) & 3;  // (dx, dy) = (c & 1, c >> 1)
+  const int sub = lane / (4 * Lanes::kRowLanes);     // sample of the load
   const int LP = L * P;
   const size_t HD = static_cast<size_t>(H) * D;
   const T* vb = values + static_cast<size_t>(b) * N * HD +
                 static_cast<size_t>(h) * D;
   for (int d0 = 0; d0 < D; d0 += 32) {  // once when D <= 32
-    const int d = d0 + quad;
+    const int d = d0 + group * kV;
     const bool has = d < D;
-    float4 acc = zero4();
+    float acc[kV] = {};
     for (int k0 = 0; k0 < LP; k0 += kChunk) {
       const int n = min(kChunk, LP - k0);
       // 1. Lane i stages sample k0 + i.
@@ -226,29 +264,38 @@ __global__ void __launch_bounds__(32 * kFwdWarps) ms_deform_attn_fwd_kernel(
         }
       }
       __syncwarp();
-      // 2. The warp sums the staged samples, kFwdGroup loads at a time.
-      for (int i0 = 0; i0 < n; i0 += kFwdGroup) {
-        FwdCorner c[kFwdGroup];
-        float4 v[kFwdGroup];
+      // 2. The warp sums the staged samples, kSamples per load and kGroup
+      //    loads in flight.
+      for (int i0 = 0; i0 < n; i0 += Lanes::kSamples * Lanes::kGroup) {
+        FwdCorner c[Lanes::kGroup];
+        uint4 raw[Lanes::kGroup];
 #pragma unroll
-        for (int i = 0; i < kFwdGroup; ++i) {
-          c[i] = i0 + i < n ? s_corner[wid][i0 + i][corner]
-                            : FwdCorner{-1, 0.0f};
-          v[i] = has && c[i].row >= 0
-                     ? load_quad<kVec>(vb + static_cast<size_t>(c[i].row) * HD +
-                                           d, D - d)
-                     : zero4();
+        for (int j = 0; j < Lanes::kGroup; ++j) {
+          const int i = i0 + j * Lanes::kSamples + sub;
+          c[j] = i < n ? s_corner[wid][i][corner] : FwdCorner{-1, 0.0f};
+          raw[j] = has && c[j].row >= 0
+                       ? load_raw<T, kVec>(
+                             vb + static_cast<size_t>(c[j].row) * HD + d, D - d)
+                       : make_uint4(0u, 0u, 0u, 0u);
         }
 #pragma unroll
-        for (int i = 0; i < kFwdGroup; ++i) axpy_quad(c[i].w, v[i], &acc);
+        for (int j = 0; j < Lanes::kGroup; ++j)
+          axpy_raw<T, kVec>(c[j].w, raw[j], acc);
       }
       __syncwarp();  // the next chunk's staging overwrites this one's
     }
-    acc.x = corner_sum(acc.x);
-    acc.y = corner_sum(acc.y);
-    acc.z = corner_sum(acc.z);
-    acc.w = corner_sum(acc.w);
-    if (corner == 0 && has) store_quad<kVec>(out + pair * D + d, acc, D - d);
+    // Add the lanes of the other corners (and samples) of each channel.
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      for (int o = Lanes::kRowLanes; o < 32; o <<= 1)
+        acc[j] += __shfl_xor_sync(kFullMask, acc[j], o);
+    if (lane < Lanes::kRowLanes && has) {
+      float* o = out + pair * D + d;
+#pragma unroll
+      for (int j = 0; j < kV; j += 4)
+        store_quad<kVec>(o + j, make_float4(acc[j], acc[j + 1], acc[j + 2],
+                                            acc[j + 3]), D - d - j);
+    }
   }
 }
 
@@ -433,19 +480,20 @@ template <typename T>
 int launch(const LevelTable& table, const void* values, const float* loc,
            const float* attn, float* out, int B, int N, int Q, int H, int D,
            int L, int P, cudaStream_t stream) {
-  const long long pairs = static_cast<long long>(B) * Q * H;
-  if (pairs == 0) return 0;
-  const unsigned blocks =
-      static_cast<unsigned>((pairs + kFwdWarps - 1) / kFwdWarps);
-  const bool vec =
-      D % 4 == 0 && aligned(values, 4 * sizeof(T)) && aligned(out, 16);
+  const long long blocks =
+      static_cast<long long>(B) * ((Q + kFwdWarps - 1) / kFwdWarps) * H;
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = D % FwdLanes<T, true>::kV == 0 && aligned(values, 16) &&
+                   aligned(out, 16);
   const T* v = static_cast<const T*>(values);
+  const unsigned grid = static_cast<unsigned>(blocks);
   if (vec)
-    ms_deform_attn_fwd_kernel<T, true><<<blocks, 32 * kFwdWarps, 0, stream>>>(
-        table, v, loc, attn, out, N, Q, H, D, L, P, pairs);
+    ms_deform_attn_fwd_kernel<T, true><<<grid, 32 * kFwdWarps, 0, stream>>>(
+        table, v, loc, attn, out, N, Q, H, D, L, P);
   else
-    ms_deform_attn_fwd_kernel<T, false><<<blocks, 32 * kFwdWarps, 0, stream>>>(
-        table, v, loc, attn, out, N, Q, H, D, L, P, pairs);
+    ms_deform_attn_fwd_kernel<T, false><<<grid, 32 * kFwdWarps, 0, stream>>>(
+        table, v, loc, attn, out, N, Q, H, D, L, P);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,23 +5,28 @@
 // Output: for each image the sorted positions of the first `max_out` kept
 // boxes [B, max_out] int32 (zero past the count) and the count [B] int32.
 //
-// Pass 1 (nms_mask_kernel): one 64-thread block per tile (row block, column
-// block >= row block) of the upper triangle, the tiles of all images in
-// one grid. Thread t holds row box r = 64 * row_block + t and sets bit k of
-// its word when box c = 64 * col_block + k comes later (c > r) and
-// IoU(r, c) > thr.
+// The walk goes down the sorted boxes kStep = 256 at a time. Two kernels:
 //
-// Pass 2 (nms_reduce_kernel): one block of kReduceThreads per image walks
-// the sorted boxes a 64-box block at a time over a `removed` bitmap in
-// shared memory (non-candidates start out removed). For block cb, every
-// warp resolves the block in registers from its `removed` word and the
-// block's diagonal words (each box's own word of block cb, in shared
-// memory): the lowest box still in the block is kept and its diagonal word
-// removes the later ones, until the block is done or `max_out` boxes are
-// kept. Then all threads OR the kept boxes' rows, words cb+1 .. , into
-// `removed` (independent loads, all in flight together) while some fetch
-// block cb+1's diagonal words, and the block syncs once. A walk thus waits
-// on one round trip to memory per 64-box block it reaches, not per keep.
+// nms_diag_kernel: one block per (step, image), all at once. Thread i
+// writes box i's diagonal words, kWords of them: bit k of word w when the
+// step's box k' = 64 w + k comes later (k' > i) and IoU(i, k') > thr.
+//
+// nms_walk_kernel: one cluster of kCluster blocks per image. The g-th kept
+// box of the image lives in the shared memory of block g % kCluster, so
+// the kept list is spread over the cluster. A step:
+//   1. every block tests the step's 256 boxes against its share of the
+//      kept list (kParts threads per box) and writes the boxes it finds
+//      overlapped, with the non-candidates, as the step's bits;
+//   2. one cluster barrier; warp 0 ORs the cluster's bits of the step over
+//      distributed shared memory into the step's `removed` words;
+//   3. warp 0 resolves the step in registers: the lowest box still in is
+//      kept and its diagonal words remove the later ones, until the step is
+//      done or `max_out` boxes are kept; it appends its block's share of
+//      the new keeps to the list (every block resolves alike);
+//   4. one block barrier; the next step's boxes and diagonal words, loaded
+//      during this step, take their place.
+// Nothing is written but the output and the diagonal words (P x 32 bytes an
+// image): no P x P bitmask.
 //
 // Bit-exactness: IoU is evaluated in f32 in the order of
 // tpudet/kernels/nms.py:61-71 with round-to-nearest intrinsics (and the
@@ -33,25 +38,25 @@
 //
 // What bounds it on the H100: the least work is the walk's IoU tests, each
 // box it reaches against the boxes kept before it (set by operations, not
-// bytes: the walk stops after `max_out` keeps). Pass 1 does more, all
-// P^2 / 2 IoUs of each image whether or not the walk reaches them, spread
-// over every SM; pass 2 is one block per image and bound by the latency of
-// its chain of 64-box steps.
+// bytes: the walk stops after `max_out` keeps). The walk makes those tests,
+// spread over the cluster's SMs, and the diagonal kernel 32,640 more per
+// step of boxes; what the design adds is the latency of its chain of steps,
+// two barriers each, one step per 256 boxes the walk reaches.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBlock = 64;            // boxes per bitmask word
-constexpr int kReduceThreads = 256;   // pass 2's threads per image
-constexpr int kReduceWarps = kReduceThreads / 32;
-constexpr int kOrLoads = 4;           // loads in flight per thread per round
+constexpr int kStep = 256;             // boxes per step of the walk
+constexpr int kWords = kStep / 64;     // diagonal words per box
+constexpr int kCluster = 8;            // blocks per image (a portable cluster)
+constexpr int kParts = 4;              // walk threads per box of a step
+constexpr int kThreads = kStep * kParts;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float4 load_box(const float* p) {
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
 
 __device__ __forceinline__ float box_area(float4 a) {
   return __fmul_rn(fmaxf(__fsub_rn(a.z, a.x), 0.0f),
@@ -71,149 +76,226 @@ __device__ __forceinline__ bool iou_above(float4 a, float ra, float4 c,
   return iou > thr;
 }
 
-// Tile t of an image's upper triangle of n x n tiles, row by row:
-// row rb holds tiles (rb, rb) .. (rb, n - 1) and starts at
-// start(rb) = rb * n - rb * (rb - 1) / 2.
-__device__ __forceinline__ void triangle_tile(int t, int n, int* rb,
-                                              int* cb) {
-  const auto start = [n](long long r) { return r * n - r * (r - 1) / 2; };
-  const double m = 2.0 * n + 1.0;
-  long long r = static_cast<long long>((m - sqrt(m * m - 8.0 * t)) / 2.0);
-  r = max(0ll, min(r, static_cast<long long>(n - 1)));
-  while (r > 0 && start(r) > t) --r;
-  while (r + 1 < n && start(r + 1) <= t) ++r;
-  *rb = static_cast<int>(r);
-  *cb = static_cast<int>(r + (t - start(r)));
+__device__ __forceinline__ float4 load_box(const float* bx, int r) {
+  const float* p = bx + static_cast<size_t>(r) * 4;
+  return make_float4(p[0], p[1], p[2], p[3]);
 }
 
-__global__ void __launch_bounds__(kBlock) nms_mask_kernel(
-    const float* __restrict__ boxes, int P, int col_blocks, float thr,
-    unsigned long long* __restrict__ mask) {
-  int rb, cb;
-  triangle_tile(blockIdx.x, col_blocks, &rb, &cb);
+__global__ void __launch_bounds__(kStep) nms_diag_kernel(
+    const float* __restrict__ boxes, int P, float thr,
+    unsigned long long* __restrict__ diag) {
+  __shared__ float4 s_box[kStep];
+  __shared__ float s_area[kStep];
   const int b = blockIdx.y;
-  const int t = threadIdx.x;
+  const int i = threadIdx.x;
+  const int first = blockIdx.x * kStep;
+  const int n = min(kStep, P - first);
   const float* bx = boxes + static_cast<size_t>(b) * P * 4;
-  __shared__ float4 col[kBlock];
-  __shared__ float col_area[kBlock];
-  const int col_n = min(kBlock, P - cb * kBlock);
-  const int row_n = min(kBlock, P - rb * kBlock);
-  if (t < col_n) {
-    const float4 c = load_box(bx + static_cast<size_t>(cb * kBlock + t) * 4);
-    col[t] = c;
-    col_area[t] = box_area(c);
-  }
-  __syncthreads();
-  if (t >= row_n) return;
-  const int r = rb * kBlock + t;
-  const float4 a = load_box(bx + static_cast<size_t>(r) * 4);
+  const float4 a = i < n ? load_box(bx, first + i)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const float ra = box_area(a);
-  unsigned long long bits = 0ull;
-  const int first = (cb == rb) ? t + 1 : 0;
-  for (int k = first; k < col_n; ++k) {
-    if (iou_above(a, ra, col[k], col_area[k], thr)) bits |= 1ull << k;
+  s_box[i] = a;
+  s_area[i] = ra;
+  __syncthreads();
+  if (i >= n) return;
+  unsigned long long* out =
+      diag + (static_cast<size_t>(b) * P + first + i) * kWords;
+  for (int w = 0; w < kWords; ++w) {
+    unsigned long long bits = 0ull;
+    for (int k = max(64 * w, i + 1); k < min(64 * w + 64, n); ++k)
+      if (iou_above(a, ra, s_box[k], s_area[k], thr))
+        bits |= 1ull << (k - 64 * w);
+    out[w] = bits;
   }
-  mask[(static_cast<size_t>(b) * P + r) * col_blocks + cb] = bits;
 }
 
-__global__ void __launch_bounds__(kReduceThreads) nms_reduce_kernel(
-    const unsigned long long* __restrict__ mask,
-    const uint8_t* __restrict__ cand, int P, int col_blocks, int max_out,
-    int* __restrict__ kept_pos, int* __restrict__ num_kept) {
-  extern __shared__ unsigned long long removed[];  // [col_blocks]
-  __shared__ unsigned long long diag[2][kBlock];   // blocks cb, cb + 1
-  __shared__ uint8_t keep_list[kReduceWarps][kBlock];  // each warp's own
-  const int b = blockIdx.x;
+// The step's box i, whether it may be kept (a candidate, i < P), and the
+// diagonal words that this thread moves to shared memory.
+struct StepBox {
+  float4 box;
+  bool live;
+  unsigned long long diag[kWords / kParts];
+};
+
+__device__ __forceinline__ StepBox load_step_box(
+    const float* bx, const uint8_t* c, const unsigned long long* dg, int r,
+    int part, int P) {
+  StepBox s;
+  s.box = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  s.live = false;
+#pragma unroll
+  for (int w = 0; w < kWords / kParts; ++w) s.diag[w] = 0ull;
+  if (r < P) {
+    s.box = load_box(bx, r);
+    s.live = c[r] != 0;
+#pragma unroll
+    for (int w = 0; w < kWords / kParts; ++w)
+      s.diag[w] = dg[static_cast<size_t>(r) * kWords + part + w * kParts];
+  }
+  return s;
+}
+
+// The lowest set bit of the 256-bit t0..t3, or -1.
+__device__ __forceinline__ int lowest(unsigned long long t0,
+                                      unsigned long long t1,
+                                      unsigned long long t2,
+                                      unsigned long long t3) {
+  if (t0) return __ffsll(static_cast<long long>(t0)) - 1;
+  if (t1) return 63 + __ffsll(static_cast<long long>(t1));
+  if (t2) return 127 + __ffsll(static_cast<long long>(t2));
+  if (t3) return 191 + __ffsll(static_cast<long long>(t3));
+  return -1;
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+    nms_walk_kernel(const float* __restrict__ boxes,
+                    const uint8_t* __restrict__ cand,
+                    const unsigned long long* __restrict__ diag, int P,
+                    float thr, int max_out, int* __restrict__ kept_pos,
+                    int* __restrict__ num_kept) {
+  static_assert(kWords == 4 && kParts == 4, "the step's bits are 4 words, "
+                "a byte per warp");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / kCluster;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wid = tid >> 5;
+  const int i = tid / kParts;  // the step's box this thread tests
+  const int part = tid % kParts;
+  // This block's share of the kept list: boxes and areas.
+  extern __shared__ float4 s_kept[];
+  float* s_kept_area = reinterpret_cast<float*>(
+      s_kept + (min(max_out, P) + kCluster - 1) / kCluster);
+  __shared__ float4 s_box[kStep];
+  __shared__ unsigned long long s_diag[kStep][kWords];
+  // The step's bits, a byte per warp (boxes 8 wid .. 8 wid + 7), by parity.
+  __shared__ __align__(8) uint8_t s_bits[2][kStep / 8];
+  __shared__ uint8_t s_new[kStep];  // the step's keeps
+  __shared__ int s_count;           // boxes kept so far
+
+  const float* bx = boxes + static_cast<size_t>(b) * P * 4;
   const uint8_t* c = cand + static_cast<size_t>(b) * P;
-  const unsigned long long* m = mask + static_cast<size_t>(b) * P * col_blocks;
-  // Boxes that are not candidates, and the slots past P, start out removed.
-  for (int w = wid; w < col_blocks; w += kReduceWarps) {
-    const int i = w * kBlock + lane;
-    const unsigned lo = __ballot_sync(kFullMask, i >= P || !c[i]);
-    const unsigned hi = __ballot_sync(kFullMask, i + 32 >= P || !c[i + 32]);
-    if (lane == 0)
-      removed[w] = static_cast<unsigned long long>(hi) << 32 | lo;
-  }
+  const unsigned long long* dg = diag + static_cast<size_t>(b) * P * kWords;
   int* pos = kept_pos + static_cast<size_t>(b) * max_out;
-  for (int j = tid; j < max_out; j += kReduceThreads) pos[j] = 0;
-  if (tid < kBlock && tid < P)
-    diag[0][tid] = m[static_cast<size_t>(tid) * col_blocks];
+  if (rank == 0)
+    for (int j = tid; j < max_out; j += kThreads) pos[j] = 0;
+  if (tid == 0) s_count = 0;
+  StepBox mine = load_step_box(bx, c, dg, i, part, P);
   __syncthreads();
 
-  int count = 0;
-  for (int cb = 0; cb < col_blocks; ++cb) {
-    // Threads kBlock .. 2 * kBlock - 1 fetch block cb + 1's diagonal
-    // words; the load is in flight while the block is resolved and ORed.
-    const int next = (cb + 1) * kBlock + tid - kBlock;
-    const bool fetch = tid >= kBlock && tid < 2 * kBlock &&
-                       cb + 1 < col_blocks && next < P;
-    const unsigned long long next_diag =
-        fetch ? m[static_cast<size_t>(next) * col_blocks + cb + 1] : 0ull;
-    // 1. Every warp resolves block cb alike, in registers: `todo` holds
-    //    the boxes of the block that are neither removed nor decided.
-    unsigned long long todo = ~removed[cb];
-    int n_kept = 0;
-    while (todo != 0ull && count + n_kept < max_out) {
-      const int k = __ffsll(static_cast<long long>(todo)) - 1;
-      if (lane == 0) keep_list[wid][n_kept] = static_cast<uint8_t>(k);
-      if (tid == 0) pos[count + n_kept] = cb * kBlock + k;
-      ++n_kept;
-      todo &= ~diag[cb & 1][k];
-      todo &= todo - 1ull;  // box k itself
-    }
-    count += n_kept;
-    if (count >= max_out || cb + 1 == col_blocks) break;
-    __syncwarp();  // the warp's keep_list
-    // 2. All threads OR the kept boxes' rows, words cb+1 .., into
-    //    `removed`: element e is (kept box e / words, word e % words).
-    const int words = col_blocks - cb - 1;
-    const int total = n_kept * words;
-    for (int e0 = tid; e0 < total; e0 += kOrLoads * kReduceThreads) {
-      unsigned long long got[kOrLoads];
-      int word[kOrLoads];
+  const int steps = (P + kStep - 1) / kStep;
+  for (int st = 0; st < steps; ++st) {
+    const int count = s_count;  // the same in every block of the cluster
+    if (count >= max_out) break;
+    const int par = st & 1;
+    if (part == 0) s_box[i] = mine.box;
 #pragma unroll
-      for (int u = 0; u < kOrLoads; ++u) {
-        const int e = e0 + u * kReduceThreads;
-        got[u] = 0ull;
-        word[u] = 0;
-        if (e < total) {
-          const int row = cb * kBlock + keep_list[wid][e / words];
-          word[u] = cb + 1 + e % words;
-          got[u] = m[static_cast<size_t>(row) * col_blocks + word[u]];
+    for (int w = 0; w < kWords / kParts; ++w)
+      s_diag[i][part + w * kParts] = mine.diag[w];
+    // The next step's box, in flight during this one.
+    const StepBox next =
+        load_step_box(bx, c, dg, (st + 1) * kStep + i, part, P);
+    // 1. Box i against this block's kept boxes (every kParts-th from part).
+    const int listed = (count - rank + kCluster - 1) / kCluster;
+    const float ra = box_area(mine.box);
+    bool hit = !mine.live;
+    for (int j = part; j < listed && !hit; j += kParts)
+      hit = iou_above(s_kept[j], s_kept_area[j], mine.box, ra, thr);
+    // Box i's threads are lanes 4m .. 4m + 3 of warp wid, i = 8 wid + m.
+    unsigned h = hit ? 1u : 0u;
+    h |= __shfl_xor_sync(kFullMask, h, 1);
+    h |= __shfl_xor_sync(kFullMask, h, 2);
+    const unsigned votes = __ballot_sync(kFullMask, h != 0u && part == 0);
+    if (lane == 0) {
+      unsigned byte = 0u;
+      for (int m = 0; m < 8; ++m) byte |= ((votes >> (4 * m)) & 1u) << m;
+      s_bits[par][wid] = static_cast<uint8_t>(byte);
+    }
+    // 2. The cluster's bits of the step, ORed: lane l reads word l % 4 of
+    //    block l / 4.
+    cluster.sync();
+    if (wid == 0) {
+      unsigned long long v = cluster.map_shared_rank(
+          reinterpret_cast<unsigned long long*>(s_bits[par]), lane >> 2)[lane & 3];
+      v |= __shfl_xor_sync(kFullMask, v, 4);
+      v |= __shfl_xor_sync(kFullMask, v, 8);
+      v |= __shfl_xor_sync(kFullMask, v, 16);
+      // 3. Resolve: t0..t3 hold the step's boxes neither removed nor decided.
+      unsigned long long t0 = ~__shfl_sync(kFullMask, v, 0);
+      unsigned long long t1 = ~__shfl_sync(kFullMask, v, 1);
+      unsigned long long t2 = ~__shfl_sync(kFullMask, v, 2);
+      unsigned long long t3 = ~__shfl_sync(kFullMask, v, 3);
+      int n_new = 0;
+      while (count + n_new < max_out) {
+        const int k = lowest(t0, t1, t2, t3);
+        if (k < 0) break;
+        if (lane == 0) {
+          s_new[n_new] = static_cast<uint8_t>(k);
+          if (rank == 0) pos[count + n_new] = st * kStep + k;
+        }
+        ++n_new;
+        t0 &= ~s_diag[k][0];
+        t1 &= ~s_diag[k][1];
+        t2 &= ~s_diag[k][2];
+        t3 &= ~s_diag[k][3];
+        // Box k itself: the lowest bit of its word.
+        if (k < 64) t0 &= t0 - 1ull;
+        else if (k < 128) t1 &= t1 - 1ull;
+        else if (k < 192) t2 &= t2 - 1ull;
+        else t3 &= t3 - 1ull;
+      }
+      __syncwarp();
+      for (int j = lane; j < n_new; j += 32) {
+        const int g = count + j;
+        if (g % kCluster == rank) {
+          const float4 kb = s_box[s_new[j]];
+          s_kept[g / kCluster] = kb;
+          s_kept_area[g / kCluster] = box_area(kb);
         }
       }
-#pragma unroll
-      for (int u = 0; u < kOrLoads; ++u)
-        if (got[u] != 0ull) atomicOr(&removed[word[u]], got[u]);
+      if (lane == 0) s_count = count + n_new;
     }
-    if (fetch) diag[(cb + 1) & 1][tid - kBlock] = next_diag;
+    // 4.
     __syncthreads();
+    mine = next;
   }
-  if (tid == 0) num_kept[b] = count;
+  cluster.sync();  // no block leaves while another may read its bits
+  if (rank == 0 && tid == 0) num_kept[b] = s_count;
+}
+
+// Shared memory the walk's kept list takes per block for `kept` keeps at
+// most; above kMaxDynamicSmem a launch is refused.
+constexpr size_t kMaxDynamicSmem = 212 * 1024;
+
+size_t walk_smem(int kept) {
+  const size_t share = (static_cast<size_t>(kept) + kCluster - 1) / kCluster;
+  return share * (sizeof(float4) + sizeof(float));
 }
 
 }  // namespace
 
-// mask: scratch [B, P, ceil(P/64)] words; only tiles at or right of the
-// diagonal are written and read. Returns cudaGetLastError() after both
-// launches.
+// diag: scratch [B, P, 4] words. Returns cudaGetLastError() after both
+// launches (cudaErrorInvalidValue, with nothing launched, when the kept
+// list would not fit).
 extern "C" int tpudet_nms(const float* boxes, const uint8_t* cand,
-                          unsigned long long* mask, int* kept_pos,
+                          unsigned long long* diag, int* kept_pos,
                           int* num_kept, int B, int P, float thr, int max_out,
                           cudaStream_t stream) {
-  const int col_blocks = (P + kBlock - 1) / kBlock;
-  const long long tiles = static_cast<long long>(col_blocks) * (col_blocks + 1) / 2;
-  if (tiles > 0x7fffffffll || B > 65535)
+  const size_t smem = walk_smem(min(max_out, P));
+  const int steps = (P + kStep - 1) / kStep;
+  if (smem > kMaxDynamicSmem || B > 65535 || B > 0x7fffffff / kCluster)
     return static_cast<int>(cudaErrorInvalidValue);
-  nms_mask_kernel<<<dim3(static_cast<unsigned>(tiles), B), kBlock, 0, stream>>>(
-      boxes, P, col_blocks, thr, mask);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  nms_diag_kernel<<<dim3(steps, B), kStep, 0, stream>>>(boxes, P, thr, diag);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(col_blocks) * sizeof(unsigned long long);
-  nms_reduce_kernel<<<B, kReduceThreads, smem, stream>>>(
-      mask, cand, P, col_blocks, max_out, kept_pos, num_kept);
+  nms_walk_kernel<<<B * kCluster, kThreads, smem, stream>>>(
+      boxes, cand, diag, P, thr, max_out, kept_pos, num_kept);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,14 +13,17 @@ bilinear 4-corner gather is the natural form: one launch samples all levels
 for every query of the batch, through a by-value table of (H_l, W_l, start
 offset). Both kernels give each (image, query, head) one warp, which
 stages its samples' corners in shared memory 32 at a time (so any number
-of samples per query) and then takes them with its lanes over 4 corners x
-8 channel quads: one 8- or 16-byte load per lane and corner.
+of samples per query) and then takes them with its lanes over the four
+corner rows: the forward loads 16 bytes a lane (a warp load covers two
+samples in bf16, one in f32), the backward 8 or 16 (one sample). A block
+of the forward holds neighbouring queries of one head, which share corner
+rows in L1.
 
 What bounds them on the H100: the forward, the corner gathers (each
-sample's four corner rows read once per (query, head): 3.76 GB through L2
-for one bf16 encoder layer at b=8 on 832x832, against ~0.35 GB that the
-function must move); each warp keeps several samples' loads in flight and
-sums in f32 in registers, the four corner lanes added by shuffles. The
+sample's four corner rows read once per (query, head): ~51 M rows for one
+bf16 encoder layer at b=8 on 832x832, against ~0.35 GB that the function
+must move); their rate in rows, more than in bytes, sets its time. It
+sums in f32 in registers and adds the corner lanes by shuffles. The
 backward, instructions and latency: it adds into an f32 value gradient
 with one vector atomic per lane and corner, and casts it once to the
 values' dtype (for f32 values the accumulator is the result).

@@ -3,21 +3,18 @@ PyTorch version.
 
 Replaces ``tpudet/kernels/nms.py::_nms_kernel`` (reached through
 ``nms_pallas``). The TPU kernel resolves 128-box tiles with a vectorized
-fixed-point sweep because the TPU is one wide core; on Hopper the work is
-split the other way. Pass 1 builds the IoU > thr bitmask over the upper
-triangle of 64x64 box tiles, every tile of every image in one grid. Pass 2
-gives each image one block, which walks the sorted boxes a 64-box block at
-a time: its warps resolve the block in registers from the boxes' diagonal
-words (the lowest box still in is kept, its word removes later ones), then
-all its threads OR the kept boxes' rows into a ``removed`` bitmap in
-shared memory at once, and the walk stops at ``max_outputs`` keeps.
+fixed-point sweep because the TPU is one wide core. On Hopper one cluster
+of 8 blocks per image walks the sorted boxes a 64-box step at a time and
+tests each box it reaches against the boxes kept so far, which the
+cluster's blocks hold in shared memory, 1 in 8 each; the step's boxes are
+resolved against each other in registers, one cluster barrier per step,
+and the walk stops at ``max_outputs`` keeps. It writes no P x P bitmask.
 
 What bounds it on the H100: the least work is testing each box the walk
 reaches against the boxes kept before it; the IoU tests (13 f32
-operations each) outweigh the bytes, so operations set the bound. Pass 1
-does more, every pair of the triangle (P^2 / 2 IoUs per image, decided
-without the division where two boxes do not meet), spread over every SM;
-pass 2 waits on one round trip to memory per 64-box block it reaches.
+operations each) outweigh the bytes, so operations set the bound. The
+kernel makes those tests, spread over the cluster's 8 SMs, plus the
+latency of one step per 64-box block the walk reaches.
 
 Decisions are bit-exact against the plain version (and the JAX kernel): f32
 IoU in the JAX operation order, no FMA (``-fmad=false`` and round-to-nearest
@@ -34,14 +31,14 @@ import torch
 from tpudet_torch.kernels import _build
 from tpudet_torch.ops.nms import _select_kept, greedy_keep
 
-# Launches of the CUDA kernel pair, one per wrapper call on a CUDA tensor.
+# Launches of the CUDA kernel, one per wrapper call on a CUDA tensor.
 LAUNCHES = 0
 
 SOURCE = "tpudet_torch/kernels/csrc/nms.cu"
 REPLACES = "tpudet/kernels/nms.py:74"
-# Pass 2 keeps one bit per box of an image in shared memory, beside under
-# 2 KB of its own, within the 48 KB a block takes without an opt-in.
-MAX_COL_BLOCKS = (48 * 1024 - 2 * 1024) // 8
+# The kept list fills at most 212 KB of each block's shared memory
+# (kMaxDynamicSmem), 20 bytes a box, 1 box in 8 per block.
+MAX_KEPT = 8 * (212 * 1024 // 20)
 
 
 def nms_keep_plain(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
@@ -81,20 +78,20 @@ def nms_keep_cuda(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
     if boxes_sorted.shape != (b, p, 4) or p == 0 or max_outputs <= 0:
         raise ValueError(f"bad NMS shapes {tuple(boxes_sorted.shape)}, "
                          f"{tuple(candidate.shape)}, max_outputs={max_outputs}")
-    col_blocks = (p + 63) // 64
-    if col_blocks > MAX_COL_BLOCKS or b > 65535:
-        raise ValueError(f"NMS of {p} boxes x {b} images exceeds the kernel's "
-                         f"limits ({64 * MAX_COL_BLOCKS} boxes, 65535 images)")
+    if min(max_outputs, p) > MAX_KEPT or b > 65535:
+        raise ValueError(f"NMS keeping up to {min(max_outputs, p)} boxes "
+                         f"x {b} images exceeds the kernel's kept list "
+                         f"({MAX_KEPT}) or grid (65535 images)")
     boxes_sorted = boxes_sorted.contiguous()
     candidate = candidate.contiguous()
     dev = boxes_sorted.device
-    mask = torch.empty((b, p, col_blocks), dtype=torch.int64, device=dev)
+    diag = torch.empty((b, p, 4), dtype=torch.int64, device=dev)
     positions = torch.empty((b, max_outputs), dtype=torch.int32, device=dev)
     count = torch.empty((b,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib()(boxes_sorted.data_ptr(), candidate.data_ptr(),
-                     mask.data_ptr(), positions.data_ptr(), count.data_ptr(),
+                     diag.data_ptr(), positions.data_ptr(), count.data_ptr(),
                      b, p, iou_threshold, max_outputs, stream)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")
