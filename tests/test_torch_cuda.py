@@ -60,19 +60,25 @@ def sparse_boxes(gen, b, n, extent):
 
 @pytest.mark.parametrize("case", ["max_out inside a block", "ragged P",
                                   "diagonal words above 48 KB",
-                                  "all masked", "max_out above the keeps"])
+                                  "all masked", "max_out above the keeps",
+                                  "kept list above 48 KB"])
 def test_nms_kernel_walk_edges(cuda, case):
-    """Where the block-at-a-time walk turns: the max_out-th keep inside a
-    64-box block, a last block of 37 boxes, 6,500 boxes (the diagonal
-    words alone take 52 KB), no candidate, and fewer keeps than max_out."""
+    """Where the step-at-a-time walk turns: the max_out-th keep inside a
+    step, a last step of 13 boxes, 6,500 boxes (26 steps; their diagonal
+    words take 203 KB), no candidate, fewer keeps than max_out, and 20,000
+    keeps (each of the cluster's blocks holds 2,500 kept boxes, 50 KB of
+    shared memory: past the 48 KB a block takes without an opt-in)."""
     gen = torch.Generator().manual_seed(31)
     b, n, thr, k = {"max_out inside a block": (3, 300, 0.5, 70),
                     "ragged P": (2, 1000 + 37, 0.5, 1037),
                     "diagonal words above 48 KB": (2, 6500, 0.7, 2000),
                     "all masked": (2, 200, 0.5, 50),
-                    "max_out above the keeps": (2, 150, 0.3, 400)}[case]
+                    "max_out above the keeps": (2, 150, 0.3, 400),
+                    "kept list above 48 KB": (1, 20000, 0.5, 20000)}[case]
     if case == "max_out inside a block":
         bx = sparse_boxes(gen, b, n, 2000.0)
+    elif case == "kept list above 48 KB":
+        bx = sparse_boxes(gen, b, n, 40000.0)
     elif case == "diagonal words above 48 KB":  # jittered copies of 40 boxes
         base = boxes(gen, b, 40)
         pick = torch.randint(0, 40, (b, n), generator=gen)
@@ -83,6 +89,8 @@ def test_nms_kernel_walk_edges(cuda, case):
     cand = torch.rand(b, n, generator=gen) > 0.1
     if case == "all masked":
         cand[:] = False
+    elif case == "kept list above 48 KB":
+        cand[:] = True
     out = knms.nms_keep_cuda(bx.to(cuda), cand.to(cuda), thr, k)
     ref = knms.nms_keep_plain(bx, cand, thr, k)
     assert torch.equal(out[0].cpu(), ref[0])
@@ -98,6 +106,8 @@ def test_nms_kernel_walk_edges(cuda, case):
         assert (kept == 0).all() and (out[0] == 0).all()
     elif case == "max_out above the keeps":
         assert (kept < n).all() and (kept > 0).all()
+    elif case == "kept list above 48 KB":
+        assert (kept > 19500).all()  # > 2,437 boxes (48.7 KB) per block
 
 
 def test_nms_dispatch_on_card_equals_cpu(cuda):
@@ -344,7 +354,9 @@ def test_deform_attn_kernel_equals_plain(cuda, dtype, heads, d, points,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,q,heads,d,points,shapes", [
     (2, 37, 3, 6, 3, ((9, 7), (4, 3))),  # D % 4 != 0: the scalar path
-    (1, 9, 2, 68, 17, ((5, 6),)),  # D > 64, 17 points: L * P > 32 samples
+    # D > 64 (bf16: 68 % 8 != 0, the scalar path), 2 levels x 17 points:
+    # L * P = 34 > 32 samples, staged in two chunks.
+    (1, 9, 2, 68, 17, ((5, 6), (3, 3))),
     (1, 1, 3, 8, 5, ((4, 5), (2, 3))),  # Q = 1
 ])
 def test_deform_attn_kernel_at_edges(cuda, dtype, b, q, heads, d, points,
@@ -394,7 +406,8 @@ def on_borders(loc, shapes):
     (1, 1, 3, 8, 5, ((4, 5), (2, 3))),  # Q = 1
     (2, 5, 36, 32, 2, ((4, 5),)),  # 36 heads
     (2, 37, 3, 6, 3, ((9, 7), (4, 3))),  # D % 4 != 0: the scalar path
-    (1, 9, 2, 68, 17, ((5, 6),)),  # D > 64, 17 points: L * P > 32 samples
+    # D > 64, 2 levels x 17 points: L * P = 34 > 32 samples, two chunks.
+    (1, 9, 2, 68, 17, ((5, 6), (3, 3))),
 ])
 def test_deform_attn_backward_kernel_equals_plain(cuda, dtype, b, q, heads, d,
                                                   points, shapes):

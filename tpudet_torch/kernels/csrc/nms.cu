@@ -284,7 +284,7 @@ extern "C" int tpudet_nms(const float* boxes, const uint8_t* cand,
                           cudaStream_t stream) {
   const size_t smem = walk_smem(min(max_out, P));
   const int steps = (P + kStep - 1) / kStep;
-  if (smem > kMaxDynamicSmem || B > 65535 || B > 0x7fffffff / kCluster)
+  if (smem > kMaxDynamicSmem || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

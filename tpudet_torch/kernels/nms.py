@@ -3,18 +3,21 @@ PyTorch version.
 
 Replaces ``tpudet/kernels/nms.py::_nms_kernel`` (reached through
 ``nms_pallas``). The TPU kernel resolves 128-box tiles with a vectorized
-fixed-point sweep because the TPU is one wide core. On Hopper one cluster
-of 8 blocks per image walks the sorted boxes a 64-box step at a time and
-tests each box it reaches against the boxes kept so far, which the
-cluster's blocks hold in shared memory, 1 in 8 each; the step's boxes are
-resolved against each other in registers, one cluster barrier per step,
-and the walk stops at ``max_outputs`` keeps. It writes no P x P bitmask.
+fixed-point sweep because the TPU is one wide core. On Hopper the walk
+goes down the sorted boxes 256 at a time. A first kernel writes, for every
+step of every image at once, each box's diagonal words: the later boxes of
+its step that it overlaps. Then one cluster of 8 blocks per image walks:
+each block tests the step's boxes against its share of the boxes kept so
+far (1 in 8, in its shared memory), one cluster barrier joins the blocks'
+findings, and one warp resolves the step against the diagonal words in
+registers, stopping at ``max_outputs`` keeps. No P x P bitmask is built.
 
 What bounds it on the H100: the least work is testing each box the walk
 reaches against the boxes kept before it; the IoU tests (13 f32
 operations each) outweigh the bytes, so operations set the bound. The
-kernel makes those tests, spread over the cluster's 8 SMs, plus the
-latency of one step per 64-box block the walk reaches.
+walk makes those tests, spread over the cluster's 8 SMs, plus the latency
+of one step per 256 boxes it reaches; the diagonal kernel adds 32,640
+tests a step, all steps in parallel.
 
 Decisions are bit-exact against the plain version (and the JAX kernel): f32
 IoU in the JAX operation order, no FMA (``-fmad=false`` and round-to-nearest
