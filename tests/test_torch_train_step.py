@@ -71,9 +71,19 @@ def run_both(steps=3, **fields):
     tstate = create_train_state(model, tcfg.train, seed=None, device="cpu")
     step = make_train_step(model, tcfg, device="cpu")
     out = []
-    for batch in batches:
-        tstate, metrics = step(tstate, batch)
-        out.append({k: float(x) for k, x in metrics.items()})
+    # The backward of an indexed gather (the plain deformable attention's)
+    # accumulates on the CPU in an order that depends on thread scheduling.
+    # AdamW turns that rounding into lr-sized moves of near-zero gradient
+    # elements, which moved the next step's grad_norm by ~1e-4 from run to
+    # run; PyTorch's deterministic algorithms fix the order.
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for batch in batches:
+            tstate, metrics = step(tstate, batch)
+            out.append({k: float(x) for k, x in metrics.items()})
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
     return ref, out, (from_flax_variables(v), ref_params, ref_ema), tstate
 
 
