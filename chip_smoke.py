@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases nms,deform_attn
-    python3 chip_smoke.py --phases nms,deform_attn --compare PARENT_TREE
+    python3 chip_smoke.py --phases roi_align,voc_predict --compare PARENT_TREE
 
 The first runs everything below; the others run some phases alone (names
 in ``PHASES``), the last in another checkout and in this one by turns.
@@ -26,10 +26,13 @@ no result):
    ``nms_walk_kernel``; a tree before them has the two passes
    ``nms_mask_kernel`` and ``nms_reduce_kernel``);
 4. the RoI Align kernel against its plain version at [32, 40, 40, 256] x
-   300 RoIs per image, S = 7, r = 2, in f32 and bf16;
+   300 RoIs per image, S = 7, r = 2, in f32 and bf16; the corner-cell rows
+   its samples read (four per valid sample, from the geometry) and the
+   rate they imply;
 5. the FPN RoI Align kernel against its plain version at the 832x832
    pyramid ([32, 208, 208, 256] .. [32, 26, 26, 256]) x 300 RoIs per image
    with levels from ``fpn_assign_levels(fit_window=56)``, in f32 and bf16;
+   its corner-cell rows and their rate likewise;
 6. voc_r50 inference at full width (ResNet-50 to c4, neck 256, RPN 512, fc
    1024, 20 classes, bf16 backbone) through ``make_eval_step`` on uint8
    canvases drawn from a seed: b = 8 on the 640x640 and 640x1024 buckets
@@ -520,6 +523,18 @@ def phase_nms():
     return total, max_err
 
 
+def corner_rows(boxes, h, w, s, r):
+    """Corner-cell rows the RoI Align samples read, counted from the
+    geometry (four per valid sample, whatever the kernel's layout): a
+    RoI's samples are its S * r row positions by its S * r column
+    positions, valid where both are. ``boxes`` [K, 4] in the map's cells."""
+    from tpudet_torch.ops.roi_align import _sample_grid
+
+    _, vy = _sample_grid(boxes[:, 1], boxes[:, 3] - boxes[:, 1], h, s, r)
+    _, vx = _sample_grid(boxes[:, 0], boxes[:, 2] - boxes[:, 0], w, s, r)
+    return 4 * int((vy.sum(1) * vx.sum(1)).sum())
+
+
 def phase_roi_align():
     import torch
 
@@ -566,6 +581,8 @@ def phase_roi_align():
                        + index.numel() * 4 + out.numel() * size)
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = out.numel() * sr * sr * ROI_OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+        rows = corner_rows(rois, h, w, s, sr)
+        gathered = rows * c * size
         result[name] = {"ms": ms, "plain_ms": plain_ms, "err": err.max().item(),
                         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                         "einsum_ms": einsum_ms}
@@ -573,7 +590,10 @@ def phase_roi_align():
               f"S={s} r={sr}: max err {err.max().item():.3e} ({tol}) | kernel "
               f"{ms:.4f} ms, plain {plain_ms:.2f} ms, two-einsum form "
               f"{einsum_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-              f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f})", flush=True)
+              f"(bytes {bytes_ms:.4f}, operations {ops_ms:.4f}); corner rows "
+              f"{rows} x {c * size} B = {gathered / 1e9:.4f} GB, "
+              f"{gathered / ms / 1e9:.3f} TB/s at the kernel's time",
+              flush=True)
     return result
 
 
@@ -652,6 +672,11 @@ def phase_roi_align_window():
         plain_ms = time_ms(lambda: krw.roi_align_window_plain(*args),
                            iters=3, warmup=1)
         size = feats[0].element_size()
+        flat, lv = rois.reshape(-1, 4), levels.reshape(-1)
+        rows = sum(corner_rows(flat[lv == i] / st, f.shape[1], f.shape[2], s,
+                               sr)
+                   for i, (f, st) in enumerate(zip(feats, POOL_STRIDES)))
+        gathered = rows * c * size
         cells = touched_cells(rois, levels, feats, s, sr)
         all_cells = sum(f.numel() // c for f in feats)
         bytes_moved = (cells * c * size + rois.numel() * 4 + levels.numel() * 4
@@ -667,7 +692,10 @@ def phase_roi_align_window():
               f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}: output "
               f"{out.numel() * size / 1e6:.1f} MB + the {cells} of {all_cells} "
               f"feature cells the samples touch, {cells * c * size / 1e6:.1f} "
-              f"MB; operations {ops_ms:.4f})", flush=True)
+              f"MB; operations {ops_ms:.4f}); corner rows {rows} x "
+              f"{c * size} B = {gathered / 1e9:.4f} GB, "
+              f"{gathered / ms / 1e9:.3f} TB/s at the kernel's time",
+              flush=True)
         del out
     return result
 
@@ -1986,14 +2014,14 @@ def phase_profile(card, label, run, warmup=3):
               f"{e.key[:100]}", flush=True)
 
 
-def detr_predict_run():
-    """One b=32 832x832 predict of the bf16 coco_deformable_detr_r50 preset
-    (weights as in phase 9) through ``make_eval_step``, as a call."""
+def predict_run(preset, h, w):
+    """One b=32 ``h`` x ``w`` predict of the bf16 preset (weights as in
+    phases 6, 7 and 9) through ``make_eval_step``, as a call."""
     from tpudet_torch.train.step import make_eval_step
 
-    cfg, model = preset_model("coco_deformable_detr_r50", "bfloat16")
+    cfg, model = preset_model(preset, "bfloat16")
     step = make_eval_step(model, cfg)
-    batch = canvases(32, 832, 832, seed=6)
+    batch = canvases(32, h, w, seed=6)
     return lambda: step(batch)
 
 
@@ -2001,11 +2029,20 @@ def detr_predict_run():
 # each a call on the card's name.
 PHASES = {
     "nms": lambda card: phase_nms(),
+    "roi_align": lambda card: phase_roi_align(),
+    "roi_align_window": lambda card: phase_roi_align_window(),
     "deform_attn": lambda card: phase_deform_attn(),
     "deform_backward": lambda card: phase_deform_backward(),
+    "roi_align_backward": lambda card: phase_roi_align_backward(),
+    "voc_predict": lambda card: phase_profile(
+        card, "voc_r50 b=32 640x640 predict",
+        predict_run("voc_r50", 640, 640)),
+    "fpn_predict": lambda card: phase_profile(
+        card, "coco_r101_fpn b=32 832x832 predict",
+        predict_run("coco_r101_fpn", 832, 832)),
     "detr_predict": lambda card: phase_profile(
         card, "coco_deformable_detr_r50 b=32 832x832 predict",
-        detr_predict_run()),
+        predict_run("coco_deformable_detr_r50", 832, 832)),
     "deform_train": lambda card: phase_profile(
         card, "coco_deformable_detr_r50 b=8 832x832 train step",
         phase_train_path(card)[1], warmup=1),

@@ -171,6 +171,104 @@ def test_roi_align_window_kernel_equals_plain(cuda, dtype, c):
         assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
 
 
+# The forward kernels' paths besides the 16-byte one at R = 2: a C that
+# 16-byte vectors do not divide and a map whose base is not 16-byte aligned
+# (one channel per lane), S * R past a warp's 32 lanes (S = 14, r = 3), and
+# RoIs of zero width or off the map.
+EDGE_CASES = ("C not a multiple of 16 bytes", "base not 16-byte aligned",
+              "S * R > 32", "zero-width and off-map RoIs")
+
+
+def edge_shape(case, dtype):
+    """(C, S, r, storage offset of the features, 16-byte path expected)."""
+    c = 64
+    if case == EDGE_CASES[0]:
+        c = 12 if dtype == torch.bfloat16 else 6
+    s, r = (14, 3) if case == EDGE_CASES[2] else (7, 2)
+    offset = 1 if case == EDGE_CASES[1] else 0
+    return c, s, r, offset, case not in EDGE_CASES[:2]
+
+
+def card_map(gen, shape, dtype, offset, cuda):
+    """A contiguous [B, H, W, C] map on the card starting ``offset``
+    elements into its storage."""
+    n = offset + shape[0] * shape[1] * shape[2] * shape[3]
+    flat = torch.randn(n, generator=gen).to(dtype).to(cuda)
+    return flat[offset:].view(shape)
+
+
+def assert_pooled_close(out, ref, dtype):
+    out, ref = out.cpu().float(), ref.cpu().float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    else:  # one rounding of the same f32 sum: at most one bf16 ulp apart
+        assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_roi_align_kernel_edge_paths(cuda, dtype, case):
+    c, s, r, offset, vec = edge_shape(case, dtype)
+    gen = torch.Generator().manual_seed(5)
+    feat = card_map(gen, (3, 11, 19, c), dtype, offset, cuda)
+    rois = boxes(gen, 3, 12, extent=18.0).reshape(-1, 4) / 4 - 1
+    rois[0] = torch.tensor([3.0, 4.0, 3.0, 9.0])  # zero width
+    off = [1]
+    if case == EDGE_CASES[3]:
+        rois[::3, 2] = rois[::3, 0]  # a third of zero width
+        off = [1, 5, 8, 10]
+        rois[off] = torch.tensor([[-9.0, -8.0, -2.0, -1.5],
+                                  [20.5, 2.0, 30.0, 6.0],
+                                  [3.0, 11.5, 9.0, 14.0],
+                                  [-7.0, 12.0, -1.5, 30.0]])
+    else:
+        rois[1] = torch.tensor([-9.0, -8.0, -2.0, -1.5])
+    rois = rois.to(cuda)
+    index = torch.arange(3, dtype=torch.int32).repeat_interleave(12).to(cuda)
+    assert kra.vectorized(torch.empty(1, c, dtype=dtype, device=cuda),
+                          feat) == vec
+    out = kra.roi_align_cuda(feat, rois, index, s, r)
+    ref = kra.roi_align_plain(feat, rois, index, s, r)
+    assert out.shape == (36, s, s, c)
+    assert_pooled_close(out, ref, dtype)
+    assert (out[off] == 0).all() and (out != 0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_roi_align_window_kernel_edge_paths(cuda, dtype, case):
+    """The same paths in the FPN kernel, with RoIs on all four levels and
+    on levels outside the table (-1 and 4), which pool to zeros; in the
+    unaligned case only the second level's map is unaligned."""
+    c, s, r, offset, vec = edge_shape(case, dtype)
+    gen = torch.Generator().manual_seed(6)
+    feats = [card_map(gen, (3, h, w, c), dtype, offset if i == 1 else 0, cuda)
+             for i, (h, w) in enumerate(((26, 42), (13, 21), (7, 11), (4, 6)))]
+    # Levels -1, 0, 1, 2, 3, 4 by turns.
+    levels = (torch.arange(36, dtype=torch.int32) % 6 - 1).reshape(3, 12)
+    rois = boxes(gen, 3, 12, extent=100.0)
+    rois[0, 2] = torch.tensor([3.0, 4.0, 3.0, 60.0])  # zero width, level 1
+    off = [(0, 1)]  # off the map at level 0
+    rois[0, 1] = torch.tensor([-90.0, -80.0, -20.0, -15.0])
+    if case == EDGE_CASES[3]:
+        rois[:, ::3, 2] = rois[:, ::3, 0]
+        off += [(1, 4), (2, 7)]  # levels 3 and 0
+        rois[1, 4] = torch.tensor([500.0, 500.0, 600.0, 560.0])
+        rois[2, 7] = torch.tensor([-300.0, 10.0, -200.0, 40.0])
+    args = (feats, (4.0, 8.0, 16.0, 32.0), rois.to(cuda), levels.to(cuda), s,
+            r)
+    assert krw.vectorized(torch.empty(1, c, dtype=dtype, device=cuda),
+                          *feats) == vec
+    out = krw.roi_align_window_cuda(*args)
+    ref = krw.roi_align_window_plain(*args)
+    assert out.shape == (3, 12, s, s, c)
+    assert_pooled_close(out, ref, dtype)
+    outside = (levels < 0) | (levels > 3)
+    assert (out[outside.to(cuda)] == 0).all()
+    assert all((out[i, j] == 0).all() for i, j in off)
+    assert all((out[levels.to(cuda) == lv] != 0).any() for lv in range(4))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,s,r", [(40, 7, 2), (256, 5, 3), (8, 1, 1)])
 def test_roi_align_backward_kernel_equals_plain_autograd(cuda, dtype, c, s, r):

@@ -87,6 +87,28 @@ def test_batched_wrapper_equals_per_image_jax():
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("c,s,r,offset", [(12, 7, 2, 0), (6, 7, 2, 0),
+                                          (12, 14, 3, 0), (32, 7, 2, 1)])
+def test_wrapper_at_the_kernels_edge_shapes_equals_jax(c, s, r, offset):
+    """The shapes that take the Hopper kernel's other paths, through the
+    wrapper's CPU path: C that 16-byte vectors do not divide (12 bf16 or 6
+    f32 channels), S * r > 32 (S = 14, r = 3), and a features view that
+    starts one element into its storage (on the card, a base that is not
+    16-byte aligned); ``inputs`` adds RoIs of zero width, a point and one
+    off the map."""
+    feat, rois = inputs(20 + c + s, c=c)
+    storage = np.zeros(offset + feat.size, np.float32)
+    storage[offset:] = feat.reshape(-1)
+    view = torch.from_numpy(storage)[offset:].view(1, *feat.shape)
+    out = tk_ra.roi_align(view, torch.from_numpy(rois),
+                          torch.zeros(len(rois), dtype=torch.int32), s,
+                          r).numpy()
+    ref = np.asarray(jra.roi_align(jnp.asarray(feat), jnp.asarray(rois), s, r))
+    assert out.shape == (16, s, s, c)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=ATOL)
+    assert (out[4] == 0).all()  # the RoI off the map
+
+
 def test_output_size_and_sampling_ratio():
     feat, rois = inputs(3, c=8)
     ref = np.asarray(jra.roi_align(jnp.asarray(feat), jnp.asarray(rois), 5, 3))

@@ -175,6 +175,33 @@ def test_plain_pooler_bf16_within_measured_tolerance_of_jax(window):
                                    rtol=0, atol=BF16_ATOL)
 
 
+@pytest.mark.parametrize("c,s,r", [(12, 7, 2), (12, 14, 3)])
+def test_plain_pooler_at_the_kernels_edge_shapes_equals_jax(c, s, r):
+    """The shapes that take the Hopper kernel's other paths: C = 12, which
+    16-byte vectors of bf16 do not divide, and S * r > 32 (S = 14, r = 3);
+    ``hard_rois`` adds a zero-area box and slivers. Held to JAX's windowed
+    pooler and to its gather form per level."""
+    rng = np.random.default_rng(30 + s)
+    b, n, window = 2, 6, 56
+    feats, rois = pyramid(rng, b, c=c), hard_rois(rng, b, n)
+    levels = tra.fpn_assign_levels(torch.from_numpy(rois),
+                                   fit_window=window) - 2
+    out = krw.roi_align_window([torch.from_numpy(f) for f in feats], STRIDES,
+                               torch.from_numpy(rois), levels, s, r).numpy()
+    assert out.shape == (b, n, s, s, c)
+    levels = levels.numpy()
+    for i in range(b):
+        fi = [jnp.asarray(f[i]) for f in feats]
+        ref = jra.roi_align_window(fi, STRIDES, jnp.asarray(rois[i]),
+                                   jnp.asarray(levels[i]), s, r, window=window)
+        np.testing.assert_allclose(out[i], np.asarray(ref), rtol=0, atol=ATOL)
+        gather = sum(
+            np.asarray(jra.roi_align(f, jnp.asarray(rois[i]) / st, s, r))
+            * (levels[i] == li)[:, None, None, None]
+            for li, (f, st) in enumerate(zip(fi, STRIDES)))
+        np.testing.assert_allclose(out[i], gather, rtol=0, atol=ATOL)
+
+
 def test_unknown_level_pools_to_zeros():
     rng = np.random.default_rng(3)
     feats, rois = pyramid(rng, 1), hard_rois(rng, 1, 8)

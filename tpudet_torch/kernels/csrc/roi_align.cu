@@ -4,24 +4,29 @@
 // The forward replaces tpudet/kernels/roi_align.py::_roi_align_kernel.
 // Input: features [B, H, W, C] NHWC (f32 or bf16), RoIs [K, 4] f32
 // (x1, y1, x2, y2) in feature coordinates and their image indices [K]
-// int32. Output:
-// [K, S, S, C] in the features' dtype. The sampling rule and arithmetic are
-// in roi_align_common.cuh.
+// int32. Output: [K, S, S, C] in the features' dtype. The sampling rule
+// and arithmetic are in roi_align_common.cuh.
 //
-// Layout: one block per (RoI, output row), threads over channels, so the
-// four corner loads of a sample and the output store are contiguous runs
-// of C values. Sample geometry is computed per thread (a few scalar ops,
-// uniform across the block).
+// Forward layout: one block per RoI. Its threads compute the RoI's sample
+// axes once into shared memory (roi_align_common.cuh::fill_axes); each
+// warp then pools an output row over 32 channel vectors of 16 bytes
+// (pool_roi), so a warp load takes 512 bytes of one corner cell's row and
+// the block's warps read one RoI's cells, neighbouring bins sharing
+// corners in L1. What bounds it on the H100, as measured: the first design
+// (a block per output row, a thread per channel, geometry per thread) ran
+// 2.06 ms at voc_r50's b=32 shape against a 0.08 ms bytes bound, set by
+// the instructions around its 60 M half-line warp loads, not by bytes.
+// This design issues 7.5 M warp loads of whole rows and computes the
+// geometry 2,700x less often: 0.36 ms at that shape (4.5x the bound). What
+// remains is the corner rows' traffic through L1 and L2 (PERF.md).
+//
+// The backward keeps the first layout: a block per (RoI, output row),
+// threads over channels, f32 atomics (its redesign is later work).
 //
 // The library builds with -fmad=false: a contracted multiply-add in the
 // sample position moves it by an ulp, which on a feature map with steep
 // gradients shows as ~2e-5 against the plain version. Uncontracted, the
-// kernel repeats the plain version's arithmetic in its order.
-//
-// What bounds it on the H100: bytes. Each output value is written once; the
-// feature map of one image (40 x 64 x 256 bf16 = 1.3 MB at the VOC canvas)
-// stays in the 50 MB L2, so the 16 corner reads per output value hit L2 and
-// the HBM traffic is about the output size.
+// kernels repeat the plain version's arithmetic in its order.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -31,22 +36,22 @@
 
 namespace {
 
-template <typename T>
+// vec: VEC channels per lane (16 bytes) or 1. RT: R at compile time or 0.
+template <typename T, int VEC, int RT>
 __global__ void roi_align_fwd_kernel(const T* __restrict__ feat,
                                      const float* __restrict__ rois,
                                      const int* __restrict__ image_index,
                                      T* __restrict__ out, int H, int W, int C,
                                      int S, int R) {
-  const int k = blockIdx.x / S;
-  const int ph = blockIdx.x % S;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-
+  extern __shared__ __align__(16) unsigned char smem[];
+  tpudet::Axis* axes = reinterpret_cast<tpudet::Axis*>(smem);
+  const int k = blockIdx.x;
   const float* roi = rois + static_cast<size_t>(k) * 4;
   const float box[4] = {roi[0], roi[1], roi[2], roi[3]};
-  const T* f = feat + static_cast<size_t>(image_index[k]) * H * W * C + c;
-  tpudet::roi_align_row<T>(f, box, H, W, C, S, R, ph,
-                           out + (static_cast<size_t>(k) * S + ph) * S * C + c);
+  tpudet::fill_axes(box, H, W, S, R, axes);
+  const T* f = feat + static_cast<size_t>(image_index[k]) * H * W * C;
+  tpudet::pool_roi<T, VEC, RT>(f, axes, W, C, S, R,
+                               out + static_cast<size_t>(k) * S * S * C);
 }
 
 template <typename T>
@@ -88,16 +93,37 @@ __global__ void roi_align_bwd_kernel(const T* __restrict__ grad_out,
 
 int threads_for(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
 
-template <typename T>
-int launch(const void* feat, const float* rois, const int* image_index,
-           void* out, int K, int H, int W, int C, int S, int R,
-           cudaStream_t stream) {
-  const int threads = threads_for(C);
-  dim3 grid(K * S, (C + threads - 1) / threads);
-  roi_align_fwd_kernel<T><<<grid, threads, 0, stream>>>(
+template <typename T, int VEC, int RT>
+int launch_as(const void* feat, const float* rois, const int* image_index,
+              void* out, int K, int H, int W, int C, int S, int R,
+              cudaStream_t stream) {
+  const size_t smem = tpudet::axes_bytes(S, R);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * tpudet::forward_warps(C, S, VEC);
+  roi_align_fwd_kernel<T, VEC, RT><<<K, threads, smem, stream>>>(
       static_cast<const T*>(feat), rois, image_index, static_cast<T*>(out),
       H, W, C, S, R);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The 16-byte path needs C a multiple of its vector and 16-byte aligned
+// features and output; the caller says which (`vectorized`).
+template <typename T>
+int launch(const void* feat, const float* rois, const int* image_index,
+           void* out, int K, int H, int W, int C, int S, int R,
+           int vectorized, cudaStream_t stream) {
+  constexpr int V = tpudet::kVec<T>;
+  if (!vectorized)
+    return launch_as<T, 1, 0>(feat, rois, image_index, out, K, H, W, C, S, R,
+                              stream);
+  if (C % V != 0 || reinterpret_cast<uintptr_t>(feat) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (R == 2)
+    return launch_as<T, V, 2>(feat, rois, image_index, out, K, H, W, C, S, R,
+                              stream);
+  return launch_as<T, V, 0>(feat, rois, image_index, out, K, H, W, C, S, R,
+                            stream);
 }
 
 template <typename T>
@@ -114,18 +140,22 @@ int launch_backward(const void* grad_out, const float* rois,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (K == 0 launches nothing).
+// dtype: 0 = float32, 1 = bfloat16. vectorized: 1 for the 16-byte path
+// (C a multiple of 16 bytes' channels, features and out 16-byte aligned),
+// 0 for one channel per lane. Returns cudaGetLastError() after the launch
+// (K == 0 launches nothing).
 extern "C" int tpudet_roi_align_forward(const void* feat, const float* rois,
                                         const int* image_index, void* out,
                                         int K, int H, int W, int C, int S,
-                                        int R, int dtype, cudaStream_t stream) {
+                                        int R, int dtype, int vectorized,
+                                        cudaStream_t stream) {
   if (K == 0) return 0;
   if (dtype == 0)
-    return launch<float>(feat, rois, image_index, out, K, H, W, C, S, R, stream);
+    return launch<float>(feat, rois, image_index, out, K, H, W, C, S, R,
+                         vectorized, stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(feat, rois, image_index, out, K, H, W, C, S,
-                                 R, stream);
+                                 R, vectorized, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -17,15 +17,19 @@
 // the table pools to zeros. Box / stride is exact (strides are powers of
 // two), then the sampling of roi_align_common.cuh.
 //
-// Layout: one block per (RoI, output row), threads over channels, as in
-// roi_align.cu: corner loads and output stores are contiguous runs of C.
+// Layout: one block per RoI, as roi_align.cu's forward. The block looks up
+// the RoI's level, computes box / stride and the RoI's sample axes once
+// into shared memory (roi_align_common.cuh::fill_axes); each warp then
+// pools an output row over 32 channel vectors of 16 bytes (pool_roi).
 //
-// What bounds it on the H100: bytes. The output (b=32 x 300 RoIs x 7 x 7 x
-// 256 bf16 = 241 MB at 832x832) is written once; the corners a RoI reads
-// lie within a few rows of one level map, so after the first touch they
-// come from L2 and HBM reads are about the feature bytes the samples touch.
-// This first design computes every sample's geometry per thread and loads
-// one channel per thread; making it fast is later work (PERF.md).
+// What bounds it on the H100, as measured: the first design (a block per
+// output row, a thread per channel, the level lookup, box / stride and
+// every sample's geometry per thread, one 2-byte channel per corner load)
+// ran 2.13 ms at coco_r101_fpn's b=32 832x832 shape against a 0.15 ms
+// bytes bound: instructions, not bytes. This design issues whole-row warp
+// loads and computes the geometry once per RoI: 0.39 ms at that shape
+// (2.7x the bound). What remains is the corner rows' traffic through L1
+// and L2 (PERF.md).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -45,53 +49,87 @@ struct LevelTable {
   int count;
 };
 
-template <typename T>
+// VEC channels per lane (16 bytes) or 1; RT: R at compile time or 0.
+template <typename T, int VEC, int RT>
 __global__ void roi_align_window_fwd_kernel(LevelTable table,
                                             const float* __restrict__ rois,
                                             const int* __restrict__ levels,
                                             T* __restrict__ out, int N, int C,
                                             int S, int R) {
-  const int k = blockIdx.x / S;
-  const int ph = blockIdx.x % S;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-
-  T* o = out + (static_cast<size_t>(k) * S + ph) * S * C + c;
+  extern __shared__ __align__(16) unsigned char smem[];
+  tpudet::Axis* axes = reinterpret_cast<tpudet::Axis*>(smem);
+  const int k = blockIdx.x;
+  T* o = out + static_cast<size_t>(k) * S * S * C;
   const int lvl = levels[k];
-  if (lvl < 0 || lvl >= table.count) {
-    for (int pw = 0; pw < S; ++pw) o[static_cast<size_t>(pw) * C] = tpudet::from_f32<T>(0.0f);
+  if (lvl < 0 || lvl >= table.count) {  // the whole block leaves
+    for (size_t i = threadIdx.x; i < static_cast<size_t>(S) * S * C;
+         i += blockDim.x)
+      o[i] = tpudet::from_f32<T>(0.0f);
     return;
   }
-  const int H = table.height[lvl];
-  const int W = table.width[lvl];
-  const float st = table.stride[lvl];
+  // The level's entry by a compare per level: indexing the by-value table
+  // with `lvl` would copy it to local memory in every thread.
+  const void* map = nullptr;
+  int H = 0, W = 0;
+  float st = 1.0f;
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l) {
+    if (l == lvl) {
+      map = table.feat[l];
+      H = table.height[l];
+      W = table.width[l];
+      st = table.stride[l];
+    }
+  }
   const float* roi = rois + static_cast<size_t>(k) * 4;
   const float box[4] = {roi[0] / st, roi[1] / st, roi[2] / st, roi[3] / st};
-  const T* f = static_cast<const T*>(table.feat[lvl]) +
-               static_cast<size_t>(k / N) * H * W * C + c;
-  tpudet::roi_align_row<T>(f, box, H, W, C, S, R, ph, o);
+  tpudet::fill_axes(box, H, W, S, R, axes);
+  const T* f = static_cast<const T*>(map) + static_cast<size_t>(k / N) * H * W * C;
+  tpudet::pool_roi<T, VEC, RT>(f, axes, W, C, S, R, o);
 }
 
-template <typename T>
-int launch(const LevelTable& table, const float* rois, const int* levels,
-           void* out, int K, int N, int C, int S, int R, cudaStream_t stream) {
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
-  dim3 grid(K * S, (C + threads - 1) / threads);
-  roi_align_window_fwd_kernel<T><<<grid, threads, 0, stream>>>(
+template <typename T, int VEC, int RT>
+int launch_as(const LevelTable& table, const float* rois, const int* levels,
+              void* out, int K, int N, int C, int S, int R,
+              cudaStream_t stream) {
+  const size_t smem = tpudet::axes_bytes(S, R);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * tpudet::forward_warps(C, S, VEC);
+  roi_align_window_fwd_kernel<T, VEC, RT><<<K, threads, smem, stream>>>(
       table, rois, levels, static_cast<T*>(out), N, C, S, R);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The 16-byte path needs C a multiple of its vector and 16-byte aligned
+// maps and output; the caller says which (`vectorized`).
+template <typename T>
+int launch(const LevelTable& table, const float* rois, const int* levels,
+           void* out, int K, int N, int C, int S, int R, int vectorized,
+           cudaStream_t stream) {
+  constexpr int V = tpudet::kVec<T>;
+  if (!vectorized)
+    return launch_as<T, 1, 0>(table, rois, levels, out, K, N, C, S, R, stream);
+  bool aligned = C % V == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  for (int l = 0; l < table.count; ++l)
+    aligned = aligned && reinterpret_cast<uintptr_t>(table.feat[l]) % 16 == 0;
+  if (!aligned) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (R == 2)
+    return launch_as<T, V, 2>(table, rois, levels, out, K, N, C, S, R, stream);
+  return launch_as<T, V, 0>(table, rois, levels, out, K, N, C, S, R, stream);
 }
 
 }  // namespace
 
 // feats, heights, widths, strides: host arrays of num_levels entries (at
-// most 4). dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError()
-// after the launch (B * N == 0 launches nothing).
+// most 4). dtype: 0 = float32, 1 = bfloat16. vectorized: 1 for the 16-byte
+// path (C a multiple of 16 bytes' channels, every map and out 16-byte
+// aligned), 0 for one channel per lane. Returns cudaGetLastError() after
+// the launch (B * N == 0 launches nothing).
 extern "C" int tpudet_roi_align_window_forward(
     const void* const* feats, const int* heights, const int* widths,
     const float* strides, int num_levels, const float* rois,
     const int* levels, void* out, int B, int N, int C, int S, int R,
-    int dtype, cudaStream_t stream) {
+    int dtype, int vectorized, cudaStream_t stream) {
   if (num_levels < 1 || num_levels > kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   LevelTable table = {};
@@ -105,9 +143,10 @@ extern "C" int tpudet_roi_align_window_forward(
   const int K = B * N;
   if (K == 0) return 0;
   if (dtype == 0)
-    return launch<float>(table, rois, levels, out, K, N, C, S, R, stream);
+    return launch<float>(table, rois, levels, out, K, N, C, S, R, vectorized,
+                         stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(table, rois, levels, out, K, N, C, S, R,
-                                 stream);
+                                 vectorized, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

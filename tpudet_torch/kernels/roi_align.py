@@ -6,22 +6,32 @@ through ``roi_align_pallas``). The TPU kernel keeps one image's feature map
 in VMEM and fetches corner rows with aligned block loads plus a select,
 because the TPU has no cheap gather; on Hopper the 4-corner gather is the
 natural form. One launch pools all ``B x R`` RoIs, each with its image
-index; threads run over channels of the NHWC map so corner loads and output
-stores are contiguous.
+index.
 
-What bounds it on the H100: bytes, the pooled output written once (the
-feature map is read from L2, where one image's map fits many times over).
-The design writes each output value once, accumulates in f32 in registers,
-and reads bf16 or f32 input as it is.
+What bounds it on the H100, as measured: instructions and the corner rows
+they request, not bytes. The first design (a block per RoI and output
+row, a thread per channel) recomputed every sample's geometry, true
+division included, in each of 17 M threads and loaded one 2-byte channel
+per corner: 2.06 ms at voc_r50's b=32 shape against a 0.08 ms bytes
+bound. The forward now runs a block per RoI: its threads compute the RoI's
+S * r row and column sample axes once into shared memory, then each warp
+pools an output row with 16 bytes of channels per lane (8 bf16 or 4 f32),
+so one warp load takes a corner cell's 512-byte row. Lanes accumulate in
+f32 in the plain version's order and store 16 bytes. A C that 16-byte
+vectors do not divide, or a base that is not 16-byte aligned
+(:func:`vectorized` decides), takes one channel per lane in the same
+kernel. It then takes 0.36 ms at that shape on an H100 (4.5x the bound):
+what remains is the 3.85 GB of corner-cell rows the samples read through
+L1 and L2 (``PERF.md``).
 
 The backward gives the features' gradient (boxes and image indices are
 data, as the JAX package's proposals are). The TPU kernel has no VJP: the
-JAX package trains through the einsum form's transpose. Here the same
-layout (block per RoI and output row, threads over channels) scatters each
-sample's share of the cotangent to its four corners with f32 atomics into a
-``[B, H, W, C]`` accumulator, cast once to the features' dtype. Its bound
-is bytes (the cotangent read once, the gradient written once); the atomics
-on cells that overlapping RoIs share set its pace.
+JAX package trains through the einsum form's transpose. Here the first
+forward's layout (block per RoI and output row, threads over channels)
+scatters each sample's share of the cotangent to its four corners with f32
+atomics into a ``[B, H, W, C]`` accumulator, cast once to the features'
+dtype. Its bound is bytes (the cotangent read once, the gradient written
+once); the atomics on cells that overlapping RoIs share set its pace.
 
 ``roi_align`` is the differentiable entry: on the card an autograd Function
 runs the forward kernel and, for the gradient, the backward kernel; on the
@@ -57,10 +67,21 @@ def _lib():
     lib = _build.load("roi_align")
     fwd, bwd = lib.tpudet_roi_align_forward, lib.tpudet_roi_align_backward
     if fwd.argtypes is None:
-        fwd.argtypes = bwd.argtypes = ([ctypes.c_void_p] * 4
-                                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        ptrs, ints = [ctypes.c_void_p] * 4, [ctypes.c_int]
+        fwd.argtypes = ptrs + ints * 8 + [ctypes.c_void_p]  # + vectorized
+        bwd.argtypes = ptrs + ints * 7 + [ctypes.c_void_p]
         fwd.restype = bwd.restype = ctypes.c_int
     return fwd, bwd
+
+
+def vectorized(out: torch.Tensor, *maps: torch.Tensor) -> int:
+    """1 where the forward kernels can take 16-byte channel vectors: C a
+    multiple of 16 bytes' channels and every map and the output starting
+    16-byte aligned (a contiguous view with a storage offset may not);
+    else 0, one channel per lane."""
+    per_vec = 16 // out.element_size()
+    return int(out.shape[-1] % per_vec == 0
+               and all(t.data_ptr() % 16 == 0 for t in (out, *maps)))
 
 
 def _check_rois(boxes, image_index, dev, name):
@@ -99,7 +120,8 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib()[0](features.data_ptr(), boxes.data_ptr(),
                         image_index.data_ptr(), out.data_ptr(),
-                        k, h, w, c, s, r, _DTYPES[features.dtype], stream)
+                        k, h, w, c, s, r, _DTYPES[features.dtype],
+                        vectorized(out, features), stream)
     if err != 0:
         raise RuntimeError(f"RoI Align kernel launch failed: cudaError {err}")
     LAUNCHES += 1
