@@ -79,7 +79,10 @@ no result):
     first;
 14. the RoI Align backward kernel against ``torch.autograd.grad`` through
     the plain version at the voc_r50 train step's shape (c4 [8, 40, 40,
-    256], 1,024 sampled RoIs, S = 7, r = 2), bf16 and f32 features;
+    256], 1,024 sampled RoIs, S = 7, r = 2), bf16 and f32 features; the
+    atomics it issues (one float4 per touched cell and 4 channels, counted
+    from the geometry) and the share of the sample-corner additions it
+    pre-sums away;
 15. voc_r50 training at full width through ``create_train_state`` and
     ``make_train_step``: the preset's train config (SGD 1e-3, momentum 0.9,
     decay 5e-4, warmup 500) and plain init, bf16 backbone, b=8 640x640
@@ -93,16 +96,36 @@ no result):
     ``test_train_step_decreases_loss``: tiny_test_config, SGD 0.02, 25
     steps on one planted batch), the last loss under 0.413x the first
     (the JAX package's own fall on the CPU);
-18. the precision probe (``python -m tpudet_torch.kernels.precision_probe``'s
+18. the FPN RoI Align backward kernel against ``torch.autograd.grad``
+    through the plain version on f32-widened maps at coco_r101_fpn's train
+    shape (b=8 832x832: p2..p5 of 208^2 .. 26^2, C = 256, 128 RoIs per
+    image over all four levels, slivers, RoIs across the border, of zero
+    width and at levels -1 and 4), bf16 and f32 cotangents: the wrapper's
+    time, the kernel's and the dense passes' (the flat f32 accumulator
+    zeroed and cast) apart, its atomics, no slower than the plain version;
+19. coco_r101_fpn training at full width the same way as phase 15 (the
+    preset's train config, bf16 backbone, b=8 832x832, 20 steps): the
+    launches per step (NMS 1, FPN RoI Align forward 1 and backward 1, no
+    single-level RoI Align), ms per step, img/s, peak memory;
+20. one f32 b=2 256x256 train step of the full coco_r101_fpn preset on the
+    card against the CPU as phase 16, two planted slivers per image so that
+    the fit window moves some sampled RoIs up a level (counted); its
+    proposals held up to near-tie flips, after which the CPU step trains
+    on the card's proposals;
+21. the FPN tiny learning check: phase 17's recipe on
+    tiny_test_config(use_fpn=True) with the windowed pooler at window 56
+    and SGD 0.01, the mean of the last five losses held to the JAX
+    package's own worst fall on that recipe from four inits;
+22. the precision probe (``python -m tpudet_torch.kernels.precision_probe``'s
     stages A/B/C on the tensor cores): stage A exact, stage C inside the
     contract, stage B's error printed, each stage against the plain version;
     eager time per call and device time per call (CUDA-graph replays),
     each beside ``torch.matmul``'s;
-19. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
+23. ``torch.profiler`` traces of one b=32 predict of each (640x640 voc_r50,
     832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50) and of one b=8
-    train step of each of coco_deformable_detr_r50 (832x832) and voc_r50
-    (640x640): device time by kernel and by kind, and the device's busy
-    share.
+    train step of each of coco_deformable_detr_r50 (832x832), voc_r50
+    (640x640) and coco_r101_fpn (832x832): device time by kernel and by
+    kind, and the device's busy share.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -738,7 +761,7 @@ def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
     return cfg, model
 
 
-def canvases(b, h, w, seed):
+def canvases(b, h, w, seed, device="cuda"):
     """uint8 canvases with a valid region per image, as the loader pads
     resized images onto a bucket."""
     import numpy as np
@@ -749,8 +772,8 @@ def canvases(b, h, w, seed):
     hw = np.stack([rng.uniform(0.7, 1.0, b) * h, rng.uniform(0.7, 1.0, b) * w],
                   axis=1).astype(np.float32)
     hw[0] = (h, w)
-    return {"image": torch.from_numpy(image).cuda(),
-            "image_hw": torch.from_numpy(hw).cuda()}
+    return {"image": torch.from_numpy(image).to(device),
+            "image_hw": torch.from_numpy(hw).to(device)}
 
 
 def check_detections(out, batch, num_classes, label):
@@ -1304,18 +1327,21 @@ def phase_detr_path(card):
     return launches, step
 
 
-def planted_batch(cfg, b, h, w, seed, boxes=(1, 20)):
+def planted_batch(cfg, b, h, w, seed, boxes=(1, 20), slivers=0,
+                  device="cuda"):
     """A training batch on the card: uint8 canvases of noise with a valid
     region per image (``canvases``), ``boxes[0]..boxes[1]`` ground-truth
     boxes per image drawn from ``seed`` inside it and painted in a colour of
     their class, padded to ``data.max_gt_boxes``; normalized by
-    ``device_preprocess``."""
+    ``device_preprocess``. The first ``slivers`` boxes of each image are
+    long and thin (0.7-0.9 of the region by 0.03-0.06 of it, wide and tall
+    by turns)."""
     import numpy as np
     import torch
 
     from tpudet_torch.data.preprocess import device_preprocess
 
-    batch = canvases(b, h, w, seed)
+    batch = canvases(b, h, w, seed, device)
     rng = np.random.default_rng(seed + 1000)
     g, num_classes = cfg.data.max_gt_boxes, cfg.data.num_classes
     colours = rng.integers(0, 256, (num_classes + 1, 3))
@@ -1326,6 +1352,11 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20)):
     for i, (ih, iw) in enumerate(batch["image_hw"].cpu().numpy()):
         k = int(rng.integers(boxes[0], boxes[1] + 1))
         size = rng.uniform(0.1, 0.5, (k, 2)) * (iw, ih)
+        for j in range(min(slivers, k)):
+            long_side = rng.uniform(0.7, 0.9, 2) * (iw, ih)
+            thin_side = rng.uniform(0.03, 0.06, 2) * (iw, ih)
+            size[j] = ((long_side[0], thin_side[1]) if j % 2 == 0
+                       else (thin_side[0], long_side[1]))
         x1 = rng.uniform(0, iw - size[:, 0])
         y1 = rng.uniform(0, ih - size[:, 1])
         gt[i, :k] = np.stack([x1, y1, x1 + size[:, 0], y1 + size[:, 1]], -1)
@@ -1333,11 +1364,11 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20)):
         valid[i, :k] = True
         for (a, c, e, f), cls in zip(gt[i, :k].astype(int), classes[i, :k]):
             image[i, c:f, a:e] = colours[cls]
-    batch = {"image": torch.from_numpy(image).cuda(),
+    batch = {"image": torch.from_numpy(image).to(device),
              "image_hw": batch["image_hw"],
-             "gt_boxes": torch.from_numpy(gt).cuda(),
-             "gt_classes": torch.from_numpy(classes).cuda(),
-             "gt_valid": torch.from_numpy(valid).cuda()}
+             "gt_boxes": torch.from_numpy(gt).to(device),
+             "gt_classes": torch.from_numpy(classes).to(device),
+             "gt_valid": torch.from_numpy(valid).to(device)}
     return device_preprocess(cfg, batch)
 
 
@@ -1545,6 +1576,40 @@ def phase_tiny_learning():
           f"({last / first:.3f}x, needs < 0.6x)", flush=True)
 
 
+def touched_lines(boxes, h, w, s, r):
+    """Per RoI (``boxes`` [K, 4] in the map's cells), the distinct feature
+    rows and columns its valid samples' corners touch, counted from the
+    geometry: the backward kernels add each (row, column) cell of a RoI
+    once per channel vector, where a scatter per sample adds four corners
+    per valid sample."""
+    import torch
+
+    from tpudet_torch.ops.roi_align import _sample_grid
+
+    def lines(start, extent, size):
+        pos, valid = _sample_grid(start, extent, size, s, r)
+        lo = pos.floor().long().clamp(0, size - 1)
+        hot = torch.zeros(boxes.shape[0], size, device=boxes.device)
+        for cell in (lo, (lo + 1).clamp(max=size - 1)):
+            hot.scatter_add_(1, cell, valid.float())
+        return (hot > 0).sum(1), valid.sum(1)
+
+    rows, valid_rows = lines(boxes[:, 1], boxes[:, 3] - boxes[:, 1], h)
+    cols, valid_cols = lines(boxes[:, 0], boxes[:, 2] - boxes[:, 0], w)
+    return rows, cols, valid_rows, valid_cols
+
+
+def scatter_atomics(boxes, h, w, s, r, c, vector):
+    """The f32 atomics the backward kernels issue for these RoIs and C
+    channels (one per touched cell and 4 channels on the 16-byte path,
+    ``vector``; one per cell and channel otherwise), and the scalar atomics
+    of a scatter per sample corner (four per valid sample and channel)."""
+    rows, cols, valid_rows, valid_cols = touched_lines(boxes, h, w, s, r)
+    cells = int((rows * cols).sum())
+    corners = 4 * int((valid_rows * valid_cols).sum())
+    return cells * (c // 4 if vector else c), corners * c
+
+
 def phase_roi_align_backward():
     """The RoI Align backward kernel at the voc_r50 train step's shape: c4
     [8, 40, 40, 256] (b=8 640x640), 128 sampled RoIs per image, S=7, r=2,
@@ -1604,14 +1669,20 @@ def phase_roi_align_backward():
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = (cot.numel() * sr * sr * ROI_BWD_OPS_PER_SAMPLE
                   / F32_OPS_PER_S * 1e3)
-        atomics = cot.numel() * sr * sr * 4
+        # The 16-byte path on these aligned, whole-vector inputs.
+        atomics, per_corner = scatter_atomics(rois, h, w, s, sr, c, True)
         result[name] = {"ms": ms, "plain_ms": plain_ms,
                         "err": err.max().item(), "bytes_ms": bytes_ms,
                         "ops_ms": ops_ms}
         print(f"roi_align backward {name}: cotangent [{b * r}, {s}, {s}, {c}] "
               f"-> dFeatures [{b}, {h}, {w}, {c}], r={sr}: max err "
-              f"{err.max().item():.3e} ({tol}) | kernel {ms:.4f} ms "
-              f"({atomics / 1e6:.1f} M f32 atomics), plain (autograd through "
+              f"{err.max().item():.3e} ({tol}) | kernel {ms:.4f} ms (with "
+              f"the zeroed f32 accumulator and the cast; atomics: "
+              f"{atomics / 1e6:.2f} M float4 vector + 0 scalar, one per "
+              f"touched cell and 4 channels, where one scalar atomic per "
+              f"sample corner and channel would be {per_corner / 1e6:.1f} M: "
+              f"{100 * (1 - 4 * atomics / per_corner):.1f}% of the additions "
+              f"pre-summed away), plain (autograd through "
               f"the plain forward) {plain_ms:.2f} ms, bound "
               f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}: "
               f"cotangent {cot.numel() * size / 1e6:.1f} MB + gradient "
@@ -1620,10 +1691,138 @@ def phase_roi_align_backward():
     return result
 
 
-def phase_voc_train_path(card):
-    """voc_r50 training at full width: the preset's train config and plain
-    init through ``create_train_state`` and ``make_train_step``, bf16
-    backbone, b=8 640x640 planted boxes, 20 steps."""
+def phase_roi_align_window_backward():
+    """The FPN RoI Align backward kernel at coco_r101_fpn's train shape
+    (b=8 832x832: p2..p5 of 208^2 .. 26^2 cells, C = 256; 128 sampled RoIs
+    per image, S=7, r=2), bf16 and f32 cotangents, against autograd through
+    the plain version on f32-widened maps; the wrapper's time with its
+    dense passes (the flat f32 accumulator zeroed and, for bf16, cast) and
+    the kernel's apart."""
+    import torch
+
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.models.faster_rcnn import POOL_STRIDES
+    from tpudet_torch.ops.roi_align import fpn_assign_levels
+
+    gen = torch.Generator().manual_seed(61)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(61)
+    b, n, c, s, sr = 8, 128, 256, 7, 2
+    shapes = [(b, side, side, c) for side in (208, 104, 52, 26)]
+    # Image-pixel RoIs of 8-800 px; every 16th a 4-px sliver of 200-800 px
+    # (the window bumps it up a level or more); a few across the top-left
+    # border, a few of zero width; levels from the fit-bumped assignment,
+    # a few set to -1 and 4 (names no map: no gradient).
+    rois = random_boxes(gen, (b, n), 832, 832, lo=8.0, hi=800.0)
+    length = 200.0 + torch.rand(b, n // 16, generator=gen) * 600.0
+    sliver = rois[:, ::16].clone()
+    sliver[..., 2] = sliver[..., 0] + 4.0
+    sliver[..., 3] = (sliver[..., 1] + length.cuda()).clamp(max=832.0)
+    sliver[1::2] = sliver[1::2][..., [1, 0, 3, 2]]
+    rois[:, ::16] = sliver
+    rois[:, 3::29] -= torch.tensor([60.0, 60.0, 0.0, 0.0], device="cuda")
+    rois[:, 5::31, 2] = rois[:, 5::31, 0]
+    rois = rois.contiguous()
+    levels = fpn_assign_levels(rois, fit_window=56) - 2
+    levels[:, 7::37] = -1
+    levels[:, 9::41] = 4
+    levels = levels.contiguous()
+    hist = torch.bincount(levels.reshape(-1) + 1, minlength=6).tolist()
+    cot32 = torch.randn(b, n, s, s, c, generator=cuda_gen, device="cuda")
+    maps32 = [torch.randn(shape, generator=cuda_gen, device="cuda")
+              for shape in shapes]
+    result = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        cot = cot32.to(dtype).contiguous()
+        maps = [m.to(dtype) for m in maps32]
+
+        def wrapper():
+            return krw.roi_align_window_backward_cuda(
+                cot, rois, levels, shapes, POOL_STRIDES, dtype, sr)
+
+        def plain():
+            # Autograd through the plain forward, the maps widened to f32
+            # (exact): the f32 sums the kernel rounds once.
+            wide = [m.float().requires_grad_() for m in maps]
+            return torch.autograd.grad(
+                krw.roi_align_window_plain(wide, POOL_STRIDES, rois, levels,
+                                           s, sr), wide, cot.float())
+
+        got, ref = wrapper(), plain()
+        torch.cuda.synchronize()
+        check(all(g.dtype == dtype and g.shape == shape
+                  for g, shape in zip(got, shapes)),
+              f"FPN RoI Align backward {name}: gradients "
+              f"{[(g.dtype, tuple(g.shape)) for g in got]}")
+        err = max(float((g.float() - r).abs().max()) for g, r in zip(got, ref))
+        if dtype == torch.float32:
+            ok = all(bool(((g - r).abs() <= 1e-5).all())
+                     for g, r in zip(got, ref))
+            tol = "atol 1e-5"
+        else:
+            ok = all(bool(((g.float() - r).abs()
+                           <= 2 ** -8 * r.abs() + 1e-5).all())
+                     for g, r in zip(got, ref))
+            tol = "one bf16 ulp of the f32 sum"
+        check(ok, f"FPN RoI Align backward {name}: kernel differs from "
+                  f"autograd through the plain version by {err:.3e}")
+        check(all(bool(r.abs().max() > 0) for r in ref),
+              f"FPN RoI Align backward {name}: a level got no gradient")
+        del got, ref
+        ms = time_ms(wrapper)
+        accumulators = [torch.zeros(shape, device="cuda") for shape in shapes]
+        kernel_ms = time_ms(lambda: krw.scatter_backward(
+            cot, rois, levels, accumulators, POOL_STRIDES, sr))
+        total = sum(torch.Size(shape).numel() for shape in shapes)
+        dense_ms = time_ms(lambda: torch.zeros(
+            total, device="cuda").to(dtype))
+        del accumulators
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        size = cot.element_size()
+        # The least traffic: the cotangent read once and each map's
+        # gradient written once, dense, in the maps' dtype; boxes, levels.
+        bytes_moved = (cot.numel() * size + total * size + rois.numel() * 4
+                       + levels.numel() * 4)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = (cot.numel() * sr * sr * ROI_BWD_OPS_PER_SAMPLE
+                  / F32_OPS_PER_S * 1e3)
+        flat, lv = rois.reshape(-1, 4), levels.reshape(-1)
+        atomics = per_corner = 0
+        for i, (shape, stride) in enumerate(zip(shapes, POOL_STRIDES)):
+            a, pc = scatter_atomics(flat[lv == i] / stride, shape[1],
+                                    shape[2], s, sr, c, True)
+            atomics, per_corner = atomics + a, per_corner + pc
+        # The f32 accumulator's passes: zeroed (written) and, for bf16,
+        # read and cast (the cast's output is the gradient itself).
+        dense_bytes = total * 4 * (1 if dtype == torch.float32 else 2)
+        result[name] = {"ms": ms, "kernel_ms": kernel_ms,
+                        "dense_ms": dense_ms, "plain_ms": plain_ms,
+                        "err": err, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+        print(f"roi_align_window backward {name}: cotangent [{b}, {n}, {s}, "
+              f"{s}, {c}] (levels -1..4: {hist}) -> dMaps [{b}, 208..26, "
+              f"208..26, {c}], r={sr}: max err {err:.3e} ({tol}) | wrapper "
+              f"{ms:.4f} ms = kernel {kernel_ms:.4f} ms + dense passes "
+              f"{dense_ms:.4f} ms (f32 accumulator zeroed"
+              f"{'' if dtype == torch.float32 else ' and cast'}: "
+              f"{dense_bytes / 1e6:.1f} MB of f32 traffic; "
+              f"{100 * dense_ms / ms:.1f}% of the call); atomics "
+              f"{atomics / 1e6:.2f} M float4, {100 * (1 - 4 * atomics / per_corner):.1f}% "
+              f"of {per_corner / 1e6:.1f} M sample-corner additions "
+              f"pre-summed away; plain (autograd through the plain forward) "
+              f"{plain_ms:.2f} ms; bound {max(bytes_ms, ops_ms):.4f} ms "
+              f"(bytes {bytes_ms:.4f}: cotangent {cot.numel() * size / 1e6:.1f}"
+              f" MB + gradients {total * size / 1e6:.1f} MB; operations "
+              f"{ops_ms:.4f})", flush=True)
+        check(ms <= plain_ms, f"FPN RoI Align backward {name}: the wrapper "
+              f"({ms:.3f} ms) is slower than autograd through the plain "
+              f"version ({plain_ms:.3f} ms)")
+    return result
+
+
+def phase_faster_rcnn_train_path(card, preset, size, seed):
+    """Faster R-CNN training at full width: the preset's train config and
+    plain init through ``create_train_state`` and ``make_train_step``, bf16
+    backbone, b=8 ``size`` x ``size`` planted boxes, 20 steps. voc_r50 pools
+    through the RoI Align kernels, coco_r101_fpn through the FPN ones."""
     import math
 
     import torch
@@ -1637,19 +1836,22 @@ def phase_voc_train_path(card):
     from tpudet_torch.train.state import create_train_state
     from tpudet_torch.train.step import make_train_step
 
-    cfg = preset_config("voc_r50")
+    cfg = preset_config(preset)
     cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
                                                    dtype="bfloat16"))
+    fpn = cfg.backbone.use_fpn
     model = build_model(cfg)
     state = create_train_state(model, cfg.train, seed=0)
     step = make_train_step(model, cfg)
-    batch = planted_batch(cfg, 8, 640, 640, seed=53)
+    batch = planted_batch(cfg, 8, size, size, seed=seed)
     steps = 20
+    label = f"{preset} bf16 b=8 {size}x{size}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # The main path: counts set to 0 just before, read just after.
     knms.LAUNCHES = kra.LAUNCHES = kra.BACKWARD_LAUNCHES = 0
-    krw.LAUNCHES = kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
+    krw.LAUNCHES = krw.BACKWARD_LAUNCHES = 0
+    kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
     times, losses = [], []
     for i in range(steps):
         start = time.perf_counter()
@@ -1659,38 +1861,52 @@ def phase_voc_train_path(card):
         times.append((time.perf_counter() - start) * 1e3)
         losses.append(values["loss"])
         check(all(math.isfinite(v) for v in values.values()),
-              f"voc_r50 train step {i}: {values}")
-        print(f"train voc_r50 bf16 b=8 640x640 step {i}: "
+              f"{preset} train step {i}: {values}")
+        print(f"train {label} step {i}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
               + f" | {times[-1]:.2f} ms", flush=True)
     torch.cuda.synchronize()
     launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
                 "roi_align_backward": kra.BACKWARD_LAUNCHES,
-                "roi_align_window": krw.LAUNCHES, "deform_attn": kda.LAUNCHES,
+                "roi_align_window": krw.LAUNCHES,
+                "roi_align_window_backward": krw.BACKWARD_LAUNCHES,
+                "deform_attn": kda.LAUNCHES,
                 "deform_attn_backward": kda.BACKWARD_LAUNCHES}
-    check(launches == {"nms": steps, "roi_align": steps,
-                       "roi_align_backward": steps, "roi_align_window": 0,
-                       "deform_attn": 0, "deform_attn_backward": 0},
-          f"voc_r50 train path launches {launches}: expected 1 NMS, 1 RoI "
-          "Align forward and 1 backward per step")
+    pooler = "roi_align_window" if fpn else "roi_align"
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"nms": steps, pooler: steps, f"{pooler}_backward": steps})
+    check(launches == expected,
+          f"{preset} train path launches {launches}: expected 1 NMS, 1 "
+          f"{pooler} forward and 1 backward per step")
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"voc_r50 bf16 train b=8 640x640 (preset SGD, planted 1-20 "
-          f"boxes/image): {ms:.2f} ms/step over steps 5..{steps - 1} (first "
-          f"{times[0]:.2f} ms), {8e3 / ms:.1f} img/s, launches per step "
-          f"{launches['nms'] // steps} NMS + {launches['roi_align'] // steps} "
-          f"RoI Align forward + {launches['roi_align_backward'] // steps} "
+    print(f"{label} train (preset SGD, planted 1-20 boxes/image): {ms:.2f} "
+          f"ms/step over steps 5..{steps - 1} (first {times[0]:.2f} ms), "
+          f"{8e3 / ms:.1f} img/s, launches per step "
+          f"{launches['nms'] // steps} NMS + {launches[pooler] // steps} "
+          f"{pooler} forward + {launches[pooler + '_backward'] // steps} "
           f"backward, peak device memory {peak:.2f} GiB, loss "
           f"{losses[0]:.4f} (step 0) -> {losses[-1]:.4f} (step "
           f"{steps - 1}) | {card}", flush=True)
     return launches, (lambda: step(state, batch))
 
 
-# The stages the f32 voc_r50 reference step records: each stage's outputs
-# by name, and the rows that are its sampled positives. A target's
+def phase_voc_train_path(card):
+    """voc_r50 training at full width, b=8 640x640 (the main path)."""
+    return phase_faster_rcnn_train_path(card, "voc_r50", 640, seed=53)
+
+
+def phase_fpn_train_path(card):
+    """coco_r101_fpn training at full width, b=8 832x832 (the JAX package's
+    per-chip batch on the preset's canvas)."""
+    return phase_faster_rcnn_train_path(card, "coco_r101_fpn", 832, seed=63)
+
+
+# The stages the f32 Faster R-CNN reference step records: each stage's
+# outputs by name, and the rows that are its sampled positives. A target's
 # regression deltas and matched ground truth mean something only there (a
 # background row's targets need not agree).
-VOC_REFERENCE_FIELDS = {
+REFERENCE_FIELDS = {
     "proposal keeps": (("keep", "valid"), None),
     "_rpn_targets_single": (("idx", "is_pos", "valid", "deltas"),
                             lambda t: t[1] & t[2]),
@@ -1698,33 +1914,46 @@ VOC_REFERENCE_FIELDS = {
                              "matched"), lambda t: t[3] & t[4])}
 
 
-def voc_reference_runs(size):
-    """One f32 b=2 ``size`` x ``size`` train step of the full voc_r50 preset
-    on the card and the same step on the CPU, where every wrapper runs its
-    plain version, the samplers given the same draws (numpy, once) ->
-    ``(batch, {"cuda": run, "cpu": run})``: each run's loss, the stages of
-    ``VOC_REFERENCE_FIELDS`` (``seen``), the parameters before and after
-    the update and the gradients. The RoI Align backward's launch count
-    starts from 0."""
+def reference_runs(preset, size):
+    """One f32 b=2 ``size`` x ``size`` train step of the full ``preset``
+    (voc_r50 or coco_r101_fpn) on the card and the same step on the CPU,
+    where every wrapper runs its plain version, the samplers given the same
+    draws (numpy, once) -> ``(batch, {"cuda": run, "cpu": run})``: each
+    run's loss, the stages of ``REFERENCE_FIELDS`` and its proposals
+    (``seen``), the parameters before and after the update and the
+    gradients. With FPN two planted boxes per image are long and thin (the
+    fit window moves such RoIs up a level), and the CPU step computes its
+    own proposals (recorded) but trains on the card's (see
+    ``phase_faster_rcnn_train_reference``). The backward kernels' launch
+    counts start from 0."""
     import numpy as np
     import torch
 
     from tpudet_torch.cli.common import preset_config
     from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
     from tpudet_torch.models import build_model
     from tpudet_torch.models import faster_rcnn as tfr
     from tpudet_torch.train.state import create_train_state
     from tpudet_torch.train.step import make_train_step
 
-    cfg = preset_config("voc_r50")
-    batch = planted_batch(cfg, 2, size, size, seed=55, boxes=(2, 8))
+    cfg = preset_config(preset)
+    # f32 throughout: coco_r101_fpn's preset runs its backbone in bf16,
+    # whose convolutions round differently on the card and the CPU.
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                   dtype="float32"))
+    fpn = cfg.backbone.use_fpn
+    batch = planted_batch(cfg, 2, size, size, seed=55, boxes=(2, 8),
+                          slivers=2 if fpn else 0)
     rng = np.random.default_rng(56)
     shapes = build_model(cfg, device="cpu").draw_shapes(2, (size, size))
     draws = {k: tuple(torch.from_numpy(rng.random(shape, dtype=np.float32))
                       for _ in range(2)) for k, shape in shapes.items()}
-    original_nms = tfr.nms_dispatch
+    # The proposals' NMS: level-offset with FPN, plain on one level.
+    nms_name = "batched_nms_dispatch" if fpn else "nms_dispatch"
+    original_nms = getattr(tfr, nms_name)
     runs = {}
-    kra.BACKWARD_LAUNCHES = 0
+    kra.BACKWARD_LAUNCHES = krw.BACKWARD_LAUNCHES = 0
     for device in ("cuda", "cpu"):
         model = build_model(cfg, device=device)
         state = create_train_state(model, cfg.train, seed=0, device=device)
@@ -1742,14 +1971,23 @@ def voc_reference_runs(size):
         loss_fn = model.loss
         on_dev = {k: tuple(d.to(device) for d in v) for k, v in draws.items()}
         model.loss = lambda b, generator=None: loss_fn(b, draws=on_dev)
-        for name in ("_rpn_targets_single", "_roi_targets_single"):
+        for name in ("_rpn_targets_single", "_roi_targets_single",
+                     "proposals"):
             setattr(model, name, recording(name, getattr(model, name)))
-        tfr.nms_dispatch = recording("proposal keeps", original_nms)
+        if fpn and device == "cpu":
+            own = model.proposals
+
+            def proposals(*args, **kw):
+                own(*args, **kw)
+                return [t.cpu() for t in runs["cuda"]["seen"]["proposals"]]
+
+            model.proposals = proposals
+        setattr(tfr, nms_name, recording("proposal keeps", original_nms))
         try:
             state, metrics = make_train_step(model, cfg, device=device)(
                 state, {k: v.to(device) for k, v in batch.items()})
         finally:
-            tfr.nms_dispatch = original_nms
+            setattr(tfr, nms_name, original_nms)
         runs[device] = {
             "loss": float(metrics["loss"]), "seen": seen, "before": before,
             "grads": {k: p.grad.detach().cpu() for k, p in state.params.items()
@@ -1759,24 +1997,63 @@ def voc_reference_runs(size):
     return batch, runs
 
 
-def phase_voc_train_reference():
-    """The f32 b=2 320x320 step of ``voc_reference_runs`` on the card
-    against the CPU: proposal keeps, samples and labels equal, loss within
-    1e-4, gradients and the updated parameters within their tolerances."""
+def phase_faster_rcnn_train_reference(preset, size):
+    """The f32 b=2 ``size`` x ``size`` step of ``reference_runs`` on the
+    card against the CPU: proposal keeps, samples and labels equal, loss
+    within 1e-4, gradients and the updated parameters within their
+    tolerances; its backward kernel launched once. With FPN, the sampled
+    RoIs that the fit window moves to another level are counted, and
+    there must be some."""
     import torch
 
     from tpudet_torch.cli.common import preset_config
     from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.ops.roi_align import fpn_assign_levels
     from tpudet_torch.train.state import lr_schedule
 
-    cfg = preset_config("voc_r50")
-    # 320x320: the preset's 128-512 px anchors fit inside the images, so
-    # the RPN samples positives (at 128x128 every anchor crosses the border).
-    _, runs = voc_reference_runs(320)
+    cfg = preset_config(preset)
+    label = f"f32 {preset} train step"
+    fpn = cfg.backbone.use_fpn
+    _, runs = reference_runs(preset, size)
     card, cpu = runs["cuda"], runs["cpu"]
-    check(kra.BACKWARD_LAUNCHES == 1, f"f32 voc_r50 train step: "
-          f"{kra.BACKWARD_LAUNCHES} RoI Align backward launches, expected 1")
-    for key, (names, positives) in VOC_REFERENCE_FIELDS.items():
+    launched = (kra.BACKWARD_LAUNCHES, krw.BACKWARD_LAUNCHES)
+    check(launched == ((0, 1) if fpn else (1, 0)), f"{label}: backward "
+          f"launches (RoI Align, FPN RoI Align) {launched}")
+    bumped = ""
+    if fpn:
+        boxes, valid = (card["seen"]["_roi_targets_single"][i] for i in (0, 4))
+        window = fpn_assign_levels(boxes, fit_window=cfg.roi.window)
+        moved = int((window != fpn_assign_levels(boxes))[valid].sum())
+        check(moved > 0, f"{label}: the fit window moves no sampled RoI's "
+                         f"level at {size}x{size}")
+        bumped = (f"; {moved} of {int(valid.sum())} sampled RoIs moved up a "
+                  f"level by the fit window {cfg.roi.window}")
+    flips = ""
+    if fpn:
+        # The FPN union of the levels' candidates goes to NMS sorted by
+        # sigmoid score (in tpudet too), and at this init thousands of
+        # scores lie within an f32 ulp or two of their neighbours, so the
+        # last bits of the card's and the CPU's convolutions swap some
+        # near-tied candidates and NMS keeps the other of two near-equal
+        # boxes. Held: the same valid keeps, each position's kept score
+        # within 1e-5 of the CPU's; then the CPU step trains on the card's
+        # proposals, so what follows is compared exactly.
+        (keep, valid), (cpu_keep, cpu_valid) = (
+            run["seen"]["proposal keeps"] for run in (card, cpu))
+        scores, cpu_scores = (run["seen"]["proposals"][1] for run in (card, cpu))
+        gap = (scores - cpu_scores).abs()[valid]
+        moved = int((keep != cpu_keep)[valid].sum())
+        check(bool((valid == cpu_valid).all()) and float(gap.max()) <= 1e-5,
+              f"{label}: proposal keeps differ beyond near-tie flips "
+              f"({moved} of {int(valid.sum())} keeps differ, kept scores "
+              f"up to {float(gap.max()):.3e} apart)")
+        flips = (f" up to near-tie flips ({moved} of {int(valid.sum())} "
+                 f"keeps, kept scores within {float(gap.max()):.1e}; the "
+                 f"CPU step then trains on the card's proposals)")
+    for key, (names, positives) in REFERENCE_FIELDS.items():
+        if fpn and key == "proposal keeps":
+            continue
         mask = positives(cpu["seen"][key]) if positives else None
         for name, a, b in zip(names, card["seen"][key], cpu["seen"][key]):
             if name in ("deltas", "matched"):
@@ -1785,19 +2062,19 @@ def phase_voc_train_reference():
                 bad = ~torch.isclose(a, b, rtol=1e-4, atol=1e-3)
             else:  # keep positions, sample indices, labels, masks
                 bad = a != b
-            check(not bad.any(), f"f32 voc_r50 train step: {key} {name} "
+            check(not bad.any(), f"{label}: {key} {name} "
                   f"differ between the card and the CPU at {int(bad.sum())} "
                   f"of {bad.numel()}: {a[bad][:8].tolist()} vs "
                   f"{b[bad][:8].tolist()}")
     rel_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    check(rel_loss <= 1e-4, f"f32 voc_r50 train step: loss {card['loss']} on "
+    check(rel_loss <= 1e-4, f"{label}: loss {card['loss']} on "
                             f"the card, {cpu['loss']} on the CPU")
     # Gradients within 1e-2 of their norms (f32 both sides, convolutions and
     # GEMMs summed in other orders), floored at 1e-6 of the global norm;
     # parameters after the update outside those noise gradients within
     # PARAM_TOL of how far the CPU's update moved them (PR 4's rule).
     check(set(card["grads"]) == set(cpu["grads"]),
-          "f32 voc_r50 train step: different parameters got gradients")
+          f"{label}: different parameters got gradients")
     global_norm = float(torch.stack([g.norm() for g in cpu["grads"].values()]
                                     ).norm())
     floor = 1e-6 * global_norm
@@ -1814,22 +2091,37 @@ def phase_voc_train_reference():
     worst = {"gradient": max(grad_err.items(), key=lambda kv: kv[1]),
              "parameter": max(param_err.items(), key=lambda kv: kv[1])}
     check(worst["gradient"][1] <= 1e-2 and worst["parameter"][1] <= PARAM_TOL,
-          f"f32 voc_r50 train step: card and CPU differ: {worst}")
+          f"{label}: card and CPU differ: {worst}")
     keeps = card["seen"]["proposal keeps"][1]
     rpn, roi = card["seen"]["_rpn_targets_single"], card["seen"]["_roi_targets_single"]
-    print(f"voc_r50 train reference: f32 b=2 320x320 step of the full preset "
-          f"(TF32 off) on the card against the CPU plain path, same draws: "
-          f"proposal keeps equal ({keeps.sum(1).tolist()} kept), RPN samples "
-          f"equal ({(rpn[1] & rpn[2]).sum(1).tolist()} positive), RoI samples "
-          f"and labels equal ({(roi[3] & roi[4]).sum(1).tolist()} foreground); "
-          f"loss {card['loss']:.6f} vs {cpu['loss']:.6f} (rel {rel_loss:.2e});"
-          f" worst gradient error {worst['gradient'][1]:.2e} of its norm "
-          f"({worst['gradient'][0]}, tolerance 1e-2); parameters after the "
-          f"SGD update (lr {lr_schedule(cfg.train)(0):.3e}), worst "
+    print(f"{preset} train reference: f32 b=2 {size}x{size} step of the full "
+          f"preset (TF32 off) on the card against the CPU plain path, same "
+          f"draws: proposal keeps equal{flips} ({keeps.sum(1).tolist()} "
+          f"kept), RPN "
+          f"samples equal ({(rpn[1] & rpn[2]).sum(1).tolist()} positive), "
+          f"RoI samples and labels equal ({(roi[3] & roi[4]).sum(1).tolist()} "
+          f"foreground){bumped}; loss {card['loss']:.6f} vs {cpu['loss']:.6f} "
+          f"(rel {rel_loss:.2e}); worst gradient error "
+          f"{worst['gradient'][1]:.2e} of its norm ({worst['gradient'][0]}, "
+          f"tolerance 1e-2); parameters after the SGD update (lr "
+          f"{lr_schedule(cfg.train)(0):.3e}), worst "
           f"{worst['parameter'][1]:.2e} of how far they moved "
           f"({worst['parameter'][0]}, tolerance {PARAM_TOL}); {len(noise)} "
           f"gradients below 1e-6 of the global norm {global_norm:.4f} not "
           "compared", flush=True)
+
+
+def phase_voc_train_reference():
+    # 320x320: the preset's 128-512 px anchors fit inside the images, so
+    # the RPN samples positives (at 128x128 every anchor crosses the border).
+    phase_faster_rcnn_train_reference("voc_r50", 320)
+
+
+def phase_fpn_train_reference():
+    # 256x256 (b=2), the smallest canvas of the issue's range, with two
+    # planted slivers per image: only a RoI longer than 176 px and thin
+    # enough to sit at p2 moves up a level under window 56 here.
+    phase_faster_rcnn_train_reference("coco_r101_fpn", 256)
 
 
 # The fall the Faster R-CNN tiny learning check requires (last loss over
@@ -1838,22 +2130,40 @@ def phase_voc_train_reference():
 # tests/test_torch_faster_rcnn_step.py::test_tiny_learning_check_tracks_jax
 # prints it).
 LEARNING_RATIO = 0.413
+# ... and of the FPN one, which reads the mean of the last five losses
+# over the first (on this tiny FPN the last loss alone swings by a third
+# from step to step): the JAX package's own FPN train step on the CPU on
+# this phase's recipe (tiny_test_config(use_fpn=True) with the windowed
+# pooler at window 56, SGD 0.01, no warmup, decay 1e-4, 25 steps on
+# planted_batch(cfg, 2, 128, 128, seed=57, boxes=(1, 4)) built on the CPU)
+# falls to 0.2378x, 0.3772x, 0.2086x and 0.2722x from its inits of keys
+# 0-3, as tests/test_torch_fpn_learning.py prints them; the bar is the
+# worst, since the port draws its own initial weights and sampler stream.
+# The rate is half the C4 check's: at 0.02 tpudet's own tiny FPN run can
+# diverge.
+FPN_LEARNING_RATIO = 0.3772
 
 
-def phase_faster_rcnn_tiny_learning():
+def phase_faster_rcnn_tiny_learning(fpn=False):
     """``test_train_step_decreases_loss`` of the JAX package on the card:
     tiny_test_config, SGD 0.02 with no warmup and decay 1e-4, 25 steps on
-    one planted batch."""
+    one planted batch; with ``fpn``, its FPN variant pooling through the
+    windowed kernels at window 56, at SGD 0.01."""
     import math
 
-    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.config import tiny_test_config
     from tpudet_torch.models import build_model
     from tpudet_torch.train.state import create_train_state
     from tpudet_torch.train.step import make_train_step
 
-    cfg = preset_config("tiny")
+    cfg = tiny_test_config(use_fpn=fpn)
+    ratio, label, lr = LEARNING_RATIO, "Faster R-CNN", 0.02
+    if fpn:
+        cfg = cfg.replace(roi=dataclasses.replace(
+            cfg.roi, pooler="roi_align_window", window=56))
+        ratio, label, lr = FPN_LEARNING_RATIO, "FPN Faster R-CNN", 0.01
     cfg = cfg.replace(train=dataclasses.replace(
-        cfg.train, learning_rate=0.02, warmup_steps=0, weight_decay=1e-4))
+        cfg.train, learning_rate=lr, warmup_steps=0, weight_decay=1e-4))
     model = build_model(cfg)
     state = create_train_state(model, cfg.train, seed=0)
     step = make_train_step(model, cfg)
@@ -1862,14 +2172,17 @@ def phase_faster_rcnn_tiny_learning():
     for _ in range(25):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
-    first, last = losses[0], losses[-1]
-    check(all(math.isfinite(x) for x in losses)
-          and last < LEARNING_RATIO * first,
-          f"Faster R-CNN tiny learning check: loss {first} -> {last} (needs "
-          f"< {LEARNING_RATIO}x): {losses}")
-    print(f"Faster R-CNN tiny learning check: tiny_test_config SGD 0.02, 25 "
-          f"steps on planted boxes: loss {first:.4f} -> {last:.4f} "
-          f"({last / first:.3f}x, needs < {LEARNING_RATIO}x)", flush=True)
+    first = losses[0]
+    last = sum(losses[-5:]) / 5 if fpn else losses[-1]
+    end = "the mean of the last five" if fpn else "the last"
+    check(all(math.isfinite(x) for x in losses) and last < ratio * first,
+          f"{label} tiny learning check: loss {first} -> {last} ({end}; "
+          f"needs < {ratio}x): {losses}")
+    print(f"{label} tiny learning check: {'FPN ' if fpn else ''}"
+          f"tiny_test_config{' (roi_align_window, window 56)' if fpn else ''}"
+          f" SGD {lr}, 25 steps on planted boxes: loss {first:.4f} -> "
+          f"{last:.4f} ({end}; {last / first:.3f}x, needs < {ratio}x)",
+          flush=True)
 
 
 def phase_precision_probe():
@@ -1946,6 +2259,7 @@ def phase_precision_probe():
 KINDS = (
     ("deform_attn kernel", ("ms_deform_attn_fwd_kernel",)),
     ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
+    ("roi_align_window backward kernel", ("roi_align_window_bwd_kernel",)),
     ("deform_attn backward kernel", ("ms_deform_attn_bwd_kernel",)),
     ("nms kernel", NMS_KERNELS),
     ("roi_align_window kernel", ("roi_align_window_fwd_kernel",)),
@@ -2034,6 +2348,7 @@ PHASES = {
     "deform_attn": lambda card: phase_deform_attn(),
     "deform_backward": lambda card: phase_deform_backward(),
     "roi_align_backward": lambda card: phase_roi_align_backward(),
+    "roi_align_window_backward": lambda card: phase_roi_align_window_backward(),
     "voc_predict": lambda card: phase_profile(
         card, "voc_r50 b=32 640x640 predict",
         predict_run("voc_r50", 640, 640)),
@@ -2049,6 +2364,11 @@ PHASES = {
     "voc_train": lambda card: phase_profile(
         card, "voc_r50 bf16 b=8 640x640 train step",
         phase_voc_train_path(card)[1], warmup=1),
+    "fpn_train": lambda card: phase_profile(
+        card, "coco_r101_fpn bf16 b=8 832x832 train step",
+        phase_fpn_train_path(card)[1], warmup=1),
+    "fpn_reference": lambda card: phase_fpn_train_reference(),
+    "fpn_learning": lambda card: phase_faster_rcnn_tiny_learning(fpn=True),
     "precision_probe": lambda card: phase_precision_probe(),
 }
 
@@ -2129,6 +2449,10 @@ def main(argv=None) -> None:
     voc_train_launches, voc_train_run = phase_voc_train_path(card)
     phase_voc_train_reference()
     phase_faster_rcnn_tiny_learning()
+    roi_window_bwd = phase_roi_align_window_backward()
+    fpn_train_launches, fpn_train_run = phase_fpn_train_path(card)
+    phase_fpn_train_reference()
+    phase_faster_rcnn_tiny_learning(fpn=True)
     probe_launches, probe = phase_precision_probe()
     for label, step, (h, w) in (("voc_r50", voc_step, (640, 640)),
                                 ("coco_r101_fpn", fpn_step, (832, 832)),
@@ -2141,6 +2465,8 @@ def main(argv=None) -> None:
                   train_run, warmup=1)
     phase_profile(card, "voc_r50 bf16 b=8 640x640 train step", voc_train_run,
                   warmup=1)
+    phase_profile(card, "coco_r101_fpn bf16 b=8 832x832 train step",
+                  fpn_train_run, warmup=1)
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -2164,7 +2490,8 @@ def main(argv=None) -> None:
     kernels = [
         entry("nms", knms, {"voc_r50 predict": voc_launches["nms"],
                             "coco_r101_fpn predict": fpn_launches["nms"],
-                            "voc_r50 train": voc_train_launches["nms"]},
+                            "voc_r50 train": voc_train_launches["nms"],
+                            "coco_r101_fpn train": fpn_train_launches["nms"]},
               nms["voc_r50"], nms_err),
         entry("roi_align", kra,
               {"voc_r50 predict": voc_launches["roi_align"],
@@ -2175,8 +2502,20 @@ def main(argv=None) -> None:
               {"voc_r50 train": voc_train_launches["roi_align_backward"]},
               roi_bwd["bf16"], max(m["err"] for m in roi_bwd.values())),
         entry("roi_align_window", krw,
-              {"coco_r101_fpn predict": fpn_launches["roi_align_window"]},
+              {"coco_r101_fpn predict": fpn_launches["roi_align_window"],
+               "coco_r101_fpn train": fpn_train_launches["roi_align_window"]},
               roi_window["bf16"], roi_window["bf16"]["err"]),
+        # The FPN backward at coco_r101_fpn's train shape, bf16: ms is the
+        # wrapper's call (the kernel and the dense passes around it, each
+        # also given apart).
+        dict(entry("roi_align_window_backward", krw,
+                   {"coco_r101_fpn train":
+                    fpn_train_launches["roi_align_window_backward"]},
+                   roi_window_bwd["bf16"],
+                   max(m["err"] for m in roi_window_bwd.values())),
+             replaces=krw.BACKWARD_REPLACES,
+             kernel_ms=roi_window_bwd["bf16"]["kernel_ms"],
+             dense_ms=roi_window_bwd["bf16"]["dense_ms"]),
     ]
     # Deformable attention, forward and backward: one encoder and one
     # decoder launch (bf16 values, b=8, 832x832), summed; forward launches

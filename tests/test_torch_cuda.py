@@ -190,9 +190,10 @@ def edge_shape(case, dtype):
 
 
 def card_map(gen, shape, dtype, offset, cuda):
-    """A contiguous [B, H, W, C] map on the card starting ``offset``
-    elements into its storage."""
-    n = offset + shape[0] * shape[1] * shape[2] * shape[3]
+    """A contiguous tensor of ``shape`` (a [B, H, W, C] map, or a
+    cotangent) on the card starting ``offset`` elements into its
+    storage."""
+    n = offset + torch.Size(shape).numel()
     flat = torch.randn(n, generator=gen).to(dtype).to(cuda)
     return flat[offset:].view(shape)
 
@@ -296,6 +297,143 @@ def test_roi_align_backward_kernel_equals_plain_autograd(cuda, dtype, c, s, r):
     else:  # one rounding of the same f32 sum: at most one bf16 ulp apart
         assert ((got - ref).abs() <= 2 ** -8 * ref.abs() + 1e-5).all()
     assert ref.abs().max() > 0
+
+
+# The backward kernels' paths: those of the forwards, and many RoIs on a
+# few cells (their atomics contend).
+BACKWARD_CASES = EDGE_CASES + ("many RoIs on one cell",)
+
+
+def backward_shape(case, dtype):
+    """(C, S, r, storage offset of the cotangent, 16-byte path expected)."""
+    if case in EDGE_CASES:
+        return edge_shape(case, dtype)
+    return 64, 7, 2, 0, True
+
+
+def assert_gradient_close(got, ref, dtype, terms):
+    """Against the f32 sum of autograd through the plain version: within
+    1e-5 plus 2^-20 (a few f32 roundings) of the sum of the magnitudes of
+    the terms each cell adds (``terms``: autograd's gradient for the
+    cotangent's magnitudes, the bilinear weights being non-negative).
+    Where hundreds of terms meet on a cell (S = 14 at r = 3, many RoIs on
+    one cell), two f32 summation orders part by more than 1e-5 alone
+    (1.24e-5 measured on the card); a lost or doubled atomic would move a
+    cell by a whole term."""
+    got, ref = got.cpu().float(), ref.cpu().float()
+    slack = 1e-5 + 2 ** -20 * terms.cpu().float()
+    if dtype == torch.float32:  # f32 atomics in another order
+        assert ((got - ref).abs() <= slack).all(), (got - ref).abs().max()
+    else:  # one rounding of the same f32 sum: at most one bf16 ulp apart
+        assert ((got - ref).abs() <= 2 ** -8 * ref.abs() + slack).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_roi_align_backward_kernel_edge_paths(cuda, dtype, case):
+    """The redesigned backward through the autograd Function and through
+    its wrapper with the cotangent as given (in the unaligned case its base
+    is off a 16-byte boundary), against autograd through the plain version
+    on f32-widened features; each call one launch."""
+    c, s, r, offset, vec = backward_shape(case, dtype)
+    gen = torch.Generator().manual_seed(8)
+    feat = torch.randn(3, 11, 19, c, generator=gen).to(dtype).to(cuda)
+    rois = boxes(gen, 3, 12, extent=18.0).reshape(-1, 4) / 4 - 1
+    rois[0] = torch.tensor([3.0, 4.0, 3.0, 9.0])  # zero width
+    rois[1] = torch.tensor([-9.0, -8.0, -2.0, -1.5])  # off the map
+    index = torch.arange(3, dtype=torch.int32).repeat_interleave(12)
+    if case == EDGE_CASES[3]:
+        rois[::3, 2] = rois[::3, 0]
+        rois[[5, 8, 10]] = torch.tensor([[20.5, 2.0, 30.0, 6.0],
+                                         [3.0, 11.5, 9.0, 14.0],
+                                         [-7.0, 12.0, -1.5, 30.0]])
+    if case == BACKWARD_CASES[4]:  # every RoI of image 0 on cells (5..6, 7..8)
+        jitter = torch.rand(36, 4, generator=gen) * 0.2
+        rois = torch.tensor([7.2, 5.1, 7.9, 5.8]) + jitter
+        index = torch.zeros(36, dtype=torch.int32)
+    rois, index = rois.to(cuda), index.to(cuda)
+    cot = card_map(gen, (36, s, s, c), dtype, offset, cuda)
+    assert kra.vectorized(cot, feat) == vec
+    f32 = feat.float().requires_grad_()
+    ref, terms = (torch.autograd.grad(
+        kra.roi_align_plain(f32, rois, index, s, r), f32, g)[0]
+        for g in (cot.float(), cot.float().abs()))
+    before = kra.BACKWARD_LAUNCHES
+    f = feat.clone().requires_grad_()
+    (got,) = torch.autograd.grad(kra.roi_align(f, rois, index, s, r), f, cot)
+    assert kra.BACKWARD_LAUNCHES == before + 1 and got.dtype == dtype
+    assert_gradient_close(got, ref, dtype, terms)
+    direct = kra.roi_align_backward_cuda(cot, rois, index, feat.shape, dtype, r)
+    assert kra.BACKWARD_LAUNCHES == before + 2
+    assert_gradient_close(direct, ref, dtype, terms)
+    assert ref.abs().max() > 0
+    if case == BACKWARD_CASES[4]:  # 36 RoIs on at most 3 x 3 cells
+        assert (ref[1:] == 0).all()
+        assert int((ref[0].abs().sum(-1) > 0).sum()) <= 9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BACKWARD_CASES + ("a single level",))
+def test_roi_align_window_backward_kernel_edge_paths(cuda, dtype, case):
+    """The FPN backward through its autograd Function and its wrapper,
+    against autograd through the plain version on f32-widened maps: RoIs on
+    every level and on levels -1 and 4 (no gradient), zero-width and
+    off-map RoIs; the paths of the RoI Align backward; one map alone."""
+    c, s, r, offset, vec = backward_shape(
+        case if case in BACKWARD_CASES else BACKWARD_CASES[4], dtype)
+    gen = torch.Generator().manual_seed(9)
+    sides = ((26, 42), (13, 21), (7, 11), (4, 6))
+    if case == "a single level":
+        sides = sides[:1]
+    feats = [torch.randn(3, h, w, c, generator=gen).to(dtype).to(cuda)
+             for h, w in sides]
+    strides = (4.0, 8.0, 16.0, 32.0)[:len(feats)]
+    # Levels -1 .. len(feats) by turns: the two ends name no map.
+    levels = (torch.arange(36, dtype=torch.int32) % (len(feats) + 2) - 1
+              ).reshape(3, 12)
+    rois = boxes(gen, 3, 12, extent=100.0)
+    rois[0, 2] = torch.tensor([3.0, 4.0, 3.0, 60.0])  # zero width
+    rois[0, 1] = torch.tensor([-90.0, -80.0, -20.0, -15.0])  # off the map
+    if case == EDGE_CASES[3]:
+        rois[:, ::3, 2] = rois[:, ::3, 0]
+        rois[1, 4] = torch.tensor([500.0, 500.0, 600.0, 560.0])
+        rois[2, 7] = torch.tensor([-300.0, 10.0, -200.0, 40.0])
+    if case == BACKWARD_CASES[4]:  # RoIs of image 0 on a few cells of p2
+        rois[0] = (torch.tensor([28.8, 20.4, 31.6, 23.2])
+                   + torch.rand(12, 4, generator=gen) * 0.8)
+        levels[0] = 0
+    rois, levels = rois.to(cuda), levels.to(cuda)
+    cot = card_map(gen, (3, 12, s, s, c), dtype, offset, cuda)
+    assert krw.vectorized(cot, *feats) == vec
+    wide = [f.float().requires_grad_() for f in feats]
+
+    def plain_grad(g):
+        grads = torch.autograd.grad(
+            krw.roi_align_window_plain(wide, strides, rois, levels, s, r),
+            wide, g, allow_unused=True)
+        return [torch.zeros_like(w) if d is None else d
+                for w, d in zip(wide, grads)]
+
+    ref, terms = plain_grad(cot.float()), plain_grad(cot.float().abs())
+    before = krw.BACKWARD_LAUNCHES
+    maps = [f.clone().requires_grad_() for f in feats]
+    got = torch.autograd.grad(
+        krw.roi_align_window(maps, strides, rois, levels, s, r), maps, cot)
+    assert krw.BACKWARD_LAUNCHES == before + 1
+    direct = krw.roi_align_window_backward_cuda(
+        cot, rois, levels, [f.shape for f in feats], strides, dtype, r)
+    assert krw.BACKWARD_LAUNCHES == before + 2
+    for g, d, rf, tm in zip(got, direct, ref, terms):
+        assert g.dtype == d.dtype == dtype
+        assert_gradient_close(g, rf, dtype, tm)
+        assert_gradient_close(d, rf, dtype, tm)
+    assert all(rf.abs().max() > 0 for rf in ref)
+    # The RoIs whose level names no map add nothing.
+    outside = ((levels < 0) | (levels >= len(feats)))[..., None, None, None]
+    lost = krw.roi_align_window_backward_cuda(
+        (cot * outside).contiguous(), rois, levels, [f.shape for f in feats],
+        strides, dtype, r)
+    assert not any(g.any() for g in lost)
 
 
 @pytest.mark.parametrize("split", [False, True])
@@ -772,12 +910,12 @@ def test_voc_r50_f32_step_at_128_differs_only_off_the_positives(cuda):
     from tpudet_torch.models import build_model
     from tpudet_torch.ops import boxes as box_ops
 
-    batch, runs = chip_smoke.voc_reference_runs(128)
+    batch, runs = chip_smoke.reference_runs("voc_r50", 128)
     card, cpu = runs["cuda"], runs["cpu"]
     gt, gt_valid = batch["gt_boxes"].cpu(), batch["gt_valid"].cpu()
     anchors = build_model(preset_config("voc_r50"),
                           device="cpu").anchor_boxes((128, 128))
-    for key, (names, positives) in chip_smoke.VOC_REFERENCE_FIELDS.items():
+    for key, (names, positives) in chip_smoke.REFERENCE_FIELDS.items():
         mask = positives(cpu["seen"][key]) if positives else None
         for name, a, b in zip(names, card["seen"][key], cpu["seen"][key]):
             bad = (~torch.isclose(a, b, rtol=1e-4, atol=1e-3)

@@ -1,5 +1,5 @@
-// Aligned RoI Align shared by roi_align.cu (one map, forward and backward)
-// and roi_align_window.cu (a pyramid, each RoI at its own level).
+// Aligned RoI Align shared by roi_align.cu (one map) and roi_align_window.cu
+// (a pyramid, each RoI at its own level), forward and backward.
 //
 // The sampling rule: a RoI's S x S bins each average R x R bilinear
 // samples in f32. Samples outside [-1, dim] count as zero, samples inside
@@ -7,7 +7,7 @@
 // tpudet/ops/roi_align.py:118-123). The arithmetic and its order are those
 // of the plain version (tpudet_torch/ops/roi_align.py::roi_align_batched);
 // the libraries build with -fmad=false so nothing is contracted. The
-// backward places its samples with the same geometry (RoiGeometry).
+// backwards place their samples with the forwards' axes (fill_axes).
 //
 // The forward (pool_roi) is one block per RoI. What bounded the first
 // design on the H100 was instructions, not bytes: a thread per (RoI, output
@@ -22,6 +22,29 @@
 // in registers, in the order of the plain version, and store 16 bytes. A C
 // that 16-byte vectors do not divide, or a map whose base is not 16-byte
 // aligned, takes the same code with one channel per lane (VEC = 1).
+//
+// The backward (scatter_roi) is one block per RoI too, on the same axes.
+// Its first design (a block per RoI and output row, a thread per channel,
+// the geometry per thread and sample, four scalar f32 atomics per sample)
+// issued 205.5 M atomics for 3.28 M gradient addresses at voc_r50's train
+// shape: 0.30 ms against a 0.0096 ms bound. The scatter is separable: a
+// sample's weight on cell (y, x) is its row weight on y times its column
+// weight on x. So the block lists the distinct rows its RoI's samples
+// touch; a warp takes one such row y and a chunk of channels, sums the
+// cotangent of every bin row over its weight on y, then walks the column
+// samples in order (their cells ascend), pre-summing in registers the two
+// columns a sample can touch and adding a column with one atomic when the
+// walk leaves it. Each (row, column) cell the RoI touches gets one atomic
+// per channel vector, where the first design gave it one per sample
+// corner. Lanes hold 8 channels in two groups of four 512 bytes apart in
+// f32 (a bf16 lane loads 2 x 8 bytes, an f32 lane 2 x 16), so each vector
+// atomic of a warp (sm_90's atomicAdd on float4) covers 512 contiguous
+// bytes of the f32 gradient. Where S is 7 (every preset) a bin row's S
+// loads are in flight together. At voc_r50's train shape this runs 0.10 ms
+// with the wrapper's zeroing and cast (~11x the bound; PERF.md): 73.5% of
+// the sample-corner additions pre-summed away. Spreading the same RoIs over
+// more images ran slower, so contention on shared cells does not set the
+// pace; the per-RoI flushes through L2 and the per-row instructions do.
 
 #pragma once
 
@@ -29,11 +52,6 @@
 #include <cuda_bf16.h>
 
 namespace tpudet {
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -128,6 +146,14 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* __restrict__ p,
     const unsigned w[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  } else if constexpr (VEC == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const unsigned w[2] = {q.x, q.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
       x[2 * i] = __uint_as_float(w[i] << 16);
       x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
@@ -239,6 +265,225 @@ __device__ __forceinline__ void pool_roi(const T* __restrict__ f,
       for (int i = 0; i < VEC; ++i) acc[i] = acc[i] * inv;
       store_from_f32<VEC>(oc + static_cast<size_t>(pw) * C, acc);
     }
+  }
+}
+
+// ---------------------------------------------------------------- backward
+
+// The most warps a backward block runs (one per touched row and chunk of
+// channels, looping past this).
+constexpr int kMaxScatterWarps = 8;
+
+// Channels per group of a backward lane: four (an f32 vector atomic) on
+// the 16-byte path, else one.
+template <int VEC>
+constexpr int kGroup = VEC == 1 ? 1 : 4;
+
+// Channels per backward lane on the 16-byte path, in both dtypes: two
+// groups of four, so a warp item covers 256 channels (its per-item work,
+// the row weights and the column walk, is spent on as many channels as a
+// bf16 lane's 16 bytes give).
+constexpr int kScatterVec = 8;
+
+// Warps of a backward block for C channels in lanes of `vec` (a RoI
+// touches at most 2 * S * R rows).
+inline int scatter_warps(int C, int S, int R, int vec) {
+  const int chunks = (C + 32 * vec - 1) / (32 * vec);
+  const int items = 2 * S * R * chunks;
+  return items < kMaxScatterWarps ? items : kMaxScatterWarps;
+}
+
+// Shared memory a backward block needs: the RoI's axes, the rows it
+// touches (at most 2 * S * R, and their count), each warp's S row weights.
+inline size_t scatter_bytes(int S, int R, int warps) {
+  return axes_bytes(S, R)
+         + (2 * static_cast<size_t>(S) * R + 1) * sizeof(int)
+         + static_cast<size_t>(warps) * S * sizeof(float);
+}
+
+// p[0 .. N) += v[0 .. N) in f32: one vector atomic (sm_90's atomicAdd on
+// float4 in global memory) for N = 4, else scalar ones.
+template <int N>
+__device__ __forceinline__ void atomic_add(float* p, const float* v) {
+  if constexpr (N == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) atomicAdd(p + i, v[i]);
+  }
+}
+
+// Scatters one RoI's cotangent into the f32 gradient with the block, after
+// fill_axes put the RoI's axes at `smem` (scatter_bytes of shared memory
+// from there). g: the RoI's [S, S, C] cotangent; gf: the [H, W, C]
+// gradient of its image (or level). An invalid sample adds nothing. Warp w
+// takes items w, w + warps, ...; item = (touched row, chunk of 32 lanes of
+// VEC channels). A lane's VEC channels are VEC / G groups of G, 32 * G
+// channels apart. RT: R when known at compile time, else 0. ST: S when known
+// at compile time, else 0.
+template <typename T, int VEC, int RT, int ST>
+__device__ __forceinline__ void scatter_roi(const T* __restrict__ g,
+                                            Axis* smem, int W, int C, int S,
+                                            int R_, float* __restrict__ gf) {
+  constexpr int G = kGroup<VEC>;
+  constexpr int NG = VEC / G;
+  const int R = RT ? RT : R_;
+  const int n = S * R;
+  const Axis* rows = smem;
+  const Axis* cols = smem + n;
+  int* ys = reinterpret_cast<int*>(smem + 2 * n);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float* wrow = reinterpret_cast<float*>(ys + 2 * n + 1) + warp * S;
+
+  // The distinct rows the valid row samples touch, ascending. Positions
+  // ascend with the sample index and so do their cells: a corner is new
+  // exactly when it passes the last one listed.
+  if (threadIdx.x == 0) {
+    int m = 0, last = -1;
+    for (int i = 0; i < n; ++i) {
+      const Axis a = rows[i];
+      if (!a.valid) continue;
+      if (a.lo > last) ys[m++] = last = a.lo;
+      if (a.hi > last) ys[m++] = last = a.hi;
+    }
+    ys[2 * n] = m;
+  }
+  __syncthreads();
+
+  const int ny = ys[2 * n];
+  const int chunks = (C + 32 * VEC - 1) / (32 * VEC);
+  const float inv = 1.0f / static_cast<float>(R * R);
+  const size_t row_stride = static_cast<size_t>(W) * C;
+
+  for (int item = warp; item < ny * chunks; item += warps) {
+    const int iy = item / chunks;
+    const int y = ys[iy];
+    const int base = (item - iy * chunks) * 32 * VEC + lane * G;
+    // Bin row ph's weight on row y: its valid samples' corner weights on
+    // y, over R * R.
+    float own = 0.0f;  // this lane's bin row's (S <= 32)
+    for (int ph = lane; ph < S; ph += 32) {
+      float w = 0.0f;
+      for (int u = 0; u < R; ++u) {
+        const Axis a = rows[ph * R + u];
+        if (!a.valid) continue;
+        if (a.lo == y) w += 1.0f - a.frac;
+        if (a.hi == y) w += a.frac;
+      }
+      wrow[ph] = w * inv;
+      own = w;
+    }
+    __syncwarp();
+    // The bin rows that reach y are consecutive (cells ascend with the
+    // sample index): [ph0, ph1), read from the lanes' weights when S <= 32.
+    int ph0 = 0, ph1 = S;
+    if (S <= 32) {
+      const unsigned reach = __ballot_sync(0xffffffffu, own != 0.0f);
+      ph0 = reach ? __ffs(reach) - 1 : 0;
+      ph1 = reach ? 32 - __clz(reach) : 0;
+    }
+    bool active[NG];
+#pragma unroll
+    for (int q = 0; q < NG; ++q) active[q] = base + q * 32 * G < C;
+    if (active[0]) {
+      const T* gc = g + base;
+      float* gr = gf + static_cast<size_t>(y) * row_stride + base;
+      auto flush = [&](int x, const float (&acc)[VEC]) {
+#pragma unroll
+        for (int q = 0; q < NG; ++q)
+          if (active[q])
+            atomic_add<G>(gr + static_cast<size_t>(x) * C + q * 32 * G,
+                          acc + q * G);
+      };
+      // The walk's pre-sums: column x0's and column x0 + 1's (t1: touched).
+      float a0[VEC], a1[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) a0[i] = a1[i] = 0.0f;
+      int x0 = -2;
+      bool t1 = false;
+      // Adds bin column pw's summed cotangent at its R column samples.
+      auto walk = [&](int pw, const float (&val)[VEC]) {
+#pragma unroll
+        for (int v = 0; v < R; ++v) {
+          const Axis ax = cols[pw * R + v];
+          if (!ax.valid) continue;
+          if (ax.lo != x0) {  // the walk leaves column x0
+            if (x0 >= 0) flush(x0, a0);
+            if (ax.lo == x0 + 1) {
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) a0[i] = a1[i];
+            } else {
+              if (t1) flush(x0 + 1, a1);
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) a0[i] = 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) a1[i] = 0.0f;
+            t1 = false;
+            x0 = ax.lo;
+          }
+          if (ax.hi == ax.lo) {  // clamped to the last column: frac is 0
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) a0[i] += val[i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) {
+              a0[i] += val[i] * (1.0f - ax.frac);
+              a1[i] += val[i] * ax.frac;
+            }
+            t1 = true;
+          }
+        }
+      };
+      // acc += w * the cotangent of bin (ph, pw), this lane's channels.
+      auto gather = [&](int ph, int pw, float w, float (&acc)[VEC]) {
+        const T* gp = gc + (static_cast<size_t>(ph) * S + pw) * C;
+#pragma unroll
+        for (int q = 0; q < NG; ++q) {
+          if (!active[q]) continue;
+          float x[G];
+          load_f32<G>(gp + q * 32 * G, x);
+#pragma unroll
+          for (int i = 0; i < G; ++i) acc[q * G + i] += w * x[i];
+        }
+      };
+      if constexpr (ST > 0) {
+        // S known (7 in every preset): every bin column's sum in
+        // registers, a bin row's S loads in flight at once, then the walk.
+        float val[ST][VEC];
+#pragma unroll
+        for (int pw = 0; pw < ST; ++pw)
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) val[pw][i] = 0.0f;
+        for (int ph = ph0; ph < ph1; ++ph) {
+          const float w = wrow[ph];
+          if (w == 0.0f) continue;
+#pragma unroll
+          for (int pw = 0; pw < ST; ++pw) gather(ph, pw, w, val[pw]);
+        }
+#pragma unroll
+        for (int pw = 0; pw < ST; ++pw) walk(pw, val[pw]);
+      } else {
+        for (int pw = 0; pw < S; ++pw) {
+          // Bin column pw's cotangent summed over the bin rows by their
+          // weight on y.
+          float val[VEC];
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) val[i] = 0.0f;
+          for (int ph = ph0; ph < ph1; ++ph) {
+            const float w = wrow[ph];
+            if (w != 0.0f) gather(ph, pw, w, val);
+          }
+          walk(pw, val);
+        }
+      }
+      if (x0 >= 0) flush(x0, a0);
+      if (t1) flush(x0 + 1, a1);
+    }
+    __syncwarp();  // the warp's next item rewrites wrow
   }
 }
 

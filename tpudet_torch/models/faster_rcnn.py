@@ -1,4 +1,4 @@
-"""Faster R-CNN inference, single-level and FPN, and single-level training
+"""Faster R-CNN inference and training, single-level and FPN
 (``tpudet.models.faster_rcnn``).
 
 ``DetectorCore`` owns the layers: the backbone (to c4 with the 1x1 neck, or
@@ -20,11 +20,10 @@ each ground-truth box, cross-boundary anchors ignored, 256 sampled),
 training-mode proposals (12,000 -> 2,000) with no gradient, RoI targets
 (ground truth appended, match at 0.5, 128 sampled, a quarter foreground),
 RoI Align of the sampled RoIs (differentiable in the features: on the card
-its backward is a kernel too) and the two stages' losses. The samplers'
-uniform draws come from a ``torch.Generator`` or are handed in
-(``draws``), since torch cannot repeat ``jax.random``'s stream. FPN
-training needs the windowed pooler's backward and raises
-NotImplementedError (ROADMAP.md, Queue 1).
+its backward is a kernel too; with FPN each RoI at its level, the maps'
+gradient from the FPN RoI Align's backward kernel) and the two stages'
+losses. The samplers' uniform draws come from a ``torch.Generator`` or are
+handed in (``draws``), since torch cannot repeat ``jax.random``'s stream.
 """
 
 from __future__ import annotations
@@ -436,10 +435,6 @@ class FasterRCNN(nn.Module):
         ``draws`` (shapes of :meth:`draw_shapes`) or come from ``generator``
         (on the model's device)."""
         cfg = self.cfg
-        if cfg.backbone.use_fpn:
-            raise NotImplementedError(
-                "FPN training needs the windowed pooler's backward, which "
-                "is not ported yet (ROADMAP.md, Queue 1)")
         if cfg.rpn_only and cfg.det_only:
             raise ValueError(
                 "rpn_only and det_only are mutually exclusive training modes")
