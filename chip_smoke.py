@@ -19,7 +19,10 @@ no result):
    -> 300, 32 x 1024 class-shifted candidates at 0.5 -> 100), voc_r50
    training gives it (8 x 12,000 proposals at 0.7 -> 2,000) and those
    coco_r101_fpn gives it (32 x 4608 level-shifted proposals at 0.7 ->
-   300, 32 x 1024 candidates of 80 classes at 0.5 -> 100), on sparse and
+   300, 32 x 1024 candidates of 80 classes at 0.5 -> 100), those the
+   evaluator's final NMS gives it under the referee config (8 x 2,400 and 8
+   x 6,000 class-shifted candidates, every (box, class) pair of 300
+   proposals at 8 and 20 classes, 0.5 -> 100), on sparse and
    on clustered scenes (where the walk must cross most blocks), and on
    edge cases: kept indices must be equal; the device time of each of its
    kernels at every shape, from torch.profiler (``nms_diag_kernel`` and
@@ -125,7 +128,26 @@ no result):
     832x832 coco_r101_fpn, 832x832 coco_deformable_detr_r50) and of one b=8
     train step of each of coco_deformable_detr_r50 (832x832), voc_r50
     (640x640) and coco_r101_fpn (832x832): device time by kernel and by
-    kind, and the device's busy share.
+    kind, and the device's busy share;
+24. voc_r50 at full width through the port's CLIs on ``--dataset
+    synthetic`` (8 classes, bf16): the loader alone (host batches and
+    batches on the card), the fused train step on one loader batch held
+    fixed and on the loader's stream, ``cli.train`` at b=8 for 20 steps with a
+    checkpoint every 10 and 2 kept, resumed to 30; ``cli.eval`` over the 64
+    val images at b=8 under the referee config (the final NMS over all
+    2,400 candidates per image); ``detect_image`` on one image; each
+    stage's img/s and launches;
+25. README's synthetic proof through the CLIs: ``cli.train --preset tiny
+    --dataset synthetic`` at b=8, SGD 0.02, 600 steps, then ``cli.eval``;
+    mAP@0.5 held to the JAX package's own worst of three CPU runs of that
+    recipe less 0.05 (``TINY_CLI_MAP_BAR``);
+26. voc_r50 at full width learning the synthetic scenes through
+    ``cli.train`` (bf16, b=8, SGD 0.02, 400 steps, mAP on 64 val images
+    at 200 and 400): finite losses, the mean of the last five under half
+    of the first five's; then an f32 ``evaluate`` of 8 val images with the
+    trained weights on the card against the same on the CPU: proposals
+    equal up to near-tie flips, then, the CPU's second stage on the card's
+    proposals, the same detections and mAP within 1e-3.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -421,7 +443,38 @@ def nms_scenes(b=32, device="cuda"):
                                    device=device)
         shifted = tnms.class_offset_boxes(dets, fpn_classes, 4096.0)
         calls[("fpn final", scene)] = (shifted.contiguous(), cand_d, 0.5, 100)
+    # The evaluator's final NMS under the referee config, which lets every
+    # (box, class) candidate of the 300 proposals in: 2,400 per image with
+    # the synthetic dataset's 8 classes, 6,000 at VOC's 20; b=8 640x640,
+    # each proposal's C class boxes in turn, 0.5 -> 100.
+    for c in (8, 20):
+        n = 300 * c
+        eval_classes = torch.arange(1, c + 1).repeat(300)[None].expand(
+            8, n).to(device)
+        cand_e = (torch.rand(8, n, generator=gen) > 0.1).to(device)
+        for scene in ("sparse", "clustered"):
+            if scene == "sparse":
+                dets = random_boxes(gen, (8, n), 640, 640, lo=8.0, hi=200.0,
+                                    device=device)
+            else:
+                dets = clustered_boxes(gen, 8, n, 640, 640,
+                                       [1 + i % 4 for i in range(8)],
+                                       device=device)
+            shifted = tnms.class_offset_boxes(dets, eval_classes, 4096.0)
+            calls[(f"eval final {c} classes", scene)] = (
+                shifted.contiguous(), cand_e, 0.5, 100)
     return calls
+
+
+def nms_path(call):
+    """The main path an NMS call of ``nms_scenes`` belongs to."""
+    if call.startswith("fpn"):
+        return "coco_r101_fpn"
+    if call.startswith("train"):
+        return "voc_r50 train"
+    if call.startswith("eval"):
+        return f"voc_r50 eval ({call[len('eval final '):]})"
+    return "voc_r50"
 
 
 # ------------------------------------------------------------ phases
@@ -462,10 +515,8 @@ def phase_nms():
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.ops import nms as tnms
 
-    # Sums over the clustered scenes of each path's two calls.
-    total = {path: {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
-                    "ops_ms": 0.0, "bound_ms": 0.0}
-             for path in ("voc_r50", "voc_r50 train", "coco_r101_fpn")}
+    # Sums over the clustered scenes of each path's calls.
+    total = {}
     max_err = 0.0
     for (name, scene), (boxes, cand, thr, k) in nms_scenes().items():
         b, p = cand.shape
@@ -498,12 +549,12 @@ def phase_nms():
         plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
                            iters=2, warmup=1)
         if scene == "clustered":
-            path = ("coco_r101_fpn" if name.startswith("fpn") else
-                    "voc_r50 train" if name.startswith("train") else "voc_r50")
+            t = total.setdefault(nms_path(name), dict.fromkeys(
+                ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"), 0.0))
             for key, value in (("ms", ms), ("plain_ms", plain_ms),
                                ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                                ("bound_ms", max(bytes_ms, ops_ms))):
-                total[path][key] += value
+                t[key] += value
         print(f"nms {name} {scene}: b={b} P={p} thr={thr} -> {k}: indices "
               f"equal, kept/image {int(valid.sum(1).min())}.."
               f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
@@ -2185,6 +2236,450 @@ def phase_faster_rcnn_tiny_learning(fpn=False):
           flush=True)
 
 
+# The bar of the tiny synthetic proof through the CLIs (phase 25): the JAX
+# package's own run of the same recipe on the CPU (python -m
+# tpudet.cli.train --preset tiny --dataset synthetic --batch-size 8 --lr 0.02
+# --steps 600 --seed S, then python -m tpudet.cli.eval --preset tiny
+# --dataset synthetic) reached mAP@0.5 0.8288, 0.8077 and 0.8087 from seeds
+# 0, 1 and 2; the bar is the worst less 0.05, since the port draws its own
+# initial weights, sampler stream and augmentation.
+TINY_CLI_MAP_BAR = 0.8077 - 0.05
+# voc_learning (phase 26): steps, the evaluation interval and the rate.
+# SURVEY.md's run took 800 steps; 400 keep the whole script near five
+# minutes (on an H100, 800 steps of this recipe reached mAP 0.8355 at 400
+# and 0.8567 at 800).
+VOC_LEARNING_STEPS = 400
+VOC_LEARNING_EVAL_EVERY = 200
+VOC_LEARNING_LR = 0.02
+# The synthetic voc_r50 configuration of the CLI phases: the preset's
+# widths, 8 classes (``--dataset synthetic``), a bf16 backbone.
+VOC_CLI = ["--preset", "voc_r50", "--dataset", "synthetic", "--set",
+           "backbone.dtype=bfloat16"]
+
+
+def run_cli(main, argv, label):
+    """``main(argv)`` of one of the port's CLIs in this process -> (its
+    result, its standard output); the output is also printed, each line
+    under ``label``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = main(argv)
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"  [{label}] {line}", flush=True)
+    return result, buf.getvalue()
+
+
+def cli_rate(text, pattern):
+    """The img/s a CLI printed on the line that ``pattern`` (a regex with
+    one group for the rate) matches."""
+    import re
+
+    found = re.search(pattern, text)
+    check(found is not None, f"no line matching {pattern!r} in the output")
+    return float(found.group(1))
+
+
+def train_rows(logdir):
+    """The train rows of a CLI run's ``metrics.csv``: (step, loss), and the
+    eval rows: (step, mAP)."""
+    import csv
+
+    with open(Path(logdir) / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    train = [(int(r["step"]), float(r["loss"])) for r in rows
+             if r.get("loss")]
+    evals = [(int(r["step"]), float(r["eval/mAP"])) for r in rows
+             if r.get("eval/mAP")]
+    return train, evals
+
+
+def saved_steps(directory):
+    return sorted(int(p.name) for p in Path(directory).iterdir()
+                  if p.name.isdigit())
+
+
+def zero_launches():
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+
+    knms.LAUNCHES = kra.LAUNCHES = kra.BACKWARD_LAUNCHES = 0
+    krw.LAUNCHES = krw.BACKWARD_LAUNCHES = 0
+    kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
+
+
+def read_launches():
+    import torch
+
+    from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.kernels import roi_align as kra
+    from tpudet_torch.kernels import roi_align_window as krw
+
+    torch.cuda.synchronize()
+    return {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
+            "roi_align_backward": kra.BACKWARD_LAUNCHES,
+            "roi_align_window": krw.LAUNCHES,
+            "roi_align_window_backward": krw.BACKWARD_LAUNCHES,
+            "deform_attn": kda.LAUNCHES,
+            "deform_attn_backward": kda.BACKWARD_LAUNCHES}
+
+
+def expect_launches(got, label, **want):
+    expected = {k: 0 for k in got}
+    expected.update(want)
+    check(got == expected, f"{label} launches {got}: expected {expected}")
+
+
+def same_results(port, ref):
+    """Two ``--save-json`` result lists of the same images: per image the
+    same number of detections, each with a counterpart of the same class,
+    score within 1e-4 and box within 1e-2 px (near-tied scores may trade
+    places, as in ``same_detections``). Returns the detection count."""
+    by_image = {}
+    for r in ref:
+        by_image.setdefault(r["image_id"], [[], []])[0].append(r)
+    for r in port:
+        by_image.setdefault(r["image_id"], [[], []])[1].append(r)
+    for image_id, (want, got) in by_image.items():
+        check(len(want) == len(got), f"image {image_id}: {len(got)} "
+              f"detections on the card, {len(want)} on the CPU")
+        for d in want:
+            match = [g for g in got if g["category_id"] == d["category_id"]
+                     and abs(g["score"] - d["score"]) < 1e-4
+                     and max(abs(a - b) for a, b in zip(g["bbox"], d["bbox"]))
+                     < 1e-2]
+            check(bool(match), f"image {image_id}: CPU detection {d} has no "
+                  "counterpart on the card")
+            got.remove(min(match, key=lambda g: abs(g["score"] - d["score"])))
+    return len(ref)
+
+
+def phase_voc_cli(card):
+    """voc_r50 at full width on ``--dataset synthetic`` through the port's
+    CLIs on the card (bf16 backbone): the loader alone, the fused train
+    step on a fixed batch and on the loader's stream, ``cli.train`` b=8
+    for 20 steps (a checkpoint every 10, 2 kept), resumed to 30;
+    ``cli.eval`` over the 64 val images at b=8 under the referee config
+    (the final NMS over all 2,400 candidates per image); ``detect_image``
+    on one image."""
+    import math
+    import tempfile
+
+    import torch
+
+    from tpudet_torch.cli import detect as cdetect
+    from tpudet_torch.cli import eval as ceval
+    from tpudet_torch.cli import train as ctrain
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.config import apply_overrides
+    from tpudet_torch.data import DataLoader, build_dataset
+    from tpudet_torch.data.synthetic import SyntheticDataset
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.checkpoint import CheckpointManager
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = apply_overrides(preset_config("voc_r50"), {
+        "data.dataset": "synthetic", "data.num_classes": 8,
+        "backbone.dtype": "bfloat16"})
+    rates = {}
+    # The loader alone: host batches, then batches on the card.
+    loader = DataLoader(cfg, build_dataset(cfg, "train"), 8, augment=True)
+    for where in ("host", "card"):
+        stream = (loader.batches(0) if where == "host"
+                  else loader.device_stream("cuda"))
+        next(stream)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(20):
+            batch = next(stream)
+        torch.cuda.synchronize()
+        rates[f"loader ({where})"] = 160 / (time.perf_counter() - start)
+        stream.close()
+    check(tuple(batch["image"].shape) == (8, 640, 640, 3)
+          and batch["image"].dtype == torch.uint8
+          and batch["image"].device.type == "cuda",
+          f"loader batch {batch['image'].shape} {batch['image'].dtype}")
+    # The train step with the flip on the card (fused_preprocess), on one
+    # loader batch held fixed and on the loader's stream: what the step
+    # takes alone, and what it takes beside the loader's threads.
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.train, seed=0)
+    step = make_train_step(model, cfg, fused_preprocess=True)
+    stream = loader.device_stream("cuda")
+    for source in ("fixed", "stream"):
+        for i in range(13):
+            if i == 3:
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+            state, metrics = step(state, batch if source == "fixed"
+                                  else next(stream))
+            float(metrics["loss"])
+        torch.cuda.synchronize()
+        rates[f"fused step ({source} batch)"] = 80 / (time.perf_counter()
+                                                      - start)
+    stream.close()
+    del model, state, step
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, logs = f"{tmp}/ckpt", f"{tmp}/logs"
+        train_argv = VOC_CLI + [
+            "--batch-size", "8", "--checkpoint-dir", ckpt, "--logdir", logs,
+            "--set", "train.checkpoint_every=10",
+            "--set", "train.keep_checkpoints=2", "--set", "train.log_every=1"]
+        # The main path: counts set to 0 just before, read just after.
+        zero_launches()
+        state, out = run_cli(ctrain.main, train_argv + ["--steps", "20"],
+                             "cli.train")
+        check(state.step == 20 and saved_steps(ckpt) == [10, 20],
+              f"cli.train: step {state.step}, checkpoints {saved_steps(ckpt)}")
+        rates["cli.train"] = cli_rate(out, r"training done: .*?([\d.]+) img/s")
+        state, out = run_cli(ctrain.main, train_argv + ["--steps", "30"],
+                             "cli.train resumed")
+        launches["cli_train"] = read_launches()
+        check("restored checkpoint at step 20" in out and state.step == 30
+              and saved_steps(ckpt) == [20, 30],
+              f"resume: step {state.step}, checkpoints {saved_steps(ckpt)}")
+        rates["cli.train resumed"] = cli_rate(
+            out, r"training done: .*?([\d.]+) img/s")
+        losses, _ = train_rows(logs)
+        check([s for s, _ in losses] == list(range(1, 31))
+              and all(math.isfinite(x) for _, x in losses),
+              f"cli.train losses {losses}")
+        expect_launches(launches["cli_train"], "cli.train", nms=30,
+                        roi_align=30, roi_align_backward=30)
+
+        zero_launches()
+        summary, out = run_cli(ceval.main, VOC_CLI + [
+            "--checkpoint-dir", ckpt, "--batch-size", "8"], "cli.eval")
+        launches["cli_eval"] = read_launches()
+        check(0.0 <= summary["mAP"] <= 1.0, f"cli.eval summary {summary}")
+        check("final NMS over 2400 (box, class) candidates per image" in out
+              and "restored step 30" in out and "eval: 64 images" in out,
+              "cli.eval: no 2,400-candidate final NMS, restore or 64 images")
+        rates["cli.eval"] = cli_rate(out, r"eval: 64 images in .*?\(([\d.]+)"
+                                     r" img/s")
+        expect_launches(launches["cli_eval"], "cli.eval", nms=16, roi_align=8)
+
+        model = build_model(cfg)
+        state = create_train_state(model, cfg.train, seed=0)
+        state = CheckpointManager(ckpt).restore_eval(state)
+        image = SyntheticDataset(8, image_size=320).get_example(5)["image"]
+        image = image[:240]
+        boxes, scores, classes = cdetect.detect_image(cfg, state.eval_model(),
+                                                      image)
+        check(len(boxes) > 0 and np_finite(boxes) and np_finite(scores)
+              and (boxes >= 0).all() and (boxes[:, [0, 2]] <= 320).all()
+              and (boxes[:, [1, 3]] <= 240).all()
+              and ((classes >= 1) & (classes <= 8)).all(),
+              f"detect_image: {len(boxes)} detections {boxes[:4]}")
+    print(f"voc_cli (voc_r50 synthetic, 8 classes, bf16, b=8 640x640): "
+          f"cli.train 20 steps then resumed 20 -> 30, checkpoints kept "
+          f"[20, 30], loss {losses[0][1]:.4f} -> {losses[-1][1]:.4f}; "
+          f"cli.eval 64 images mAP {summary['mAP']:.4f} (final NMS over "
+          f"2,400 candidates per image); detect_image {len(boxes)} boxes "
+          f"inside 240x320 | "
+          + ", ".join(f"{k} {v:.1f} img/s" for k, v in rates.items())
+          + f" | {card}", flush=True)
+    print(f"voc_cli launches: {json.dumps(launches)}", flush=True)
+
+    return launches, rates
+
+
+def np_finite(x):
+    import numpy as np
+
+    return bool(np.isfinite(x).all())
+
+
+def proposal_flips(cfg, models, batch):
+    """The first model's proposals for ``batch`` (boxes, scores, valid, on
+    the CPU) and the images whose proposals differ between the models (the
+    card's and the CPU's), each by a near-tie flip: at the first position
+    where the kept lists part, the two kept scores are within 1e-4, as
+    near-tied candidates' are (two devices round the RPN's convolutions
+    apart). Fails on a difference that is not such a flip."""
+    import torch
+
+    from tpudet_torch.data.preprocess import device_preprocess
+
+    kept = []
+    for model in models:
+        x = {k: torch.from_numpy(batch[k]).to(model.device)
+             for k in ("image", "image_hw")}
+        with torch.inference_mode():
+            x = device_preprocess(cfg, x)
+            feats = model.core.features(x["image"])
+            boxes, scores, valid = model.proposals(
+                *model.core.rpn(feats), x["image_hw"].float(),
+                canvas_hw=x["image"].shape[1:3])
+        kept.append((boxes.cpu(), scores.cpu(), valid.cpu()))
+    (b0, s0, v0), (b1, s1, v1) = kept
+    flips = []
+    for i in range(b0.shape[0]):
+        same = (((b0[i] - b1[i]).abs().max(-1).values < 1e-2)
+                & ((s0[i] - s1[i]).abs() < 1e-4) & (v0[i] == v1[i]))
+        if bool(same.all()):
+            continue
+        k = int((~same).nonzero()[0])
+        check(abs(float(s0[i, k] - s1[i, k])) < 1e-4,
+              f"image {i}: proposals part at {k} with scores "
+              f"{float(s0[i, k])} and {float(s1[i, k])}: not a near tie")
+        flips.append(int(batch["example_index"][i]))
+    return kept[0], flips
+
+
+def card_evaluate_equals_cpu(cfg, ckpt, images=8):
+    """The f32 referee ``evaluate`` of the first ``images`` synthetic val
+    images on the card against the CPU, the weights of ``ckpt``. The
+    proposals must agree up to near-tie flips (``proposal_flips``); the
+    CPU's second stage then runs on the card's proposals, as the FPN
+    reference step trains on them, so that a flip does not part the runs.
+    Every image has the same detections (``same_results``) and mAP agrees
+    within 1e-3. Returns (matched detections, flipped images, card mAP,
+    CPU mAP)."""
+    import tempfile
+
+    from tpudet_torch.cli import eval as ceval
+    from tpudet_torch.config import apply_overrides
+    from tpudet_torch.data import DataLoader
+    from tpudet_torch.data.synthetic import SyntheticDataset
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.checkpoint import CheckpointManager
+    from tpudet_torch.train.state import create_train_state
+
+    cfg32 = ceval.referee_config(apply_overrides(
+        cfg, {"backbone.dtype": "float32"}))
+    card_model = build_model(cfg32)
+    state = create_train_state(card_model, cfg32.train, seed=0)
+    CheckpointManager(ckpt).restore_eval(state)
+    cpu_model = build_model(cfg32, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    # The val split's first images (build_dataset's val seed), one batch.
+    dataset = SyntheticDataset(cfg32.data.num_classes, images, seed=1)
+    batch = next(DataLoader(cfg32, dataset, images, shuffle=False).batches(0))
+    card_proposals, flips = proposal_flips(cfg32, (card_model, cpu_model),
+                                           batch)
+    cpu_model.proposals = lambda *args, **kwargs: card_proposals
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model in (("card", card_model), ("cpu", cpu_model)):
+            path = f"{tmp}/{name}.json"
+            summary = ceval.evaluate(cfg32, model, dataset,
+                                     batch_size=images, max_images=images,
+                                     verbose=False, save_json=path)
+            with open(path) as f:
+                results[name] = (summary["mAP"], json.load(f))
+    n = same_results(results["card"][1], results["cpu"][1])
+    gap = abs(results["card"][0] - results["cpu"][0])
+    check(n > 0 and gap <= 1e-3, f"f32 evaluate: mAP {results['card'][0]} "
+          f"on the card, {results['cpu'][0]} on the CPU")
+    return n, flips, results["card"][0], results["cpu"][0]
+
+
+def phase_tiny_cli_learning(card):
+    """README's synthetic proof through the port's CLIs on the card:
+    ``cli.train --preset tiny --dataset synthetic --batch-size 8 --lr 0.02
+    --steps 600``, then ``cli.eval``; mAP@0.5 held to ``TINY_CLI_MAP_BAR``."""
+    import tempfile
+
+    from tpudet_torch.cli import eval as ceval
+    from tpudet_torch.cli import train as ctrain
+
+    tiny = ["--preset", "tiny", "--dataset", "synthetic"]
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        state, out = run_cli(ctrain.main, tiny + [
+            "--batch-size", "8", "--lr", "0.02", "--steps", "600",
+            "--checkpoint-dir", f"{tmp}/ckpt", "--logdir", f"{tmp}/logs"],
+            "cli.train tiny")
+        train_launches = read_launches()
+        rate = cli_rate(out, r"training done: .*?([\d.]+) img/s")
+        losses, _ = train_rows(f"{tmp}/logs")
+        zero_launches()
+        summary, out = run_cli(ceval.main, tiny + [
+            "--checkpoint-dir", f"{tmp}/ckpt"], "cli.eval tiny")
+        eval_launches = read_launches()
+    check(state.step == 600, f"tiny cli.train ended at step {state.step}")
+    expect_launches(train_launches, "tiny cli.train", nms=600, roi_align=600,
+                    roi_align_backward=600)
+    expect_launches(eval_launches, "tiny cli.eval", nms=16, roi_align=8)
+    check(summary["mAP"] >= TINY_CLI_MAP_BAR,
+          f"tiny CLI learning check: mAP {summary['mAP']:.4f}, needs >= "
+          f"{TINY_CLI_MAP_BAR:.4f}")
+    print(f"tiny_cli_learning: cli.train tiny synthetic b=8 SGD 0.02, 600 "
+          f"steps ({rate:.1f} img/s), loss {losses[0][1]:.4f} -> "
+          f"{losses[-1][1]:.4f}; cli.eval 64 val images mAP@0.5 "
+          f"{summary['mAP']:.4f} (bar {TINY_CLI_MAP_BAR:.4f}: the JAX "
+          f"package's worst of three CPU runs, 0.8077, less 0.05) | {card}",
+          flush=True)
+    return {"tiny cli_train": train_launches, "tiny cli_eval": eval_launches}
+
+
+def phase_voc_learning(card):
+    """voc_r50 at full width learning the synthetic scenes through
+    ``cli.train`` on the card (bf16, b=8, SGD ``VOC_LEARNING_LR`` with the
+    preset's warmup, ``VOC_LEARNING_STEPS`` steps, mAP on 64 val images
+    every ``VOC_LEARNING_EVAL_EVERY``): finite losses, the mean of the last
+    five under half of the first five's. Then the trained weights in f32:
+    ``evaluate`` of 8 val images on the card against the CPU
+    (``card_evaluate_equals_cpu``)."""
+    import math
+    import tempfile
+
+    from tpudet_torch.cli import train as ctrain
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.config import apply_overrides
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        state, out = run_cli(ctrain.main, VOC_CLI + [
+            "--batch-size", "8", "--lr", str(VOC_LEARNING_LR),
+            "--steps", str(VOC_LEARNING_STEPS),
+            "--eval-every", str(VOC_LEARNING_EVAL_EVERY),
+            "--eval-max-images", "64", "--logdir", f"{tmp}/logs",
+            "--checkpoint-dir", f"{tmp}/ckpt", "--set", "train.log_every=1"],
+            "cli.train voc_r50")
+        launches = read_launches()
+        losses, evals = train_rows(f"{tmp}/logs")
+        cfg = apply_overrides(preset_config("voc_r50"), {
+            "data.dataset": "synthetic", "data.num_classes": 8})
+        n, flips, card_map, cpu_map = card_evaluate_equals_cpu(
+            cfg, f"{tmp}/ckpt")
+    rate = cli_rate(out, r"training done: .*?([\d.]+) img/s")
+    values = [x for _, x in losses]
+    first, last = sum(values[:5]) / 5, sum(values[-5:]) / 5
+    check(len(values) == VOC_LEARNING_STEPS
+          and all(math.isfinite(x) for x in values) and last < 0.5 * first,
+          f"voc_r50 learning: loss {first} -> {last} (the means of the first "
+          f"and last five; needs under half)")
+    n_evals = VOC_LEARNING_STEPS // VOC_LEARNING_EVAL_EVERY
+    expect_launches(launches, "voc_r50 learning",
+                    nms=VOC_LEARNING_STEPS + 16 * n_evals,
+                    roi_align=VOC_LEARNING_STEPS + 8 * n_evals,
+                    roi_align_backward=VOC_LEARNING_STEPS)
+    print(f"voc_learning: voc_r50 synthetic bf16 b=8 SGD {VOC_LEARNING_LR}, "
+          f"{VOC_LEARNING_STEPS} steps ({rate:.1f} img/s with the evals): "
+          f"loss {first:.4f} -> {last:.4f} (means of the first and last "
+          f"five, {last / first:.3f}x, needs < 0.5x); mAP@0.5 on 64 val "
+          "images " + ", ".join(f"{m:.4f} @{s}" for s, m in evals)
+          + " (SURVEY.md's TPU run of 800 steps: 0.53 @400, 0.76 @800; not "
+          f"a gate) | {card}", flush=True)
+    print(f"voc_learning reference: f32 evaluate of 8 val images with the "
+          f"trained weights on the card equals the CPU's ({n} detections "
+          f"matched, mAP {card_map:.6f} against {cpu_map:.6f}; proposals "
+          f"equal up to near-tie flips in {len(flips)} images {flips}, the "
+          f"CPU's second stage on the card's proposals)", flush=True)
+    return {"voc_r50 learning": launches}
+
+
 def phase_precision_probe():
     """The precision probe's three stages on the tensor cores through its
     entry point's ``run_probe``, each stage's kernel output against the
@@ -2369,6 +2864,9 @@ PHASES = {
         phase_fpn_train_path(card)[1], warmup=1),
     "fpn_reference": lambda card: phase_fpn_train_reference(),
     "fpn_learning": lambda card: phase_faster_rcnn_tiny_learning(fpn=True),
+    "voc_cli": lambda card: phase_voc_cli(card),
+    "tiny_cli_learning": lambda card: phase_tiny_cli_learning(card),
+    "voc_learning": lambda card: phase_voc_learning(card),
     "precision_probe": lambda card: phase_precision_probe(),
 }
 
@@ -2467,6 +2965,9 @@ def main(argv=None) -> None:
                   warmup=1)
     phase_profile(card, "coco_r101_fpn bf16 b=8 832x832 train step",
                   fpn_train_run, warmup=1)
+    cli_launches, _ = phase_voc_cli(card)
+    cli_launches.update(phase_tiny_cli_learning(card))
+    cli_launches.update(phase_voc_learning(card))
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -2485,21 +2986,40 @@ def main(argv=None) -> None:
                 "bound_by": "bytes" if m["bytes_ms"] >= m["ops_ms"]
                 else "operations", "library_ms": None}
 
+    def cli_paths(kernel):
+        """The CLI paths' counts of ``kernel`` (phases voc_cli,
+        tiny_cli_learning, voc_learning), each zeroed just before its
+        path."""
+        names = {"cli_train": "voc_r50 cli_train",
+                 "cli_eval": "voc_r50 cli_eval"}
+        return {names.get(path, path): counts[kernel]
+                for path, counts in cli_launches.items() if counts[kernel]}
+
     # NMS: launches over the main paths; times of voc_r50's two predict
-    # calls on clustered scenes (the others are printed in phase 3).
+    # calls on clustered scenes (the others are printed in phase 3), and of
+    # the evaluator's final NMS at its two candidate counts beside them.
+    eval_final = {path: t for path, t in nms.items()
+                  if path.startswith("voc_r50 eval")}
     kernels = [
-        entry("nms", knms, {"voc_r50 predict": voc_launches["nms"],
-                            "coco_r101_fpn predict": fpn_launches["nms"],
-                            "voc_r50 train": voc_train_launches["nms"],
-                            "coco_r101_fpn train": fpn_train_launches["nms"]},
-              nms["voc_r50"], nms_err),
+        dict(entry("nms", knms,
+                   {"voc_r50 predict": voc_launches["nms"],
+                    "coco_r101_fpn predict": fpn_launches["nms"],
+                    "voc_r50 train": voc_train_launches["nms"],
+                    "coco_r101_fpn train": fpn_train_launches["nms"],
+                    **cli_paths("nms")},
+                   nms["voc_r50"], nms_err),
+             eval_final={path: {k: t[k] for k in ("ms", "plain_ms",
+                                                  "bound_ms")}
+                         for path, t in eval_final.items()}),
         entry("roi_align", kra,
               {"voc_r50 predict": voc_launches["roi_align"],
-               "voc_r50 train": voc_train_launches["roi_align"]},
+               "voc_r50 train": voc_train_launches["roi_align"],
+               **cli_paths("roi_align")},
               roi["bf16"], roi["bf16"]["err"]),
         # The backward at the voc_r50 train step's shape, bf16 features.
         entry("roi_align_backward", kra,
-              {"voc_r50 train": voc_train_launches["roi_align_backward"]},
+              {"voc_r50 train": voc_train_launches["roi_align_backward"],
+               **cli_paths("roi_align_backward")},
               roi_bwd["bf16"], max(m["err"] for m in roi_bwd.values())),
         entry("roi_align_window", krw,
               {"coco_r101_fpn predict": fpn_launches["roi_align_window"],

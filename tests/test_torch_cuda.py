@@ -938,3 +938,76 @@ def test_voc_r50_f32_step_at_128_differs_only_off_the_positives(cuda):
     for name, g in cpu["grads"].items():
         err = float((card["grads"][name] - g).norm())
         assert err <= 1e-2 * max(float(g.norm()), floor), name
+
+
+@pytest.mark.parametrize("classes", [8, 20])
+def test_final_nms_at_the_evaluators_shape_equals_plain(cuda, classes):
+    """The final per-class NMS under the eval CLI's referee config: every
+    (box, class) candidate of 300 proposals (2,400 per image at the
+    synthetic dataset's 8 classes, 6,000 at VOC's 20), class-shifted, a
+    few objects per image so that the walk crosses most blocks; 0.5 ->
+    100, through ``class_aware_select`` against the CPU's plain version."""
+    gen = torch.Generator().manual_seed(classes)
+    b, n = 4, 300 * classes
+    centres = torch.rand(b, 3, 2, generator=gen) * 500
+    pick = torch.randint(0, 3, (b, n), generator=gen)
+    centre = torch.gather(centres, 1, pick[..., None].expand(b, n, 2))
+    wh = 40 + torch.rand(b, n, 2, generator=gen) * 60
+    bx = torch.cat([centre - wh / 2, centre + wh / 2], -1)
+    bx = bx + torch.randn(b, n, 4, generator=gen) * 3
+    scores = torch.rand(b, n, generator=gen)
+    cls = torch.arange(1, classes + 1, dtype=torch.int32).repeat(300)
+    cls = cls[None].expand(b, n).contiguous()
+    valid = scores > 0.05
+    ref = tk.class_aware_select(bx, scores, cls, 0.5, 100, valid_mask=valid)
+    out = tk.class_aware_select(bx.to(cuda), scores.to(cuda), cls.to(cuda),
+                                0.5, 100, valid_mask=valid.to(cuda))
+    for got, want in zip(out, ref):
+        assert torch.equal(got.cpu(), want)
+    assert int(ref[2].sum()) > b  # several keeps per image
+
+
+def test_loader_device_stream_on_card_equals_host(cuda):
+    """Pinned batches copied on the loader's side stream arrive on the card
+    equal to the host batches, in order."""
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.data import DataLoader
+    from tpudet_torch.data.synthetic import SyntheticDataset
+
+    loader = DataLoader(tiny_test_config(), SyntheticDataset(3, 10), 4,
+                        num_workers=2, prefetch=3)
+    host = list(loader.batches(0)) + list(loader.batches(1))
+    stream = loader.device_stream(cuda)
+    for want in host:
+        got = next(stream)
+        for k, v in want.items():
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), torch.from_numpy(v)), k
+    stream.close()
+
+
+def test_device_preprocess_training_on_card_equals_cpu(cuda):
+    """The colour jitter and flip on the card, given the same draws, within
+    1e-4 of the CPU (normalized f32); boxes equal."""
+    import dataclasses
+
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.data.preprocess import augment_draws, device_preprocess
+
+    cfg = tiny_test_config()
+    cfg = cfg.replace(data=dataclasses.replace(
+        cfg.data, color_jitter=(0.125, 0.5, 0.5, 0.05)))
+    gen = torch.Generator().manual_seed(3)
+    batch = {"image": torch.randint(0, 256, (4, 48, 64, 3), generator=gen,
+                                    dtype=torch.uint8),
+             "image_hw": torch.tensor([[48.0, 64.0], [40.0, 50.0],
+                                       [30.0, 64.0], [48.0, 33.0]]),
+             "gt_boxes": torch.rand(4, 5, 4, generator=gen) * 30}
+    draws = augment_draws(gen, 4)
+    ref = device_preprocess(cfg, batch, training=True, draws=draws)
+    out = device_preprocess(cfg, {k: v.to(cuda) for k, v in batch.items()},
+                            training=True,
+                            draws={k: v.to(cuda) for k, v in draws.items()})
+    torch.testing.assert_close(out["image"].cpu(), ref["image"], atol=1e-4,
+                               rtol=0)
+    assert torch.equal(out["gt_boxes"].cpu(), ref["gt_boxes"])

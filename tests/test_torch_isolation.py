@@ -54,7 +54,7 @@ def test_sources_import_no_jax_and_no_tpudet():
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
                                    "DeformableDETRConfig", "TrainConfig",
-                                   "Config"])
+                                   "EvalConfig", "Config"])
 def test_config_defaults_equal_jax(group):
     port = getattr(tconfig, group)()
     ref = getattr(jconfig, group)()

@@ -1,8 +1,12 @@
-"""Presets of the configurations the port runs (``tpudet.cli.common``'s
-``preset_config`` for ``voc_r50``, ``coco_r101_fpn``,
-``coco_deformable_detr_r50``, ``tiny`` and ``deformable_detr_tiny``)."""
+"""Shared CLI plumbing (``tpudet.cli.common``): the presets of the
+configurations the port runs (``voc_r50``, ``coco_r101_fpn``,
+``coco_deformable_detr_r50``, ``tiny`` and ``deformable_detr_tiny``) and the
+flags every CLI takes, with dotted ``--set`` overrides."""
 
 from __future__ import annotations
+
+import argparse
+import ast
 
 from tpudet_torch.config import (
     BackboneConfig,
@@ -12,6 +16,7 @@ from tpudet_torch.config import (
     ROIConfig,
     RPNConfig,
     TrainConfig,
+    apply_overrides,
     tiny_deformable_detr_config,
     tiny_test_config,
 )
@@ -27,9 +32,11 @@ def preset_config(name: str) -> Config:
     if name == "tiny":
         return tiny_test_config()
     if name == "voc_r50":
-        # ResNet-50 Faster R-CNN on VOC 2007 (single-level C4, neck 256).
+        # ResNet-50 Faster R-CNN on VOC 2007 (single-level C4, neck 256),
+        # Fast R-CNN's 600/1000 resize onto the VOC buckets.
         return Config(
-            data=DataConfig(num_classes=20, canvas_height=1024,
+            data=DataConfig(dataset="voc", num_classes=20, min_size=600,
+                            max_size=1000, canvas_height=1024,
                             canvas_width=1024, aspect_buckets=VOC_BUCKETS),
             backbone=BackboneConfig(name="resnet50"),
         )
@@ -38,7 +45,8 @@ def preset_config(name: str) -> Config:
         # top-1000, 300 proposals (1000 in training), each RoI pooled once at
         # its fit-bumped level (window 56 covers the 1344-px canvases at p5).
         return Config(
-            data=DataConfig(num_classes=80, canvas_height=1344,
+            data=DataConfig(dataset="coco", num_classes=80, min_size=800,
+                            max_size=1333, canvas_height=1344,
                             canvas_width=1344, aspect_buckets=COCO_BUCKETS),
             backbone=BackboneConfig(name="resnet101", use_fpn=True,
                                     dtype="bfloat16"),
@@ -56,7 +64,8 @@ def preset_config(name: str) -> Config:
         # 2e-4 (the backbone at 0.1x), weight decay 1e-4, grad clip 0.1.
         return Config(
             model="deformable_detr",
-            data=DataConfig(num_classes=80, canvas_height=1344,
+            data=DataConfig(dataset="coco", num_classes=80, min_size=800,
+                            max_size=1333, canvas_height=1344,
                             canvas_width=1344, aspect_buckets=COCO_BUCKETS,
                             max_gt_boxes=100),
             backbone=BackboneConfig(name="resnet50", use_fpn=False,
@@ -67,6 +76,43 @@ def preset_config(name: str) -> Config:
                               weight_decay=1e-4, grad_clip_norm=0.1,
                               backbone_lr_factor=0.1),
         )
-    raise ValueError(f"unknown preset {name!r}: the port has 'voc_r50', "
-                     "'coco_r101_fpn', 'coco_deformable_detr_r50', 'tiny', "
-                     "'deformable_detr_tiny'")
+    raise ValueError(f"unknown preset {name!r}: the port has {PRESETS}")
+
+
+PRESETS = ("tiny", "voc_r50", "coco_r101_fpn", "deformable_detr_tiny",
+           "coco_deformable_detr_r50")
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    p.add_argument("--preset", default="voc_r50", choices=PRESETS)
+    p.add_argument("--data-dir", default="", help="dataset root")
+    p.add_argument("--dataset", default="",
+                   help="override the dataset type (voc|coco|synthetic)")
+    p.add_argument(
+        "--set", action="append", default=[], metavar="KEY=VALUE",
+        help="dotted config override, e.g. --set rpn.nms_thresh=0.6")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the CUDA card; "
+                        "'cpu' runs the plain PyTorch versions of the kernels)")
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The preset, then ``--data-dir``, ``--dataset`` (``synthetic`` on a
+    preset other than ``tiny`` sets 8 classes, the synthetic colours) and
+    each ``--set`` (values read as Python literals, else as strings)."""
+    cfg = preset_config(args.preset)
+    overrides = {}
+    if args.data_dir:
+        overrides["data.data_dir"] = args.data_dir
+    if args.dataset:
+        overrides["data.dataset"] = args.dataset
+        if args.dataset == "synthetic" and args.preset != "tiny":
+            overrides.setdefault("data.num_classes", 8)
+    for item in args.set:
+        key, _, raw = item.partition("=")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        overrides[key.strip()] = value
+    return apply_overrides(cfg, overrides)

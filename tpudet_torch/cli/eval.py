@@ -1,0 +1,259 @@
+"""Evaluation CLI: mAP over a validation split (``tpudet.cli.eval``).
+
+Example:
+  python -m tpudet_torch.cli.eval --preset voc_r50 --data-dir /data/voc \\
+      --split test --checkpoint-dir /ckpt
+  python -m tpudet_torch.cli.eval --preset tiny --dataset synthetic \\
+      --checkpoint-dir /tmp/ckpt --device cpu
+
+Runs on the CUDA card unless ``--device cpu`` is passed. The box metrics
+(``voc``, ``coco``, ``proposal-recall``); the segm, keypoint and panoptic
+evaluators wait for their families, and ``--tta`` for test-time
+augmentation (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from tpudet_torch.cli.common import add_common_args, config_from_args
+from tpudet_torch.data import DataLoader, build_dataset
+from tpudet_torch.data.preprocess import rescale_to_original
+from tpudet_torch.data.voc import VOC_CLASSES
+from tpudet_torch.eval.metrics import (
+    CocoStyleEvaluator,
+    DetectionEvaluator,
+    ProposalRecallEvaluator,
+)
+from tpudet_torch.models import build_model
+from tpudet_torch.train.checkpoint import CheckpointManager
+from tpudet_torch.train.state import create_train_state
+from tpudet_torch.train.step import make_eval_step
+
+# Fetched from the card once per batch.
+_FIELDS = ("boxes", "scores", "classes", "valid")
+
+
+def final_nms_candidates(cfg) -> int:
+    """(box, class) candidates per image that enter Faster R-CNN's final
+    per-class NMS: every one under ``roi.max_nms_candidates = -1`` (the
+    referee), else the cap (0 -> 1024)."""
+    from tpudet_torch.models.faster_rcnn import MAX_NMS_CANDIDATES
+
+    every = cfg.rpn.post_nms_topk_test * cfg.data.num_classes
+    cap = cfg.roi.max_nms_candidates
+    if cap < 0:
+        return every
+    return min(every, cap or MAX_NMS_CANDIDATES)
+
+
+def _host_to_device(batch, device):
+    """The predict's inputs on ``device``: pinned and copied without a host
+    wait on a CUDA card."""
+    out = {}
+    for k in ("image", "image_hw"):
+        t = torch.from_numpy(batch[k])
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
+             class_names=None, verbose=True, metric_style="voc",
+             save_json="", eval_step=None, tta=""):
+    """Batched inference on ``model``'s device and the host-side metrics.
+
+    ``eval_step`` lets a caller that evaluates repeatedly (the train CLI's
+    ``--eval-every``) reuse one step. Detections are fetched once per batch;
+    up to three batches are in flight, so the host prepares the next ones
+    while the card runs."""
+    if tta:
+        raise NotImplementedError(
+            "--tta: test-time augmentation is not ported yet (ROADMAP.md, "
+            "Queue 1 item 25)")
+    if eval_step is None:
+        eval_step = make_eval_step(model, cfg, fused_preprocess=True)
+    model.eval()  # dropout off (the train step turns it back on)
+    device = model.device
+    if metric_style == "proposal_recall":
+        # RPN analysis: the caller evaluates with cfg.rpn_only, so predict
+        # emits class-agnostic proposals.
+        evaluator = ProposalRecallEvaluator()
+    elif metric_style == "coco":
+        evaluator = CocoStyleEvaluator(cfg.data.num_classes,
+                                       class_names=class_names)
+    else:
+        evaluator = DetectionEvaluator(
+            cfg.data.num_classes, iou_thresh=cfg.eval.iou_thresh,
+            interpolation=cfg.eval.ap_interpolation, class_names=class_names)
+    if verbose and cfg.model == "faster_rcnn" and not cfg.rpn_only:
+        n = final_nms_candidates(cfg)
+        print(f"eval: final NMS over {n} (box, class) candidates per image "
+              f"({cfg.rpn.post_nms_topk_test} proposals x "
+              f"{cfg.data.num_classes} classes, roi.max_nms_candidates="
+              f"{cfg.roi.max_nms_candidates})", flush=True)
+    loader = DataLoader(cfg, dataset, batch_size, shuffle=False,
+                        drop_last=False)
+
+    def submitted():
+        for batch in loader.batches(0):
+            batch_valid = batch.pop("batch_valid", np.ones(batch_size, bool))
+            yield batch, batch_valid, eval_step(_host_to_device(batch, device))
+
+    # COCO-format results: image_id from dataset.image_id(index) where the
+    # dataset has it (COCO ids, VOC file stems), else the index; category
+    # from dataset.category_id(cls), else the contiguous class.
+    results = [] if save_json else None
+    get_image_id = getattr(dataset, "image_id", lambda i: int(i))
+    get_cat_id = getattr(dataset, "category_id", lambda c: int(c))
+
+    seen = 0
+    pending = []
+    start = time.perf_counter()
+    stream = submitted()
+    done = False
+    while not done or pending:
+        while not done and len(pending) < 3:
+            try:
+                pending.append(next(stream))
+            except StopIteration:
+                done = True
+        if not pending:  # no batch in the split
+            break
+        batch, batch_valid, out_dev = pending.pop(0)
+        out = {k: out_dev[k].cpu().numpy() for k in _FIELDS}
+        for i in range(len(batch_valid)):
+            if not batch_valid[i] or (0 <= max_images <= seen):
+                continue
+            seen += 1
+            v = out["valid"][i]
+            det = {k: out[k][i][v] for k in ("boxes", "scores", "classes")}
+            boxes = rescale_to_original(det["boxes"], batch["image_scale"][i],
+                                        batch["orig_hw"][i])
+            gt_valid = batch["gt_valid"][i]
+            gt_boxes = rescale_to_original(batch["gt_boxes"][i][gt_valid],
+                                           batch["image_scale"][i],
+                                           batch["orig_hw"][i])
+            if results is not None:
+                img_id = get_image_id(int(batch["example_index"][i]))
+                for b, s, c in zip(boxes, det["scores"], det["classes"]):
+                    results.append({
+                        "image_id": img_id,
+                        "category_id": get_cat_id(int(c)),
+                        "bbox": [float(b[0]), float(b[1]),
+                                 float(b[2] - b[0]), float(b[3] - b[1])],
+                        "score": float(s),
+                    })
+            extra = {}
+            if isinstance(evaluator, CocoStyleEvaluator):
+                # The COCO protocol bins GT by the annotation's own area, in
+                # original pixels, as the rescaled boxes are.
+                extra["gt_area"] = batch["gt_area"][i][gt_valid]
+            evaluator.add_image(
+                boxes, det["scores"], det["classes"], gt_boxes,
+                batch["gt_classes"][i][gt_valid],
+                gt_difficult=batch["gt_difficult"][i][gt_valid],
+                gt_crowd=batch["gt_crowd"][i][gt_valid], **extra)
+        if 0 <= max_images <= seen:
+            break
+    del pending, stream
+    seconds = time.perf_counter() - start
+    if verbose:
+        print(f"eval: {seen} images in {seconds:.2f} s "
+              f"({seen / max(seconds, 1e-9):.1f} img/s: loader, predict and "
+              "metrics)", flush=True)
+    if results is not None:
+        with open(save_json, "w") as f:
+            json.dump(results, f)
+        if verbose:
+            print(f"wrote {len(results)} detections to {save_json}")
+    summary = evaluator.summarize()
+    if verbose:
+        for k, v in sorted(summary.items()):
+            print(f"{k}: {v:.4f}")
+    return summary
+
+
+def referee_config(cfg):
+    """The evaluator is the parity referee: every throughput-oriented
+    approximation goes back to the protocol-exact form. The final NMS's
+    candidate cap sentinel 0 becomes -1 (all P * C (box, class) candidates,
+    as the reference's dynamic-shape postprocess; ``--set
+    roi.max_nms_candidates=1024`` restores the serving cap), and any top-k
+    method other than the exact ones becomes "exact"."""
+    if cfg.roi.max_nms_candidates == 0:
+        cfg = cfg.replace(
+            roi=dataclasses.replace(cfg.roi, max_nms_candidates=-1))
+    if cfg.rpn.topk_method not in ("exact", "blocked"):
+        print("eval: forcing rpn.topk_method=exact (parity referee)")
+        cfg = cfg.replace(rpn=dataclasses.replace(cfg.rpn, topk_method="exact"))
+    return cfg
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--split", default="val")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--max-images", type=int, default=-1)
+    p.add_argument("--metric", default="",
+                   choices=["", "voc", "coco", "proposal-recall"],
+                   help="default: coco for COCO datasets, voc otherwise. "
+                        "proposal-recall: recall of the ground truth at IoU "
+                        "0.5/0.7 by top-k proposals (an rpn_only predict)")
+    p.add_argument("--no-mesh", action="store_true",
+                   help="accepted for the JAX CLI's flags; one card has no "
+                        "mesh")
+    p.add_argument("--save-json", default="",
+                   help="write detections as a COCO-format results json")
+    p.add_argument("--ema", action="store_true",
+                   help="evaluate the EMA average of the params "
+                        "(train.ema_decay > 0 during training)")
+    p.add_argument("--tta", default="", choices=["", "hflip"],
+                   help="test-time augmentation (not ported yet)")
+    args = p.parse_args(argv)
+    if args.tta:
+        raise SystemExit("--tta: test-time augmentation is not ported yet "
+                         "(ROADMAP.md, Queue 1 item 25)")
+    cfg = referee_config(config_from_args(args))
+    metric = args.metric or ("coco" if cfg.data.dataset == "coco" else "voc")
+    if metric == "proposal-recall":
+        if cfg.model != "faster_rcnn":
+            raise SystemExit(
+                "--metric proposal-recall analyses the RPN's proposals; "
+                f"model={cfg.model!r} has no proposal stage")
+        metric = "proposal_recall"
+        # Enough survivors to fill the top-k table, and predict's
+        # truncation to max_detections lifted to match.
+        cfg = cfg.replace(
+            rpn_only=True,
+            rpn=dataclasses.replace(
+                cfg.rpn,
+                post_nms_topk_test=max(cfg.rpn.post_nms_topk_test, 1000)),
+            roi=dataclasses.replace(
+                cfg.roi, max_detections=max(cfg.roi.max_detections, 1000)))
+    model = build_model(cfg, device=args.device)
+    state = create_train_state(model, cfg.train, seed=0, device=args.device)
+    if args.checkpoint_dir:
+        mgr = CheckpointManager(args.checkpoint_dir)
+        state = mgr.restore_eval(state)
+        print(f"restored step {mgr.latest_step}")
+    dataset = build_dataset(cfg, split=args.split)
+    names = VOC_CLASSES if cfg.data.dataset == "voc" else getattr(
+        dataset, "class_names", None)
+    return evaluate(cfg, state.eval_model(args.ema), dataset,
+                    batch_size=args.batch_size, max_images=args.max_images,
+                    class_names=names, metric_style=metric,
+                    save_json=args.save_json)
+
+
+if __name__ == "__main__":
+    main()

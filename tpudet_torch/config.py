@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
-Faster R-CNN inference, single-level and FPN, single-level Faster R-CNN
-training, and Deformable DETR inference and training read).
+Faster R-CNN inference and training, single-level and FPN, Deformable DETR
+inference and training, the data path and the evaluator read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
@@ -18,14 +18,30 @@ from typing import Tuple
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Input canvas and normalization."""
+    """Dataset, resize, canvas, normalization and train-time augmentation
+    (the JAX group's fields, less the mask, keypoint and semantic loading
+    that come with their families)."""
 
+    dataset: str = "voc"  # "voc" | "coco" | "synthetic"
+    data_dir: str = ""
+    split: str = "train"
     num_classes: int = 20  # foreground classes (VOC=20, COCO=80)
+    # Aspect-preserving resize: min side -> min_size, max side at most
+    # max_size (Fast R-CNN's 600/1000).
+    min_size: int = 600
+    max_size: int = 1000
     # Static canvas the resized image is padded onto.
     canvas_height: int = 1024
     canvas_width: int = 1024
-    # Aspect-ratio buckets: each entry is an (h, w) canvas. The largest side
-    # over all buckets bounds every box coordinate (see _nms_offset).
+    # Two canvases by orientation: landscape (canvas_short, canvas_width),
+    # portrait (canvas_height, canvas_short).
+    orientation_buckets: bool = False
+    canvas_short: int = 768
+    # Aspect-ratio buckets (supersede orientation_buckets): each entry is an
+    # (h, w) canvas; an image goes to the one that fits its resized shape
+    # with the fewest padded pixels, and the loader batches per bucket. The
+    # largest side over all buckets bounds every box coordinate (see
+    # _nms_offset).
     aspect_buckets: Tuple[Tuple[int, int], ...] = ()
     # GT boxes are padded to this many per image with a validity mask
     # (Deformable DETR's build check: num_queries >= max_gt_boxes).
@@ -33,6 +49,20 @@ class DataConfig:
     # Per-channel normalization (ImageNet RGB means/stds).
     pixel_mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
     pixel_std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    # Train-time random horizontal flip (on the device, in the train step).
+    random_flip: bool = True
+    shuffle_buffer: int = 1000  # kept for parity, not read (as in JAX)
+    # Host front-end: "auto" and "pil" resize decoded pixels on the host;
+    # "native" (the JAX package's fused C++ JPEG decoder) is not ported.
+    decoder: str = "auto"
+    fast_jpeg_scale: bool = True
+    # Train-time photometric jitter (brightness, contrast, saturation, hue),
+    # all-zero disables: factors ~ U(1 - x, 1 + x), hue ~ U(-h, h) turns as
+    # a YIQ rotation; on the device, over the valid region only.
+    color_jitter: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+    # Train-time multi-scale jitter of the resize, U(lo, hi), on the host,
+    # per (seed, epoch, index); the canvas comes from the unjittered size.
+    scale_jitter: Tuple[float, float] = (1.0, 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,8 +230,9 @@ class DeformableDETRConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule and loop (``tpudet.config.TrainConfig``: every
-    field and default). The checkpoint, logging, mesh and ``bf16`` fields
-    are kept for parity and not read yet."""
+    field and default). The train CLI reads the checkpoint and logging
+    fields; the mesh and ``bf16`` fields are kept for parity and not read
+    yet."""
 
     batch_size: int = 2  # global batch size (per optimizer update)
     # Split each batch into this many microbatches (strided rows, as the
@@ -243,6 +274,16 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """mAP evaluation."""
+
+    iou_thresh: float = 0.5
+    # "all_points" (VOC2010+) or "11_points" (VOC2007).
+    ap_interpolation: str = "11_points"
+    max_images: int = -1
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: str = "faster_rcnn"
     data: DataConfig = DataConfig()
@@ -252,6 +293,7 @@ class Config:
     roi: ROIConfig = ROIConfig()
     deformable_detr: DeformableDETRConfig = DeformableDETRConfig()
     train: TrainConfig = TrainConfig()
+    eval: EvalConfig = EvalConfig()
     # Kept for parity with the JAX config and never read: the port
     # dispatches by the tensor's device alone (a CUDA tensor goes to the
     # hand-written kernel, a CPU tensor to its plain PyTorch version).
@@ -273,7 +315,10 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
     fields of ``tpudet.config.tiny_test_config``)."""
     return Config(
         data=DataConfig(
+            dataset="synthetic",
             num_classes=num_classes,
+            min_size=canvas,
+            max_size=canvas,
             canvas_height=canvas,
             canvas_width=canvas,
             max_gt_boxes=10,
@@ -310,3 +355,22 @@ def tiny_deformable_detr_config(canvas: int = 128,
             dropout=0.0, max_detections=20,
         ),
     )
+
+
+def apply_overrides(cfg: Config, overrides: dict) -> Config:
+    """Apply ``{"rpn.nms_thresh": 0.6, ...}``-style dotted overrides."""
+    grouped: dict = {}
+    for key, value in overrides.items():
+        if "." in key:
+            group, field = key.split(".", 1)
+            grouped.setdefault(group, {})[field] = value
+        else:
+            grouped[key] = value
+    updates = {}
+    for group, fields in grouped.items():
+        current = getattr(cfg, group)
+        if isinstance(fields, dict) and dataclasses.is_dataclass(current):
+            updates[group] = dataclasses.replace(current, **fields)
+        else:
+            updates[group] = fields
+    return dataclasses.replace(cfg, **updates)

@@ -149,3 +149,11 @@ def clip_boxes(boxes: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:
     x2 = torch.minimum(torch.maximum(boxes[..., 2], zero), w)
     y2 = torch.minimum(torch.maximum(boxes[..., 3], zero), h)
     return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def flip_boxes_horizontal(boxes: torch.Tensor, image_width) -> torch.Tensor:
+    """Mirror boxes for a horizontally flipped image of ``image_width``
+    (a number or a tensor broadcasting against ``boxes[..., 0]``)."""
+    x1 = image_width - boxes[..., 2]
+    x2 = image_width - boxes[..., 0]
+    return torch.stack([x1, boxes[..., 1], x2, boxes[..., 3]], dim=-1)

@@ -50,6 +50,20 @@ class TrainState:
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.core.named_parameters())
 
+    def eval_model(self, use_ema: bool = False) -> nn.Module:
+        """The model for inference; with ``use_ema`` the EMA average is
+        copied into its parameters first (the eval and detect CLIs'
+        ``--ema``)."""
+        if use_ema:
+            if self.ema_params is None:
+                raise ValueError(
+                    "--ema requested but this state carries no EMA average "
+                    "(it was trained with train.ema_decay=0)")
+            with torch.no_grad():
+                for name, p in self.model.core.named_parameters():
+                    p.copy_(self.ema_params[name])
+        return self.model
+
 
 def lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     """``step -> learning rate``, in JAX's f32 arithmetic: a linear warmup

@@ -33,12 +33,24 @@ def _step_seed(seed: int, step: int, micro: int) -> int:
         1, np.uint64)[0])
 
 
-def make_train_step(model, cfg: Config, device="cuda"
+def _augment_seed(seed: int, step: int, micro: int) -> int:
+    """The seed of the train-time augmentation's generator of microbatch
+    ``micro`` of update ``step``: the second word of ``_step_seed``'s
+    stream, so the samplers' draws are the same with or without it."""
+    return int(np.random.SeedSequence([seed, step, micro]).generate_state(
+        2, np.uint64)[1])
+
+
+def make_train_step(model, cfg: Config, device="cuda",
+                    fused_preprocess: bool = False
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
-    """``step(state, batch) -> (state, metrics)`` on a preprocessed batch
-    (``image`` normalized, ``image_hw``, ``gt_boxes``, ``gt_classes``,
-    ``gt_valid``; tensors or arrays), as the JAX step with
-    ``fused_preprocess=False``:
+    """``step(state, batch) -> (state, metrics)`` on a batch (``image``,
+    ``image_hw``, ``gt_boxes``, ``gt_classes``, ``gt_valid``; tensors or
+    arrays; other entries pass through), as the JAX step. Without
+    ``fused_preprocess`` the image is normalized already; with it the batch
+    is the loader's (uint8 canvases) and each microbatch goes through
+    ``device_preprocess(training=True)`` on the card, its flip and jitter
+    drawn from a generator seeded by ``_augment_seed``. Then:
 
     * ``train.accum_steps`` microbatches of strided rows (rows ``a``,
       ``a + accum``, ...), their gradients summed and divided by the count,
@@ -87,6 +99,11 @@ def make_train_step(model, cfg: Config, device="cuda"
         for a in range(accum):
             micro = ({k: v[a::accum] for k, v in batch.items()}
                      if accum > 1 else batch)
+            if fused_preprocess:
+                augment = torch.Generator(device=device).manual_seed(
+                    _augment_seed(tcfg.seed, state.step, a))
+                micro = device_preprocess(cfg, micro, training=True,
+                                          generator=augment)
             generator = torch.Generator(device=device).manual_seed(
                 _step_seed(tcfg.seed, state.step, a))
             loss, metrics = model.loss(micro, generator)
