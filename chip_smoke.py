@@ -147,7 +147,27 @@ no result):
     of the first five's; then an f32 ``evaluate`` of 8 val images with the
     trained weights on the card against the same on the CPU: proposals
     equal up to near-tie flips, then, the CPU's second stage on the card's
-    proposals, the same detections and mAP within 1e-3.
+    proposals, the same detections and mAP within 1e-3;
+27. the port's benchmark CLI (``tpudet_torch.cli.benchmark``) on voc_r50,
+    bf16, as the JAX package's ``bench.py`` runs its own: infer at b=32 (10
+    iterations), the loader's stream at b=32, the train step at b=8 (10
+    iterations) and NMS at 6,000 boxes (5 iterations, CUDA-graph
+    replays), then the host front end (``--mode host``: PIL, and the
+    native decoder where it builds): each mode's JSON line, its rates
+    finite and positive, its launches (2 NMS and 1 RoI Align per predict;
+    1 NMS, 1 RoI Align and 1 backward per train step; the NMS mode's
+    warm-up and captured calls); infer's synced b=32 time within 15% of
+    phase 6's b=32 640x640 time;
+28. the native JPEG front end: whether the machine has libjpeg to build
+    against (``jpeglib.h`` under /usr/include, ``libjpeg.so`` in
+    ``ldconfig -p``), and where it does: the library built with g++; 64
+    VOC-sized JPEGs by ``bench_host``'s recipe (PIL); the fused
+    decode-resize-pad within 2 levels (mean under 0.3) of the decode,
+    PIL's resize arithmetic and the pad; ``decode_batch`` equal to the
+    per-image calls; a VOC tree of those JPEGs through the loader with
+    ``data.decoder="native"`` at voc_r50, b=8: batches equal to per-image
+    ``prepare_example_jpeg``, the loader's img/s, and a bf16 predict of
+    each batch with its launches.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -927,16 +947,18 @@ def phase_main_path(card):
           f"plain path (detections {dets})", flush=True)
 
     torch.backends.cudnn.benchmark = True
+    ms_by = {}
     for name, (h, w) in (("640x640", (640, 640)), ("640x1024", (640, 1024))):
         for b in (8, 32):
             batch = batches[name] if b == 8 else canvases(b, h, w, seed=6)
-            ms = time_ms(lambda: step(batch), iters=10, warmup=3)
+            ms = ms_by[name, b] = time_ms(lambda: step(batch), iters=10,
+                                          warmup=3)
             print(f"voc_r50 bf16 predict b={b} {name}: {ms:.2f} ms/batch, "
                   f"{1e3 * b / ms:.1f} img/s (uint8 canvases on the card, "
                   f"preprocess included) | {card}", flush=True)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
-    return launches, step
+    return launches, step, ms_by["640x640", 32]
 
 
 def level_mismatches(model, batch):
@@ -2680,6 +2702,327 @@ def phase_voc_learning(card):
     return {"voc_r50 learning": launches}
 
 
+# The bench phase: the runs that the JAX package's ``bench.py`` makes, of
+# the port's benchmark CLI on voc_r50, bf16: infer at b=32, the stream at b=32, the
+# train step at b=8, the NMS microbenchmark; then the host front end.
+BENCH_ARGV = ["--preset", "voc_r50", "--set", "backbone.dtype=bfloat16"]
+BENCH_RUNS = {
+    "infer": ["--mode", "infer", "--batch-size", "32", "--iters", "10"],
+    "infer_stream": ["--mode", "infer_stream", "--batch-size", "32"],
+    "train": ["--mode", "train", "--batch-size", "8", "--iters", "10"],
+    "nms": ["--mode", "nms", "--iters", "5"],
+    "host": ["--mode", "host"],
+}
+# infer's synced b=32 time against the voc_predict phase's (same card, same
+# shapes, eager predict): the most they may differ.
+BENCH_PREDICT_TOL = 0.15
+
+
+def bench_rates(line):
+    """The line's rates and times: ``value`` and each ``*_per_sec``,
+    ``sec_per_*`` and ``t_*_us`` field."""
+    return {k: v for k, v in line.items()
+            if k == "value" or k.endswith("_per_sec") or k.startswith("sec_per")
+            or (k.startswith("t_") and k.endswith("_us"))}
+
+
+def check_rates(line, label):
+    import math
+
+    for key, value in bench_rates(line).items():
+        check(isinstance(value, (int, float)) and math.isfinite(value)
+              and value > 0, f"{label}: {key} = {value!r}")
+
+
+def voc_predict_ms():
+    """ms per voc_r50 bf16 b=32 640x640 predict, as phase 6 times it."""
+    import torch
+
+    from tpudet_torch.train.step import make_eval_step
+
+    torch.backends.cudnn.benchmark = True
+    cfg, model = preset_model("voc_r50", "bfloat16")
+    step = make_eval_step(model, cfg)
+    batch = canvases(32, 640, 640, seed=6)
+    return time_ms(lambda: step(batch), iters=10, warmup=3)
+
+
+def phase_bench(card, predict_ms=None):
+    """``tpudet_torch.cli.benchmark`` on voc_r50 (bf16) in this process:
+    infer at b=32, the loader's stream at b=32, the train step at b=8, the
+    NMS microbenchmark at 6,000 boxes, the host front end; each mode's
+    JSON line, its rates, and its kernel launches (2 NMS and 1 RoI Align
+    per predict, 1 NMS, 1 RoI Align and 1 backward per train step; the NMS
+    mode counts its warm-up and captured calls, not the graphs' replays;
+    the host mode launches nothing). infer's synced b=32 time is held to
+    ``predict_ms`` (phase 6's, else timed here) within
+    ``BENCH_PREDICT_TOL``."""
+    import gc
+    import threading
+
+    import torch
+
+    from tpudet_torch.cli import benchmark as bench
+
+    if predict_ms is None:
+        predict_ms = voc_predict_ms()
+    # The host's state: the bench's host-bound modes share it.
+    host = (f"{threading.active_count()} threads, "
+            f"{len(gc.get_objects()) / 1e6:.2f} M Python objects")
+    warm, lines, launches = bench.WARMUP, {}, {}
+    iters = {mode: int(argv[argv.index("--iters") + 1])
+             for mode, argv in BENCH_RUNS.items() if "--iters" in argv}
+    predicts = {"infer": 2 * (warm + iters["infer"]),
+                "infer_stream": 1 + bench.STREAM_BATCHES}
+    steps = 1 + warm + iters["train"]
+    want = {"infer": dict(nms=2 * predicts["infer"],
+                          roi_align=predicts["infer"]),
+            "infer_stream": dict(nms=2 * predicts["infer_stream"],
+                                 roi_align=predicts["infer_stream"]),
+            "train": dict(nms=steps, roi_align=steps,
+                          roi_align_backward=steps),
+            "nms": dict(nms=2 * warm + 1 + bench.NMS_REPS),
+            "host": {}}
+    for mode, argv in BENCH_RUNS.items():
+        # The main path: counts set to 0 just before, read just after.
+        zero_launches()
+        line, _ = run_cli(bench.main, BENCH_ARGV + argv, f"bench {mode}")
+        path = f"voc_r50 bench {mode}"
+        counts = read_launches()
+        expect_launches(counts, path, **want[mode])
+        if mode != "host":
+            launches[path] = counts
+            check(line["backend"] == "cuda", f"{path}: ran on "
+                  f"{line['backend']}")
+        check_rates(line, path)
+        check(line["device"] == torch.cuda.get_device_name(0),
+              f"{path}: ran on {line['device']}")
+        lines[mode] = line
+    check(lines["nms"]["route"] == "cuda"
+          and lines["nms"]["clock"] == "cuda_graph",
+          "bench nms: not the CUDA route timed by graph replays")
+    # Beside the nms mode's graph-replay time: the profiler's device time
+    # per eager call of the NMS kernels at its shape and of every kernel
+    # of the dispatch (sort, gather, both NMS kernels, the mask; "" names
+    # them all), off the counted path.
+    from tpudet_torch.kernels import nms_dispatch
+
+    boxes, scores = bench.nms_inputs(lines["nms"]["num_boxes"], "cuda")
+    nms_kernels_ms = {k: v for k, v in kernel_ms_by_name(
+        lambda: nms_dispatch(boxes, scores, 0.7, lines["nms"]["max_out"]),
+        (*NMS_KERNELS, "")).items() if v is not None}
+    nms_device_ms = nms_kernels_ms.pop("")
+    synced_ms = 1e3 * lines["infer"]["sec_per_batch_synced"]
+    ratio = synced_ms / predict_ms
+    check(abs(ratio - 1) <= BENCH_PREDICT_TOL,
+          f"bench infer: synced b=32 {synced_ms:.2f} ms against voc_predict's "
+          f"{predict_ms:.2f} ms ({ratio:.3f}x, outside "
+          f"1 +- {BENCH_PREDICT_TOL})")
+    print(f"bench (voc_r50 bf16): infer b=32 {lines['infer']['value']} img/s "
+          f"({1e3 * lines['infer']['sec_per_batch']:.2f} ms pipelined, "
+          f"{synced_ms:.2f} ms synced, {ratio:.3f}x voc_predict's "
+          f"{predict_ms:.2f} ms); infer_stream b=32 "
+          f"{lines['infer_stream']['value']} img/s; train b=8 "
+          f"{lines['train']['value']} img/s "
+          f"({1e3 * lines['train']['sec_per_step']:.2f} ms/step); nms "
+          f"{lines['nms']['value']} us/img (graph replays: one call "
+          f"{lines['nms']['t_one_call_us']} us, {bench.NMS_REPS} calls "
+          f"{lines['nms']['t_many_calls_us']} us, below noise "
+          f"{lines['nms']['below_noise']}; profiler, per eager call: the "
+          f"dispatch's kernels {1e3 * nms_device_ms:.1f} us, the NMS "
+          "kernels " + ", ".join(f"{k} {1e3 * v:.1f} us"
+                                 for k, v in nms_kernels_ms.items())
+          + f"); host front end {lines['host']['value']} img/s (PIL "
+          f"{lines['host']['pil_images_per_sec']}, native "
+          + ("batched {native_batch_images_per_sec}, per image "
+             "{native_images_per_sec}, exact {native_exact_images_per_sec}"
+             .format(**lines["host"])
+             if "native_batch_images_per_sec" in lines["host"]
+             else "not built")
+          + f", {lines['host']['num_threads']} threads); host at the start: "
+          f"{host} | {card}", flush=True)
+    return launches, lines
+
+
+# The native decode phase's bounds, tests/test_native.py's against PIL.
+NATIVE_MAX_LEVELS = 2
+NATIVE_MEAN_LEVELS = 0.3
+
+
+def libjpeg_files():
+    """``jpeglib.h`` under /usr/include and the linker's ``libjpeg.so``
+    entries of ``ldconfig -p``: what the native decoder's build needs."""
+    import shutil
+
+    # Where g++ looks: /usr/include and its multiarch directories.
+    headers = sorted(str(p) for p in Path("/usr/include").glob("jpeglib.h"))
+    headers += sorted(str(p) for p in Path("/usr/include").glob("*/jpeglib.h")
+                      if (p.parent / "jconfig.h").exists()
+                      or p.parent.name.endswith("-linux-gnu"))
+    ldconfig = shutil.which("ldconfig") or "/sbin/ldconfig"
+    try:
+        cache = subprocess.run([ldconfig, "-p"], capture_output=True,
+                               text=True, timeout=60).stdout
+    except OSError:
+        cache = ""
+    libs = sorted({line.split("=>")[-1].strip() for line in cache.splitlines()
+                   if line.strip().startswith("libjpeg.so")})
+    linker = [lib for lib in libs if lib.endswith("/libjpeg.so")]
+    return headers, libs, linker
+
+
+def write_voc_tree(root, jpegs, hws, seed=0):
+    """A VOC2007 tree under ``root``: the JPEGs, their annotations with 1-3
+    planted boxes of random classes each, and ``trainval`` naming them."""
+    import numpy as np
+
+    from tpudet_torch.data.voc import VOC_CLASSES
+
+    rng = np.random.default_rng(seed)
+    base = Path(root) / "VOC2007"
+    for sub in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        (base / sub).mkdir(parents=True)
+    ids = []
+    for i, (data, (h, w)) in enumerate(zip(jpegs, hws)):
+        image_id = f"{i:06d}"
+        ids.append(image_id)
+        (base / "JPEGImages" / f"{image_id}.jpg").write_bytes(data)
+        objects = ""
+        for _ in range(int(rng.integers(1, 4))):
+            x1, y1 = int(rng.integers(1, w // 2)), int(rng.integers(1, h // 2))
+            x2 = int(rng.integers(x1 + 16, w + 1))
+            y2 = int(rng.integers(y1 + 16, h + 1))
+            name = VOC_CLASSES[int(rng.integers(0, 20))]
+            objects += (f"<object><name>{name}</name><difficult>0</difficult>"
+                        f"<bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin>"
+                        f"<xmax>{x2}</xmax><ymax>{y2}</ymax></bndbox>"
+                        "</object>")
+        (base / "Annotations" / f"{image_id}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height>"
+            f"<depth>3</depth></size>{objects}</annotation>")
+    (base / "ImageSets/Main/trainval.txt").write_text("\n".join(ids))
+    return ids
+
+
+def phase_native_decode(card):
+    """The native JPEG front end on the card's host. First the files its
+    build needs (``libjpeg_files``); without them, that finding and
+    nothing else. With them, any failure fails the run: the library built,
+    64 VOC-sized JPEGs by ``bench_host``'s recipe, ``decode_resize_pad``
+    held to ``decode_jpeg`` + ``resize_uint8`` + the top-left pad (within
+    ``NATIVE_MAX_LEVELS``, mean under ``NATIVE_MEAN_LEVELS``),
+    ``decode_batch`` equal to the per-image calls; then a VOC tree of those JPEGs through the loader with ``data.decoder=
+    "native"`` at voc_r50, b=8: batches equal to per-image
+    ``prepare_example_jpeg``, the loader's img/s, and a bf16 voc_r50
+    predict of each batch (2 NMS and 1 RoI Align launches each)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    headers, libs, linker = libjpeg_files()
+    print(f"native_decode: jpeglib.h {headers or 'not found'}; libjpeg "
+          f"(ldconfig -p) {libs or 'not found'}", flush=True)
+    if not (headers and linker):
+        print("native_decode: this machine has no libjpeg to build against "
+              "(header and linker library); the native front end is not run "
+              "(the bench phase's --mode host times PIL alone)", flush=True)
+        return {}
+
+    from tpudet_torch import native
+    from tpudet_torch.cli import benchmark as bench
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.config import apply_overrides
+    from tpudet_torch.data import DataLoader
+    from tpudet_torch.data import native_decode as nd
+    from tpudet_torch.data.preprocess import (
+        canvas_for_hw,
+        prepare_example_jpeg,
+        resize_uint8,
+    )
+    from tpudet_torch.data.voc import VOCDataset
+    from tpudet_torch.train.step import make_eval_step
+
+    start = time.perf_counter()
+    library = native.build()
+    build_s = time.perf_counter() - start
+    check(native.load_decoder() is not None, f"{library} does not load")
+    jpegs = bench.host_jpegs(64)
+    d = preset_config("voc_r50").data
+    hws, max_diff, diff_sum, pixels = [], 0, 0.0, 0
+    for data in jpegs:
+        h, w = nd.jpeg_dims(data)
+        hws.append((h, w))
+        ch, cw = canvas_for_hw(d, h, w)
+        canvas, (nh, nw), ohw = nd.decode_resize_pad(
+            data, d.min_size, d.max_size, ch, cw, fast_dct_scale=False)
+        check(ohw == (h, w), f"decode_resize_pad: original size {ohw}")
+        want = np.zeros_like(canvas)
+        want[:nh, :nw] = resize_uint8(nd.decode_jpeg(data), nh, nw)
+        diff = np.abs(canvas.astype(np.int32) - want.astype(np.int32))
+        max_diff = max(max_diff, int(diff.max()))
+        diff_sum, pixels = diff_sum + float(diff.sum()), pixels + diff.size
+    mean_diff = diff_sum / pixels
+    check(max_diff <= NATIVE_MAX_LEVELS and mean_diff < NATIVE_MEAN_LEVELS,
+          f"decode_resize_pad against decode + resize_uint8: max {max_diff} "
+          f"levels, mean {mean_diff:.4f}")
+    canvases_, sizes, failures = nd.decode_batch(
+        jpegs, d.min_size, d.max_size, d.canvas_height, d.canvas_width,
+        num_threads=8)
+    check(failures == 0, f"decode_batch: {failures} failures")
+    for i, data in enumerate(jpegs):
+        canvas, nhw, ohw = nd.decode_resize_pad(
+            data, d.min_size, d.max_size, d.canvas_height, d.canvas_width)
+        check(tuple(sizes[i]) == nhw + ohw
+              and np.array_equal(canvases_[i], canvas),
+              f"decode_batch differs from decode_resize_pad at image {i}")
+
+    cfg, model = preset_model("voc_r50", "bfloat16")
+    step = make_eval_step(model, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_voc_tree(tmp, jpegs, hws)
+        cfg = apply_overrides(cfg, {"data.dataset": "voc",
+                                    "data.data_dir": tmp,
+                                    "data.decoder": "native"})
+        dataset = VOCDataset(tmp, "trainval")
+        loader = DataLoader(cfg, dataset, 8, shuffle=False, num_workers=8,
+                            drop_last=False)
+        check(loader.native_decode, "the loader does not decode natively")
+        start = time.perf_counter()
+        batches = list(loader.batches(0))
+        loader_ips = 8 * len(batches) / (time.perf_counter() - start)
+        for batch in batches:
+            for row, index in enumerate(batch["example_index"]):
+                raw = dataset.get_raw(int(index))
+                want = prepare_example_jpeg(
+                    cfg.data, raw["jpeg"], raw["boxes"], raw["classes"],
+                    difficult=raw["difficult"])
+                for k, v in want.items():
+                    check(np.array_equal(batch[k][row], v),
+                          f"native loader: {k} of image {index} differs from "
+                          "prepare_example_jpeg")
+        shapes = sorted({tuple(b["image"].shape[1:3]) for b in batches})
+        # The main path: counts set to 0 just before, read just after.
+        zero_launches()
+        outs = [step({k: torch.from_numpy(b[k]).cuda()
+                      for k in ("image", "image_hw")}) for b in batches]
+        launches = read_launches()
+    expect_launches(launches, "voc_r50 native loader", nms=2 * len(batches),
+                    roi_align=len(batches))
+    for b, out in zip(batches, outs):
+        check_detections(out, {k: torch.from_numpy(b[k]).cuda()
+                               for k in ("image", "image_hw")},
+                         cfg.data.num_classes, "native loader predict")
+    print(f"native_decode: built {library.name} in {build_s:.1f} s; 64 "
+          f"VOC-sized JPEGs: decode_resize_pad within {max_diff} levels of "
+          f"decode + resize_uint8 (mean {mean_diff:.4f}), decode_batch equal "
+          f"to the per-image calls; native loader (voc_r50, b=8, "
+          f"{len(batches)} batches on {shapes}) {loader_ips:.1f} img/s, "
+          f"batches equal to prepare_example_jpeg; predicts launched "
+          f"{json.dumps(launches)} | {card}", flush=True)
+    return {"voc_r50 native loader": launches}
+
+
 def phase_precision_probe():
     """The precision probe's three stages on the tensor cores through its
     entry point's ``run_probe``, each stage's kernel output against the
@@ -2868,6 +3211,8 @@ PHASES = {
     "tiny_cli_learning": lambda card: phase_tiny_cli_learning(card),
     "voc_learning": lambda card: phase_voc_learning(card),
     "precision_probe": lambda card: phase_precision_probe(),
+    "bench": lambda card: phase_bench(card),
+    "native_decode": lambda card: phase_native_decode(card),
 }
 
 
@@ -2935,7 +3280,7 @@ def main(argv=None) -> None:
     nms, nms_err = phase_nms()
     roi = phase_roi_align()
     roi_window = phase_roi_align_window()
-    voc_launches, voc_step = phase_main_path(card)
+    voc_launches, voc_step, voc_predict_b32_ms = phase_main_path(card)
     fpn_launches, mismatched, fpn_step = phase_fpn_path(card)
     deform = phase_deform_attn()
     detr_launches, detr_step = phase_detr_path(card)
@@ -2968,6 +3313,8 @@ def main(argv=None) -> None:
     cli_launches, _ = phase_voc_cli(card)
     cli_launches.update(phase_tiny_cli_learning(card))
     cli_launches.update(phase_voc_learning(card))
+    bench_launches, _ = phase_bench(card, voc_predict_b32_ms)
+    bench_launches.update(phase_native_decode(card))
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -2988,12 +3335,13 @@ def main(argv=None) -> None:
 
     def cli_paths(kernel):
         """The CLI paths' counts of ``kernel`` (phases voc_cli,
-        tiny_cli_learning, voc_learning), each zeroed just before its
-        path."""
+        tiny_cli_learning, voc_learning, bench and native_decode), each
+        zeroed just before its path."""
         names = {"cli_train": "voc_r50 cli_train",
                  "cli_eval": "voc_r50 cli_eval"}
         return {names.get(path, path): counts[kernel]
-                for path, counts in cli_launches.items() if counts[kernel]}
+                for path, counts in {**cli_launches, **bench_launches}.items()
+                if counts[kernel]}
 
     # NMS: launches over the main paths; times of voc_r50's two predict
     # calls on clustered scenes (the others are printed in phase 3), and of

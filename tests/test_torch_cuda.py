@@ -1011,3 +1011,36 @@ def test_device_preprocess_training_on_card_equals_cpu(cuda):
     torch.testing.assert_close(out["image"].cpu(), ref["image"], atol=1e-4,
                                rtol=0)
     assert torch.equal(out["gt_boxes"].cpu(), ref["gt_boxes"])
+
+
+def test_benchmark_infer_on_card(cuda):
+    """``cli.benchmark --mode infer`` on the card: its line names the card,
+    its rates are finite and positive, and each predict launched 2 NMS and
+    1 RoI Align (2 pipelined + 2 synced warm-ups and 2 + 2 timed calls)."""
+    import math
+
+    from tpudet_torch.cli import benchmark as bench
+
+    before = (knms.LAUNCHES, kra.LAUNCHES)
+    line = bench.main(["--preset", "tiny", "--mode", "infer", "--batch-size",
+                       "2", "--iters", "2"])
+    predicts = 2 * (bench.WARMUP + 2)
+    assert (knms.LAUNCHES - before[0], kra.LAUNCHES - before[1]) == (
+        2 * predicts, predicts)
+    assert line["backend"] == "cuda"
+    assert line["device"] == torch.cuda.get_device_name(0)
+    for key in ("value", "sec_per_batch", "sec_per_batch_synced"):
+        assert math.isfinite(line[key]) and line[key] > 0, key
+
+
+def test_benchmark_nms_on_card(cuda):
+    """``cli.benchmark --mode nms`` times CUDA-graph replays: the wrapper
+    counts the warm-up calls before each graph and the captured calls."""
+    from tpudet_torch.cli import benchmark as bench
+
+    before = knms.LAUNCHES
+    line = bench.main(["--preset", "tiny", "--mode", "nms", "--iters", "2"])
+    assert knms.LAUNCHES - before == 2 * bench.WARMUP + 1 + bench.NMS_REPS
+    assert line["route"] == "cuda" and line["clock"] == "cuda_graph"
+    assert line["num_boxes"] == 6000
+    assert line["t_many_calls_us"] > line["t_one_call_us"] > 0

@@ -302,7 +302,8 @@ def test_loader_guards():
         DataLoader(cfg, dataset, 8)
     with pytest.raises(NotImplementedError, match="3g"):
         DataLoader(cfg, dataset, 2, process_index=1, process_count=2)
-    with pytest.raises(NotImplementedError, match="native"):
+    # The native decoder reads JPEG bytes: a dataset without get_raw has none.
+    with pytest.raises(ValueError, match="get_raw"):
         DataLoader(tconfig.apply_overrides(cfg, {"data.decoder": "native"}),
                    dataset, 2)
     voc = preset_config("voc_r50")

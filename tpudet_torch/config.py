@@ -52,9 +52,12 @@ class DataConfig:
     # Train-time random horizontal flip (on the device, in the train step).
     random_flip: bool = True
     shuffle_buffer: int = 1000  # kept for parity, not read (as in JAX)
-    # Host front-end: "auto" and "pil" resize decoded pixels on the host;
-    # "native" (the JAX package's fused C++ JPEG decoder) is not ported.
+    # Host front-end: "native" fuses JPEG decode, resize and pad in C++
+    # (tpudet_torch/native), "pil" decodes with PIL and resizes in torch,
+    # "auto" is native where the dataset has JPEGs and the library builds.
     decoder: str = "auto"
+    # The native decoder's libjpeg IDCT scaling to the smallest size >= the
+    # resize target (faster, within a few levels of the exact decode).
     fast_jpeg_scale: bool = True
     # Train-time photometric jitter (brightness, contrast, saturation, hue),
     # all-zero disables: factors ~ U(1 - x, 1 + x), hue ~ U(-h, h) turns as

@@ -133,12 +133,9 @@ class CocoDataset:
     def get_example(self, index: int) -> Dict[str, np.ndarray]:
         from tpudet_torch.data.voc import _pil_image
 
-        Image = _pil_image()
-
         im, anns = self.examples[index]
-        img = Image.open(
-            os.path.join(self.image_dir, im["file_name"])
-        ).convert("RGB")
+        path = os.path.join(self.image_dir, im["file_name"])
+        img = _pil_image(path).open(path).convert("RGB")
         boxes, classes, crowd, areas, masks, keypoints = \
             self._annotations(anns)
         return {
@@ -154,3 +151,15 @@ class CocoDataset:
             "keypoints": keypoints,
             "id": im["id"],
         }
+
+    def get_raw(self, index: int) -> Dict[str, np.ndarray]:
+        """``get_example`` with the JPEG's bytes in place of the pixels
+        (COCO's images are JPEGs), for the native front end."""
+        im, anns = self.examples[index]
+        with open(os.path.join(self.image_dir, im["file_name"]), "rb") as f:
+            jpeg = f.read()
+        boxes, classes, crowd, areas, masks, keypoints = \
+            self._annotations(anns)
+        return {"jpeg": jpeg, "boxes": boxes, "classes": classes,
+                "difficult": crowd, "crowd": crowd, "area": areas,
+                "masks": masks, "keypoints": keypoints, "id": im["id"]}

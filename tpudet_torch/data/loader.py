@@ -6,7 +6,8 @@ process).
 ``difficult``, ``crowd``, ``area``, ``id``).
 
 ``DataLoader`` shuffles per epoch, plans bucket-homogeneous batches, runs
-``prepare_example`` on a thread pool and stacks fixed-shape uint8 batches;
+``prepare_example`` on a thread pool (``prepare_example_jpeg`` where the
+native front end decodes) and stacks fixed-shape uint8 batches;
 its batch plans, shuffles and scale-jitter factors are the JAX loader's for
 ``process_index=0, process_count=1``. ``device_stream(device)`` prefetches
 them onto the card through a bounded queue: pinned host copies, copied with
@@ -25,7 +26,13 @@ import numpy as np
 import torch
 
 from tpudet_torch.config import Config
-from tpudet_torch.data.preprocess import bucket_for_hw, prepare_example
+from tpudet_torch.data.native_decode import NativeDecodeError
+from tpudet_torch.data.preprocess import (
+    bucket_for_hw,
+    prepare_example,
+    prepare_example_jpeg,
+)
+from tpudet_torch.native import native_available
 
 
 class Dataset(Protocol):
@@ -41,16 +48,28 @@ class _ProducerError:
         self.exc = exc
 
 
-def _check_decoder(cfg: Config) -> None:
+def _resolve_decoder(cfg: Config, dataset) -> bool:
+    """True -> the native C++ front end through ``dataset.get_raw``:
+    ``data.decoder`` "native" (which raises where the dataset has no
+    ``get_raw`` or the library does not build), or "auto" where both are
+    there; "pil" and the rest of "auto" decode with ``get_example``."""
     mode = cfg.data.decoder
     if mode not in ("auto", "native", "pil"):
         raise ValueError(
             f"unknown data.decoder {mode!r} (use 'auto', 'native' or 'pil')")
+    if mode == "pil":
+        return False
+    has_raw = hasattr(dataset, "get_raw")
     if mode == "native":
-        raise NotImplementedError(
-            "data.decoder='native': the JAX package's fused C++ JPEG decoder "
-            "is not ported yet (ROADMAP.md, Queue 1 step 3); 'auto' and "
-            "'pil' decode with PIL and resize on the host")
+        if not has_raw:
+            raise ValueError(f"decoder='native' but {type(dataset).__name__} "
+                             "has no get_raw() (no JPEG source)")
+        if not native_available():
+            raise RuntimeError(
+                "decoder='native' but the native decoder failed to build "
+                "(g++ and libjpeg's headers are needed)")
+        return True
+    return has_raw and native_available()
 
 
 class DataLoader:
@@ -91,7 +110,8 @@ class DataLoader:
                 f"canvas bucketing with drop_last plans zero batches: no "
                 f"bucket holds a full batch of {batch_size}; reduce "
                 "batch_size, pass drop_last=False, or coarsen the buckets")
-        _check_decoder(cfg)
+        self.native_decode = _resolve_decoder(cfg, dataset)
+        self._announced_fallback = False
 
     @property
     def _bucketed(self) -> bool:
@@ -153,12 +173,28 @@ class DataLoader:
     def _make_batch(self, pool, indices, epoch: int = 0
                     ) -> Dict[str, np.ndarray]:
         def one(i):
+            factor = self._jitter_factor(epoch, int(i))
+            if self.native_decode:
+                ex = self.dataset.get_raw(int(i))
+                try:
+                    return prepare_example_jpeg(
+                        self.cfg.data, ex["jpeg"], ex["boxes"], ex["classes"],
+                        difficult=ex.get("difficult"), crowd=ex.get("crowd"),
+                        area=ex.get("area"), scale_factor=factor)
+                except NativeDecodeError:
+                    # libjpeg does not take everything PIL does (CMYK/YCCK):
+                    # this image goes through get_example. Other
+                    # ValueErrors are bad arguments and propagate.
+                    if not self._announced_fallback:
+                        self._announced_fallback = True
+                        print("loader: the native decoder rejected image "
+                              f"{ex.get('id', i)!r}; such images decode "
+                              "with PIL")
             ex = self.dataset.get_example(int(i))
             return prepare_example(
                 self.cfg.data, ex["image"], ex["boxes"], ex["classes"],
                 difficult=ex.get("difficult"), crowd=ex.get("crowd"),
-                area=ex.get("area"),
-                scale_factor=self._jitter_factor(epoch, int(i)))
+                area=ex.get("area"), scale_factor=factor)
 
         examples = list(pool.map(one, indices))
         shapes = {tuple(ex["image"].shape) for ex in examples}

@@ -8,6 +8,8 @@ the card is 4x smaller than f32. The JAX package resizes with PIL's
 bilinear filter; ``resize_uint8`` computes PIL's resampling in torch (its
 weights, fixed-point arithmetic and two passes), so the canvases are the
 JAX package's bit for bit and the data path needs no PIL.
+``prepare_example_jpeg`` does the decode, resize and pad in the native C++
+front end (``tpudet_torch/native``) instead.
 
 Device half (on the batch's device, inside the train or eval step): uint8
 -> f32, the per-channel normalization and, in training, the colour jitter
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from tpudet_torch.config import Config, DataConfig
+from tpudet_torch.data import native_decode
 from tpudet_torch.ops.boxes import flip_boxes_horizontal
 
 _warned_gt_truncation = False
@@ -222,6 +225,33 @@ def prepare_example(cfg: DataConfig, image: np.ndarray, boxes: np.ndarray,
         image = resize_uint8(image, nh, nw)
     canvas = np.zeros((ch, cw, 3), np.uint8)
     canvas[:nh, :nw] = image
+    return _finalize_example(cfg, canvas, nh, nw, h, w, boxes, classes,
+                             difficult, crowd, area)
+
+
+def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
+                         classes: np.ndarray,
+                         difficult: Optional[np.ndarray] = None,
+                         crowd: Optional[np.ndarray] = None,
+                         area: Optional[np.ndarray] = None,
+                         scale_factor: float = 1.0) -> Dict[str, np.ndarray]:
+    """``prepare_example`` through the native front end: the C++ library
+    fuses the JPEG decode (DCT-scaled when ``fast_jpeg_scale``), the resize
+    and the canvas pad in one pass. The same output contract, the scale
+    jitter included (the same integer sizes from ``jittered_minmax``)."""
+    h = w = None
+    if cfg.orientation_buckets or cfg.aspect_buckets:
+        h, w = native_decode.jpeg_dims(jpeg)
+        ch, cw = canvas_for_hw(cfg, h, w)
+    else:
+        ch, cw = cfg.canvas_height, cfg.canvas_width
+    min_size, max_size = cfg.min_size, cfg.max_size
+    if scale_factor != 1.0:
+        if h is None:
+            h, w = native_decode.jpeg_dims(jpeg)  # a header parse
+        min_size, max_size = jittered_minmax(cfg, h, w, ch, cw, scale_factor)
+    canvas, (nh, nw), (h, w) = native_decode.decode_resize_pad(
+        jpeg, min_size, max_size, ch, cw, fast_dct_scale=cfg.fast_jpeg_scale)
     return _finalize_example(cfg, canvas, nh, nw, h, w, boxes, classes,
                              difficult, crowd, area)
 

@@ -62,14 +62,15 @@ def parse_voc_xml(path: str, keep_difficult: bool = False):
     )
 
 
-def _pil_image():
-    """PIL's ``Image``, imported on first decode (the CPU-only parts of the
-    data path need no PIL)."""
+def _pil_image(path: str):
+    """PIL's ``Image``, imported on the first decode of ``path`` (the
+    synthetic dataset and the native decoder need no PIL)."""
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError("decoding dataset JPEGs needs Pillow (PIL); the "
-                          "synthetic dataset needs none") from e
+        raise ImportError(f"decoding {path} with PIL needs Pillow; the "
+                          "synthetic dataset needs none, and data.decoder="
+                          "'native' decodes baseline JPEGs without it") from e
     return Image
 
 
@@ -120,13 +121,13 @@ class VOCDataset:
             self.keep_difficult,
         )
 
-    def get_example(self, index: int) -> Dict[str, np.ndarray]:
-        Image = _pil_image()
+    def _jpeg_path(self, image_id: str) -> str:
+        return os.path.join(self.root, "JPEGImages", f"{image_id}.jpg")
 
+    def get_example(self, index: int) -> Dict[str, np.ndarray]:
         image_id = self.ids[index]
-        img = Image.open(
-            os.path.join(self.root, "JPEGImages", f"{image_id}.jpg")
-        ).convert("RGB")
+        path = self._jpeg_path(image_id)
+        img = _pil_image(path).open(path).convert("RGB")
         boxes, classes, difficult = self._annotations(image_id)
         return {
             "image": np.asarray(img, np.uint8),
@@ -135,6 +136,21 @@ class VOCDataset:
             # VOC eval protocol: difficult GT count neither as npos nor as
             # FPs when matched — the evaluator needs the flags, so eval-mode
             # datasets (keep_difficult=True) carry them through the pipeline.
+            "difficult": difficult,
+            "id": image_id,
+        }
+
+    def get_raw(self, index: int) -> Dict[str, np.ndarray]:
+        """``get_example`` with the JPEG's bytes in place of the pixels, for
+        the native front end (the loader fuses decode, resize and pad)."""
+        image_id = self.ids[index]
+        with open(self._jpeg_path(image_id), "rb") as f:
+            jpeg = f.read()
+        boxes, classes, difficult = self._annotations(image_id)
+        return {
+            "jpeg": jpeg,
+            "boxes": boxes,
+            "classes": classes,
             "difficult": difficult,
             "id": image_id,
         }

@@ -22,8 +22,9 @@ NEG_INF = -1e10
 
 def _f32(x: float, device) -> torch.Tensor:
     """A float32 scalar tensor: thresholds compare in f32, as in JAX (0.7
-    rounded to f32 is not 0.7 in double)."""
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    rounded to f32 is not 0.7 in double). A fill on the device, not a copy
+    from the host, so a CUDA graph can capture it."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def masked_scores(scores, valid_mask=None, score_threshold=None):

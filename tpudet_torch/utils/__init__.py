@@ -1,1 +1,1 @@
-"""Utilities: metrics logging."""
+"""Utilities: metrics logging, timing and tracing."""
