@@ -167,7 +167,40 @@ no result):
     per-image calls; a VOC tree of those JPEGs through the loader with
     ``data.decoder="native"`` at voc_r50, b=8: batches equal to per-image
     ``prepare_example_jpeg``, the loader's img/s, and a bf16 predict of
-    each batch with its launches.
+    each batch with its launches;
+29. the FPN RoI Align kernels at Mask R-CNN's pooling size S = 14 (their
+    runtime-S instantiations) beside S = 7 on the same RoIs: the forward
+    over [8, 100] detection boxes on the b=8 832x832 pyramid (slivers,
+    boxes across the border, zero rows), the backward over [8, 32]
+    positives against autograd through the plain version, f32 and bf16:
+    errors, times (the backward's kernel apart from its dense passes),
+    bounds, and S = 14's time per pooled value over S = 7's;
+30. coco_maskrcnn_r50_fpn inference at full width (ResNet-50 + FPN, the
+    box head of coco_r101_fpn, the mask FCN of 4 convs of 256 at 14x14,
+    a deconv to 28x28 per class, 80 classes, bf16) through
+    ``make_eval_step``: b = 8 on the 832x832 and 832x1344 buckets with
+    launch counts (2 NMS, 2 FPN RoI Align: the box head's and the mask
+    branch's), the masks' shape and range, an f32 b=2 256x256 input on
+    the card against the CPU (detections as phase 7, masks within 1e-4 on
+    matched detections), ms per batch at b = 8 and 16, and a profile of
+    one b=8 832x832 predict;
+31. coco_maskrcnn_r50_fpn training at full width as phase 19 (b=8
+    832x832, 1-20 planted ellipses per image with their 112-px box-frame
+    crops, 20 steps; launches per step: 1 NMS, 2 FPN forward, 2
+    backward), a profile of one step, and the f32 b=2 256x256 step on the
+    card against the CPU as phase 20, every loss term included;
+32. the tiny Mask R-CNN learning check (``tests/test_maskrcnn.py``'s
+    ``test_mask_loss_decreases``: maskrcnn_tiny, SGD 0.02, 30 steps on
+    one batch): the last loss under 0.8x the first, the mask loss under
+    0.85x its first;
+33. coco_r50 (ResNet-50 c4, 80 classes) at full width, bf16, b=8 832x832,
+    20 steps in a one-rank NCCL group formed in this process, each step
+    also taken from the same state with no group: every all-reduce exact,
+    the losses equal bit for bit, the updates within the rounding of the
+    backward's atomics; ms per step of both; launches;
+34. maskrcnn_tiny through the CLIs: ``cli.train --dataset synthetic``
+    (b=8, 100 steps) and ``cli.eval --save-json``: segm/mAP printed, the
+    JSON's segmentations compressed RLE.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -1408,13 +1441,15 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20), slivers=0,
     their class, padded to ``data.max_gt_boxes``; normalized by
     ``device_preprocess``. The first ``slivers`` boxes of each image are
     long and thin (0.7-0.9 of the region by 0.03-0.06 of it, wide and tall
-    by turns)."""
+    by turns). With ``data.load_masks`` each object is the ellipse
+    inscribed in its box and ``gt_masks`` holds its box-frame crops."""
     import numpy as np
     import torch
 
     from tpudet_torch.data.preprocess import device_preprocess
 
     batch = canvases(b, h, w, seed, device)
+    masks = cfg.data.load_masks
     rng = np.random.default_rng(seed + 1000)
     g, num_classes = cfg.data.max_gt_boxes, cfg.data.num_classes
     colours = rng.integers(0, 256, (num_classes + 1, 3))
@@ -1436,12 +1471,22 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20), slivers=0,
         classes[i, :k] = rng.integers(1, num_classes + 1, k)
         valid[i, :k] = True
         for (a, c, e, f), cls in zip(gt[i, :k].astype(int), classes[i, :k]):
-            image[i, c:f, a:e] = colours[cls]
+            if masks:  # the ellipse inscribed in the box
+                yy, xx = np.mgrid[c:f, a:e]
+                inside = (((yy + 0.5 - (c + f) / 2) / max(f - c, 1)) ** 2
+                          + ((xx + 0.5 - (a + e) / 2) / max(e - a, 1)) ** 2
+                          <= 0.25)
+                image[i, c:f, a:e][inside] = colours[cls]
+            else:
+                image[i, c:f, a:e] = colours[cls]
     batch = {"image": torch.from_numpy(image).to(device),
              "image_hw": batch["image_hw"],
              "gt_boxes": torch.from_numpy(gt).to(device),
              "gt_classes": torch.from_numpy(classes).to(device),
              "gt_valid": torch.from_numpy(valid).to(device)}
+    if masks:
+        batch["gt_masks"] = mask_batch_masks(batch["gt_valid"],
+                                             cfg.data.gt_mask_size)
     return device_preprocess(cfg, batch)
 
 
@@ -1946,14 +1991,18 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
                 "deform_attn": kda.LAUNCHES,
                 "deform_attn_backward": kda.BACKWARD_LAUNCHES}
     pooler = "roi_align_window" if fpn else "roi_align"
+    # Mask R-CNN pools twice: the box head's RoIs and the mask branch's.
+    pools = 2 if cfg.model == "mask_rcnn" else 1
     expected = dict.fromkeys(launches, 0)
-    expected.update({"nms": steps, pooler: steps, f"{pooler}_backward": steps})
+    expected.update({"nms": steps, pooler: pools * steps,
+                     f"{pooler}_backward": pools * steps})
     check(launches == expected,
-          f"{preset} train path launches {launches}: expected 1 NMS, 1 "
-          f"{pooler} forward and 1 backward per step")
+          f"{preset} train path launches {launches}: expected 1 NMS, "
+          f"{pools} {pooler} forward and {pools} backward per step")
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{label} train (preset SGD, planted 1-20 boxes/image): {ms:.2f} "
+    print(f"{label} train (preset SGD, planted 1-20 "
+          f"{'ellipses' if cfg.data.load_masks else 'boxes'}/image): {ms:.2f} "
           f"ms/step over steps 5..{steps - 1} (first {times[0]:.2f} ms), "
           f"{8e3 / ms:.1f} img/s, launches per step "
           f"{launches['nms'] // steps} NMS + {launches[pooler] // steps} "
@@ -2043,7 +2092,7 @@ def reference_runs(preset, size):
 
         loss_fn = model.loss
         on_dev = {k: tuple(d.to(device) for d in v) for k, v in draws.items()}
-        model.loss = lambda b, generator=None: loss_fn(b, draws=on_dev)
+        model.loss = lambda b, draws=None: loss_fn(b, draws=on_dev)
         for name in ("_rpn_targets_single", "_roi_targets_single",
                      "proposals"):
             setattr(model, name, recording(name, getattr(model, name)))
@@ -2063,6 +2112,7 @@ def reference_runs(preset, size):
             setattr(tfr, nms_name, original_nms)
         runs[device] = {
             "loss": float(metrics["loss"]), "seen": seen, "before": before,
+            "metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {k: p.grad.detach().cpu() for k, p in state.params.items()
                       if p.grad is not None},
             "params": {k: p.detach().cpu() for k, p in state.params.items()}}
@@ -2091,8 +2141,9 @@ def phase_faster_rcnn_train_reference(preset, size):
     _, runs = reference_runs(preset, size)
     card, cpu = runs["cuda"], runs["cpu"]
     launched = (kra.BACKWARD_LAUNCHES, krw.BACKWARD_LAUNCHES)
-    check(launched == ((0, 1) if fpn else (1, 0)), f"{label}: backward "
-          f"launches (RoI Align, FPN RoI Align) {launched}")
+    pools = 2 if cfg.model == "mask_rcnn" else 1  # the mask branch's too
+    check(launched == ((0, pools) if fpn else (pools, 0)), f"{label}: "
+          f"backward launches (RoI Align, FPN RoI Align) {launched}")
     bumped = ""
     if fpn:
         boxes, valid = (card["seen"]["_roi_targets_single"][i] for i in (0, 4))
@@ -2142,6 +2193,10 @@ def phase_faster_rcnn_train_reference(preset, size):
     rel_loss = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     check(rel_loss <= 1e-4, f"{label}: loss {card['loss']} on "
                             f"the card, {cpu['loss']} on the CPU")
+    for k, v in cpu["metrics"].items():  # every term, mask_loss included
+        check(abs(card["metrics"][k] - v) <= 1e-4 * abs(v) + 1e-7,
+              f"{label}: {k} {card['metrics'][k]} on the card, {v} on the "
+              "CPU")
     # Gradients within 1e-2 of their norms (f32 both sides, convolutions and
     # GEMMs summed in other orders), floored at 1e-6 of the global norm;
     # parameters after the update outside those noise gradients within
@@ -2495,8 +2550,8 @@ def phase_voc_cli(card):
         state = CheckpointManager(ckpt).restore_eval(state)
         image = SyntheticDataset(8, image_size=320).get_example(5)["image"]
         image = image[:240]
-        boxes, scores, classes = cdetect.detect_image(cfg, state.eval_model(),
-                                                      image)
+        boxes, scores, classes, _ = cdetect.detect_image(
+            cfg, state.eval_model(), image)
         check(len(boxes) > 0 and np_finite(boxes) and np_finite(scores)
               and (boxes >= 0).all() and (boxes[:, [0, 2]] <= 320).all()
               and (boxes[:, [1, 3]] <= 240).all()
@@ -3023,6 +3078,598 @@ def phase_native_decode(card):
     return {"voc_r50 native loader": launches}
 
 
+# ----------------------------------------------------------- Mask R-CNN
+# The mask branch's pooling size in coco_maskrcnn_r50_fpn (the box head
+# pools 7).
+MASK_POOL = 14
+# The mask predictor drawn wider than Flax's normal(0.001), where every
+# mask probability would sit at 0.5: its input (the deconv's ReLU output)
+# has an rms of a few tenths at this init, so 0.1 gives logits of ~1.
+MASK_PREDICT_STD = 0.1
+# The tiny Mask R-CNN learning check (tests/test_maskrcnn.py's
+# test_mask_loss_decreases): SGD 0.02, no warmup, 30 steps on one batch;
+# the last loss under 0.8x the first and the last mask loss under 0.85x
+# its first (the JAX package's own bars).
+MASK_LEARNING = {"steps": 30, "lr": 0.02, "loss": 0.8, "mask_loss": 0.85}
+
+
+def detection_rois(gen, b, n, size=832.0):
+    """``[b, n, 4]`` boxes as a detector's final boxes fall on a ``size``
+    canvas: 8-800 px, every 20th a 4-px sliver of 200-800 px (wide and tall
+    by turns), a few across the top-left border, and every 9th row an
+    invalid slot of zeros."""
+    import torch
+
+    rois = random_boxes(gen, (b, n), size, size, lo=8.0, hi=800.0)
+    length = 200.0 + torch.rand(b, -(-n // 20), generator=gen) * 600.0
+    sliver = rois[:, ::20].clone()
+    sliver[..., 2] = sliver[..., 0] + 4.0
+    sliver[..., 3] = (sliver[..., 1] + length.cuda()).clamp(max=size)
+    sliver[1::2] = sliver[1::2][..., [1, 0, 3, 2]]
+    rois[:, ::20] = sliver
+    rois[:, 3::29] -= torch.tensor([60.0, 60.0, 0.0, 0.0], device="cuda")
+    rois[:, 4::9] = 0.0
+    return rois.contiguous()
+
+
+def window_forward_case(maps32, rois, s, dtype):
+    """The FPN RoI Align forward at pooling size ``s`` against its plain
+    version on the same inputs: its error and times, and its bound."""
+    import torch
+
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.models.faster_rcnn import POOL_STRIDES
+    from tpudet_torch.ops.roi_align import fpn_assign_levels
+
+    sr, c = 2, maps32[0].shape[-1]
+    levels = (fpn_assign_levels(rois, fit_window=56) - 2).contiguous()
+    feats = [f.to(dtype) for f in maps32]
+    args = (feats, POOL_STRIDES, rois, levels, s, sr)
+    out = krw.roi_align_window_cuda(*args)
+    ref = krw.roi_align_window_plain(*args)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        ok, tol = bool((err <= 1e-5).all()), "atol 1e-5"
+    else:
+        ok = bool((err <= 2 ** -7 * ref.float().abs() + 1e-6).all())
+        tol = "one bf16 ulp (rtol 2^-7)"
+    del ref
+    ms = time_ms(lambda: krw.roi_align_window_cuda(*args))
+    plain_ms = time_ms(lambda: krw.roi_align_window_plain(*args), iters=3,
+                       warmup=1)
+    size = feats[0].element_size()
+    cells = touched_cells(rois, levels, feats, s, sr)
+    bytes_ms = ((cells * c * size + rois.numel() * 4 + levels.numel() * 4
+                 + out.numel() * size) / HBM_BYTES_PER_S * 1e3)
+    ops_ms = out.numel() * sr * sr * ROI_OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+    return {"ok": ok, "tol": tol, "err": err.max().item(), "ms": ms,
+            "plain_ms": plain_ms, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "out_mb": out.numel() * size / 1e6, "values": out.numel()}
+
+
+def window_backward_case(maps32, rois, s, dtype, gen):
+    """The FPN RoI Align backward at pooling size ``s`` against autograd
+    through the plain version on f32-widened maps: error, times, bound."""
+    import torch
+
+    from tpudet_torch.kernels import roi_align_window as krw
+    from tpudet_torch.models.faster_rcnn import POOL_STRIDES
+    from tpudet_torch.ops.roi_align import fpn_assign_levels
+
+    sr = 2
+    b, n = rois.shape[:2]
+    c = maps32[0].shape[-1]
+    shapes = [tuple(m.shape) for m in maps32]
+    levels = (fpn_assign_levels(rois, fit_window=56) - 2).contiguous()
+    cot = torch.randn(b, n, s, s, c, generator=gen,
+                      device="cuda").to(dtype).contiguous()
+    maps = [m.to(dtype) for m in maps32]
+
+    def wrapper():
+        return krw.roi_align_window_backward_cuda(
+            cot, rois, levels, shapes, POOL_STRIDES, dtype, sr)
+
+    def plain(cotangent=None):
+        wide = [m.float().requires_grad_() for m in maps]
+        return torch.autograd.grad(
+            krw.roi_align_window_plain(wide, POOL_STRIDES, rois, levels, s,
+                                       sr), wide,
+            cot.float() if cotangent is None else cotangent,
+            allow_unused=True)
+
+    got, ref = wrapper(), plain()
+    # The f32 sums of the magnitudes each cell adds: where many terms meet
+    # on a cell (S = 14 over large RoIs at p4 and p5), two f32 summation
+    # orders part by more than 1e-5 alone (as tests/test_torch_cuda.py's
+    # assert_gradient_close allows); a lost or doubled atomic would move a
+    # cell by a whole term.
+    terms = plain(cot.float().abs())
+    torch.cuda.synchronize()
+    err, worst, ok = 0.0, 0.0, True
+    for g, r, t in zip(got, ref, terms):
+        if r is None:
+            ok = ok and not bool(g.any())
+            continue
+        slack = 1e-5 + 2 ** -20 * t
+        if dtype == torch.bfloat16:
+            slack = slack + 2 ** -8 * r.abs()
+        gap = (g.float() - r).abs()
+        err = max(err, float(gap.max()))
+        worst = max(worst, float((gap / slack).max()))
+        ok = ok and bool((gap <= slack).all())
+    tol = (f"1e-5 + 2^-20 of the terms' magnitudes"
+           + (" + one bf16 ulp" if dtype == torch.bfloat16 else "")
+           + f"; worst {worst:.2f} of it")
+    touched = sum(int(r is not None and bool(r.abs().max() > 0)) for r in ref)
+    del got, ref, terms
+    ms = time_ms(wrapper)
+    accumulators = [torch.zeros(sh, device="cuda") for sh in shapes]
+    kernel_ms = time_ms(lambda: krw.scatter_backward(
+        cot, rois, levels, accumulators, POOL_STRIDES, sr))
+    del accumulators
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    size = cot.element_size()
+    total = sum(torch.Size(sh).numel() for sh in shapes)
+    bytes_ms = ((cot.numel() * size + total * size + rois.numel() * 4
+                 + levels.numel() * 4) / HBM_BYTES_PER_S * 1e3)
+    ops_ms = cot.numel() * sr * sr * ROI_BWD_OPS_PER_SAMPLE / F32_OPS_PER_S * 1e3
+    return {"ok": ok, "tol": tol, "err": err, "ms": ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "levels_touched": touched,
+            "values": cot.numel()}
+
+
+def phase_mask_pool():
+    """The FPN RoI Align kernels at the mask branch's pooling size S = 14
+    (the runtime-S instantiations) beside S = 7 on the same inputs: the
+    forward over coco_maskrcnn_r50_fpn's final detections (b=8, 100 per
+    image, the 832x832 pyramid, C = 256) and the backward over its training
+    positives (b=8, 32 per image), f32 and bf16, each against its plain
+    version."""
+    import torch
+
+    gen = torch.Generator().manual_seed(71)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(71)
+    b, c = 8, 256
+    maps32 = [torch.randn(b, side, side, c, generator=cuda_gen,
+                          device="cuda") for side in (208, 104, 52, 26)]
+    dets = detection_rois(gen, b, 100)
+    positives = detection_rois(gen, b, 32)
+    result = {}
+    for kind, rois in (("forward", dets), ("backward", positives)):
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            for s in (MASK_POOL, 7):
+                m = (window_forward_case(maps32, rois, s, dtype)
+                     if kind == "forward" else
+                     window_backward_case(maps32, rois, s, dtype, cuda_gen))
+                check(m["ok"], f"FPN RoI Align {kind} S={s} {name}: kernel "
+                      f"differs from the plain version by {m['err']:.3e}")
+                result[kind, s, name] = m
+                bound = max(m["bytes_ms"], m["ops_ms"])
+                print(f"mask_pool {kind} S={s} {name}: RoIs [{b}, "
+                      f"{rois.shape[1]}] (detection boxes: slivers, across "
+                      f"the border, zero rows) on the 832x832 pyramid, C={c}, "
+                      f"r=2: max err {m['err']:.3e} ({m['tol']}) | "
+                      + ("kernel" if kind == "forward" else "wrapper")
+                      + f" {m['ms']:.4f} ms"
+                      + ("" if kind == "forward" else
+                         f" (kernel {m['kernel_ms']:.4f} ms, the rest the "
+                         "dense passes)")
+                      + f" ({1e6 * m.get('kernel_ms', m['ms']) / m['values']:.4f} "
+                      f"ns per pooled value), plain {m['plain_ms']:.2f} ms, "
+                      f"bound {bound:.4f} ms (bytes {m['bytes_ms']:.4f}"
+                      + (f", output {m['out_mb']:.1f} MB" if kind == "forward"
+                         else "")
+                      + f"; operations {m['ops_ms']:.4f}), "
+                      f"{m['ms'] / bound:.1f}x the bound", flush=True)
+        for name in ("bf16", "f32"):
+            s14, s7 = result[kind, MASK_POOL, name], result[kind, 7, name]
+            per14 = s14.get("kernel_ms", s14["ms"]) / s14["values"]
+            per7 = s7.get("kernel_ms", s7["ms"]) / s7["values"]
+            print(f"mask_pool {kind} {name}: S=14's kernel takes "
+                  f"{per14 / per7:.2f}x S=7's time per pooled value",
+                  flush=True)
+    return result
+
+
+def mask_batch_masks(gt_valid, m):
+    """``m`` x ``m`` box-frame crops of ellipses inscribed in their boxes (a
+    disk in the box's own frame) for the valid rows of ``gt_valid [B,
+    G]``."""
+    import numpy as np
+    import torch
+
+    centre = (np.arange(m) + 0.5) / m - 0.5
+    disk = (centre[:, None] ** 2 + centre[None, :] ** 2 <= 0.25)
+    crops = torch.from_numpy(disk.astype(np.uint8)).to(gt_valid.device)
+    return crops[None, None] * gt_valid[..., None, None].to(torch.uint8)
+
+
+def check_masks(cfg, out):
+    """A Mask R-CNN predict's masks: their shape, probabilities in [0, 1],
+    zero on invalid rows."""
+    import torch
+
+    s = 2 * cfg.mask.roi_output_size
+    b = out["boxes"].shape[0]
+    masks = out["masks"]
+    check(masks.shape == (b, cfg.roi.max_detections, s, s)
+          and masks.dtype == torch.float32, f"masks {tuple(masks.shape)}")
+    check(bool(torch.isfinite(masks).all() and (masks >= 0).all()
+               and (masks <= 1).all()), "mask probabilities outside [0, 1]")
+    check(bool((masks[~out["valid"]] == 0).all()),
+          "masks of invalid detections are not zero")
+
+
+def mask_preset_model(dtype, device="cuda", seed=0):
+    """coco_maskrcnn_r50_fpn at full width (``preset_model``) with the
+    mask predictor drawn at ``MASK_PREDICT_STD``."""
+    import torch
+
+    cfg, model = preset_model("coco_maskrcnn_r50_fpn", dtype, device, seed)
+    gen = torch.Generator().manual_seed(seed + 2)
+    with torch.no_grad():
+        w = model.core.mask_head.predict.weight
+        w.copy_(torch.randn(w.shape, generator=gen) * MASK_PREDICT_STD)
+    return cfg, model
+
+
+def phase_mask_predict(card):
+    """coco_maskrcnn_r50_fpn inference at full width through
+    ``make_eval_step``, bf16: b = 8 on the 832x832 and 832x1344 buckets
+    with launch counts (2 NMS, 2 FPN RoI Align: the box head's and the mask
+    branch's; no single-level RoI Align), a small f32 input against the
+    same model on the CPU (detections as the FPN phase holds them, masks
+    within 1e-4 on the matched detections), ms per batch at b = 8 and 16."""
+    import torch
+
+    from tpudet_torch.train.step import make_eval_step
+
+    cfg, model = mask_preset_model("bfloat16")
+    step = make_eval_step(model, cfg)
+    batches = {"832x832": canvases(8, 832, 832, seed=73),
+               "832x1344": canvases(8, 832, 1344, seed=74)}
+    torch.cuda.synchronize()
+    # The path: counts set to 0 just before, read just after.
+    zero_launches()
+    outs = {name: step(batch) for name, batch in batches.items()}
+    launches = read_launches()
+    expect_launches(launches, "mask_predict", nms=2 * len(batches),
+                    roi_align_window=2 * len(batches))
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        check_masks(cfg, out)
+        probs = out["masks"][out["valid"]]
+        print(f"coco_maskrcnn_r50_fpn bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}, masks "
+              f"{tuple(out['masks'].shape)}, mean probability "
+              f"{float(probs.mean()):.3f}, share above 0.5 "
+              f"{float((probs > 0.5).float().mean()):.3f}", flush=True)
+    print(f"mask_predict launches: {json.dumps(launches)} over "
+          f"{len(batches)} predicts", flush=True)
+
+    # f32 reference on the card and the CPU.
+    cfg32, model32 = mask_preset_model("float32")
+    cpu_cfg, cpu_model = mask_preset_model("float32", device="cpu")
+    cpu_model.load_state_dict(model32.state_dict())
+    small = canvases(2, 256, 256, seed=75)
+    card_out = {k: v.cpu() for k, v in
+                make_eval_step(model32, cfg32)(small).items()}
+    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
+        {k: v.cpu() for k, v in small.items()})
+    check(bool((cpu_out["num_detections"] > 0).all()),
+          "mask reference: no detections")
+    check(same_detections(card_out, cpu_out), "f32 coco_maskrcnn_r50_fpn "
+          "predict on the card differs from the plain versions on the CPU")
+    worst, compared = 0.0, 0
+    for b in range(2):
+        n = int(cpu_out["num_detections"][b])
+        for i in range(n):
+            k = min((k for k in range(n)
+                     if card_out["classes"][b, k] == cpu_out["classes"][b, i]
+                     and abs(card_out["scores"][b, k]
+                             - cpu_out["scores"][b, i]) < 1e-4
+                     and (abs(card_out["boxes"][b, k]
+                              - cpu_out["boxes"][b, i]) < 1e-2).all()),
+                    key=lambda k: abs(k - i))
+            worst = max(worst, float((card_out["masks"][b, k]
+                                      - cpu_out["masks"][b, i]).abs().max()))
+            compared += 1
+    check(worst <= 1e-4, f"f32 masks on the card differ from the CPU's by "
+          f"{worst:.3e} (tolerance 1e-4)")
+    print(f"mask reference: f32 b=2 256x256 predict on the card equals the "
+          f"CPU plain path (detections {cpu_out['num_detections'].tolist()}; "
+          f"masks of {compared} matched detections within {worst:.2e}, "
+          "tolerance 1e-4)", flush=True)
+    del model32, cpu_model
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
+    for name, (h, w) in (("832x832", (832, 832)), ("832x1344", (832, 1344))):
+        for b in (8, 16):
+            batch = batches[name] if b == 8 else canvases(b, h, w, seed=76)
+            ms = time_ms(lambda: step(batch), iters=10, warmup=3)
+            print(f"coco_maskrcnn_r50_fpn bf16 predict b={b} {name}: "
+                  f"{ms:.2f} ms/batch, {1e3 * b / ms:.1f} img/s (uint8 "
+                  f"canvases on the card, preprocess included) | {card}",
+                  flush=True)
+    print(f"peak device memory (mask predict timings): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches, step
+
+
+def phase_mask_train_path(card):
+    """coco_maskrcnn_r50_fpn training at full width: the preset's train
+    config through ``make_train_step``, bf16, b=8 832x832, 1-20 planted
+    ellipses per image with their box-frame crops (112 px), 20 steps."""
+    return phase_faster_rcnn_train_path(card, "coco_maskrcnn_r50_fpn", 832,
+                                        seed=77)
+
+
+def phase_mask_train_reference():
+    # 256x256 (b=2), two planted slivers per image, as the FPN reference.
+    phase_faster_rcnn_train_reference("coco_maskrcnn_r50_fpn", 256)
+
+
+def mask_learning_losses(device="cuda"):
+    """``MASK_LEARNING``'s recipe on ``device``: maskrcnn_tiny, SGD 0.02 with
+    no warmup, 30 steps on one synthetic batch of 2 with ellipse masks
+    (``tests/test_maskrcnn.py``'s ``make_batch``) -> (losses, mask
+    losses)."""
+    import torch
+
+    from tpudet_torch.config import tiny_maskrcnn_config
+    from tpudet_torch.data import DataLoader, SyntheticDataset
+    from tpudet_torch.data.preprocess import device_preprocess
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = tiny_maskrcnn_config()
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, learning_rate=MASK_LEARNING["lr"], warmup_steps=0))
+    ds = SyntheticDataset(num_classes=cfg.data.num_classes, num_examples=2,
+                          image_size=cfg.data.canvas_height, seed=0,
+                          with_masks=True)
+    raw = next(iter(DataLoader(cfg, ds, 2, shuffle=False,
+                               num_workers=1).batches(0)))
+    batch = device_preprocess(cfg, {k: torch.from_numpy(v).to(device)
+                                    for k, v in raw.items()})
+    model = build_model(cfg, device=device)
+    state = create_train_state(model, cfg.train, seed=0, device=device)
+    step = make_train_step(model, cfg, device=device)
+    losses, mask_losses = [], []
+    for _ in range(MASK_LEARNING["steps"]):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        mask_losses.append(float(metrics["mask_loss"]))
+    return losses, mask_losses
+
+
+def phase_mask_learning(card):
+    """tests/test_maskrcnn.py's test_mask_loss_decreases on the card."""
+    import math
+
+    zero_launches()
+    losses, mask_losses = mask_learning_losses()
+    launches = read_launches()
+    steps = MASK_LEARNING["steps"]
+    # maskrcnn_tiny is single-level: the box head and the mask branch pool
+    # through the c4 RoI Align kernels.
+    expect_launches(launches, "mask_learning", nms=steps,
+                    roi_align=2 * steps, roi_align_backward=2 * steps)
+    fall, mask_fall = losses[-1] / losses[0], mask_losses[-1] / mask_losses[0]
+    check(all(math.isfinite(x) for x in losses + mask_losses)
+          and fall < MASK_LEARNING["loss"]
+          and mask_fall < MASK_LEARNING["mask_loss"],
+          f"Mask R-CNN learning check: loss {losses[0]} -> {losses[-1]}, "
+          f"mask_loss {mask_losses[0]} -> {mask_losses[-1]}")
+    print(f"mask_learning: maskrcnn_tiny SGD {MASK_LEARNING['lr']}, {steps} "
+          f"steps on one synthetic batch: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} ({fall:.3f}x, needs < {MASK_LEARNING['loss']}x),"
+          f" mask_loss {mask_losses[0]:.4f} -> {mask_losses[-1]:.4f} "
+          f"({mask_fall:.3f}x, needs < {MASK_LEARNING['mask_loss']}x) | "
+          f"{card}", flush=True)
+    return {"maskrcnn_tiny learning": launches}
+
+
+def phase_coco_r50_dp(card):
+    """coco_r50 at full width (ResNet-50 c4, neck 256, 80 classes), bf16,
+    b=8 832x832 planted boxes, in a one-rank NCCL group formed in this
+    process. Two parts:
+
+    * the check, untimed: 20 steps, each taken twice from the same state
+      (parameters, momentum, step): with no group, then through the group
+      with each all-reduce of the flat gradients compared with its input,
+      whose result the run goes on from. Every such all-reduce returns its
+      input bit for bit (a sum over one rank divided by 1); the two steps'
+      losses are equal bit for bit (the same forward) and their updates
+      agree to the rounding of the backward kernels' atomics, whose order
+      changes from call to call, and of the bf16 convolutions' gradients
+      (held within 5% of each tensor's largest update: a few bf16 ulps,
+      2^-8 each; a wrong or missing reduction would move it by the whole
+      update); launches per step: NMS 1, RoI Align forward 1 and backward
+      1, each way;
+    * the timing: blocks of ``TIMED`` steps with no group and through the
+      plain group (the step a user runs: no copy, no comparison), in the
+      order alone, grouped, grouped, alone, each between two
+      synchronizations: ms per step of each; then one step of each under
+      the profiler (device busy, launches)."""
+    import copy
+    import socket
+
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.parallel import DataParallel, init_data_parallel
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    exact = []
+
+    class CheckedGroup(DataParallel):
+        """The group, recording whether each all-reduce of the flat
+        gradients returned its input bit for bit."""
+
+        def all_reduce_mean_(self, tensor):
+            before = tensor.clone() if tensor.numel() > 1000 else None
+            out = super().all_reduce_mean_(tensor)
+            if before is not None:
+                exact.append(bool(torch.equal(before, out)))
+            return out
+
+    cfg = preset_config("coco_r50")
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                   dtype="bfloat16"))
+    batch = planted_batch(cfg, 8, 832, 832, seed=79)
+    steps, timed = 20, 10
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    group = init_data_parallel("cuda", rank=0, world_size=1,
+                               init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        device = group.device
+        model = build_model(cfg, device=device)
+        state = create_train_state(model, cfg.train, seed=0, device=device)
+        alone = make_train_step(model, cfg, device=device)
+        checked = make_train_step(model, cfg, device=device,
+                                  dp=CheckedGroup(**dataclasses.asdict(group)))
+        launches = {}
+        losses, worst = [], (0.0, "")
+        for i in range(steps):
+            snapshot = ({k: p.detach().clone()
+                         for k, p in state.params.items()},
+                        copy.deepcopy(state.optimizer.state_dict()),
+                        state.step)
+            results = {}
+            for label, step in (("alone", alone), ("grouped", checked)):
+                if label == "grouped":  # back to the snapshot
+                    with torch.no_grad():
+                        for k, p in state.params.items():
+                            p.copy_(snapshot[0][k])
+                    state.optimizer.load_state_dict(snapshot[1])
+                    state.step = snapshot[2]
+                zero_launches()
+                state, metrics = step(state, batch)
+                launches[label] = {k: launches.get(label, {}).get(k, 0) + v
+                                   for k, v in read_launches().items()}
+                results[label] = (metrics["loss"].detach().clone(),
+                                  {k: p.detach().clone()
+                                   for k, p in state.params.items()})
+            (loss_a, p_a), (loss_g, p_g) = results["alone"], results["grouped"]
+            check(bool(torch.isfinite(loss_g)) and torch.equal(loss_a, loss_g),
+                  f"coco_r50_dp step {i}: loss {float(loss_a)} alone, "
+                  f"{float(loss_g)} in the group")
+            losses.append(float(loss_g))
+            for k, before in snapshot[0].items():
+                moved = float((p_a[k] - before).abs().max())
+                if moved == 0.0:
+                    continue
+                gap = float((p_g[k] - p_a[k]).abs().max()) / moved
+                if gap > worst[0]:
+                    worst = (gap, f"{k} at step {i}")
+        check(len(exact) == steps and all(exact),
+              f"coco_r50_dp: the one-rank all-reduce changed the gradients "
+              f"({exact})")
+        check(worst[0] <= 0.05, f"coco_r50_dp: an update differs between "
+              f"the group and no group by {worst[0]:.3e} of its size "
+              f"({worst[1]})")
+        for label in ("alone", "grouped"):
+            expect_launches(launches[label], f"coco_r50 {label}", nms=steps,
+                            roi_align=steps, roi_align_backward=steps)
+
+        grouped = make_train_step(model, cfg, device=device, dp=group)
+        blocks = []
+        for label, step in (("alone", alone), ("grouped", grouped),
+                            ("grouped", grouped), ("alone", alone)):
+            state, _ = step(state, batch)  # the block's warm-up
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(timed):
+                state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            blocks.append((label, (time.perf_counter() - start) * 1e3 / timed))
+            check(bool(torch.isfinite(metrics["loss"])),
+                  f"coco_r50_dp: a timed {label} step's loss is not finite")
+        ms = {k: sum(t for lab, t in blocks if lab == k) / 2
+              for k in ("alone", "grouped")}
+
+        def one_step(step):
+            def run():
+                nonlocal state
+                state, _ = step(state, batch)
+            return run
+
+        for label, step in (("alone", alone), ("grouped", grouped)):
+            phase_profile(card, f"coco_r50 train step, {label}",
+                          one_step(step), warmup=1)
+    finally:
+        group.close()
+    print(f"coco_r50_dp: coco_r50 bf16 b=8 832x832, {steps} steps, each "
+          f"taken from the same state with no group and in a one-rank NCCL "
+          f"group: every all-reduce exact, losses equal bit for bit "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f}), updates within "
+          f"{worst[0]:.2e} of their size ({worst[1]}; the backward's "
+          f"atomics); timed apart, {timed} steps a block (alone, grouped, "
+          f"grouped, alone: "
+          f"{', '.join(f'{t:.2f}' for _, t in blocks)} ms/step): "
+          f"{ms['grouped']:.2f} ms/step grouped, {ms['alone']:.2f} ms/step "
+          f"alone; launches per step 1 NMS + 1 RoI Align forward + 1 "
+          f"backward | {card}", flush=True)
+    return {"coco_r50 train (one-rank NCCL group)": launches["grouped"],
+            "coco_r50 train": launches["alone"]}
+
+
+def phase_mask_cli(card):
+    """maskrcnn_tiny through the CLIs on the card: ``cli.train --preset
+    maskrcnn_tiny --dataset synthetic`` (b=8, 100 steps), then ``cli.eval
+    --save-json``: segm/mAP printed, the JSON's segmentations compressed
+    RLE (``counts`` strings) that decode to the original image's size."""
+    import tempfile
+
+    from tpudet_torch.cli import eval as ceval
+    from tpudet_torch.cli import train as ctrain
+    from tpudet_torch.data.masks import rle_decode
+
+    mask = ["--preset", "maskrcnn_tiny", "--dataset", "synthetic"]
+    steps = 100
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        state, out = run_cli(ctrain.main, mask + [
+            "--batch-size", "8", "--lr", "0.02", "--steps", str(steps),
+            "--checkpoint-dir", f"{tmp}/ckpt"], "cli.train maskrcnn_tiny")
+        train_launches = read_launches()
+        check("mask_loss=" in out, "cli.train printed no mask_loss")
+        zero_launches()
+        summary, out = run_cli(ceval.main, mask + [
+            "--checkpoint-dir", f"{tmp}/ckpt", "--save-json",
+            f"{tmp}/dets.json"], "cli.eval maskrcnn_tiny")
+        eval_launches = read_launches()
+        with open(f"{tmp}/dets.json") as f:
+            records = json.load(f)
+    check(state.step == steps, f"cli.train ended at step {state.step}")
+    expect_launches(train_launches, "maskrcnn_tiny cli.train", nms=steps,
+                    roi_align=2 * steps, roi_align_backward=2 * steps)
+    expect_launches(eval_launches, "maskrcnn_tiny cli.eval", nms=16,
+                    roi_align=16)
+    check("segm/mAP" in summary and "segm/mAP: " in out,
+          "cli.eval printed no segm/mAP")
+    check(bool(records) and all(isinstance(r["segmentation"]["counts"], str)
+                                for r in records),
+          "--save-json wrote no compressed-RLE segmentations")
+    sizes = {tuple(rle_decode(r["segmentation"]).shape) for r in records[:50]}
+    check(sizes == {(256, 256)}, f"decoded segmentations of sizes {sizes}")
+    print(f"mask_cli: cli.train maskrcnn_tiny synthetic b=8, {steps} steps; "
+          f"cli.eval 64 val images mAP@0.5 {summary['mAP']:.4f}, segm/mAP "
+          f"{summary['segm/mAP']:.4f}; {len(records)} detections in the JSON, "
+          f"each with compressed RLE | {card}", flush=True)
+    return {"maskrcnn_tiny cli_train": train_launches,
+            "maskrcnn_tiny cli_eval": eval_launches}
+
+
 def phase_precision_probe():
     """The precision probe's three stages on the tensor cores through its
     entry point's ``run_probe``, each stage's kernel output against the
@@ -3213,7 +3860,24 @@ PHASES = {
     "precision_probe": lambda card: phase_precision_probe(),
     "bench": lambda card: phase_bench(card),
     "native_decode": lambda card: phase_native_decode(card),
+    "mask_pool": lambda card: phase_mask_pool(),
+    "mask_predict": lambda card: phase_profile(
+        card, "coco_maskrcnn_r50_fpn bf16 b=8 832x832 predict",
+        mask_predict_profile_run(phase_mask_predict(card)[1])),
+    "mask_train": lambda card: (
+        phase_profile(card, "coco_maskrcnn_r50_fpn bf16 b=8 832x832 train "
+                      "step", phase_mask_train_path(card)[1], warmup=1),
+        phase_mask_train_reference()),
+    "mask_learning": lambda card: phase_mask_learning(card),
+    "coco_r50_dp": lambda card: phase_coco_r50_dp(card),
+    "mask_cli": lambda card: phase_mask_cli(card),
 }
+
+
+def mask_predict_profile_run(step):
+    """One b=8 832x832 Mask R-CNN predict through ``step``, as a call."""
+    batch = canvases(8, 832, 832, seed=73)
+    return lambda: step(batch)
 
 
 def run_phases(names) -> None:
@@ -3315,6 +3979,20 @@ def main(argv=None) -> None:
     cli_launches.update(phase_voc_learning(card))
     bench_launches, _ = phase_bench(card, voc_predict_b32_ms)
     bench_launches.update(phase_native_decode(card))
+    mask_pool = phase_mask_pool()
+    mask_launches, mask_step = phase_mask_predict(card)
+    mask_train_launches, mask_train_run = phase_mask_train_path(card)
+    phase_mask_train_reference()
+    phase_profile(card, "coco_maskrcnn_r50_fpn bf16 b=8 832x832 predict",
+                  mask_predict_profile_run(mask_step))
+    phase_profile(card, "coco_maskrcnn_r50_fpn bf16 b=8 832x832 train step",
+                  mask_train_run, warmup=1)
+    del mask_step, mask_train_run
+    slice_launches = {
+        "coco_maskrcnn_r50_fpn predict": mask_launches,
+        "coco_maskrcnn_r50_fpn train": mask_train_launches,
+        **phase_mask_learning(card), **phase_coco_r50_dp(card),
+        **phase_mask_cli(card)}
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -3343,6 +4021,26 @@ def main(argv=None) -> None:
                 for path, counts in {**cli_launches, **bench_launches}.items()
                 if counts[kernel]}
 
+    def slice_paths(kernel):
+        """The Mask R-CNN and data-parallel paths' counts of ``kernel``
+        (phases mask_predict, mask_train, mask_learning, coco_r50_dp and
+        mask_cli), each zeroed just before its path."""
+        return {path: counts[kernel] for path, counts in slice_launches.items()
+                if counts[kernel]}
+
+    def at_s14(kind):
+        """The FPN RoI Align ``kind`` at the mask branch's S = 14 (phase
+        mask_pool, bf16), with S = 7 on the same RoIs beside it."""
+        m, m7 = (mask_pool[kind, s, "bf16"] for s in (MASK_POOL, 7))
+        bound = max(m["bytes_ms"], m["ops_ms"])
+        return {"ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": bound,
+                "bound_by": ("bytes" if m["bytes_ms"] >= m["ops_ms"]
+                             else "operations"),
+                "max_abs_err": max(mask_pool[kind, MASK_POOL, d]["err"]
+                                   for d in ("bf16", "f32")),
+                "s7_ms": m7["ms"], "s7_bound_ms": max(m7["bytes_ms"],
+                                                      m7["ops_ms"])}
+
     # NMS: launches over the main paths; times of voc_r50's two predict
     # calls on clustered scenes (the others are printed in phase 3), and of
     # the evaluator's final NMS at its two candidate counts beside them.
@@ -3354,7 +4052,7 @@ def main(argv=None) -> None:
                     "coco_r101_fpn predict": fpn_launches["nms"],
                     "voc_r50 train": voc_train_launches["nms"],
                     "coco_r101_fpn train": fpn_train_launches["nms"],
-                    **cli_paths("nms")},
+                    **cli_paths("nms"), **slice_paths("nms")},
                    nms["voc_r50"], nms_err),
              eval_final={path: {k: t[k] for k in ("ms", "plain_ms",
                                                   "bound_ms")}
@@ -3362,26 +4060,33 @@ def main(argv=None) -> None:
         entry("roi_align", kra,
               {"voc_r50 predict": voc_launches["roi_align"],
                "voc_r50 train": voc_train_launches["roi_align"],
-               **cli_paths("roi_align")},
+               **cli_paths("roi_align"), **slice_paths("roi_align")},
               roi["bf16"], roi["bf16"]["err"]),
         # The backward at the voc_r50 train step's shape, bf16 features.
         entry("roi_align_backward", kra,
               {"voc_r50 train": voc_train_launches["roi_align_backward"],
-               **cli_paths("roi_align_backward")},
+               **cli_paths("roi_align_backward"),
+               **slice_paths("roi_align_backward")},
               roi_bwd["bf16"], max(m["err"] for m in roi_bwd.values())),
-        entry("roi_align_window", krw,
-              {"coco_r101_fpn predict": fpn_launches["roi_align_window"],
-               "coco_r101_fpn train": fpn_train_launches["roi_align_window"]},
-              roi_window["bf16"], roi_window["bf16"]["err"]),
+        # S = 7 at coco_r101_fpn's b=32 predict shape; s14: the mask
+        # branch's forward over b=8 x 100 detections.
+        dict(entry("roi_align_window", krw,
+                   {"coco_r101_fpn predict": fpn_launches["roi_align_window"],
+                    "coco_r101_fpn train":
+                    fpn_train_launches["roi_align_window"],
+                    **slice_paths("roi_align_window")},
+                   roi_window["bf16"], roi_window["bf16"]["err"]),
+             s14=at_s14("forward")),
         # The FPN backward at coco_r101_fpn's train shape, bf16: ms is the
         # wrapper's call (the kernel and the dense passes around it, each
         # also given apart).
         dict(entry("roi_align_window_backward", krw,
                    {"coco_r101_fpn train":
-                    fpn_train_launches["roi_align_window_backward"]},
+                    fpn_train_launches["roi_align_window_backward"],
+                    **slice_paths("roi_align_window_backward")},
                    roi_window_bwd["bf16"],
                    max(m["err"] for m in roi_window_bwd.values())),
-             replaces=krw.BACKWARD_REPLACES,
+             replaces=krw.BACKWARD_REPLACES, s14=at_s14("backward"),
              kernel_ms=roi_window_bwd["bf16"]["kernel_ms"],
              dense_ms=roi_window_bwd["bf16"]["dense_ms"]),
     ]

@@ -1,5 +1,7 @@
 """The port's CLIs on the CPU (``--device cpu``): train, resume, the
 training modes, eval and detect on ``--preset tiny --dataset synthetic``;
+Mask R-CNN's train, eval (segm mAP, RLE segmentations in ``--save-json``)
+and detect on ``--preset maskrcnn_tiny``;
 and the port's ``evaluate`` against the JAX package's on 8 synthetic val
 images with the same weights (``from_flax_variables``): the same
 detections per image (as ``tests/test_torch_faster_rcnn.py`` holds them)
@@ -79,6 +81,39 @@ def test_train_resume_eval_detect(tmp_path, capsys):
     assert (tmp_path / "out.png").exists() and len(boxes)
     assert (boxes[:, [0, 2]] <= 200).all() and (boxes[:, [1, 3]] <= 150).all()
     assert (boxes >= 0).all() and ((classes >= 1) & (classes <= 3)).all()
+
+
+def test_maskrcnn_train_eval_save_json_detect(tmp_path, capsys):
+    from PIL import Image
+
+    from tpudet_torch.data.masks import rle_decode
+
+    mask = ["--preset", "maskrcnn_tiny", "--dataset", "synthetic",
+            "--device", "cpu"]
+    ckpt = tmp_path / "ckpt"
+    ttrain.main(mask + ["--steps", "2", "--batch-size", "2",
+                        "--checkpoint-dir", str(ckpt),
+                        "--set", "train.log_every=1"])
+    out = capsys.readouterr().out
+    assert "mask_loss=" in out and "[train step 2]" in out
+    saved = tmp_path / "dets.json"
+    summary = teval.main(mask + ["--checkpoint-dir", str(ckpt),
+                                 "--max-images", "4", "--batch-size", "2",
+                                 "--save-json", str(saved)])
+    out = capsys.readouterr().out
+    assert "segm/mAP" in summary and "segm/mAP: " in out
+    assert 0.0 <= summary["segm/mAP"] <= 1.0
+    records = json.loads(saved.read_text())
+    assert records and all(isinstance(r["segmentation"]["counts"], str)
+                           for r in records)
+    first = records[0]["segmentation"]
+    assert rle_decode(first).shape == tuple(first["size"])
+    image = tmp_path / "x.png"
+    Image.fromarray(np.full((96, 128, 3), 90, np.uint8)).save(image)
+    tdetect.main(mask + ["--checkpoint-dir", str(ckpt), "--image",
+                         str(image), "--output", str(tmp_path / "o.png"),
+                         "--score-thresh", "0.0"])
+    assert (tmp_path / "o.png").exists()
 
 
 def test_training_modes(tmp_path, capsys):

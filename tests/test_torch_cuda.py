@@ -866,7 +866,7 @@ def test_faster_rcnn_train_step_on_card_equals_plain_path(cuda):
         before = {k: v.detach().clone().cpu() for k, v in state.params.items()}
         original, samples = model.loss, []
         on_dev = {k: tuple(d.to(device) for d in v) for k, v in draws.items()}
-        model.loss = lambda b, generator=None: original(b, draws=on_dev)
+        model.loss = lambda b, draws=None: original(b, draws=on_dev)
         roi_targets = model._roi_targets_single
         model._roi_targets_single = lambda *a: samples.append(
             roi_targets(*a)) or samples[-1]
@@ -1044,3 +1044,107 @@ def test_benchmark_nms_on_card(cuda):
     assert line["route"] == "cuda" and line["clock"] == "cuda_graph"
     assert line["num_boxes"] == 6000
     assert line["t_many_calls_us"] > line["t_one_call_us"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_window_at_the_mask_size_equals_plain(cuda, dtype):
+    """Mask R-CNN's pooling size S = 14 at r = 2 (the kernels' runtime-S
+    instantiations; the box head's S = 7 is compiled in): the forward and,
+    through the autograd Function, the backward on the 16-byte path, with
+    slivers, RoIs across the border and zero rows, against the plain
+    version (the backward against autograd through it on f32-widened
+    maps)."""
+    gen = torch.Generator().manual_seed(14)
+    c, s, r = 256, 14, 2
+    feats = [torch.randn(2, h, w, c, generator=gen).to(dtype).to(cuda)
+             for h, w in ((52, 60), (26, 30), (13, 15), (7, 8))]
+    strides = (4.0, 8.0, 16.0, 32.0)
+    rois = boxes(gen, 2, 20, extent=200.0)
+    rois[0, 0] = torch.tensor([3.0, 4.0, 7.0, 180.0])  # a sliver
+    rois[1, 1] = torch.tensor([-30.0, -20.0, 40.0, 50.0])  # across the border
+    rois[:, 5] = 0.0  # invalid slots
+    rois = rois.to(cuda)
+    levels = (fpn_assign_levels(rois, fit_window=56) - 2).contiguous()
+    out = krw.roi_align_window_cuda(feats, strides, rois, levels, s, r)
+    ref = krw.roi_align_window_plain(feats, strides, rois, levels, s, r)
+    assert out.shape == (2, 20, s, s, c)
+    out, ref = out.float(), ref.float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    else:
+        assert ((out - ref).abs() <= 2 ** -7 * ref.abs() + 1e-6).all()
+    cot = torch.randn(2, 20, s, s, c, generator=gen).to(dtype).to(cuda)
+    maps = [f.clone().requires_grad_() for f in feats]
+    before = krw.BACKWARD_LAUNCHES
+    got = torch.autograd.grad(
+        krw.roi_align_window(maps, strides, rois, levels, s, r), maps, cot)
+    assert krw.BACKWARD_LAUNCHES == before + 1
+    wide = [f.float().requires_grad_() for f in feats]
+
+    def plain_grad(g):
+        grads = torch.autograd.grad(
+            krw.roi_align_window_plain(wide, strides, rois, levels, s, r),
+            wide, g, allow_unused=True)
+        return [torch.zeros_like(w) if d is None else d
+                for w, d in zip(wide, grads)]
+
+    ref, terms = plain_grad(cot.float()), plain_grad(cot.float().abs())
+    for g, want, t in zip(got, ref, terms):
+        assert_gradient_close(g, want, dtype, t)
+
+
+def test_one_rank_nccl_step_equals_the_ungrouped_step(cuda):
+    """make_train_step in a one-rank NCCL group on the card: the all-reduce
+    of the flat gradients returns them bit for bit (a sum over one rank,
+    divided by 1), and the step equals the ungrouped step (tiny, b=2; the
+    backward kernels add with atomics, so two runs agree to rounding)."""
+    import dataclasses
+    import socket
+
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.parallel import DataParallel, init_data_parallel
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    exact = []
+
+    class Checked(DataParallel):
+        def all_reduce_mean_(self, tensor):
+            before = tensor.clone()
+            out = super().all_reduce_mean_(tensor)
+            exact.append(torch.equal(before, out))
+            return out
+
+    cfg = tiny_test_config()
+    gen = torch.Generator().manual_seed(3)
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [96.0, 112.0]]),
+             "gt_boxes": torch.tensor([[[10.0, 12.0, 70.0, 80.0]] * 2
+                                       + [[0.0] * 4] * 8] * 2),
+             "gt_classes": torch.tensor([[1, 2] + [0] * 8] * 2),
+             "gt_valid": torch.tensor([[True, True] + [False] * 8] * 2)}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    group = init_data_parallel("cuda", rank=0, world_size=1,
+                               init_method=f"tcp://127.0.0.1:{port}")
+    runs = []
+    try:
+        for dp in (None, Checked(**dataclasses.asdict(group))):
+            model = build_model(cfg, device=group.device)
+            state = create_train_state(model, cfg.train, seed=0,
+                                       device=group.device)
+            step = make_train_step(model, cfg, device=group.device, dp=dp)
+            state, metrics = step(state, batch)
+            runs.append((metrics, {k: p.detach().cpu()
+                                   for k, p in state.params.items()}))
+    finally:
+        group.close()
+    assert exact and all(exact)
+    (alone, p_alone), (grouped, p_grouped) = runs
+    for k, v in alone.items():
+        assert float(grouped[k]) == pytest.approx(float(v), rel=1e-6), k
+    scale = max(float(p.abs().max()) for p in p_alone.values())
+    for k, p in p_alone.items():
+        torch.testing.assert_close(p_grouped[k], p, rtol=0, atol=1e-6 * scale)

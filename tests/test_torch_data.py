@@ -300,8 +300,11 @@ def test_loader_guards():
     dataset = tsyn.SyntheticDataset(3, num_examples=4)
     with pytest.raises(ValueError, match="fewer than"):
         DataLoader(cfg, dataset, 8)
-    with pytest.raises(NotImplementedError, match="3g"):
-        DataLoader(cfg, dataset, 2, process_index=1, process_count=2)
+    # The global batch splits evenly over the processes (tpudet's message).
+    with pytest.raises(ValueError, match="not divisible by process_count"):
+        DataLoader(cfg, dataset, 3, process_index=1, process_count=2)
+    with pytest.raises(ValueError, match="outside"):
+        DataLoader(cfg, dataset, 2, process_index=2, process_count=2)
     # The native decoder reads JPEG bytes: a dataset without get_raw has none.
     with pytest.raises(ValueError, match="get_raw"):
         DataLoader(tconfig.apply_overrides(cfg, {"data.decoder": "native"}),

@@ -61,18 +61,22 @@ def jax_state(jm, jcfg, variables, rng):
 
 def with_jax_draws(tm, rng):
     """Make the port model's ``loss`` take, at its n-th call, the draws of
-    JAX's n-th step (``fold_in(rng, n)``), ignoring its generator."""
-    original, calls = tm.loss, []
+    JAX's n-th step (``fold_in(rng, n)``), ignoring the step's draws; the
+    generators the step draws from are recorded."""
+    original, original_draw, calls = tm.loss, tm.draw_samples, []
 
-    def loss(batch, generator=None):
+    def draw_samples(generator, b, canvas_hw):
+        calls.append(generator)
+        return original_draw(generator, b, canvas_hw)
+
+    def loss(batch, generator=None, draws=None):
         shapes = tm.draw_shapes(batch["image"].shape[0],
                                 batch["image"].shape[1:3])
-        step_rng = jax.random.fold_in(rng, len(calls))
-        calls.append(generator)
+        step_rng = jax.random.fold_in(rng, len(calls) - 1)
         return original(batch, draws=jax_draws(
             step_rng, shapes["rpn"][0], shapes["rpn"][1], shapes["roi"][1]))
 
-    tm.loss = loss
+    tm.draw_samples, tm.loss = draw_samples, loss
     return calls
 
 

@@ -33,7 +33,41 @@ def test_import_loads_no_jax_and_no_tpudet_module():
                          capture_output=True, text=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
+    # The data-parallel group and Mask R-CNN are walked too.
+    for name in NEW_MODULES:
+        assert name in result["modules"], name
     assert not [m for m in result["loaded"] if m.split(".")[0] in BANNED]
+
+
+# The modules of the data-parallel and Mask R-CNN slice, and the top-level
+# names they may import: the standard library, numpy, PIL (the polygon
+# raster), torch, and the port; torch.distributed is the one new torch
+# package among them.
+NEW_MODULES = ("tpudet_torch.parallel", "tpudet_torch.parallel.mesh",
+               "tpudet_torch.models.mask_rcnn", "tpudet_torch.models.mask_head",
+               "tpudet_torch.ops.masks", "tpudet_torch.data.masks")
+NEW_IMPORTS = {"__future__", "dataclasses", "datetime", "os", "typing",
+               "numpy", "PIL", "torch", "tpudet_torch"}
+
+
+def test_new_modules_import_torch_distributed_and_nothing_else_new():
+    found = set()
+    for name in NEW_MODULES:
+        rel = name.replace(".", "/")
+        path = ROOT / (rel + ".py")
+        if not path.exists():
+            path = ROOT / rel / "__init__.py"
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                found.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                found.add(node.module or "")
+    roots = {n.split(".")[0] for n in found}
+    assert roots <= NEW_IMPORTS, roots - NEW_IMPORTS
+    torch_packages = {n for n in found if n.startswith("torch.")}
+    assert torch_packages <= {"torch.distributed", "torch.nn.functional"}
+    assert "torch.distributed" in found
 
 
 def test_sources_import_no_jax_and_no_tpudet():
@@ -53,8 +87,8 @@ def test_sources_import_no_jax_and_no_tpudet():
 
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
-                                   "DeformableDETRConfig", "TrainConfig",
-                                   "EvalConfig", "Config"])
+                                   "DeformableDETRConfig", "MaskConfig",
+                                   "TrainConfig", "EvalConfig", "Config"])
 def test_config_defaults_equal_jax(group):
     port = getattr(tconfig, group)()
     ref = getattr(jconfig, group)()
@@ -109,3 +143,34 @@ def test_tiny_deformable_detr_config_equals_jax_fields():
     # Every JAX field of the group is in the port.
     assert ({f.name for f in dataclasses.fields(ref.deformable_detr)}
             == {f.name for f in dataclasses.fields(port.deformable_detr)})
+
+
+def test_tiny_maskrcnn_config_equals_jax_fields():
+    port = tconfig.tiny_maskrcnn_config()
+    ref = jconfig.tiny_maskrcnn_config()
+    assert port.model == ref.model == "mask_rcnn"
+    for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
+                  "train"):
+        for f in dataclasses.fields(getattr(port, group)):
+            assert (getattr(getattr(port, group), f.name)
+                    == getattr(getattr(ref, group), f.name)), \
+                f"{group}.{f.name}"
+    assert ({f.name for f in dataclasses.fields(ref.mask)}
+            == {f.name for f in dataclasses.fields(port.mask)})
+
+
+@pytest.mark.parametrize("name", ["coco_r50", "coco_maskrcnn_r50_fpn",
+                                  "maskrcnn_tiny"])
+def test_slice_presets_equal_jax(name):
+    from tpudet.cli.common import preset_config as jax_preset
+    from tpudet_torch.cli.common import PRESETS, preset_config
+
+    assert name in PRESETS
+    port, ref = preset_config(name), jax_preset(name)
+    assert port.model == ref.model
+    for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
+                  "train"):
+        for f in dataclasses.fields(getattr(port, group)):
+            assert (getattr(getattr(port, group), f.name)
+                    == getattr(getattr(ref, group), f.name)), \
+                f"{name}: {group}.{f.name}"

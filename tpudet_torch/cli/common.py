@@ -1,12 +1,14 @@
 """Shared CLI plumbing (``tpudet.cli.common``): the presets of the
-configurations the port runs (``voc_r50``, ``coco_r101_fpn``,
-``coco_deformable_detr_r50``, ``tiny`` and ``deformable_detr_tiny``) and the
-flags every CLI takes, with dotted ``--set`` overrides."""
+configurations the port runs (``voc_r50``, ``coco_r50``, ``coco_r101_fpn``,
+``coco_maskrcnn_r50_fpn``, ``coco_deformable_detr_r50``, ``tiny``,
+``maskrcnn_tiny`` and ``deformable_detr_tiny``) and the flags every CLI
+takes, with dotted ``--set`` overrides."""
 
 from __future__ import annotations
 
 import argparse
 import ast
+import dataclasses
 
 from tpudet_torch.config import (
     BackboneConfig,
@@ -18,6 +20,7 @@ from tpudet_torch.config import (
     TrainConfig,
     apply_overrides,
     tiny_deformable_detr_config,
+    tiny_maskrcnn_config,
     tiny_test_config,
 )
 
@@ -40,6 +43,15 @@ def preset_config(name: str) -> Config:
                             canvas_width=1024, aspect_buckets=VOC_BUCKETS),
             backbone=BackboneConfig(name="resnet50"),
         )
+    if name == "coco_r50":
+        # COCO 2017, ResNet-50 to c4 (neck 256), 800/1333 onto the COCO
+        # buckets; trained data-parallel (torchrun, parallel/mesh.py).
+        return Config(
+            data=DataConfig(dataset="coco", num_classes=80, min_size=800,
+                            max_size=1333, canvas_height=1344,
+                            canvas_width=1344, aspect_buckets=COCO_BUCKETS),
+            backbone=BackboneConfig(name="resnet50"),
+        )
     if name == "coco_r101_fpn":
         # ResNet-101 + FPN on COCO, bf16: RPN 256 wide, blocked per-level
         # top-1000, 300 proposals (1000 in training), each RoI pooled once at
@@ -54,6 +66,17 @@ def preset_config(name: str) -> Config:
                           post_nms_topk_test=300, topk_method="blocked"),
             roi=ROIConfig(pooler="roi_align_window", window=56),
         )
+    if name == "coco_maskrcnn_r50_fpn":
+        # Mask R-CNN R50-FPN (arXiv:1703.06870 §4.1): coco_r101_fpn with a
+        # ResNet-50, instance masks loaded, and the mask group's defaults
+        # (14x14 pooled, 4 convs of 256, a deconv to 28x28 per class).
+        base = preset_config("coco_r101_fpn")
+        return base.replace(
+            model="mask_rcnn",
+            backbone=dataclasses.replace(base.backbone, name="resnet50"),
+            data=dataclasses.replace(base.data, load_masks=True))
+    if name == "maskrcnn_tiny":
+        return tiny_maskrcnn_config()
     if name == "deformable_detr_tiny":
         return tiny_deformable_detr_config()
     if name == "coco_deformable_detr_r50":
@@ -79,7 +102,8 @@ def preset_config(name: str) -> Config:
     raise ValueError(f"unknown preset {name!r}: the port has {PRESETS}")
 
 
-PRESETS = ("tiny", "voc_r50", "coco_r101_fpn", "deformable_detr_tiny",
+PRESETS = ("tiny", "voc_r50", "coco_r50", "coco_r101_fpn",
+           "maskrcnn_tiny", "coco_maskrcnn_r50_fpn", "deformable_detr_tiny",
            "coco_deformable_detr_r50")
 
 

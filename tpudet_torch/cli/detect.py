@@ -6,6 +6,7 @@ Example:
 
 Runs on the CUDA card unless ``--device cpu`` is passed. ``main`` reads and
 writes images with PIL; ``detect_image`` takes an array and needs none.
+Mask R-CNN's masks are overlaid on the drawing.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from tpudet_torch.train.step import make_eval_step
 
 
 def detect_image(cfg, model, image: np.ndarray, eval_step=None):
-    """[h, w, 3] uint8 -> ``(boxes [n, 4], scores [n], classes [n])`` in
-    original-image coordinates, on ``model``'s device."""
+    """[h, w, 3] uint8 -> ``(boxes [n, 4], scores [n], classes [n], masks)``
+    in original-image coordinates, on ``model``'s device; ``masks`` [n, m,
+    m] box-frame probabilities for Mask R-CNN (the boxes carry the rescale),
+    else None."""
     ex = prepare_example(cfg.data, image, np.zeros((0, 4), np.float32),
                          np.zeros(0, np.int32))
     batch = {"image": torch.from_numpy(ex["image"][None]),
@@ -36,7 +39,8 @@ def detect_image(cfg, model, image: np.ndarray, eval_step=None):
     valid = out["valid"][0]
     boxes = rescale_to_original(out["boxes"][0][valid], ex["image_scale"],
                                 ex["orig_hw"])
-    return boxes, out["scores"][0][valid], out["classes"][0][valid]
+    masks = out["masks"][0][valid] if "masks" in out else None
+    return boxes, out["scores"][0][valid], out["classes"][0][valid], masks
 
 
 def main(argv=None):
@@ -60,13 +64,15 @@ def main(argv=None):
     state = create_train_state(model, cfg.train, seed=0, device=args.device)
     if args.checkpoint_dir:
         state = CheckpointManager(args.checkpoint_dir).restore_eval(state)
-    boxes, scores, classes = detect_image(cfg, state.eval_model(args.ema),
-                                          image)
+    boxes, scores, classes, masks = detect_image(
+        cfg, state.eval_model(args.ema), image)
     keep = scores >= args.score_thresh
     boxes, scores, classes = boxes[keep], scores[keep], classes[keep]
+    if masks is not None:
+        masks = masks[keep]
     names = VOC_CLASSES if cfg.data.dataset == "voc" else None
-    Image.fromarray(draw_detections(image, boxes, classes, scores,
-                                    names)).save(args.output)
+    Image.fromarray(draw_detections(image, boxes, classes, scores, names,
+                                    masks=masks)).save(args.output)
     print(f"{len(boxes)} detections -> {args.output}")
     for b, s, c in zip(boxes, scores, classes):
         label = names[c - 1] if names else str(int(c))

@@ -7,7 +7,8 @@ Example:
       --checkpoint-dir /tmp/ckpt --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is passed. The box metrics
-(``voc``, ``coco``, ``proposal-recall``); the segm, keypoint and panoptic
+(``voc``, ``coco``, ``proposal-recall``) and, for Mask R-CNN, the same
+protocol on pasted-mask IoU under ``segm/``; the keypoint and panoptic
 evaluators wait for their families, and ``--tta`` for test-time
 augmentation (ROADMAP.md).
 """
@@ -24,6 +25,7 @@ import torch
 
 from tpudet_torch.cli.common import add_common_args, config_from_args
 from tpudet_torch.data import DataLoader, build_dataset
+from tpudet_torch.data.masks import mask_to_rle
 from tpudet_torch.data.preprocess import rescale_to_original
 from tpudet_torch.data.voc import VOC_CLASSES
 from tpudet_torch.eval.metrics import (
@@ -36,8 +38,9 @@ from tpudet_torch.train.checkpoint import CheckpointManager
 from tpudet_torch.train.state import create_train_state
 from tpudet_torch.train.step import make_eval_step
 
-# Fetched from the card once per batch.
-_FIELDS = ("boxes", "scores", "classes", "valid")
+# Fetched from the card once per batch (and "masks" where the model has
+# them).
+_FIELDS = ("boxes", "scores", "classes", "valid", "masks")
 
 
 def final_nms_candidates(cfg) -> int:
@@ -93,7 +96,25 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
         evaluator = DetectionEvaluator(
             cfg.data.num_classes, iou_thresh=cfg.eval.iou_thresh,
             interpolation=cfg.eval.ap_interpolation, class_names=class_names)
-    if verbose and cfg.model == "faster_rcnn" and not cfg.rpn_only:
+    # Mask R-CNN: a second evaluator of the same protocol matching on
+    # pasted-mask IoU, its metrics under "segm/" (the box metrics keep their
+    # names). The ground-truth crops ride in the batch with data.load_masks.
+    segm_evaluator = None
+    if cfg.model == "mask_rcnn" and metric_style in ("voc", "coco"):
+        if not cfg.data.load_masks:
+            print("eval: the model emits masks but data.load_masks=False: "
+                  "no segm mAP (no ground-truth masks in the batch)")
+        elif metric_style == "coco":
+            segm_evaluator = CocoStyleEvaluator(
+                cfg.data.num_classes, class_names=class_names,
+                iou_type="segm")
+        else:
+            segm_evaluator = DetectionEvaluator(
+                cfg.data.num_classes, iou_thresh=cfg.eval.iou_thresh,
+                interpolation=cfg.eval.ap_interpolation,
+                class_names=class_names, iou_type="segm")
+    if verbose and cfg.model in ("faster_rcnn", "mask_rcnn") \
+            and not cfg.rpn_only:
         n = final_nms_candidates(cfg)
         print(f"eval: final NMS over {n} (box, class) candidates per image "
               f"({cfg.rpn.post_nms_topk_test} proposals x "
@@ -128,13 +149,14 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
         if not pending:  # no batch in the split
             break
         batch, batch_valid, out_dev = pending.pop(0)
-        out = {k: out_dev[k].cpu().numpy() for k in _FIELDS}
+        out = {k: out_dev[k].cpu().numpy() for k in _FIELDS if k in out_dev}
         for i in range(len(batch_valid)):
             if not batch_valid[i] or (0 <= max_images <= seen):
                 continue
             seen += 1
             v = out["valid"][i]
-            det = {k: out[k][i][v] for k in ("boxes", "scores", "classes")}
+            det = {k: out[k][i][v] for k in ("boxes", "scores", "classes",
+                                             "masks") if k in out}
             boxes = rescale_to_original(det["boxes"], batch["image_scale"][i],
                                         batch["orig_hw"][i])
             gt_valid = batch["gt_valid"][i]
@@ -143,24 +165,40 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
                                            batch["orig_hw"][i])
             if results is not None:
                 img_id = get_image_id(int(batch["example_index"][i]))
-                for b, s, c in zip(boxes, det["scores"], det["classes"]):
-                    results.append({
+                masks = det.get("masks", [None] * len(boxes))
+                for b, s, c, mk in zip(boxes, det["scores"], det["classes"],
+                                       masks):
+                    rec = {
                         "image_id": img_id,
                         "category_id": get_cat_id(int(c)),
                         "bbox": [float(b[0]), float(b[1]),
                                  float(b[2] - b[0]), float(b[3] - b[1])],
                         "score": float(s),
-                    })
+                    }
+                    if mk is not None:
+                        # Compressed RLE in original-image pixels (the
+                        # boxes are rescaled already), as pycocotools reads.
+                        rec["segmentation"] = mask_to_rle(
+                            mk, b, batch["orig_hw"][i])
+                    results.append(rec)
             extra = {}
             if isinstance(evaluator, CocoStyleEvaluator):
                 # The COCO protocol bins GT by the annotation's own area, in
                 # original pixels, as the rescaled boxes are.
                 extra["gt_area"] = batch["gt_area"][i][gt_valid]
+            common = dict(gt_difficult=batch["gt_difficult"][i][gt_valid],
+                          gt_crowd=batch["gt_crowd"][i][gt_valid], **extra)
             evaluator.add_image(
                 boxes, det["scores"], det["classes"], gt_boxes,
-                batch["gt_classes"][i][gt_valid],
-                gt_difficult=batch["gt_difficult"][i][gt_valid],
-                gt_crowd=batch["gt_crowd"][i][gt_valid], **extra)
+                batch["gt_classes"][i][gt_valid], **common)
+            if segm_evaluator is not None:
+                # Box-frame masks: the boxes carry the rescale to the
+                # original image; the crops paste unchanged.
+                segm_evaluator.add_image(
+                    boxes, det["scores"], det["classes"], gt_boxes,
+                    batch["gt_classes"][i][gt_valid],
+                    pred_masks=det["masks"],
+                    gt_masks=batch["gt_masks"][i][gt_valid], **common)
         if 0 <= max_images <= seen:
             break
     del pending, stream
@@ -175,6 +213,9 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
         if verbose:
             print(f"wrote {len(results)} detections to {save_json}")
     summary = evaluator.summarize()
+    if segm_evaluator is not None:
+        summary.update({f"segm/{k}": v
+                        for k, v in segm_evaluator.summarize().items()})
     if verbose:
         for k, v in sorted(summary.items()):
             print(f"{k}: {v:.4f}")
@@ -226,7 +267,7 @@ def main(argv=None):
     cfg = referee_config(config_from_args(args))
     metric = args.metric or ("coco" if cfg.data.dataset == "coco" else "voc")
     if metric == "proposal-recall":
-        if cfg.model != "faster_rcnn":
+        if cfg.model not in ("faster_rcnn", "mask_rcnn"):
             raise SystemExit(
                 "--metric proposal-recall analyses the RPN's proposals; "
                 f"model={cfg.model!r} has no proposal stage")

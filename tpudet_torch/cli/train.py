@@ -5,6 +5,8 @@ Example:
       --steps 200 --device cpu
   python -m tpudet_torch.cli.train --preset voc_r50 --data-dir /data/voc \\
       --steps 80000 --batch-size 16 --checkpoint-dir /ckpt
+  torchrun --nproc-per-node 8 -m tpudet_torch.cli.train --preset coco_r50 \\
+      --data-dir /data/coco --batch-size 16 --checkpoint-dir /ckpt
 
 Runs on the CUDA card unless ``--device cpu`` is passed. The loader's uint8
 canvases go to the card and the train step normalizes, jitters and flips
@@ -12,6 +14,13 @@ them there (``fused_preprocess``). RPN-only training via ``--rpn-only``; the
 other stages of the alternating schedule via ``--det-only``, ``--freeze``
 and ``--init-from``. A resumed run restarts the loader at epoch 0, as the
 JAX CLI does.
+
+Under torchrun (``WORLD_SIZE`` in the environment) each process joins the
+data-parallel group (NCCL on the cards, gloo with ``--device cpu``) and
+drives ``cuda:LOCAL_RANK``; ``--batch-size`` is the global batch, which the
+world size must divide. Every process restores the checkpoint; rank 0
+alone writes checkpoints, the config record and the log, and the others
+wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 from tpudet_torch.cli.common import add_common_args, config_from_args
 from tpudet_torch.data import DataLoader, build_dataset
 from tpudet_torch.models import build_model
+from tpudet_torch.parallel import init_data_parallel
 from tpudet_torch.train.checkpoint import CheckpointManager
 from tpudet_torch.train.state import create_train_state
 from tpudet_torch.train.step import make_eval_step, make_train_step
@@ -56,8 +66,8 @@ def parse_args(argv=None):
                    help="checkpoint dir to warm-start the parameters from "
                         "(a fresh optimizer and step)")
     p.add_argument("--no-mesh", action="store_true",
-                   help="accepted for the JAX CLI's flags; one card has no "
-                        "mesh")
+                   help="one process even under torchrun's environment (no "
+                        "data-parallel group)")
     p.add_argument("--log-images-every", type=int, default=0,
                    help="save a GT-annotated training image every N steps "
                         "under --logdir (0 = off; drawing needs PIL)")
@@ -100,11 +110,30 @@ def main(argv=None):
         cfg = cfg.replace(rpn_only=True)
     if args.det_only:
         cfg = cfg.replace(det_only=True)
-    device = torch.device(args.device)
+    dp = None
+    if "WORLD_SIZE" in os.environ and not args.no_mesh:
+        if cfg.train.batch_size % int(os.environ["WORLD_SIZE"]):
+            # Refused before joining: the loader cannot split the batch.
+            raise ValueError(
+                f"batch_size {cfg.train.batch_size} not divisible by the "
+                f"data-parallel world size {os.environ['WORLD_SIZE']}: "
+                "adjust --batch-size (or pass --no-mesh)")
+        dp = init_data_parallel(args.device)
+    device = dp.device if dp is not None else torch.device(args.device)
+    writer = dp is None or dp.rank == 0
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
-             if device.type == "cuda" else ""))
+             if device.type == "cuda" else "")
+          + (f", rank {dp.rank} of {dp.world_size}" if dp is not None
+             else ""))
+    try:
+        return _train(args, cfg, device, dp, writer)
+    finally:
+        if dp is not None:
+            dp.close()
 
+
+def _train(args, cfg, device, dp, writer):
     model = build_model(cfg, device=device)
     state = create_train_state(model, cfg.train, seed=cfg.train.seed,
                                device=device)
@@ -123,9 +152,11 @@ def main(argv=None):
         if ckpt.latest_step is not None:
             print(f"restored checkpoint at step {ckpt.latest_step}")
         # The fully resolved config beside the checkpoints.
-        with open(os.path.join(cfg.train.checkpoint_dir, "config.json"),
-                  "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2, sort_keys=True)
+        if writer:
+            with open(os.path.join(cfg.train.checkpoint_dir, "config.json"),
+                      "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2,
+                          sort_keys=True)
         # Resume-safe best tracking: a restarted run's first eval must beat
         # the best so far, not -inf.
         best_record = os.path.join(cfg.train.checkpoint_dir, "best",
@@ -138,10 +169,19 @@ def main(argv=None):
     dataset = build_dataset(cfg, split="train")
     print(f"dataset: {cfg.data.dataset}, {len(dataset)} examples")
     loader = DataLoader(cfg, dataset, cfg.train.batch_size, shuffle=True,
-                        seed=cfg.train.seed, augment=True)
+                        seed=cfg.train.seed, augment=True,
+                        process_index=dp.rank if dp else None,
+                        process_count=dp.world_size if dp else None)
     step_fn = make_train_step(model, cfg, device=device,
-                              fused_preprocess=True)
-    logger = MetricsLogger(args.logdir or None)
+                              fused_preprocess=True, dp=dp)
+    logger = MetricsLogger((args.logdir or None) if writer else None)
+
+    def save(manager, **kw):
+        """Rank 0 writes; every rank waits until it has."""
+        if writer:
+            manager.save(state, **kw)
+        if dp is not None:
+            dp.barrier()
 
     start = state.step
     eval_dataset = eval_step_fn = None
@@ -155,13 +195,15 @@ def main(argv=None):
                    if not math.isfinite(float(v))}
             if bad:
                 raise FloatingPointError(f"step {step + 1}: non-finite {bad}")
-        if (step + 1) % cfg.train.log_every == 0 or step == start:
+        if writer and ((step + 1) % cfg.train.log_every == 0
+                       or step == start):
             logger.log(step + 1, metrics)
         if step == start:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t_first = time.perf_counter()
-        if args.log_images_every and (step + 1) % args.log_images_every == 0:
+        if (writer and args.log_images_every
+                and (step + 1) % args.log_images_every == 0):
             from tpudet_torch.eval.visualize import draw_detections
 
             gtv = batch["gt_valid"][0].cpu().numpy()
@@ -170,7 +212,7 @@ def main(argv=None):
                                     batch["gt_classes"][0].cpu().numpy()[gtv])
             logger.log_image(step + 1, "train/ground_truth", drawn)
         if ckpt and (step + 1) % cfg.train.checkpoint_every == 0:
-            ckpt.save(state)
+            save(ckpt)
         if args.eval_every and (step + 1) % args.eval_every == 0:
             from tpudet_torch.cli.eval import evaluate
 
@@ -182,7 +224,8 @@ def main(argv=None):
                                batch_size=min(8, cfg.train.batch_size),
                                max_images=args.eval_max_images, verbose=False,
                                eval_step=eval_step_fn)
-            logger.log(step + 1, {"mAP": summary["mAP"]}, prefix="eval")
+            if writer:
+                logger.log(step + 1, {"mAP": summary["mAP"]}, prefix="eval")
             if ckpt and summary["mAP"] > best_map:
                 # The best checkpoint by in-training mAP (the deploy
                 # artifact) under <checkpoint_dir>/best; the newest stays
@@ -192,14 +235,15 @@ def main(argv=None):
                     best_ckpt = CheckpointManager(
                         os.path.join(cfg.train.checkpoint_dir, "best"),
                         keep=1, config=cfg)
-                best_ckpt.save(state, force=True)
-                with open(best_record, "w") as f:
-                    json.dump({"mAP": best_map, "step": step + 1}, f)
-                print(f"new best mAP {best_map:.4f} at step {step + 1} "
-                      "-> checkpointed to best/")
+                save(best_ckpt, force=True)
+                if writer:
+                    with open(best_record, "w") as f:
+                        json.dump({"mAP": best_map, "step": step + 1}, f)
+                    print(f"new best mAP {best_map:.4f} at step {step + 1} "
+                          "-> checkpointed to best/")
     stream.close()
     if ckpt:
-        ckpt.save(state, force=True)
+        save(ckpt, force=True)
     logger.close()
     if t_first is not None and state.step - start > 1:
         if device.type == "cuda":
@@ -207,7 +251,8 @@ def main(argv=None):
         seconds = time.perf_counter() - t_first
         n = state.step - start - 1
         print(f"training done: steps {start + 1}..{state.step}, "
-              f"{n * cfg.train.batch_size / seconds:.1f} img/s over the "
+              f"{n * cfg.train.batch_size / seconds:.1f} img/s (global "
+              "batch) over the "
               f"{n} steps after the first ({seconds:.2f} s of wall time, "
               "evals and checkpoints included)")
     else:

@@ -1,6 +1,7 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
-Faster R-CNN inference and training, single-level and FPN, Deformable DETR
-inference and training, the data path and the evaluator read).
+Faster R-CNN and Mask R-CNN inference and training, single-level and FPN,
+Deformable DETR inference and training, the data path and the evaluator
+read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
@@ -18,9 +19,9 @@ from typing import Tuple
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Dataset, resize, canvas, normalization and train-time augmentation
-    (the JAX group's fields, less the mask, keypoint and semantic loading
-    that come with their families)."""
+    """Dataset, resize, canvas, normalization, train-time augmentation and
+    instance masks (the JAX group's fields, less the keypoint and semantic
+    loading that come with their families)."""
 
     dataset: str = "voc"  # "voc" | "coco" | "synthetic"
     data_dir: str = ""
@@ -66,6 +67,12 @@ class DataConfig:
     # Train-time multi-scale jitter of the resize, U(lo, hi), on the host,
     # per (seed, epoch, index); the canvas comes from the unjittered size.
     scale_jitter: Tuple[float, float] = (1.0, 1.0)
+    # Instance masks (Mask R-CNN): the loader emits ``gt_masks``
+    # [max_gt_boxes, gt_mask_size, gt_mask_size] uint8, each instance's mask
+    # rasterized in its own box frame (data/masks.py); a dataset without
+    # mask annotations gives zeros.
+    load_masks: bool = False
+    gt_mask_size: int = 112
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +238,26 @@ class DeformableDETRConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MaskConfig:
+    """Mask R-CNN's mask branch (He et al., arXiv:1703.06870 §3): an FCN
+    over RoI features predicting one sigmoid mask per class, trained with a
+    per-pixel BCE on the matched class's channel. Every field and default
+    of the JAX group."""
+
+    # FCN tower: num_convs 3x3 convs at conv_channels, then a 2x deconv.
+    num_convs: int = 4
+    conv_channels: int = 256
+    # RoI features pooled at this size for the mask branch (the box head
+    # pools output_size); the deconv doubles it: masks [2 * size]^2.
+    roi_output_size: int = 14
+    loss_weight: float = 1.0
+    # One mask for every class instead of one per class.
+    class_agnostic: bool = False
+    # Binarization threshold when pasting predicted masks (eval, visualize).
+    binarize_thresh: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer, schedule and loop (``tpudet.config.TrainConfig``: every
     field and default). The train CLI reads the checkpoint and logging
@@ -295,6 +322,7 @@ class Config:
     rpn: RPNConfig = RPNConfig()
     roi: ROIConfig = ROIConfig()
     deformable_detr: DeformableDETRConfig = DeformableDETRConfig()
+    mask: MaskConfig = MaskConfig()
     train: TrainConfig = TrainConfig()
     eval: EvalConfig = EvalConfig()
     # Kept for parity with the JAX config and never read: the port
@@ -357,6 +385,18 @@ def tiny_deformable_detr_config(canvas: int = 128,
             ffn_dim=64, num_queries=20, num_levels=4, num_points=2,
             dropout=0.0, max_detections=20,
         ),
+    )
+
+
+def tiny_maskrcnn_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small Mask R-CNN config for the CPU tests (the fields of
+    ``tpudet.config.tiny_maskrcnn_config``): the tiny two-stage config with
+    mask loading at 28 px crops and a 2-conv, 32-wide FCN pooled at 7."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="mask_rcnn",
+        data=dataclasses.replace(base.data, load_masks=True, gt_mask_size=28),
+        mask=MaskConfig(num_convs=2, conv_channels=32, roi_output_size=7),
     )
 
 

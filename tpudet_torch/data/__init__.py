@@ -22,6 +22,7 @@ def build_dataset(cfg, split: str | None = None):
             num_classes=d.num_classes,
             num_examples=512 if split == "train" else 64,
             seed=0 if split == "train" else 1,
+            with_masks=d.load_masks,
         )
     if d.dataset == "voc":
         # Eval splits keep the difficult objects with their flags (the VOC

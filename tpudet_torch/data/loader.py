@@ -1,5 +1,4 @@
-"""Dataset protocol and the batching loader (``tpudet.data.loader``, one
-process).
+"""Dataset protocol and the batching loader (``tpudet.data.loader``).
 
 ``Dataset``: ``len`` and ``get_example(i)`` returning ``{"image": uint8
 [h, w, 3], "boxes": [n, 4], "classes": [n]}`` (and optionally
@@ -8,8 +7,13 @@ process).
 ``DataLoader`` shuffles per epoch, plans bucket-homogeneous batches, runs
 ``prepare_example`` on a thread pool (``prepare_example_jpeg`` where the
 native front end decodes) and stacks fixed-shape uint8 batches;
-its batch plans, shuffles and scale-jitter factors are the JAX loader's for
-``process_index=0, process_count=1``. ``device_stream(device)`` prefetches
+its batch plans, shuffles and scale-jitter factors are the JAX loader's.
+Under data parallelism ``batch_size`` is the global batch: every process
+plans the same global batches (the bucket plan included) and loads its
+rows of each (``process_rows``: ``process_index::process_count``, in an
+order that keeps gradient accumulation's microbatches global), with their
+``batch_valid`` rows, so the processes stay in step at every collective.
+``device_stream(device)`` prefetches
 them onto the card through a bounded queue: pinned host copies, copied with
 ``non_blocking=True`` on a stream of their own, so the copy overlaps the
 step that runs meanwhile.
@@ -72,16 +76,24 @@ def _resolve_decoder(cfg: Config, dataset) -> bool:
     return has_raw and native_available()
 
 
+def process_rows(batch_size: int, process_index: int, process_count: int,
+                 accum_steps: int = 1) -> np.ndarray:
+    """The rows of a global batch that process ``process_index`` of
+    ``process_count`` holds, in its order. The train step splits a batch
+    into ``accum_steps`` microbatches of strided rows (``a::accum_steps``);
+    here each process's microbatch ``a`` is its share (``process_index::
+    process_count``) of the global batch's microbatch ``a``. With one
+    microbatch these are the rows ``process_index::process_count``."""
+    return np.arange(batch_size).reshape(
+        -1, process_count, accum_steps)[:, process_index].reshape(-1)
+
+
 class DataLoader:
     def __init__(self, cfg: Config, dataset: Dataset, batch_size: int,
                  shuffle: bool = True, seed: int = 0, num_workers: int = 8,
                  drop_last: bool = True, prefetch: int = 2,
                  process_index: int | None = None,
                  process_count: int | None = None, augment: bool = False):
-        if (process_index or 0) != 0 or (process_count or 1) != 1:
-            raise NotImplementedError(
-                "multi-process loading comes with data parallelism "
-                "(ROADMAP.md, Queue 1 step 3g)")
         self.cfg = cfg
         self.dataset = dataset
         self.shuffle = shuffle
@@ -97,18 +109,36 @@ class DataLoader:
         self.drop_last = drop_last
         # A queue of maxsize 0 is unbounded: keep at least one batch.
         self.prefetch = max(1, prefetch)
-        self.batch_size = batch_size
+        # One process unless the caller names its place in the group
+        # (``parallel.DataParallel.rank`` and ``world_size``).
+        self.process_index = process_index or 0
+        self.process_count = process_count or 1
+        if not 0 <= self.process_index < self.process_count:
+            raise ValueError(f"process_index {process_index} outside "
+                             f"process_count {process_count}")
+        if batch_size % self.process_count:
+            raise ValueError(
+                f"global batch_size {batch_size} not divisible by "
+                f"process_count {self.process_count}")
+        self.accum_steps = max(1, cfg.train.accum_steps)
+        if self.process_count > 1 and (batch_size // self.process_count
+                                       ) % self.accum_steps:
+            raise ValueError(
+                f"per-process batch {batch_size // self.process_count} not "
+                f"divisible by train.accum_steps {self.accum_steps}")
+        self.global_batch_size = batch_size
+        self.batch_size = batch_size // self.process_count
         self._epoch0_plan = None  # memo of _epoch_batch_indices(0)
         if drop_last and len(dataset) < batch_size:
             # Every epoch would plan no batch and the stream would spin.
             raise ValueError(
                 f"dataset yields {len(dataset)} examples, fewer than the "
-                f"batch size {batch_size}; reduce batch_size or pass "
+                f"global batch size {batch_size}; reduce batch_size or pass "
                 "drop_last=False")
         if drop_last and self._bucketed and not self._epoch_batch_indices(0):
             raise ValueError(
                 f"canvas bucketing with drop_last plans zero batches: no "
-                f"bucket holds a full batch of {batch_size}; reduce "
+                f"bucket holds a full global batch of {batch_size}; reduce "
                 "batch_size, pass drop_last=False, or coarsen the buckets")
         self.native_decode = _resolve_decoder(cfg, dataset)
         self._announced_fallback = False
@@ -128,14 +158,16 @@ class DataLoader:
         return order
 
     def _epoch_batch_indices(self, epoch: int):
-        """The epoch's ``(index_array [bs], valid_mask or None)`` batch
-        plans. With bucketing every batch is bucket-homogeneous (one canvas
-        per batch), and each bucket's tail pads by repeating its last
-        example, masked by the valid mask when ``drop_last`` is off. The
-        epoch-0 plan is memoized."""
+        """This process's ``(index_array [bs], valid_mask or None)`` batch
+        plans of the epoch: the global plan, the same on every process, cut
+        to this process's rows (``process_rows``). With bucketing every
+        batch is bucket-homogeneous (one canvas per batch), and each
+        bucket's tail pads by repeating its last example, masked by the
+        valid mask when ``drop_last`` is off. The epoch-0 plan is
+        memoized."""
         if epoch == 0 and self._epoch0_plan is not None:
             return self._epoch0_plan
-        bs = self.batch_size
+        bs = self.global_batch_size
         order = self._epoch_order(epoch)
         if not self._bucketed:
             groups = [order]
@@ -157,6 +189,11 @@ class DataLoader:
                 plans.append((idx, np.arange(bs) < rem))
         if self.shuffle and len(groups) > 1:
             np.random.default_rng((self.seed + epoch) ^ 0x5EED).shuffle(plans)
+        if self.process_count > 1:
+            rows = process_rows(bs, self.process_index, self.process_count,
+                                self.accum_steps)
+            plans = [(idx[rows], None if valid is None else valid[rows])
+                     for idx, valid in plans]
         if epoch == 0:
             self._epoch0_plan = plans
         return plans
@@ -180,7 +217,8 @@ class DataLoader:
                     return prepare_example_jpeg(
                         self.cfg.data, ex["jpeg"], ex["boxes"], ex["classes"],
                         difficult=ex.get("difficult"), crowd=ex.get("crowd"),
-                        area=ex.get("area"), scale_factor=factor)
+                        area=ex.get("area"), masks=ex.get("masks"),
+                        scale_factor=factor)
                 except NativeDecodeError:
                     # libjpeg does not take everything PIL does (CMYK/YCCK):
                     # this image goes through get_example. Other
@@ -194,7 +232,8 @@ class DataLoader:
             return prepare_example(
                 self.cfg.data, ex["image"], ex["boxes"], ex["classes"],
                 difficult=ex.get("difficult"), crowd=ex.get("crowd"),
-                area=ex.get("area"), scale_factor=factor)
+                area=ex.get("area"), masks=ex.get("masks"),
+                scale_factor=factor)
 
         examples = list(pool.map(one, indices))
         shapes = {tuple(ex["image"].shape) for ex in examples}

@@ -29,6 +29,7 @@ import torch
 
 from tpudet_torch.config import Config, DataConfig
 from tpudet_torch.data import native_decode
+from tpudet_torch.data.masks import crop_instances
 from tpudet_torch.ops.boxes import flip_boxes_horizontal
 
 _warned_gt_truncation = False
@@ -154,12 +155,14 @@ def _finalize_example(cfg: DataConfig, canvas: np.ndarray, nh: int, nw: int,
                       h: int, w: int, boxes: np.ndarray, classes: np.ndarray,
                       difficult: Optional[np.ndarray] = None,
                       crowd: Optional[np.ndarray] = None,
-                      area: Optional[np.ndarray] = None
-                      ) -> Dict[str, np.ndarray]:
+                      area: Optional[np.ndarray] = None,
+                      masks=None) -> Dict[str, np.ndarray]:
     """The ground truth packed to ``max_gt_boxes`` rows and the boxes scaled
     by the per-axis resize factors. ``area`` is the annotation's own area in
     original pixels (COCO); -1 marks none (the evaluator then uses the
-    box's)."""
+    box's). With ``data.load_masks``, ``gt_masks`` [max_gt_boxes, M, M]
+    uint8: each instance's mask rep (``data.masks``) cropped to its
+    original-pixel box, which makes the crop resize-invariant."""
     g = cfg.max_gt_boxes
     gt_boxes = np.zeros((g, 4), np.float32)
     gt_classes = np.zeros((g,), np.int32)
@@ -190,6 +193,14 @@ def _finalize_example(cfg: DataConfig, canvas: np.ndarray, nh: int, nw: int,
                                 axis=-1).astype(np.float32)
         gt_classes[:n] = classes[:n]
         gt_valid[:n] = True
+    extra = {}
+    if cfg.load_masks:
+        m = cfg.gt_mask_size
+        gt_masks = np.zeros((g, m, m), np.uint8)
+        if n:
+            gt_masks[:n] = crop_instances(
+                None if masks is None else masks[:n], boxes[:n], m)
+        extra["gt_masks"] = gt_masks
     return {
         "image": canvas,
         "image_hw": np.asarray([nh, nw], np.float32),
@@ -201,6 +212,7 @@ def _finalize_example(cfg: DataConfig, canvas: np.ndarray, nh: int, nw: int,
         "gt_difficult": gt_difficult,
         "gt_crowd": gt_crowd,
         "gt_area": gt_area,
+        **extra,
     }
 
 
@@ -209,10 +221,12 @@ def prepare_example(cfg: DataConfig, image: np.ndarray, boxes: np.ndarray,
                     difficult: Optional[np.ndarray] = None,
                     crowd: Optional[np.ndarray] = None,
                     area: Optional[np.ndarray] = None,
+                    masks=None,
                     scale_factor: float = 1.0) -> Dict[str, np.ndarray]:
     """One example -> fixed-shape arrays. ``image`` [h, w, 3] uint8, boxes
-    [n, 4] (x1, y1, x2, y2) pixels, classes [n] in 1..C; ``scale_factor``
-    is the train-time scale jitter (``jittered_minmax``)."""
+    [n, 4] (x1, y1, x2, y2) pixels, classes [n] in 1..C, ``masks`` one rep
+    per instance (read with ``data.load_masks``); ``scale_factor`` is the
+    train-time scale jitter (``jittered_minmax``)."""
     h, w = image.shape[:2]
     ch, cw = canvas_for_hw(cfg, h, w)
     if scale_factor == 1.0:
@@ -226,7 +240,7 @@ def prepare_example(cfg: DataConfig, image: np.ndarray, boxes: np.ndarray,
     canvas = np.zeros((ch, cw, 3), np.uint8)
     canvas[:nh, :nw] = image
     return _finalize_example(cfg, canvas, nh, nw, h, w, boxes, classes,
-                             difficult, crowd, area)
+                             difficult, crowd, area, masks)
 
 
 def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
@@ -234,6 +248,7 @@ def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
                          difficult: Optional[np.ndarray] = None,
                          crowd: Optional[np.ndarray] = None,
                          area: Optional[np.ndarray] = None,
+                         masks=None,
                          scale_factor: float = 1.0) -> Dict[str, np.ndarray]:
     """``prepare_example`` through the native front end: the C++ library
     fuses the JPEG decode (DCT-scaled when ``fast_jpeg_scale``), the resize
@@ -253,7 +268,7 @@ def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
     canvas, (nh, nw), (h, w) = native_decode.decode_resize_pad(
         jpeg, min_size, max_size, ch, cw, fast_dct_scale=cfg.fast_jpeg_scale)
     return _finalize_example(cfg, canvas, nh, nw, h, w, boxes, classes,
-                             difficult, crowd, area)
+                             difficult, crowd, area, masks)
 
 
 def rescale_to_original(boxes: np.ndarray, image_scale: np.ndarray,
@@ -367,17 +382,17 @@ def device_preprocess(cfg: Config, batch: Dict[str, torch.Tensor],
     """Normalize ``batch["image"]`` (``[B, H, W, 3]``) on its device to
     ``(x - mean) / std`` (bf16 when the backbone computes in bf16). In
     training, first the colour jitter (when ``data.color_jitter`` is not all
-    zero) and the random flip of the image and ``gt_boxes`` (when
-    ``data.random_flip``), with ``draws`` (``augment_draws``'s layout) or
-    draws from ``generator``. The other entries pass through."""
+    zero) and the random flip of the image, ``gt_boxes`` and ``gt_masks``
+    (when ``data.random_flip``), with ``draws`` (``augment_draws``'s layout)
+    or draws from ``generator``. The other entries pass through."""
     d = cfg.data
     image = batch["image"].to(torch.float32)
     out = dict(batch)
     if training:
-        if any(k in batch for k in ("gt_masks", "gt_keypoints", "gt_semantic")):
+        if any(k in batch for k in ("gt_keypoints", "gt_semantic")):
             raise NotImplementedError(
-                "device_preprocess(training=True) flips boxes only: masks, "
-                "keypoints and semantic maps come with their families "
+                "device_preprocess(training=True) flips boxes and masks "
+                "only: keypoints and semantic maps come with their families "
                 "(ROADMAP.md, Queue 1 step 4)")
         if draws is None:
             if generator is None:
@@ -397,6 +412,13 @@ def device_preprocess(cfg: Config, batch: Dict[str, torch.Tensor],
             image = torch.where(do_flip[:, None, None, None], f_img, image)
             out["gt_boxes"] = torch.where(do_flip[:, None, None], f_boxes,
                                           gt_boxes.to(torch.float32))
+            if "gt_masks" in batch:
+                # A box-frame crop is resize-invariant but not
+                # flip-invariant: mirroring the image mirrors each instance
+                # within its mirrored box.
+                gm = batch["gt_masks"]
+                out["gt_masks"] = torch.where(do_flip[:, None, None, None],
+                                              gm.flip(-1), gm)
     mean = torch.tensor(d.pixel_mean, dtype=torch.float32, device=image.device)
     std = torch.tensor(d.pixel_std, dtype=torch.float32, device=image.device)
     normalized = (image - mean) / std

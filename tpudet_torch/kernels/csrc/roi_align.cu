@@ -143,7 +143,8 @@ int launch_backward(const void* grad_out, const float* rois,
       reinterpret_cast<uintptr_t>(grad_out) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(grad_feat) % 16 != 0)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  // Every preset pools S = 7 at R = 2: both at compile time.
+  // The box heads pool S = 7 at R = 2: both at compile time. Other sizes
+  // (a mask branch's S = 14) take the runtime-S loop.
   if (R == 2 && S == 7)
     return launch_backward_as<T, V, 2, 7>(grad_out, rois, image_index,
                                           grad_feat, K, H, W, C, S, R, stream);

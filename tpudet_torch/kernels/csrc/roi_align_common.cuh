@@ -39,7 +39,7 @@
 // corner. Lanes hold 8 channels in two groups of four 512 bytes apart in
 // f32 (a bf16 lane loads 2 x 8 bytes, an f32 lane 2 x 16), so each vector
 // atomic of a warp (sm_90's atomicAdd on float4) covers 512 contiguous
-// bytes of the f32 gradient. Where S is 7 (every preset) a bin row's S
+// bytes of the f32 gradient. Where S is 7 (every box head) a bin row's S
 // loads are in flight together. At voc_r50's train shape this runs 0.10 ms
 // with the wrapper's zeroing and cast (~11x the bound; PERF.md): 73.5% of
 // the sample-corner additions pre-summed away. Spreading the same RoIs over
@@ -451,7 +451,7 @@ __device__ __forceinline__ void scatter_roi(const T* __restrict__ g,
         }
       };
       if constexpr (ST > 0) {
-        // S known (7 in every preset): every bin column's sum in
+        // S known (7, the box heads'): every bin column's sum in
         // registers, a bin row's S loads in flight at once, then the walk.
         float val[ST][VEC];
 #pragma unroll

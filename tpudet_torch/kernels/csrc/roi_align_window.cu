@@ -213,7 +213,8 @@ int launch_backward(const LevelTable<float*>& table, const void* grad_out,
   for (int l = 0; l < table.count; ++l)
     aligned = aligned && reinterpret_cast<uintptr_t>(table.map[l]) % 16 == 0;
   if (!aligned) return static_cast<int>(cudaErrorMisalignedAddress);
-  // Every preset pools S = 7 at R = 2: both at compile time.
+  // The box heads pool S = 7 at R = 2: both at compile time. Mask R-CNN's
+  // mask branch pools S = 14 through the runtime-S loop (PERF.md).
   if (R == 2 && S == 7)
     return launch_backward_as<T, V, 2, 7>(table, grad_out, rois, levels, K, N,
                                           C, S, R, stream);

@@ -486,8 +486,8 @@ class DeformableDETR(nn.Module):
         return self
 
     def loss(self, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             generator: Optional[torch.Generator] = None,
+             dp=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The set loss on a preprocessed batch (``image``, ``image_hw``,
         ``gt_boxes [B, G, 4]`` xyxy pixels, ``gt_classes [B, G]`` 1..C,
         ``gt_valid [B, G]``) -> ``(total, metrics)``, as
@@ -497,7 +497,11 @@ class DeformableDETR(nn.Module):
         -- each term over layer 0's matched pairs, the weighted per-layer
         sums added up. Dropout runs when the model is in training mode and
         ``deformable_detr.dropout > 0``; its masks come from ``generator``
-        (on the model's device), which must then be given."""
+        (on the model's device), which must then be given. With ``dp``
+        (``parallel.DataParallel``; ``batch`` is this process's rows) the
+        terms divide by the group's matched count over its world size, so
+        that the group's mean gradient is that of the joined batch, as
+        ``pjit``'s global sum gives it."""
         cfg = self.cfg
         d = cfg.deformable_detr
         if self.training and d.dropout > 0.0:
@@ -523,7 +527,12 @@ class DeformableDETR(nn.Module):
             cost_class=d.cost_class, cost_bbox=d.cost_bbox,
             cost_giou=d.cost_giou, alpha=d.focal_alpha, gamma=d.focal_gamma)
         # Every term over the matched pairs of the batch (layer 0's count).
-        total_pos = npos[0].sum().clamp(min=1.0)
+        total_pos = npos[0].sum()
+        if dp is not None:
+            total_pos = (dp.all_reduce_sum(total_pos).clamp(min=1.0)
+                         / dp.world_size)
+        else:
+            total_pos = total_pos.clamp(min=1.0)
         cls_loss = focal_s.sum(dim=1) / total_pos             # [Ldec]
         l1_loss = l1_s.sum(dim=1) / total_pos
         giou_loss = gi_s.sum(dim=1) / total_pos

@@ -24,6 +24,11 @@ its backward is a kernel too; with FPN each RoI at its level, the maps'
 gradient from the FPN RoI Align's backward kernel) and the two stages'
 losses. The samplers' uniform draws come from a ``torch.Generator`` or are
 handed in (``draws``), since torch cannot repeat ``jax.random``'s stream.
+
+Two hooks let a family extend the pipeline, as in the JAX package:
+``_extra_losses`` adds loss terms from the second stage's samples and
+``_predict_extras`` adds outputs from the final detections (Mask R-CNN,
+``models/mask_rcnn.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from tpudet_torch.kernels import roi_align_window as roi_align_window_kernel
 from tpudet_torch.models.det_head import FastRCNNHead
 from tpudet_torch.models.fpn import FPN
 from tpudet_torch.models.layers import Conv, init_module
+from tpudet_torch.models.mask_head import MaskHead
 from tpudet_torch.models.resnet import build_backbone
 from tpudet_torch.models.rpn_head import RPNHead
 from tpudet_torch.ops import anchors as anchor_ops
@@ -83,9 +89,10 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class DetectorCore(nn.Module):
-    """Backbone, neck (single-level) or FPN, RPN head and Fast R-CNN head.
-    Parameter names follow the Flax tree (``backbone.*``, ``neck_conv``,
-    ``fpn.*``, ``rpn_head``, ``det_head``)."""
+    """Backbone, neck (single-level) or FPN, RPN head, Fast R-CNN head and,
+    for Mask R-CNN, the mask head. Parameter names follow the Flax tree
+    (``backbone.*``, ``neck_conv``, ``fpn.*``, ``rpn_head``, ``det_head``,
+    ``mask_head``)."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()
@@ -114,6 +121,12 @@ class DetectorCore(nn.Module):
                                      cfg.roi.fc_dim,
                                      cfg.roi.class_agnostic_bbox, dtype,
                                      device)
+        self.mask_head = None
+        if cfg.model == "mask_rcnn":
+            m = cfg.mask
+            self.mask_head = MaskHead(
+                feat_ch, 1 if m.class_agnostic else cfg.data.num_classes,
+                m.num_convs, m.conv_channels, dtype, device)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``[B, H, W, 3]`` images -> ``{"c4": [B, C, H/16, W/16]}``, or
@@ -140,6 +153,10 @@ class DetectorCore(nn.Module):
     def roi_head(self, pooled: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.det_head(pooled)
+
+    def masks(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The mask FCN: ``[N, s, s, C_feat]`` -> ``[N, 2s, 2s, classes]``."""
+        return self.mask_head(pooled)
 
 
 class FasterRCNN(nn.Module):
@@ -315,14 +332,17 @@ class FasterRCNN(nn.Module):
 
     # ------------------------------------------------------------- pooling
     def _pool_batch(self, feats: Dict[str, torch.Tensor],
-                    rois: torch.Tensor) -> torch.Tensor:
+                    rois: torch.Tensor,
+                    out_size: Optional[int] = None) -> torch.Tensor:
         """RoI Align for all ``B x N`` RoIs in one kernel call: ``rois``
-        ``[B, N, 4]`` in image pixels -> ``[B, N, S, S, C]`` (the JAX
-        ``_pool_batch`` / ``_pool_single``). Single-level: on c4. FPN: each
+        ``[B, N, 4]`` in image pixels -> ``[B, N, S, S, C]`` with ``S =
+        out_size`` (default ``roi.output_size``; the JAX ``_pool_batch`` /
+        ``_pool_single``). Single-level: on c4. FPN: each
         RoI at its level of p2..p5, fit-bumped to ``roi.window`` with
         ``pooler="roi_align_window"``; with ``"roi_align"`` this is the
         value of the JAX package's all-level masked sum."""
         roi = self.cfg.roi
+        size = out_size or roi.output_size
         if self.cfg.backbone.use_fpn:
             fit = roi.window if roi.pooler == "roi_align_window" else 0
             levels = fpn_assign_levels(rois, fit_window=fit) - 2
@@ -330,15 +350,14 @@ class FasterRCNN(nn.Module):
                     for name in POOL_LEVELS]
             return roi_align_window_kernel.roi_align_window(
                 maps, POOL_STRIDES, rois.contiguous(), levels.contiguous(),
-                roi.output_size, roi.sampling_ratio)
+                size, roi.sampling_ratio)
         b, n = rois.shape[:2]
         fmap = feats["c4"].permute(0, 2, 3, 1).contiguous()  # NHWC, a view
         fboxes = (rois / float(self.cfg.anchors.stride)).reshape(b * n, 4)
         image_index = torch.arange(b, dtype=torch.int32, device=rois.device
                                    ).repeat_interleave(n)
         pooled = roi_align_kernel.roi_align(
-            fmap, fboxes.contiguous(), image_index, roi.output_size,
-            roi.sampling_ratio)
+            fmap, fboxes.contiguous(), image_index, size, roi.sampling_ratio)
         return pooled.reshape((b, n) + pooled.shape[1:])
 
     # ------------------------------------------------------------ training
@@ -464,7 +483,7 @@ class FasterRCNN(nn.Module):
         prop_boxes, _, prop_valid = self.proposals(
             rpn_logits, rpn_deltas, batch["image_hw"], canvas_hw=canvas,
             training=True)
-        roi_boxes, tgt_cls, tgt_box, is_fg, roi_valid, _ = (
+        roi_boxes, tgt_cls, tgt_box, is_fg, roi_valid, mgt = (
             self._roi_targets_single(prop_boxes, prop_valid, batch["gt_boxes"],
                                      batch["gt_classes"], batch["gt_valid"],
                                      draws["roi"]))
@@ -482,10 +501,32 @@ class FasterRCNN(nn.Module):
             return total, {"loss": total, "det_cls_loss": det_cls,
                            "det_box_loss": det_box, "num_fg_rois": num_fg}
         total = rpn_cls + rpn_box + det_cls + det_box
-        return total, {"rpn_cls_loss": rpn_cls, "rpn_box_loss": rpn_box,
-                       "det_cls_loss": det_cls, "det_box_loss": det_box,
-                       "num_pos_anchors": num_pos, "num_fg_rois": num_fg,
-                       "loss": total}
+        metrics = {"rpn_cls_loss": rpn_cls, "rpn_box_loss": rpn_box,
+                   "det_cls_loss": det_cls, "det_box_loss": det_box,
+                   "num_pos_anchors": num_pos, "num_fg_rois": num_fg}
+        for name, value in self._extra_losses(
+                feats, roi_boxes, tgt_cls, is_fg, roi_valid, mgt,
+                batch).items():
+            total = total + value
+            metrics[name] = value
+        metrics["loss"] = total
+        return total, metrics
+
+    # --------------------------------------------------- family extensions
+    def _extra_losses(self, feats, roi_boxes, tgt_cls, is_fg, roi_valid, mgt,
+                      batch) -> Dict[str, torch.Tensor]:
+        """A family's extra loss terms (name -> scalar) from the second
+        stage's state: the features, the sampled RoIs ``[B, K, 4]``, their
+        target classes, foreground and validity masks, and each RoI's
+        matched ground truth ``mgt [B, K]``. Faster R-CNN has none."""
+        del feats, roi_boxes, tgt_cls, is_fg, roi_valid, mgt, batch
+        return {}
+
+    def _predict_extras(self, feats, out, batch) -> Dict[str, torch.Tensor]:
+        """A family's extra outputs added to the detection dict ``out``
+        (Mask R-CNN's masks). Faster R-CNN adds none."""
+        del feats, batch
+        return out
 
     # ----------------------------------------------------------- inference
     def _postprocess_single(self, proposals, prop_valid, cls_logits,
@@ -562,10 +603,11 @@ class FasterRCNN(nn.Module):
         boxes, scores, classes, valid = self._postprocess_single(
             prop_boxes, prop_valid, cls_logits.reshape(b, r, -1),
             det_deltas.reshape(b, r, det_deltas.shape[1], 4), image_hw)
-        return {
+        out = {
             "boxes": boxes,
             "scores": scores,
             "classes": classes,
             "valid": valid,
             "num_detections": valid.sum(dim=1, dtype=torch.int32),
         }
+        return self._predict_extras(feats, out, batch)

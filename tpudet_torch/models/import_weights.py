@@ -5,7 +5,10 @@ The tree is ``{"params": ..., "constants": ...}`` as nested mappings of
 arrays (numpy, or anything ``np.asarray`` takes). The port's module names
 follow the Flax names, so the mapping is mechanical:
 
-* a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW);
+* a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW); the mask head's
+  ``deconv`` (Flax's ``ConvTranspose``, HW-in-out, applied unflipped)
+  becomes torch's ``[in, out, kh, kw]`` transposed-conv weight flipped in
+  both spatial axes;
 * a Dense ``kernel`` (``[in, out]``) becomes a Linear ``weight``
   (``[out, in]``); the RoI head flattens NHWC in both packages, so ``fc1``
   needs no row permutation;
@@ -46,9 +49,12 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()
 
 
 def _kernel_to_weight(arr: np.ndarray, layer: str) -> np.ndarray:
-    """A Flax kernel -> the port's weight: HWIO -> OIHW, ``[in, out]`` ->
-    ``[out, in]``, and the 3-D attention kernels over flattened heads."""
+    """A Flax kernel -> the port's weight: HWIO -> OIHW (a transposed
+    conv's -> flipped IOHW), ``[in, out]`` -> ``[out, in]``, and the 3-D
+    attention kernels over flattened heads."""
     if arr.ndim == 4:
+        if layer == "deconv":
+            return arr[::-1, ::-1].transpose(2, 3, 0, 1)
         return arr.transpose(3, 2, 0, 1)
     if arr.ndim == 3:
         if layer == "out":  # [heads, hd, d] contracts over (heads, hd)

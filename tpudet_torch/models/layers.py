@@ -96,6 +96,36 @@ class Conv(nn.Module):
         return F.conv2d(x, w, b, stride=self.stride, padding=pad)
 
 
+class ConvTranspose(nn.Module):
+    """Flax's ``nn.ConvTranspose`` with kernel == stride (no overlap, so
+    "SAME" gives ``stride`` times the input) over NCHW input. ``weight`` is
+    torch's ``[in, out, kh, kw]`` f32, cast to ``dtype`` at call time. Flax
+    applies its ``(kh, kw, in, out)`` kernel unflipped
+    (``transpose_kernel=False``), so the weight is that kernel flipped in
+    both spatial axes (``import_weights`` converts it). Drawn from
+    ``variance_scaling(2, "fan_out", "normal")``: std ``sqrt(2 / (kh * kw *
+    out))``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.stride = kernel
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.zeros(in_ch, out_ch, kernel, kernel, device=device))
+        self.bias = nn.Parameter(torch.zeros(out_ch, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        i, o, kh, kw = self.weight.shape
+        normal_(self.weight, math.sqrt(2.0 / (kh * kw * o)), generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
+                                  self.bias.to(self.dtype), stride=self.stride)
+
+
 class Dense(nn.Module):
     """Linear layer computing in ``dtype`` over an f32 ``[out, in]`` weight
     (Flax's ``nn.Dense`` kernel is ``[in, out]``: the weight is its
@@ -226,6 +256,6 @@ def init_module(module: nn.Module, generator: torch.Generator) -> None:
     """Redraw every layer of ``module`` from ``generator``, in registration
     order."""
     for m in module.modules():
-        if isinstance(m, (Conv, Dense, FrozenBatchNorm, AdaptiveGroupNorm,
-                          LayerNorm)):
+        if isinstance(m, (Conv, ConvTranspose, Dense, FrozenBatchNorm,
+                          AdaptiveGroupNorm, LayerNorm)):
             m.reset_parameters(generator)

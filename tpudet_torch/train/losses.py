@@ -1,5 +1,6 @@
 """Detection losses (``tpudet.train.losses``): Faster R-CNN's RPN and
-detection-head losses, and the Deformable DETR set loss.
+detection-head losses, Mask R-CNN's mask loss and the Deformable DETR set
+loss.
 
 Each is JAX's per-image function with any leading axes (a batch of images
 where JAX ``vmap``s): the reductions run over the last sample axis and the
@@ -12,7 +13,9 @@ and smooth-L1 (beta 1/9) over the positives' deltas, both divided by the
 number of sampled anchors. Detection head (Fast R-CNN §2.3): softmax
 cross-entropy over C + 1 classes and smooth-L1 (beta 1) over the
 foreground rows' matched-class deltas, both divided by the number of
-sampled RoIs. Every loss is 0, not NaN, where nothing is sampled.
+sampled RoIs. Mask R-CNN (arXiv:1703.06870 §3): a per-pixel sigmoid BCE on
+the matched class's mask, the mean over pixels, then over the foreground
+RoIs. Every loss is 0, not NaN, where nothing is sampled.
 """
 
 from __future__ import annotations
@@ -47,6 +50,36 @@ def _safe_mean(values: torch.Tensor, mask: torch.Tensor,
         denom = mask.sum(dim=-1)
     return torch.where(denom > 0, total / denom.clamp(min=1.0),
                        torch.zeros_like(total))
+
+
+def mask_class_channel(mask_logits: torch.Tensor,
+                       classes: torch.Tensor) -> torch.Tensor:
+    """``[..., m, m, C]`` per-class mask logits -> ``[..., m, m]``: each
+    row's channel of its class ``classes [...]`` (1..C), the single channel
+    of a class-agnostic head."""
+    c = mask_logits.shape[-1]
+    if c == 1:
+        return mask_logits[..., 0]
+    slot = (classes.long() - 1).clamp(0, c - 1)
+    index = slot[..., None, None, None].expand(*mask_logits.shape[:-1], 1)
+    return torch.gather(mask_logits, -1, index)[..., 0]
+
+
+def mask_loss(
+    mask_logits: torch.Tensor,     # [..., R, m, m, C] per-class logits
+    targets: torch.Tensor,         # [..., R, m, m] binary targets
+    target_classes: torch.Tensor,  # [..., R] matched class, 1..C
+    fg_valid: torch.Tensor,        # [..., R] bool: foreground and valid
+) -> torch.Tensor:
+    """Mask R-CNN's mask loss per image ``[...]``: BCE on the matched
+    class's channel (the single channel of a class-agnostic head), the mean
+    over the pixels of each RoI, then over the foreground RoIs; 0 for an
+    image with none."""
+    logits = mask_class_channel(mask_logits, target_classes)
+    bce = (logits.clamp(min=0.0) - logits * targets
+           + torch.log1p(torch.exp(-logits.abs())))
+    per_roi = bce.mean(dim=(-2, -1))
+    return _safe_mean(per_roi, fg_valid.to(torch.float32))
 
 
 def rpn_losses(

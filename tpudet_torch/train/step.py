@@ -5,17 +5,26 @@ the weights live in the model: ``make_train_step`` returns ``step(state,
 batch) -> (state, metrics)``, which updates the state's model in place, and
 ``make_eval_step`` returns ``batch -> detections`` under
 ``torch.inference_mode``. Both move the batch to the model's device.
+
+Under data parallelism (``parallel.DataParallel``) each process holds its
+rows of the global batch (``data.loader.process_rows``): its microbatch
+``a`` is rows ``rank::world_size`` of the global microbatch ``a``. It
+draws the global microbatch's sampler and augmentation uniforms and keeps
+its own rows, and the gradients and metrics are averaged over the group
+before clipping, so the step equals the one-process step on the joined
+batch.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpudet_torch.config import Config
-from tpudet_torch.data.preprocess import device_preprocess
+from tpudet_torch.data.preprocess import augment_draws, device_preprocess
+from tpudet_torch.parallel import DataParallel
 from tpudet_torch.train.state import (
     TrainState,
     ema_decay_at,
@@ -24,12 +33,14 @@ from tpudet_torch.train.state import (
 )
 
 
-def _step_seed(seed: int, step: int, micro: int) -> int:
+def _step_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
     """The seed of the generator of microbatch ``micro`` of update ``step``
     (Deformable DETR's dropout masks, Faster R-CNN's sampler draws):
     deterministic in ``(train.seed, step, micro)`` and unrelated across
-    them, as JAX's ``fold_in`` chain is (the bits differ)."""
-    return int(np.random.SeedSequence([seed, step, micro]).generate_state(
+    them, as JAX's ``fold_in`` chain is (the bits differ). ``rank`` > 0
+    gives a data-parallel process dropout masks of its own."""
+    entropy = [seed, step, micro] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0])
 
 
@@ -41,8 +52,21 @@ def _augment_seed(seed: int, step: int, micro: int) -> int:
         2, np.uint64)[1])
 
 
+def _own_rows(draws, dp: Optional[DataParallel]):
+    """This process's rows ``rank::world_size`` of each draw of the global
+    microbatch."""
+    if dp is None:
+        return draws
+    if isinstance(draws, torch.Tensor):
+        return draws[dp.rank::dp.world_size]
+    if isinstance(draws, dict):
+        return {k: _own_rows(v, dp) for k, v in draws.items()}
+    return tuple(_own_rows(v, dp) for v in draws)
+
+
 def make_train_step(model, cfg: Config, device="cuda",
-                    fused_preprocess: bool = False
+                    fused_preprocess: bool = False,
+                    dp: Optional[DataParallel] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """``step(state, batch) -> (state, metrics)`` on a batch (``image``,
     ``image_hw``, ``gt_boxes``, ``gt_classes``, ``gt_valid``; tensors or
@@ -55,6 +79,11 @@ def make_train_step(model, cfg: Config, device="cuda",
     * ``train.accum_steps`` microbatches of strided rows (rows ``a``,
       ``a + accum``, ...), their gradients summed and divided by the count,
       their metrics averaged;
+    * with ``dp``, the batch is this process's rows of the global batch
+      (``data.loader.process_rows``): the sampler and augmentation uniforms
+      are drawn for the global microbatch and cut to its rows, the Deformable DETR set loss divides by the
+      group's positive count, and the gradients and metrics are averaged
+      over the group (one all-reduce of a flat buffer);
     * frozen parameters' gradients dropped before the ``grad_norm`` metric
       (the norm of the gradients before clipping);
     * clipping by global norm as ``optax.clip_by_global_norm``: ``g / norm *
@@ -63,7 +92,7 @@ def make_train_step(model, cfg: Config, device="cuda",
     * the EMA ``e + (1 - d) * (p - e)`` with the decay after the update.
 
     Runs on ``device`` (CUDA unless the caller passes "cpu"), where the
-    state's model must be."""
+    state's model must be, and which must be ``dp.device``."""
     tcfg = cfg.train
     if cfg.det_only and "rpn_head" not in tcfg.freeze:
         # det_only gives the RPN no loss gradient: unfrozen, weight decay
@@ -75,6 +104,15 @@ def make_train_step(model, cfg: Config, device="cuda",
     if model.device != device:
         raise ValueError(f"make_train_step(device={device}): the model lives "
                          f"on {model.device} (create_train_state moves it)")
+    if dp is not None and dp.device != device:
+        raise ValueError(f"make_train_step(device={device}): this process "
+                         f"of the data-parallel group drives {dp.device}")
+    share = 1 if dp is None else dp.world_size
+    rank = 0 if dp is None else dp.rank
+    # Faster R-CNN's samplers draw from the step's generator; Deformable
+    # DETR's dropout does, inside its loss.
+    draws_samples = hasattr(model, "draw_samples")
+    loss_kw = {} if dp is None else {"dp": dp}
     accum = max(1, tcfg.accum_steps)
     if accum > 1 and tcfg.batch_size % accum:
         raise ValueError(f"train.batch_size {tcfg.batch_size} not divisible by "
@@ -99,14 +137,24 @@ def make_train_step(model, cfg: Config, device="cuda",
         for a in range(accum):
             micro = ({k: v[a::accum] for k, v in batch.items()}
                      if accum > 1 else batch)
+            rows = micro["image"].shape[0] * share  # of the global batch
             if fused_preprocess:
                 augment = torch.Generator(device=device).manual_seed(
                     _augment_seed(tcfg.seed, state.step, a))
-                micro = device_preprocess(cfg, micro, training=True,
-                                          generator=augment)
+                micro = device_preprocess(
+                    cfg, micro, training=True,
+                    draws=_own_rows(augment_draws(augment, rows), dp))
             generator = torch.Generator(device=device).manual_seed(
-                _step_seed(tcfg.seed, state.step, a))
-            loss, metrics = model.loss(micro, generator)
+                _step_seed(tcfg.seed, state.step, a,
+                           0 if draws_samples else rank))
+            if draws_samples:
+                # The global batch's draws (loss would draw the local
+                # batch's), this process's rows of them.
+                draws = model.draw_samples(generator, rows,
+                                           micro["image"].shape[1:3])
+                loss, metrics = model.loss(micro, draws=_own_rows(draws, dp))
+            else:
+                loss, metrics = model.loss(micro, generator, **loss_kw)
             loss.backward()
             per_micro.append({k: v.detach() for k, v in metrics.items()})
         for p in frozen_params:
@@ -118,6 +166,15 @@ def make_train_step(model, cfg: Config, device="cuda",
             elif accum > 1:
                 p.grad.div_(accum)
             grads.append(p.grad)
+        if dp is not None:
+            # psum's semantics: one all-reduce of every gradient, flat.
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dp.all_reduce_mean_(flat)
+            start = 0
+            for g in grads:
+                g.copy_(flat[start:start + g.numel()].view_as(g))
+                start += g.numel()
+            del flat
         grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         if max_norm > 0:
             keep = grad_norm < max_norm
@@ -139,6 +196,11 @@ def make_train_step(model, cfg: Config, device="cuda",
                     e.add_((p - e) * (1.0 - keep_ema))
         metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
                    for k in per_micro[0]}
+        if dp is not None:  # the group's means
+            names = list(metrics)
+            values = dp.all_reduce_mean_(
+                torch.stack([metrics[k].float() for k in names]))
+            metrics = dict(zip(names, values.unbind()))
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
