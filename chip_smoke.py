@@ -200,7 +200,37 @@ no result):
     backward's atomics; ms per step of both; launches;
 34. maskrcnn_tiny through the CLIs: ``cli.train --dataset synthetic``
     (b=8, 100 steps) and ``cli.eval --save-json``: segm/mAP printed, the
-    JSON's segmentations compressed RLE.
+    JSON's segmentations compressed RLE;
+35. the FPN RoI Align kernels at Keypoint R-CNN's S = 14: the forward over
+    [8, 100] detection boxes and the backward over [8, 128] positives on
+    the b=8 832x832 pyramid, f32 and bf16, against their plain versions:
+    errors, times (the backward's kernel apart from its dense passes),
+    bounds; and the keypoint head alone at its predict and train shapes;
+36-37. coco_cascade_r50_fpn (ResNet-50 + FPN, three class-agnostic heads
+    at IoU 0.5/0.6/0.7, 80 classes, bf16) inference through
+    ``make_eval_step``: b = 8 on the 832x832 and 832x1344 buckets with
+    launch counts (2 NMS and 3 FPN RoI Align per predict), an f32 b=2
+    256x256 input on the card against the CPU (proposals up to near-tie
+    flips, each stage's pooled boxes, the detections), ms per batch at b =
+    8 and 32, a profile; then training as phase 31 (1 NMS, 3 FPN forward
+    and 3 backward per step, every ``_s{t}`` loss term in the f32
+    reference), a profile of one step;
+38-39. coco_keypoint_r50_fpn (the person class, 17 keypoints, the 8x512
+    keypoint head pooled at 14) the same way: 2 FPN RoI Align per predict
+    and 2 forward and 2 backward per train step, 17 keypoints planted in
+    each box; the f32 keypoints on matched detections against the CPU;
+40-41. coco_panoptic_r50_fpn (coco_maskrcnn_r50_fpn plus the 128-wide
+    semantic head, 53 stuff classes) the same way: planted ellipses with
+    their quarter-scale semantic map; the f32 masks and semantic map
+    against the CPU;
+42. the three tiny learning checks at tpudet's bars (SGD 0.02, b=2, 20
+    steps on one synthetic batch): cascade_tiny's loss falls;
+    keypoint_tiny's loss and keypoint_loss fall, the first keypoint_loss
+    under 1.5 ln(S^2); panoptic_tiny's first semantic_loss within 10% of
+    0.5 ln(S + C), its loss and semantic_loss fall;
+43. the three tiny presets through ``cli.train --dataset synthetic`` (b=8,
+    30 steps) and ``cli.eval``: the ``kp/*`` and ``panoptic/*`` metrics
+    printed and finite; launches.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -843,6 +873,15 @@ def wide_layers(model):
     yield core.rpn_head.objectness, HEAD_STD["objectness"]
     yield core.det_head.cls, HEAD_STD["cls"]
     yield core.det_head.bbox, HEAD_STD["bbox"]
+    # The cascade's later stages (their deltas divided by 20 and 30) and
+    # Panoptic FPN's semantic predictor.
+    if model.cfg.model == "cascade_rcnn":
+        for t in range(2, roi_pools(model.cfg) + 1):
+            head = getattr(core, f"det_head{t}")
+            yield head.cls, HEAD_STD["cls"]
+            yield head.bbox, HEAD_STD["bbox"] * t
+    if core.semantic_head is not None:
+        yield core.semantic_head.predict, SEMANTIC_PREDICT_STD
 
 
 def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
@@ -1442,7 +1481,9 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20), slivers=0,
     ``device_preprocess``. The first ``slivers`` boxes of each image are
     long and thin (0.7-0.9 of the region by 0.03-0.06 of it, wide and tall
     by turns). With ``data.load_masks`` each object is the ellipse
-    inscribed in its box and ``gt_masks`` holds its box-frame crops."""
+    inscribed in its box and ``gt_masks`` holds its box-frame crops; the
+    keypoints and semantic maps of ``planted_family_fields`` where the
+    config loads them."""
     import numpy as np
     import torch
 
@@ -1487,6 +1528,8 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20), slivers=0,
     if masks:
         batch["gt_masks"] = mask_batch_masks(batch["gt_valid"],
                                              cfg.data.gt_mask_size)
+    batch.update({k: torch.from_numpy(v).to(device) for k, v in
+                  planted_family_fields(cfg, batch, seed).items()})
     return device_preprocess(cfg, batch)
 
 
@@ -1991,8 +2034,7 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
                 "deform_attn": kda.LAUNCHES,
                 "deform_attn_backward": kda.BACKWARD_LAUNCHES}
     pooler = "roi_align_window" if fpn else "roi_align"
-    # Mask R-CNN pools twice: the box head's RoIs and the mask branch's.
-    pools = 2 if cfg.model == "mask_rcnn" else 1
+    pools = roi_pools(cfg)
     expected = dict.fromkeys(launches, 0)
     expected.update({"nms": steps, pooler: pools * steps,
                      f"{pooler}_backward": pools * steps})
@@ -2002,7 +2044,9 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} train (preset SGD, planted 1-20 "
-          f"{'ellipses' if cfg.data.load_masks else 'boxes'}/image): {ms:.2f} "
+          f"{'ellipses' if cfg.data.load_masks else 'boxes'}/image"
+          f"{', 17 keypoints each' if cfg.data.load_keypoints else ''}"
+          f"{', semantic map' if cfg.data.load_semantic else ''}): {ms:.2f} "
           f"ms/step over steps 5..{steps - 1} (first {times[0]:.2f} ms), "
           f"{8e3 / ms:.1f} img/s, launches per step "
           f"{launches['nms'] // steps} NMS + {launches[pooler] // steps} "
@@ -2141,7 +2185,7 @@ def phase_faster_rcnn_train_reference(preset, size):
     _, runs = reference_runs(preset, size)
     card, cpu = runs["cuda"], runs["cpu"]
     launched = (kra.BACKWARD_LAUNCHES, krw.BACKWARD_LAUNCHES)
-    pools = 2 if cfg.model == "mask_rcnn" else 1  # the mask branch's too
+    pools = roi_pools(cfg)
     check(launched == ((0, pools) if fpn else (pools, 0)), f"{label}: "
           f"backward launches (RoI Align, FPN RoI Align) {launched}")
     bumped = ""
@@ -2550,7 +2594,7 @@ def phase_voc_cli(card):
         state = CheckpointManager(ckpt).restore_eval(state)
         image = SyntheticDataset(8, image_size=320).get_example(5)["image"]
         image = image[:240]
-        boxes, scores, classes, _ = cdetect.detect_image(
+        boxes, scores, classes, _, _ = cdetect.detect_image(
             cfg, state.eval_model(), image)
         check(len(boxes) > 0 and np_finite(boxes) and np_finite(scores)
               and (boxes >= 0).all() and (boxes[:, [0, 2]] <= 320).all()
@@ -3670,6 +3714,557 @@ def phase_mask_cli(card):
             "maskrcnn_tiny cli_eval": eval_launches}
 
 
+# --------------------------------------------------------------- slice 13
+# Cascade R-CNN, Keypoint R-CNN and Panoptic FPN at full width (phases
+# 35-43), each on the FPN preset of its family.
+FAMILY_PRESETS = {"cascade": "coco_cascade_r50_fpn",
+                  "keypoint": "coco_keypoint_r50_fpn",
+                  "panoptic": "coco_panoptic_r50_fpn"}
+# The semantic predictor drawn wider than Flax's normal(0.01), where the
+# classes would tie near 1/C: its input (the sum of four GroupNorm-ReLU
+# towers) has an rms of about 1, so 0.1 gives logits of ~1.
+SEMANTIC_PREDICT_STD = 0.1
+# keypoint_pool: the backward over 128 positives per image, a quarter of
+# Detectron's 512 sampled RoIs (the preset samples 128, whose prefix of 32
+# mask_pool holds already).
+KEYPOINT_POSITIVES = 128
+# The tiny learning recipes of tests/test_cascade.py,
+# tests/test_keypoint.py and tests/test_panoptic.py: SGD 0.02, no warmup,
+# b=2, 20 steps on one synthetic batch.
+FAMILY_LEARNING = {"steps": 20, "lr": 0.02}
+FAMILY_CLI_STEPS = 30
+
+
+def roi_pools(cfg):
+    """RoI Align calls per predict or train step: the box head's (each
+    cascade stage's) and a mask or keypoint branch's."""
+    if cfg.model == "cascade_rcnn":
+        return len(cfg.cascade.stage_iou_thresholds)
+    return 2 if cfg.model in ("mask_rcnn", "keypoint_rcnn",
+                              "panoptic_fpn") else 1
+
+
+def planted_family_fields(cfg, batch, seed):
+    """A planted batch's keypoints and semantic map (numpy), with
+    ``data.load_keypoints``: the keypoints at random points of each box,
+    a tenth unlabeled and a tenth hidden; with ``data.load_semantic``: the
+    quarter-scale map, stuff classes in horizontal bands over the image,
+    each object's thing class over its inscribed ellipse's cells, void
+    outside the image."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2000)
+    boxes = batch["gt_boxes"].cpu().numpy()
+    valid = batch["gt_valid"].cpu().numpy()
+    classes = batch["gt_classes"].cpu().numpy()
+    hw = batch["image_hw"].cpu().numpy()
+    b, g = valid.shape
+    out = {}
+    if cfg.data.load_keypoints:
+        k = cfg.data.num_keypoints
+        frac = rng.uniform(0.1, 0.9, (b, g, k, 2))
+        xy = boxes[:, :, None, :2] + frac * (boxes[:, :, None, 2:]
+                                             - boxes[:, :, None, :2])
+        vis = rng.choice([0.0, 1.0, 2.0], (b, g, k), p=[0.1, 0.1, 0.8])
+        kps = np.concatenate([xy * (vis > 0)[..., None], vis[..., None]], -1)
+        out["gt_keypoints"] = (kps * valid[:, :, None, None]).astype(
+            np.float32)
+    if cfg.data.load_semantic:
+        stuff = cfg.data.num_stuff_classes
+        h4 = -(-batch["image"].shape[1] // 4)
+        w4 = -(-batch["image"].shape[2] // 4)
+        cy = np.arange(h4)[:, None] * 4.0 + 1.5  # cell centres (canvas)
+        cx = np.arange(w4)[None, :] * 4.0 + 1.5
+        sem = np.zeros((b, h4, w4), np.int32)
+        for i in range(b):
+            band = (np.arange(h4) * 7 // h4) % stuff + 1
+            sem[i] = np.broadcast_to(band[:, None], (h4, w4))
+            for (x1, y1, x2, y2), c, ok in zip(boxes[i], classes[i],
+                                               valid[i]):
+                inside = (((cy - (y1 + y2) / 2) / max(y2 - y1, 1)) ** 2
+                          + ((cx - (x1 + x2) / 2) / max(x2 - x1, 1)) ** 2
+                          <= 0.25)
+                if ok:
+                    sem[i][inside] = stuff + c
+            sem[i][(cy >= hw[i, 0]) | (cx >= hw[i, 1])] = 0
+        out["gt_semantic"] = sem
+    return out
+
+
+def check_family_outputs(cfg, out, label):
+    """A family's outputs beyond the detections: the keypoints' shape,
+    finite values and zero rows; the masks as ``check_masks``; the
+    semantic map's shape and labels."""
+    import torch
+
+    b, d = out["boxes"].shape[:2]
+    if cfg.model == "keypoint_rcnn":
+        kps = out["keypoints"]
+        check(kps.shape == (b, d, cfg.data.num_keypoints, 3)
+              and bool(torch.isfinite(kps).all()), f"{label}: keypoints "
+              f"{tuple(kps.shape)}")
+        check(bool((kps[~out["valid"]] == 0).all()),
+              f"{label}: keypoints of invalid detections are not zero")
+        score = kps[..., 2][out["valid"]]
+        check(bool(((score > 0) & (score <= 1)).all()),
+              f"{label}: keypoint scores outside (0, 1]")
+    if cfg.model == "panoptic_fpn":
+        check_masks(cfg, out)
+        sem = out["semantic"]
+        classes = cfg.data.num_stuff_classes + cfg.data.num_classes
+        check(sem.dtype == torch.int32 and sem.shape[0] == b
+              and bool(((sem >= 1) & (sem <= classes)).all()),
+              f"{label}: semantic map {tuple(sem.shape)} {sem.dtype}")
+
+
+def family_reference(preset, seed, label, card_device="cuda"):
+    """The f32 preset on the card against the same weights on the CPU on a
+    small input (b=2 256x256), as ``card_equals_cpu``, stage by stage:
+    the proposals held up to near-tie flips (the same valid keeps, each
+    kept score within 1e-5), after which the CPU's second stage runs on
+    the card's proposals; each cascade stage's pooled boxes within 1e-2 px
+    plus 1e-4 relative; the detections as ``same_detections``; on the
+    matched detections the keypoints (x, y within 1e-2 px, scores within
+    1e-4; a keypoint whose cell flips between two cells whose scores are
+    within 1e-4 is a near tie and is counted), the masks within 1e-4; the
+    semantic map equal but for cells whose two classes' logits are within
+    1e-4 on the CPU (counted). Returns a summary line."""
+    import torch
+
+    from tpudet_torch.train.step import make_eval_step
+
+    runs = {}
+    small = canvases(2, 256, 256, seed=seed, device=card_device)
+    for run, device in (("card", card_device), ("cpu", "cpu")):
+        cfg, model = family_model(preset, "float32", device)
+        if run == "cpu":
+            model.load_state_dict(runs["card"]["model"].state_dict())
+        seen = {"stages": []}
+        own_proposals = model.proposals
+
+        def proposals(*args, seen=seen, own=own_proposals, run=run, **kw):
+            out = own(*args, **kw)
+            seen["proposals"] = [t.cpu() for t in out]
+            if run == "cpu":  # the card's, after its own are recorded
+                return [t.cpu() for t in runs["card"]["seen"]["proposals"]]
+            return out
+
+        model.proposals = proposals
+        if cfg.model == "cascade_rcnn":
+            own_stage = model._stage_head
+
+            def stage_head(feats, boxes, stage, seen=seen, own=own_stage):
+                seen["stages"].append(boxes.cpu())
+                return own(feats, boxes, stage)
+
+            model._stage_head = stage_head
+        if cfg.model == "panoptic_fpn":
+            own_semantic = model.core.semantic
+
+            def semantic(feats, seen=seen, own=own_semantic):
+                logits = own(feats)
+                seen["semantic_logits"] = logits.cpu()
+                return logits
+
+            model.core.semantic = semantic
+        out = make_eval_step(model, cfg)(
+            {k: v.to(device) for k, v in small.items()})
+        runs[run] = {"model": model, "seen": seen,
+                     "out": {k: v.cpu() for k, v in out.items()}}
+    card, cpu = runs["card"], runs["cpu"]
+    (cb, cs, cv), (pb, ps, pv) = (r["seen"]["proposals"] for r in (card, cpu))
+    gap = (cs - ps).abs()[cv]
+    moved = int(((cb - pb).abs().max(-1).values > 1e-2)[cv].sum())
+    check(bool((cv == pv).all()) and float(gap.max()) <= 1e-5,
+          f"{label} reference: proposals differ beyond near-tie flips "
+          f"({moved} boxes moved, kept scores {float(gap.max()):.3e} apart)")
+    parts = [f"proposals equal up to {moved} near-tie flips of "
+             f"{int(cv.sum())}"]
+    for st, (a, b) in enumerate(zip(card["seen"]["stages"],
+                                    cpu["seen"]["stages"])):
+        err = float((a - b).abs()[cv].max())
+        check(bool(torch.isclose(a, b, rtol=1e-4, atol=1e-2)[cv].all()),
+              f"{label} reference: stage {st + 1}'s boxes differ by {err}")
+        parts.append(f"stage {st + 1} boxes within {err:.1e} px")
+    co, po = card["out"], cpu["out"]
+    check(bool((po["num_detections"] > 0).all()),
+          f"{label} reference: no detections")
+    check(same_detections(co, po), f"f32 {label} predict on the card "
+          "differs from the plain versions on the CPU")
+    worst = {"masks": 0.0, "keypoints": 0.0, "scores": 0.0}
+    kp_ties = 0
+    for b in range(2):
+        n = int(po["num_detections"][b])
+        for i in range(n):
+            k = min((k for k in range(n)
+                     if co["classes"][b, k] == po["classes"][b, i]
+                     and abs(co["scores"][b, k] - po["scores"][b, i]) < 1e-4
+                     and (abs(co["boxes"][b, k] - po["boxes"][b, i])
+                          < 1e-2).all()), key=lambda k: abs(k - i))
+            if "masks" in po:
+                worst["masks"] = max(worst["masks"], float(
+                    (co["masks"][b, k] - po["masks"][b, i]).abs().max()))
+            if "keypoints" in po:
+                a, r = co["keypoints"][b, k], po["keypoints"][b, i]
+                score_gap = (a[:, 2] - r[:, 2]).abs()
+                moved_kp = (a[:, :2] - r[:, :2]).abs().max(-1).values > 1e-2
+                check(bool((score_gap <= 1e-4).all()),
+                      f"{label} reference: keypoint scores differ by "
+                      f"{float(score_gap.max())}")
+                kp_ties += int(moved_kp.sum())
+                if (~moved_kp).any():
+                    worst["keypoints"] = max(worst["keypoints"], float(
+                        (a[:, :2] - r[:, :2]).abs()[~moved_kp].max()))
+                worst["scores"] = max(worst["scores"],
+                                      float(score_gap.max()))
+    if "masks" in po:
+        check(worst["masks"] <= 1e-4, f"{label} reference: masks differ by "
+              f"{worst['masks']:.3e}")
+        parts.append(f"masks within {worst['masks']:.2e}")
+    if "keypoints" in po:
+        parts.append(f"keypoints within {worst['keypoints']:.2e} px (scores "
+                     f"{worst['scores']:.1e}), {kp_ties} near-tie cell flips")
+    if "semantic" in po:
+        differ = co["semantic"] != po["semantic"]
+        logits = cpu["seen"]["semantic_logits"]
+
+        def pick(labels):  # the CPU's logit of each cell's label
+            return torch.gather(logits, -1, (labels.long() - 1)[..., None])
+
+        tie = (pick(co["semantic"]) - pick(po["semantic"])).abs()[..., 0]
+        check(bool((tie[differ] <= 1e-4).all()), f"{label} reference: "
+              f"{int(differ.sum())} semantic cells differ, not near ties")
+        parts.append(f"semantic map equal but {int(differ.sum())} near-tie "
+                     f"cells of {differ.numel()}")
+    del runs
+    return (f"f32 b=2 256x256 predict on the card against the CPU: "
+            f"detections {po['num_detections'].tolist()} equal; "
+            + "; ".join(parts))
+
+
+def family_model(preset, dtype, device="cuda", seed=0):
+    """One of ``FAMILY_PRESETS`` at full width (``preset_model``), the mask
+    predictor drawn at ``MASK_PREDICT_STD``."""
+    import torch
+
+    cfg, model = preset_model(preset, dtype, device, seed)
+    if model.core.mask_head is not None:
+        gen = torch.Generator().manual_seed(seed + 2)
+        with torch.no_grad():
+            w = model.core.mask_head.predict.weight
+            w.copy_(torch.randn(w.shape, generator=gen) * MASK_PREDICT_STD)
+    return cfg, model
+
+
+def phase_family_predict(card, family, seed):
+    """One family's preset at full width through ``make_eval_step``, bf16:
+    b = 8 on the 832x832 and 832x1344 buckets with launch counts (2 NMS and
+    ``roi_pools`` FPN RoI Align per predict), the family's outputs checked,
+    the f32 reference (``family_reference``), ms per batch at b = 8 on
+    both buckets and b = 32 (cascade) or 16 on 832x832."""
+    import torch
+
+    from tpudet_torch.train.step import make_eval_step
+
+    preset = FAMILY_PRESETS[family]
+    cfg, model = family_model(preset, "bfloat16")
+    step = make_eval_step(model, cfg)
+    batches = {"832x832": canvases(8, 832, 832, seed=seed),
+               "832x1344": canvases(8, 832, 1344, seed=seed + 1)}
+    torch.cuda.synchronize()
+    # The path: counts set to 0 just before, read just after.
+    zero_launches()
+    outs = {name: step(batch) for name, batch in batches.items()}
+    launches = read_launches()
+    pools = roi_pools(cfg)
+    expect_launches(launches, f"{family}_predict", nms=2 * len(batches),
+                    roi_align_window=pools * len(batches))
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        check_family_outputs(cfg, out, f"{preset} {name}")
+        extra = ""
+        if "keypoints" in out:
+            score = out["keypoints"][..., 2][out["valid"]]
+            extra = f", mean keypoint score {float(score.mean()):.4f}"
+        if "semantic" in out:
+            extra = (f", semantic {tuple(out['semantic'].shape)} with "
+                     f"{len(torch.unique(out['semantic']))} labels")
+        print(f"{preset} bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}{extra}", flush=True)
+    print(f"{family}_predict launches: {json.dumps(launches)} over "
+          f"{len(batches)} predicts ({pools} RoI Align per predict)",
+          flush=True)
+    print(f"{family} reference: " + family_reference(preset, seed + 2,
+                                                     family), flush=True)
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
+    big = 32 if family == "cascade" else 16
+    for name, (h, w), sizes in (("832x832", (832, 832), (8, big)),
+                                ("832x1344", (832, 1344), (8,))):
+        for b in sizes:
+            batch = batches[name] if b == 8 else canvases(b, h, w,
+                                                          seed=seed + 3)
+            ms = time_ms(lambda: step(batch), iters=5, warmup=2)
+            print(f"{preset} bf16 predict b={b} {name}: {ms:.2f} ms/batch, "
+                  f"{1e3 * b / ms:.1f} img/s (uint8 canvases on the card, "
+                  f"preprocess included) | {card}", flush=True)
+    print(f"peak device memory ({family} predict timings): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    batch = batches["832x832"]
+    return launches, (lambda: step(batch))
+
+
+def phase_family_train(card, family, seed):
+    """One family's preset training at full width as phase 19 (b=8
+    832x832, 1-20 planted objects with the family's ground truth, 20 steps;
+    ``roi_pools`` FPN RoI Align forwards and backwards per step), then the
+    f32 b=2 256x256 step on the card against the CPU as phase 20."""
+    preset = FAMILY_PRESETS[family]
+    launches, run = phase_faster_rcnn_train_path(card, preset, 832, seed)
+    phase_faster_rcnn_train_reference(preset, 256)
+    return launches, run
+
+
+def phase_keypoint_pool():
+    """The FPN RoI Align kernels at Keypoint R-CNN's pooling size S = 14:
+    the forward over [8, 100] detections and the backward over [8,
+    ``KEYPOINT_POSITIVES``] positives on the b=8 832x832 pyramid (C =
+    256), bf16 and f32, each against its plain version, with its times
+    and bound."""
+    import torch
+
+    gen = torch.Generator().manual_seed(97)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(97)
+    b, c, s = 8, 256, 14
+    maps32 = [torch.randn(b, side, side, c, generator=cuda_gen,
+                          device="cuda") for side in (208, 104, 52, 26)]
+    dets = detection_rois(gen, b, 100)
+    positives = detection_rois(gen, b, KEYPOINT_POSITIVES)
+    result = {}
+    for kind, rois in (("forward", dets), ("backward", positives)):
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            m = (window_forward_case(maps32, rois, s, dtype)
+                 if kind == "forward" else
+                 window_backward_case(maps32, rois, s, dtype, cuda_gen))
+            check(m["ok"], f"FPN RoI Align {kind} S={s} {name} over "
+                  f"{tuple(rois.shape[:2])}: kernel differs from the plain "
+                  f"version by {m['err']:.3e}")
+            result[kind, name] = m
+            bound = max(m["bytes_ms"], m["ops_ms"])
+            print(f"keypoint_pool {kind} S={s} {name}: RoIs [{b}, "
+                  f"{rois.shape[1]}] on the 832x832 pyramid, C={c}, r=2: "
+                  f"max err {m['err']:.3e} ({m['tol']}) | "
+                  + ("kernel" if kind == "forward" else "wrapper")
+                  + f" {m['ms']:.4f} ms"
+                  + ("" if kind == "forward" else
+                     f" (kernel {m['kernel_ms']:.4f} ms, dense passes "
+                     f"{m['ms'] - m['kernel_ms']:.4f} ms)")
+                  + f", plain {m['plain_ms']:.2f} ms, bound {bound:.4f} ms "
+                  f"(bytes {m['bytes_ms']:.4f}; operations "
+                  f"{m['ops_ms']:.4f}), {m['ms'] / bound:.1f}x the bound",
+                  flush=True)
+    result["head"] = keypoint_head_times()
+    return result
+
+
+def keypoint_head_times():
+    """coco_keypoint_r50_fpn's keypoint head (8 convolutions of 512 at
+    14x14, the 4x4 deconvolution, the upsample) alone, bf16, at its main
+    paths' shapes: the forward over a b=8 predict's 800 detections, and
+    the forward and backward over a b=8 train step's 256 positives (8 x
+    32, the preset's 128 sampled RoIs per image x 0.25). Its time is
+    the share of the keypoint phases' profiles (phases 38-39) that the
+    head's convolutions take."""
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models.keypoint_head import KeypointHead
+    from tpudet_torch.models.layers import init_module
+
+    cfg = preset_config(FAMILY_PRESETS["keypoint"])
+    k = cfg.keypoint
+    head = KeypointHead(256, cfg.data.num_keypoints, k.num_convs,
+                        k.conv_channels, torch.bfloat16, "cuda")
+    init_module(head, torch.Generator().manual_seed(0))
+    s = k.roi_output_size
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dets = torch.randn(800, s, s, 256, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    positives = dets[:256].clone().requires_grad_()
+
+    def train():
+        head(positives).sum().backward()
+
+    with torch.no_grad():
+        forward_ms = time_ms(lambda: head(dets), iters=10, warmup=3)
+    train_ms = time_ms(train, iters=10, warmup=3)
+    flops = 2 * 9 * 256 * 512 + 7 * 2 * 9 * 512 * 512  # per pooled cell
+    tflop = {"forward": 800 * s * s * flops / 1e12,
+             "train": 3 * 256 * s * s * flops / 1e12}
+    print(f"keypoint head bf16 (8 convs of 512 at {s}x{s}, deconv, "
+          f"upsample): forward over 800 detections {forward_ms:.3f} ms "
+          f"({tflop['forward']:.2f} TFLOP of convolutions, "
+          f"{tflop['forward'] / forward_ms * 1e3:.0f} TFLOP/s); forward "
+          f"and backward over 256 positives {train_ms:.3f} ms "
+          f"({tflop['train']:.2f} TFLOP, "
+          f"{tflop['train'] / train_ms * 1e3:.0f} TFLOP/s)", flush=True)
+    return {"forward_ms": forward_ms, "train_ms": train_ms}
+
+
+def family_learning_losses(preset, device="cuda"):
+    """The tiny recipe (``FAMILY_LEARNING``) of ``preset`` on ``device``:
+    SGD 0.02 with no warmup, 20 steps on one synthetic batch of 2 with the
+    family's ground truth (the JAX tests' ``make_batch``) -> each step's
+    metrics."""
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.data import DataLoader, SyntheticDataset
+    from tpudet_torch.data.preprocess import device_preprocess
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = preset_config(preset)
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, learning_rate=FAMILY_LEARNING["lr"], warmup_steps=0,
+        batch_size=2))
+    d = cfg.data
+    ds = SyntheticDataset(num_classes=d.num_classes, num_examples=2,
+                          image_size=d.canvas_height, seed=0,
+                          with_masks=d.load_masks,
+                          with_keypoints=d.load_keypoints,
+                          with_semantic=d.load_semantic)
+    raw = next(iter(DataLoader(cfg, ds, 2, shuffle=False,
+                               num_workers=1).batches(0)))
+    batch = device_preprocess(cfg, {k: torch.from_numpy(v).to(device)
+                                    for k, v in raw.items()})
+    model = build_model(cfg, device=device)
+    state = create_train_state(model, cfg.train, seed=0, device=device)
+    step = make_train_step(model, cfg, device=device)
+    rows = []
+    for _ in range(FAMILY_LEARNING["steps"]):
+        state, metrics = step(state, batch)
+        rows.append({k: float(v) for k, v in metrics.items()})
+    return cfg, rows
+
+
+def family_learning_verdict(cfg, rows):
+    """tpudet's bars on a family's learning run -> (passed, summary)."""
+    import math
+
+    first, last = rows[0], rows[-1]
+    finite = all(math.isfinite(v) for r in rows for v in r.values())
+    ok = finite and last["loss"] < first["loss"]
+    text = f"loss {first['loss']:.4f} -> {last['loss']:.4f}"
+    if cfg.model == "keypoint_rcnn":
+        s = 4 * cfg.keypoint.roi_output_size
+        ok = (ok and last["keypoint_loss"] < first["keypoint_loss"]
+              and first["keypoint_loss"] < 1.5 * math.log(s * s))
+        text += (f", keypoint_loss {first['keypoint_loss']:.4f} -> "
+                 f"{last['keypoint_loss']:.4f} (first under 1.5 ln(S^2) = "
+                 f"{1.5 * math.log(s * s):.4f})")
+    if cfg.model == "panoptic_fpn":
+        want = 0.5 * math.log(cfg.data.num_stuff_classes
+                              + cfg.data.num_classes)
+        ok = (ok and abs(first["semantic_loss"] - want) <= 0.1 * want
+              and last["semantic_loss"] < first["semantic_loss"]
+              and "mask_loss" in last)
+        text += (f", semantic_loss {first['semantic_loss']:.4f} (0.5 ln(S + "
+                 f"C) = {want:.4f} within 10%) -> {last['semantic_loss']:.4f}"
+                 f", mask_loss {first['mask_loss']:.4f} -> "
+                 f"{last['mask_loss']:.4f}")
+    if cfg.model == "cascade_rcnn":
+        text += "; stage 3's det_cls_loss " + " -> ".join(
+            f"{r['det_cls_loss_s3']:.4f}" for r in (first, last))
+    return ok, text
+
+
+def phase_families_learning(card):
+    """The three families' tiny learning checks on the card at tpudet's
+    bars (tests/test_cascade.py, test_keypoint.py, test_panoptic.py):
+    cascade_tiny's last loss under its first; keypoint_tiny's loss and
+    keypoint_loss fall, the first keypoint_loss under 1.5 ln(S^2);
+    panoptic_tiny's first semantic_loss within 10% of 0.5 ln(S + C), its
+    loss and semantic_loss fall."""
+    out = {}
+    for preset in ("cascade_tiny", "keypoint_tiny", "panoptic_tiny"):
+        zero_launches()
+        cfg, rows = family_learning_losses(preset)
+        launches = read_launches()
+        steps, pools = FAMILY_LEARNING["steps"], roi_pools(cfg)
+        pooler = ("roi_align_window" if cfg.backbone.use_fpn
+                  else "roi_align")
+        expect_launches(launches, f"{preset} learning", nms=steps,
+                        **{pooler: pools * steps,
+                           f"{pooler}_backward": pools * steps})
+        ok, text = family_learning_verdict(cfg, rows)
+        check(ok, f"{preset} learning check: {text}")
+        print(f"families_learning {preset}: SGD {FAMILY_LEARNING['lr']}, "
+              f"{steps} steps on one synthetic batch: {text} | {card}",
+              flush=True)
+        out[f"{preset} learning"] = launches
+    return out
+
+
+def phase_families_cli(card):
+    """The three tiny presets through the CLIs on the card: ``cli.train
+    --dataset synthetic`` (b=8, ``FAMILY_CLI_STEPS`` steps), then
+    ``cli.eval`` over the 64 val images: the family's loss terms in the
+    train log, ``kp/*`` for keypoint_tiny and ``panoptic/*`` with
+    ``semantic_mIoU`` for panoptic_tiny printed and finite; launches."""
+    import math
+    import tempfile
+
+    from tpudet_torch.cli import eval as ceval
+    from tpudet_torch.cli import train as ctrain
+    from tpudet_torch.cli.common import preset_config
+
+    wanted = {"cascade_tiny": ("det_cls_loss_s3=", ("mAP",)),
+              "keypoint_tiny": ("keypoint_loss=", ("mAP", "kp/mAP",
+                                                   "kp/mAP@0.5")),
+              "panoptic_tiny": ("semantic_loss=", (
+                  "mAP", "segm/mAP", "panoptic/PQ", "panoptic/SQ",
+                  "panoptic/RQ", "panoptic/semantic_mIoU"))}
+    steps = FAMILY_CLI_STEPS
+    out = {}
+    for preset, (loss, metrics) in wanted.items():
+        argv = ["--preset", preset, "--dataset", "synthetic"]
+        cfg = preset_config(preset)
+        pools = roi_pools(cfg)
+        pooler = ("roi_align_window" if cfg.backbone.use_fpn
+                  else "roi_align")
+        with tempfile.TemporaryDirectory() as tmp:
+            zero_launches()
+            state, text = run_cli(ctrain.main, argv + [
+                "--batch-size", "8", "--lr", "0.02", "--steps", str(steps),
+                "--checkpoint-dir", f"{tmp}/ckpt"], f"cli.train {preset}")
+            train_launches = read_launches()
+            zero_launches()
+            summary, eval_text = run_cli(ceval.main, argv + [
+                "--checkpoint-dir", f"{tmp}/ckpt"], f"cli.eval {preset}")
+            eval_launches = read_launches()
+        check(state.step == steps and loss in text,
+              f"cli.train {preset}: step {state.step}, no {loss}")
+        expect_launches(train_launches, f"{preset} cli.train", nms=steps,
+                        **{pooler: pools * steps,
+                           f"{pooler}_backward": pools * steps})
+        expect_launches(eval_launches, f"{preset} cli.eval", nms=16,
+                        **{pooler: pools * 8})
+        for m in metrics:
+            check(m in summary and f"{m}: " in eval_text
+                  and math.isfinite(summary[m]),
+                  f"cli.eval {preset} printed no finite {m}")
+        print(f"families_cli {preset}: cli.train synthetic b=8, {steps} "
+              f"steps; cli.eval 64 val images: "
+              + ", ".join(f"{m} {summary[m]:.4f}" for m in metrics)
+              + f" | {card}", flush=True)
+        out[f"{preset} cli_train"] = train_launches
+        out[f"{preset} cli_eval"] = eval_launches
+    return out
+
+
 def phase_precision_probe():
     """The precision probe's three stages on the tensor cores through its
     entry point's ``run_probe``, each stage's kernel output against the
@@ -3871,7 +4466,39 @@ PHASES = {
     "mask_learning": lambda card: phase_mask_learning(card),
     "coco_r50_dp": lambda card: phase_coco_r50_dp(card),
     "mask_cli": lambda card: phase_mask_cli(card),
+    "cascade_predict": lambda card: family_predict_profile(card, "cascade",
+                                                           101),
+    "cascade_train": lambda card: family_train_profile(card, "cascade", 103),
+    "keypoint_pool": lambda card: phase_keypoint_pool(),
+    "keypoint_predict": lambda card: family_predict_profile(card, "keypoint",
+                                                            105),
+    "keypoint_train": lambda card: family_train_profile(card, "keypoint",
+                                                        107),
+    "panoptic_predict": lambda card: family_predict_profile(card, "panoptic",
+                                                            109),
+    "panoptic_train": lambda card: family_train_profile(card, "panoptic",
+                                                        111),
+    "families_learning": lambda card: phase_families_learning(card),
+    "families_cli": lambda card: phase_families_cli(card),
 }
+
+
+def family_predict_profile(card, family, seed):
+    """``phase_family_predict``, then a profile of one of its b=8 832x832
+    predicts -> the path's launches."""
+    launches, run = phase_family_predict(card, family, seed)
+    phase_profile(card, f"{FAMILY_PRESETS[family]} bf16 b=8 832x832 predict",
+                  run)
+    return launches
+
+
+def family_train_profile(card, family, seed):
+    """``phase_family_train``, then a profile of one of its train steps ->
+    the path's launches."""
+    launches, run = phase_family_train(card, family, seed)
+    phase_profile(card, f"{FAMILY_PRESETS[family]} bf16 b=8 832x832 train "
+                  "step", run, warmup=1)
+    return launches
 
 
 def mask_predict_profile_run(step):
@@ -3993,6 +4620,16 @@ def main(argv=None) -> None:
         "coco_maskrcnn_r50_fpn train": mask_train_launches,
         **phase_mask_learning(card), **phase_coco_r50_dp(card),
         **phase_mask_cli(card)}
+    keypoint_pool = phase_keypoint_pool()
+    for family, seed in (("cascade", 101), ("keypoint", 105),
+                         ("panoptic", 109)):
+        preset = FAMILY_PRESETS[family]
+        slice_launches[f"{preset} predict"] = family_predict_profile(
+            card, family, seed)
+        slice_launches[f"{preset} train"] = family_train_profile(
+            card, family, seed + 2)
+    slice_launches.update(phase_families_learning(card))
+    slice_launches.update(phase_families_cli(card))
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -4022,11 +4659,27 @@ def main(argv=None) -> None:
                 if counts[kernel]}
 
     def slice_paths(kernel):
-        """The Mask R-CNN and data-parallel paths' counts of ``kernel``
-        (phases mask_predict, mask_train, mask_learning, coco_r50_dp and
-        mask_cli), each zeroed just before its path."""
+        """The Mask R-CNN, data-parallel, Cascade R-CNN, Keypoint R-CNN and
+        Panoptic FPN paths' counts of ``kernel`` (phases 30-34 and 36-43),
+        each zeroed just before its path."""
         return {path: counts[kernel] for path, counts in slice_launches.items()
                 if counts[kernel]}
+
+    def keypoint_s14(kind):
+        """The FPN RoI Align ``kind`` at Keypoint R-CNN's S = 14 (phase
+        keypoint_pool, bf16): the forward over [8, 100] detections, the
+        backward over [8, KEYPOINT_POSITIVES] positives."""
+        m = keypoint_pool[kind, "bf16"]
+        out = {"ms": m["ms"], "plain_ms": m["plain_ms"],
+               "bound_ms": max(m["bytes_ms"], m["ops_ms"]),
+               "bound_by": ("bytes" if m["bytes_ms"] >= m["ops_ms"]
+                            else "operations"),
+               "max_abs_err": max(keypoint_pool[kind, d]["err"]
+                                  for d in ("bf16", "f32")),
+               "rois": [8, 100 if kind == "forward" else KEYPOINT_POSITIVES]}
+        if kind == "backward":
+            out["kernel_ms"] = m["kernel_ms"]
+        return out
 
     def at_s14(kind):
         """The FPN RoI Align ``kind`` at the mask branch's S = 14 (phase
@@ -4076,7 +4729,7 @@ def main(argv=None) -> None:
                     fpn_train_launches["roi_align_window"],
                     **slice_paths("roi_align_window")},
                    roi_window["bf16"], roi_window["bf16"]["err"]),
-             s14=at_s14("forward")),
+             s14=at_s14("forward"), keypoint_s14=keypoint_s14("forward")),
         # The FPN backward at coco_r101_fpn's train shape, bf16: ms is the
         # wrapper's call (the kernel and the dense passes around it, each
         # also given apart).
@@ -4087,6 +4740,7 @@ def main(argv=None) -> None:
                    roi_window_bwd["bf16"],
                    max(m["err"] for m in roi_window_bwd.values())),
              replaces=krw.BACKWARD_REPLACES, s14=at_s14("backward"),
+             keypoint_s14=keypoint_s14("backward"),
              kernel_ms=roi_window_bwd["bf16"]["kernel_ms"],
              dense_ms=roi_window_bwd["bf16"]["dense_ms"]),
     ]

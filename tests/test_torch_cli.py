@@ -1,7 +1,9 @@
 """The port's CLIs on the CPU (``--device cpu``): train, resume, the
 training modes, eval and detect on ``--preset tiny --dataset synthetic``;
 Mask R-CNN's train, eval (segm mAP, RLE segmentations in ``--save-json``)
-and detect on ``--preset maskrcnn_tiny``;
+and detect on ``--preset maskrcnn_tiny``; train, eval and detect on
+``cascade_tiny``, ``keypoint_tiny`` (kp/ metrics, keypoints in
+``--save-json`` and the drawing) and ``panoptic_tiny`` (panoptic/ metrics);
 and the port's ``evaluate`` against the JAX package's on 8 synthetic val
 images with the same weights (``from_flax_variables``): the same
 detections per image (as ``tests/test_torch_faster_rcnn.py`` holds them)
@@ -114,6 +116,45 @@ def test_maskrcnn_train_eval_save_json_detect(tmp_path, capsys):
                          str(image), "--output", str(tmp_path / "o.png"),
                          "--score-thresh", "0.0"])
     assert (tmp_path / "o.png").exists()
+
+
+@pytest.mark.parametrize("preset,loss,metric", [
+    ("cascade_tiny", "det_cls_loss_s3=", "mAP"),
+    ("keypoint_tiny", "keypoint_loss=", "kp/mAP"),
+    ("panoptic_tiny", "semantic_loss=", "panoptic/PQ")])
+def test_family_train_eval_detect(tmp_path, capsys, preset, loss, metric):
+    from PIL import Image
+
+    argv = ["--preset", preset, "--dataset", "synthetic", "--device", "cpu"]
+    ckpt = tmp_path / "ckpt"
+    state = ttrain.main(argv + ["--steps", "2", "--batch-size", "2",
+                                "--checkpoint-dir", str(ckpt),
+                                "--set", "train.log_every=1"])
+    out = capsys.readouterr().out
+    assert state.step == 2 and loss in out and "[train step 2]" in out
+    saved = tmp_path / "dets.json"
+    summary = teval.main(argv + ["--checkpoint-dir", str(ckpt),
+                                 "--max-images", "4", "--batch-size", "2",
+                                 "--save-json", str(saved)])
+    out = capsys.readouterr().out
+    assert f"{metric}: " in out
+    # Per-class APs of classes without ground truth are NaN by design.
+    assert all(np.isfinite(v) for k, v in summary.items()
+               if "/class_" not in k)
+    records = json.loads(saved.read_text())
+    if preset == "keypoint_tiny":
+        assert {"kp/mAP", "kp/mAP@0.5"} <= set(summary)
+        assert records and all(len(r["keypoints"]) == 15 for r in records)
+    if preset == "panoptic_tiny":
+        assert {"panoptic/PQ", "panoptic/SQ", "panoptic/RQ",
+                "panoptic/semantic_mIoU", "segm/mAP"} <= set(summary)
+        assert summary["panoptic/semantic_mIoU"] > 0
+    image = tmp_path / "x.png"
+    Image.fromarray(np.full((96, 128, 3), 90, np.uint8)).save(image)
+    boxes, _, _ = tdetect.main(argv + [
+        "--checkpoint-dir", str(ckpt), "--image", str(image), "--output",
+        str(tmp_path / "o.png"), "--score-thresh", "0.0"])
+    assert (tmp_path / "o.png").exists() and len(boxes) > 0
 
 
 def test_training_modes(tmp_path, capsys):

@@ -1148,3 +1148,132 @@ def test_one_rank_nccl_step_equals_the_ungrouped_step(cuda):
     scale = max(float(p.abs().max()) for p in p_alone.values())
     for k, p in p_alone.items():
         torch.testing.assert_close(p_grouped[k], p, rtol=0, atol=1e-6 * scale)
+
+
+def family_pair(cuda, name, seed=0):
+    """The tiny preset ``name`` on the card and on the CPU with the same
+    weights, its class scores widened so that detections pass
+    score_thresh."""
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+
+    cfg = preset_config(name)
+    cpu = build_model(cfg, device="cpu").init(seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for head in ("det_head", "det_head2", "det_head3"):
+            if hasattr(cpu.core, head):
+                getattr(cpu.core, head).cls.weight.normal_(0, 1.0,
+                                                           generator=gen)
+        for head in ("mask_head", "semantic_head"):
+            if getattr(cpu.core, head, None) is not None:
+                getattr(cpu.core, head).predict.weight.normal_(
+                    0, 0.3, generator=gen)
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [100.0, 120.0]])}
+    return cfg, card, cpu, batch
+
+
+@pytest.mark.parametrize("name,launches", [
+    ("cascade_tiny", {"roi_align": 3}),
+    ("keypoint_tiny", {"roi_align": 2}),
+    ("panoptic_tiny", {"roi_align_window": 2})])
+def test_family_predict_on_card_equals_plain_path(cuda, name, launches):
+    """cascade_tiny (three stages pooled on c4), keypoint_tiny and
+    panoptic_tiny (FPN): detections, keypoints, masks and the semantic map
+    on the card equal to the CPU's; the RoI Align launches per predict."""
+    _, card, cpu, batch = family_pair(cuda, name)
+    counts = {"roi_align": lambda: kra.LAUNCHES,
+              "roi_align_window": lambda: krw.LAUNCHES}
+    before = {k: counts[k]() for k in launches}
+    out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+    assert {k: counts[k]() - before[k] for k in launches} == launches
+    ref = cpu.predict(batch)
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    assert (ref["num_detections"] > 0).all()
+    torch.testing.assert_close(out["boxes"].cpu(), ref["boxes"], rtol=1e-4,
+                               atol=1e-3)
+    torch.testing.assert_close(out["scores"].cpu(), ref["scores"], rtol=1e-4,
+                               atol=1e-4)
+    if "keypoints" in ref:
+        torch.testing.assert_close(out["keypoints"].cpu(), ref["keypoints"],
+                                   rtol=1e-4, atol=1e-3)
+    if "masks" in ref:
+        torch.testing.assert_close(out["masks"].cpu(), ref["masks"],
+                                   rtol=0, atol=1e-4)
+    if "semantic" in ref:
+        assert torch.equal(out["semantic"].cpu(), ref["semantic"])
+
+
+def test_argmax_of_ties_on_card_takes_the_first(cuda):
+    """The keypoint decode and the semantic map take the first maximum, as
+    jnp.argmax: torch.argmax on the card does too, over the heatmap's
+    cells and over the class axis."""
+    x = torch.zeros(3, 56 * 56, 17, device=cuda)
+    x[:, 100] = x[:, 2000] = x[:, 3135] = 1.0
+    assert (torch.argmax(x, dim=1) == 100).all()
+    y = torch.zeros(2, 200, 304, 133, device=cuda)
+    y[..., 7] = y[..., 90] = 1.0
+    assert (torch.argmax(y, dim=-1) == 7).all()
+
+
+def test_keypoint_and_semantic_flip_on_card_equals_cpu(cuda):
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.data.preprocess import augment_draws, device_preprocess
+
+    cfg = preset_config("keypoint_tiny")
+    cfg = cfg.replace(data=cfg.data.__class__(
+        **{**cfg.data.__dict__, "load_semantic": True}))
+    gen = torch.Generator().manual_seed(4)
+    kps = torch.rand(4, 5, 5, 3, generator=gen) * 60
+    kps[..., 2] = torch.randint(0, 3, (4, 5, 5), generator=gen).float()
+    batch = {"image": torch.randint(0, 256, (4, 64, 64, 3), generator=gen,
+                                    dtype=torch.uint8),
+             "image_hw": torch.tensor([[64.0, 64.0], [50.0, 41.0],
+                                       [64.0, 30.0], [33.0, 64.0]]),
+             "gt_boxes": torch.rand(4, 5, 4, generator=gen) * 30,
+             "gt_keypoints": kps,
+             "gt_semantic": torch.randint(0, 5, (4, 16, 16), generator=gen,
+                                          dtype=torch.int32)}
+    draws = augment_draws(gen, 4)
+    draws["flip"] = torch.tensor([True, True, False, True])
+    ref = device_preprocess(cfg, batch, training=True, draws=draws)
+    out = device_preprocess(cfg, {k: v.to(cuda) for k, v in batch.items()},
+                            training=True,
+                            draws={k: v.to(cuda) for k, v in draws.items()})
+    for k in ("gt_boxes", "gt_keypoints", "gt_semantic"):
+        assert torch.equal(out[k].cpu(), ref[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_window_backward_at_the_keypoint_shape(cuda, dtype):
+    """Keypoint R-CNN's branch: S = 14 over 128 positives per image (a
+    quarter of 512), the backward through the autograd Function against
+    autograd through the plain version on f32-widened maps."""
+    gen = torch.Generator().manual_seed(128)
+    c, s, r = 256, 14, 2
+    feats = [torch.randn(2, h, h, c, generator=gen).to(dtype).to(cuda)
+             for h in (52, 26, 13, 7)]
+    strides = (4.0, 8.0, 16.0, 32.0)
+    rois = boxes(gen, 2, 128, extent=190.0).to(cuda)
+    levels = (fpn_assign_levels(rois, fit_window=56) - 2).contiguous()
+    cot = torch.randn(2, 128, s, s, c, generator=gen).to(dtype).to(cuda)
+    maps = [f.clone().requires_grad_() for f in feats]
+    before = krw.BACKWARD_LAUNCHES
+    got = torch.autograd.grad(
+        krw.roi_align_window(maps, strides, rois, levels, s, r), maps, cot)
+    assert krw.BACKWARD_LAUNCHES == before + 1
+    wide = [f.float().requires_grad_() for f in feats]
+
+    def plain_grad(g):
+        grads = torch.autograd.grad(
+            krw.roi_align_window_plain(wide, strides, rois, levels, s, r),
+            wide, g, allow_unused=True)
+        return [torch.zeros_like(w) if d is None else d
+                for w, d in zip(wide, grads)]
+
+    ref, terms = plain_grad(cot.float()), plain_grad(cot.float().abs())
+    for g, want, t in zip(got, ref, terms):
+        assert_gradient_close(g, want, dtype, t)

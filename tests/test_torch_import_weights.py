@@ -119,3 +119,36 @@ def test_full_preset_tree_loads_by_name():
     assert model.core.dec5.self_attn.out.weight.shape == (256, 256)
     assert hasattr(model.core, "class_head5") and hasattr(model.core,
                                                           "bbox_head5")
+
+
+@pytest.mark.parametrize("name", ["coco_cascade_r50_fpn",
+                                  "coco_keypoint_r50_fpn",
+                                  "coco_panoptic_r50_fpn"])
+def test_family_preset_trees_load_by_name(name):
+    """Every parameter of the three families' full presets (the cascade's
+    det_head2/3, the 8x512 keypoint head and its 4x4 deconv, the mask and
+    semantic heads with their GroupNorm scales) maps onto the port's model,
+    names and shapes, strictly (no key left over either way), and
+    ``flax_param_ndims`` gives each the ndim of its Flax leaf."""
+    from tpudet_torch.models.import_weights import flax_param_ndims
+
+    jm = jax_build_model(jax_preset(name))
+    shapes = flax.core.unfreeze(jax.eval_shape(jm.init, jax.random.key(0)))
+    zeros = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, np.float32), shapes)
+    model = build_model(preset_config(name), device="cpu")
+    sd = from_flax_variables(zeros)
+    assert set(sd) == set(model.core.state_dict())
+    model.core.load_state_dict(sd)  # strict: names and shapes
+    # No attention here: each converted parameter keeps its leaf's ndim.
+    params = from_flax_variables({"params": zeros["params"]})
+    ndims = flax_param_ndims(model.core)
+    assert set(ndims) == set(params)
+    for key, arr in params.items():
+        assert ndims[key] == arr.ndim, key
+    core = model.core
+    if name == "coco_keypoint_r50_fpn":
+        assert core.keypoint_head.deconv.weight.shape == (512, 17, 4, 4)
+    if name == "coco_panoptic_r50_fpn":
+        assert core.semantic_head.p5_gn2.weight.shape == (128,)
+        assert core.semantic_head.predict.weight.shape == (133, 128, 1, 1)

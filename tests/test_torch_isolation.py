@@ -88,7 +88,9 @@ def test_sources_import_no_jax_and_no_tpudet():
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
                                    "DeformableDETRConfig", "MaskConfig",
-                                   "TrainConfig", "EvalConfig", "Config"])
+                                   "CascadeConfig", "KeypointConfig",
+                                   "PanopticConfig", "TrainConfig",
+                                   "EvalConfig", "Config"])
 def test_config_defaults_equal_jax(group):
     port = getattr(tconfig, group)()
     ref = getattr(jconfig, group)()
@@ -160,7 +162,10 @@ def test_tiny_maskrcnn_config_equals_jax_fields():
 
 
 @pytest.mark.parametrize("name", ["coco_r50", "coco_maskrcnn_r50_fpn",
-                                  "maskrcnn_tiny"])
+                                  "maskrcnn_tiny", "cascade_tiny",
+                                  "coco_cascade_r50_fpn", "keypoint_tiny",
+                                  "coco_keypoint_r50_fpn", "panoptic_tiny",
+                                  "coco_panoptic_r50_fpn"])
 def test_slice_presets_equal_jax(name):
     from tpudet.cli.common import preset_config as jax_preset
     from tpudet_torch.cli.common import PRESETS, preset_config
@@ -169,8 +174,28 @@ def test_slice_presets_equal_jax(name):
     port, ref = preset_config(name), jax_preset(name)
     assert port.model == ref.model
     for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
-                  "train"):
+                  "cascade", "keypoint", "panoptic", "train"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), \
                 f"{name}: {group}.{f.name}"
+
+
+@pytest.mark.parametrize("name", ["tiny_cascade_config",
+                                  "tiny_keypoint_config",
+                                  "tiny_panoptic_config"])
+def test_family_tiny_configs_equal_jax_fields(name):
+    port, ref = getattr(tconfig, name)(), getattr(jconfig, name)()
+    assert port.model == ref.model
+    for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
+                  "cascade", "keypoint", "panoptic", "train"):
+        for f in dataclasses.fields(getattr(port, group)):
+            assert (getattr(getattr(port, group), f.name)
+                    == getattr(getattr(ref, group), f.name)), \
+                f"{name}: {group}.{f.name}"
+        # Every JAX field of the group is in the port.
+        assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
+                >= {f.name for f in dataclasses.fields(getattr(port, group))})
+    for group in ("cascade", "keypoint", "panoptic"):
+        assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
+                == {f.name for f in dataclasses.fields(getattr(port, group))})

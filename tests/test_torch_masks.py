@@ -285,11 +285,17 @@ def test_train_flip_of_gt_masks_equals_jax_given_its_draws():
                                       raw["gt_masks"][flip][..., ::-1])
         flipped += int(flip.sum())
     assert 0 < flipped < 12
-    # Keypoints and semantic maps still wait for their families.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpre.device_preprocess(tcfg, {**{k: t(v) for k, v in raw.items()},
-                                      "gt_semantic": torch.zeros(4, 32, 32)},
-                               training=True, draws=draws)
+    # The semantic maps that come with the masks (Panoptic FPN) flip with
+    # the same draw, as JAX's.
+    sem = np.random.default_rng(3).integers(0, 5, (4, 32, 32)).astype(np.int32)
+    both = {**raw, "gt_semantic": sem}
+    ref = jpre.device_preprocess(
+        jcfg, {k: jnp.asarray(v) for k, v in both.items()}, rng=key,
+        training=True)
+    port = tpre.device_preprocess(tcfg, {k: t(v) for k, v in both.items()},
+                                  training=True, draws=draws)
+    np.testing.assert_array_equal(port["gt_semantic"].numpy(),
+                                  np.asarray(ref["gt_semantic"]))
 
 
 def test_mask_learning_check_on_the_cpu():

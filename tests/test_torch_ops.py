@@ -120,8 +120,9 @@ def test_voc_r50_preset_equals_jax():
     assert_preset_equals_jax("voc_r50")
     assert_preset_equals_jax("coco_r101_fpn")
     assert_preset_equals_jax("coco_maskrcnn_r50_fpn")  # Mask R-CNN
+    assert_preset_equals_jax("coco_cascade_r50_fpn")  # Cascade R-CNN
     with pytest.raises(ValueError):  # a family still to port
-        preset_config("coco_cascade_r50_fpn")
+        preset_config("coco_detr_r50")
 
 
 def test_deformable_detr_presets_equal_jax():

@@ -1,6 +1,8 @@
 """The port's optimizer, schedule, EMA decay and train state against
-``tpudet.train.state`` and optax, on the CPU; and the 20-step learning
-check of ``tests/test_deformable_detr.py::test_loss_decreases_and_trains``.
+``tpudet.train.state`` and optax, on the CPU; the 20-step learning check
+of ``tests/test_deformable_detr.py::test_loss_decreases_and_trains``; and
+``chip_smoke.py``'s learning checks of the Cascade R-CNN, Keypoint R-CNN
+and Panoptic FPN tiny presets at tpudet's bars.
 
 The optimizer tests drive ``make_train_step`` with a stand-in model whose
 loss is ``sum_p <c_p, p>``, so every gradient is a chosen array ``c_p``,
@@ -237,3 +239,19 @@ def test_loss_decreases_and_trains():
         losses.append(float(metrics["loss"]))
     assert np.isfinite(losses[0]) and losses[0] < 40.0
     assert losses[-1] < 0.6 * losses[0], losses
+
+
+@pytest.mark.parametrize("preset", ["cascade_tiny", "keypoint_tiny",
+                                    "panoptic_tiny"])
+def test_family_learning_checks_on_the_cpu(preset):
+    """``chip_smoke.py``'s families_learning phase (the recipes of
+    tests/test_cascade.py, test_keypoint.py and test_panoptic.py: SGD 0.02,
+    no warmup, b=2, 20 steps on one synthetic batch) on the CPU's plain
+    versions, at tpudet's bars (``chip_smoke.family_learning_verdict``)."""
+    import chip_smoke
+
+    cfg, rows = chip_smoke.family_learning_losses(preset, "cpu")
+    assert len(rows) == chip_smoke.FAMILY_LEARNING["steps"] == 20
+    ok, text = chip_smoke.family_learning_verdict(cfg, rows)
+    print(f"{preset} learning on the CPU: {text}")
+    assert ok, text

@@ -1,8 +1,6 @@
 """Shared CLI plumbing (``tpudet.cli.common``): the presets of the
-configurations the port runs (``voc_r50``, ``coco_r50``, ``coco_r101_fpn``,
-``coco_maskrcnn_r50_fpn``, ``coco_deformable_detr_r50``, ``tiny``,
-``maskrcnn_tiny`` and ``deformable_detr_tiny``) and the flags every CLI
-takes, with dotted ``--set`` overrides."""
+configurations the port runs (``PRESETS``) and the flags every CLI takes,
+with dotted ``--set`` overrides."""
 
 from __future__ import annotations
 
@@ -19,8 +17,11 @@ from tpudet_torch.config import (
     RPNConfig,
     TrainConfig,
     apply_overrides,
+    tiny_cascade_config,
     tiny_deformable_detr_config,
+    tiny_keypoint_config,
     tiny_maskrcnn_config,
+    tiny_panoptic_config,
     tiny_test_config,
 )
 
@@ -75,8 +76,43 @@ def preset_config(name: str) -> Config:
             model="mask_rcnn",
             backbone=dataclasses.replace(base.backbone, name="resnet50"),
             data=dataclasses.replace(base.data, load_masks=True))
+    if name == "coco_cascade_r50_fpn":
+        # Cascade R-CNN R50-FPN (arXiv:1712.00726 §4): coco_r101_fpn with a
+        # ResNet-50, three stages at IoU 0.5/0.6/0.7, class-agnostic boxes,
+        # the 10/20/30 delta normalization.
+        base = preset_config("coco_r101_fpn")
+        return base.replace(
+            model="cascade_rcnn",
+            backbone=dataclasses.replace(base.backbone, name="resnet50"),
+            roi=dataclasses.replace(base.roi, class_agnostic_bbox=True))
+    if name == "coco_keypoint_r50_fpn":
+        # Keypoint R-CNN R50-FPN (arXiv:1703.06870 §5): coco_r101_fpn with a
+        # ResNet-50, the person class alone (person_keypoints_*.json), the
+        # COCO-17 keypoints and sigmas, the branch pooled at 14, 8 convs of
+        # 512 and 56x56 heatmaps.
+        base = preset_config("coco_r101_fpn")
+        return base.replace(
+            model="keypoint_rcnn",
+            backbone=dataclasses.replace(base.backbone, name="resnet50"),
+            data=dataclasses.replace(base.data, load_keypoints=True,
+                                     num_classes=1))
+    if name == "coco_panoptic_r50_fpn":
+        # Panoptic FPN R50 (arXiv:1901.02446 §5): coco_maskrcnn_r50_fpn with
+        # the 128-wide semantic head at loss weight 0.5, COCO panoptic's 80
+        # things and 53 stuff classes.
+        base = preset_config("coco_maskrcnn_r50_fpn")
+        return base.replace(
+            model="panoptic_fpn",
+            data=dataclasses.replace(base.data, load_semantic=True,
+                                     num_stuff_classes=53))
     if name == "maskrcnn_tiny":
         return tiny_maskrcnn_config()
+    if name == "cascade_tiny":
+        return tiny_cascade_config()
+    if name == "keypoint_tiny":
+        return tiny_keypoint_config()
+    if name == "panoptic_tiny":
+        return tiny_panoptic_config()
     if name == "deformable_detr_tiny":
         return tiny_deformable_detr_config()
     if name == "coco_deformable_detr_r50":
@@ -104,7 +140,9 @@ def preset_config(name: str) -> Config:
 
 PRESETS = ("tiny", "voc_r50", "coco_r50", "coco_r101_fpn",
            "maskrcnn_tiny", "coco_maskrcnn_r50_fpn", "deformable_detr_tiny",
-           "coco_deformable_detr_r50")
+           "coco_deformable_detr_r50", "cascade_tiny", "coco_cascade_r50_fpn",
+           "keypoint_tiny", "coco_keypoint_r50_fpn", "panoptic_tiny",
+           "coco_panoptic_r50_fpn")
 
 
 def add_common_args(p: argparse.ArgumentParser):

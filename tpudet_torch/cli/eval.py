@@ -7,10 +7,11 @@ Example:
       --checkpoint-dir /tmp/ckpt --device cpu
 
 Runs on the CUDA card unless ``--device cpu`` is passed. The box metrics
-(``voc``, ``coco``, ``proposal-recall``) and, for Mask R-CNN, the same
-protocol on pasted-mask IoU under ``segm/``; the keypoint and panoptic
-evaluators wait for their families, and ``--tta`` for test-time
-augmentation (ROADMAP.md).
+(``voc``, ``coco``, ``proposal-recall``); for Mask R-CNN and Panoptic FPN
+the same protocol on pasted-mask IoU under ``segm/``; for Keypoint R-CNN
+the COCO OKS protocol under ``kp/``; for Panoptic FPN PQ, SQ, RQ and the
+semantic mIoU under ``panoptic/``. ``--tta`` (test-time augmentation)
+waits (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,21 +27,30 @@ import torch
 from tpudet_torch.cli.common import add_common_args, config_from_args
 from tpudet_torch.data import DataLoader, build_dataset
 from tpudet_torch.data.masks import mask_to_rle
-from tpudet_torch.data.preprocess import rescale_to_original
+from tpudet_torch.data.preprocess import (
+    rescale_keypoints_to_original,
+    rescale_to_original,
+)
 from tpudet_torch.data.voc import VOC_CLASSES
 from tpudet_torch.eval.metrics import (
     CocoStyleEvaluator,
     DetectionEvaluator,
     ProposalRecallEvaluator,
 )
+from tpudet_torch.eval.panoptic import (
+    PanopticEvaluator,
+    fuse_panoptic,
+    gt_panoptic,
+)
 from tpudet_torch.models import build_model
 from tpudet_torch.train.checkpoint import CheckpointManager
 from tpudet_torch.train.state import create_train_state
 from tpudet_torch.train.step import make_eval_step
 
-# Fetched from the card once per batch (and "masks" where the model has
-# them).
-_FIELDS = ("boxes", "scores", "classes", "valid", "masks")
+# Fetched from the card once per batch (and "masks", "keypoints" and
+# "semantic" where the model has them).
+_FIELDS = ("boxes", "scores", "classes", "valid", "masks", "keypoints",
+           "semantic")
 
 
 def final_nms_candidates(cfg) -> int:
@@ -99,8 +109,35 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
     # Mask R-CNN: a second evaluator of the same protocol matching on
     # pasted-mask IoU, its metrics under "segm/" (the box metrics keep their
     # names). The ground-truth crops ride in the batch with data.load_masks.
+    # Keypoint R-CNN: OKS-matched keypoint mAP (a COCO protocol) under
+    # "kp/".
+    kp_evaluator = None
+    if cfg.model == "keypoint_rcnn" and metric_style in ("voc", "coco"):
+        if not cfg.data.load_keypoints:
+            print("eval: the model emits keypoints but data.load_keypoints="
+                  "False: no keypoint mAP (no ground-truth keypoints)")
+        elif len(cfg.data.keypoint_sigmas) != cfg.data.num_keypoints:
+            raise ValueError(
+                f"data.keypoint_sigmas has {len(cfg.data.keypoint_sigmas)} "
+                f"entries but num_keypoints={cfg.data.num_keypoints}")
+        else:
+            kp_evaluator = CocoStyleEvaluator(
+                cfg.data.num_classes, class_names=class_names,
+                iou_type="keypoints",
+                keypoint_sigmas=cfg.data.keypoint_sigmas)
+    # Panoptic FPN: PQ, SQ, RQ and the semantic mIoU under "panoptic/",
+    # fused and matched on the host at the semantic branch's 1/4 scale.
+    pan_evaluator = None
+    if cfg.model == "panoptic_fpn" and metric_style in ("voc", "coco"):
+        if not (cfg.data.load_semantic and cfg.data.load_masks):
+            print("eval: panoptic model without load_semantic/load_masks: "
+                  "no PQ")
+        else:
+            pan_evaluator = PanopticEvaluator(cfg.data.num_stuff_classes,
+                                              cfg.data.num_classes)
     segm_evaluator = None
-    if cfg.model == "mask_rcnn" and metric_style in ("voc", "coco"):
+    if cfg.model in ("mask_rcnn", "panoptic_fpn") \
+            and metric_style in ("voc", "coco"):
         if not cfg.data.load_masks:
             print("eval: the model emits masks but data.load_masks=False: "
                   "no segm mAP (no ground-truth masks in the batch)")
@@ -113,8 +150,8 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
                 cfg.data.num_classes, iou_thresh=cfg.eval.iou_thresh,
                 interpolation=cfg.eval.ap_interpolation,
                 class_names=class_names, iou_type="segm")
-    if verbose and cfg.model in ("faster_rcnn", "mask_rcnn") \
-            and not cfg.rpn_only:
+    if verbose and cfg.model in ("faster_rcnn", "mask_rcnn", "keypoint_rcnn",
+                                 "panoptic_fpn") and not cfg.rpn_only:
         n = final_nms_candidates(cfg)
         print(f"eval: final NMS over {n} (box, class) candidates per image "
               f"({cfg.rpn.post_nms_topk_test} proposals x "
@@ -156,9 +193,16 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
             seen += 1
             v = out["valid"][i]
             det = {k: out[k][i][v] for k in ("boxes", "scores", "classes",
-                                             "masks") if k in out}
+                                             "masks", "keypoints") if k in out}
             boxes = rescale_to_original(det["boxes"], batch["image_scale"][i],
                                         batch["orig_hw"][i])
+            # Keypoints rescale once; the records and the OKS evaluator read
+            # the same original-pixel array.
+            det_kps = None
+            if "keypoints" in det:
+                det_kps = rescale_keypoints_to_original(
+                    det["keypoints"], batch["image_scale"][i],
+                    batch["orig_hw"][i])
             gt_valid = batch["gt_valid"][i]
             gt_boxes = rescale_to_original(batch["gt_boxes"][i][gt_valid],
                                            batch["image_scale"][i],
@@ -166,8 +210,9 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
             if results is not None:
                 img_id = get_image_id(int(batch["example_index"][i]))
                 masks = det.get("masks", [None] * len(boxes))
-                for b, s, c, mk in zip(boxes, det["scores"], det["classes"],
-                                       masks):
+                kps = det_kps if det_kps is not None else [None] * len(boxes)
+                for b, s, c, mk, kp in zip(boxes, det["scores"],
+                                           det["classes"], masks, kps):
                     rec = {
                         "image_id": img_id,
                         "category_id": get_cat_id(int(c)),
@@ -180,6 +225,12 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
                         # boxes are rescaled already), as pycocotools reads.
                         rec["segmentation"] = mask_to_rle(
                             mk, b, batch["orig_hw"][i])
+                    if kp is not None:
+                        # COCO's flat [x1, y1, c1, ...]; the third slot is
+                        # the softmax score (COCOeval ignores it).
+                        rec["keypoints"] = [
+                            float(x) for x in
+                            np.asarray(kp, np.float64).reshape(-1)]
                     results.append(rec)
             extra = {}
             if isinstance(evaluator, CocoStyleEvaluator):
@@ -199,6 +250,34 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
                     batch["gt_classes"][i][gt_valid],
                     pred_masks=det["masks"],
                     gt_masks=batch["gt_masks"][i][gt_valid], **common)
+            if pan_evaluator is not None:
+                # Fused in canvas pixels (the boxes before the rescale)
+                # against the 1/4-scale semantic maps.
+                pc, stuff = cfg.panoptic, cfg.data.num_stuff_classes
+                pseg, psegs = fuse_panoptic(
+                    det["boxes"], det["scores"], det["classes"],
+                    det["masks"], out["semantic"][i], stuff,
+                    overlap_thresh=pc.overlap_thresh,
+                    stuff_min_area=pc.stuff_min_area,
+                    score_thresh=pc.instance_score_thresh)
+                gseg, gsegs = gt_panoptic(
+                    batch["gt_boxes"][i][gt_valid],
+                    batch["gt_classes"][i][gt_valid],
+                    batch["gt_masks"][i][gt_valid], batch["gt_semantic"][i],
+                    stuff)
+                pan_evaluator.add_image(
+                    pseg, psegs, gseg, gsegs,
+                    pred_semantic=out["semantic"][i],
+                    gt_semantic=batch["gt_semantic"][i])
+            if kp_evaluator is not None:
+                kp_evaluator.add_image(
+                    boxes, det["scores"], det["classes"], gt_boxes,
+                    batch["gt_classes"][i][gt_valid],
+                    pred_keypoints=det_kps,
+                    gt_keypoints=rescale_keypoints_to_original(
+                        batch["gt_keypoints"][i][gt_valid],
+                        batch["image_scale"][i], batch["orig_hw"][i]),
+                    **common)
         if 0 <= max_images <= seen:
             break
     del pending, stream
@@ -213,9 +292,11 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
         if verbose:
             print(f"wrote {len(results)} detections to {save_json}")
     summary = evaluator.summarize()
-    if segm_evaluator is not None:
-        summary.update({f"segm/{k}": v
-                        for k, v in segm_evaluator.summarize().items()})
+    for prefix, ev in (("segm", segm_evaluator), ("kp", kp_evaluator),
+                       ("panoptic", pan_evaluator)):
+        if ev is not None:
+            summary.update({f"{prefix}/{k}": v
+                            for k, v in ev.summarize().items()})
     if verbose:
         for k, v in sorted(summary.items()):
             print(f"{k}: {v:.4f}")

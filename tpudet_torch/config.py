@@ -1,7 +1,7 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
-Faster R-CNN and Mask R-CNN inference and training, single-level and FPN,
-Deformable DETR inference and training, the data path and the evaluator
-read).
+Faster R-CNN, Mask R-CNN, Cascade R-CNN, Keypoint R-CNN and Panoptic FPN
+inference and training, single-level and FPN, Deformable DETR inference
+and training, the data path and the evaluators read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
@@ -19,9 +19,8 @@ from typing import Tuple
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Dataset, resize, canvas, normalization, train-time augmentation and
-    instance masks (the JAX group's fields, less the keypoint and semantic
-    loading that come with their families)."""
+    """Dataset, resize, canvas, normalization, train-time augmentation,
+    instance masks, semantic maps and keypoints (the JAX group's fields)."""
 
     dataset: str = "voc"  # "voc" | "coco" | "synthetic"
     data_dir: str = ""
@@ -73,6 +72,31 @@ class DataConfig:
     # mask annotations gives zeros.
     load_masks: bool = False
     gt_mask_size: int = 112
+    # Semantic maps (Panoptic FPN): the loader emits ``gt_semantic``
+    # [canvas_h/4, canvas_w/4] int32 at the semantic branch's loss scale
+    # (0 void and padding, 1..num_stuff_classes stuff, then the thing
+    # classes shifted by num_stuff_classes), each cell the original map's
+    # pixel nearest to its canvas centre.
+    load_semantic: bool = False
+    num_stuff_classes: int = 1  # synthetic: one background stuff class
+    # Keypoints (Keypoint R-CNN): the loader emits ``gt_keypoints``
+    # [max_gt_boxes, num_keypoints, 3] = (x, y, v) in canvas pixels, v the
+    # COCO visibility (0 unlabeled, 1 labeled and hidden, 2 visible); a
+    # dataset without keypoint annotations gives zeros.
+    load_keypoints: bool = False
+    num_keypoints: int = 17  # COCO person
+    # Left/right keypoint pairs swapped by the horizontal flip (COCO person:
+    # eyes, ears, shoulders, elbows, wrists, hips, knees, ankles).
+    keypoint_flip_pairs: Tuple[Tuple[int, int], ...] = (
+        (1, 2), (3, 4), (5, 6), (7, 8), (9, 10), (11, 12), (13, 14),
+        (15, 16),
+    )
+    # Per-keypoint OKS falloff constants (pycocotools' COCO-17 sigmas): one
+    # per keypoint when evaluating.
+    keypoint_sigmas: Tuple[float, ...] = (
+        0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072,
+        0.062, 0.062, 0.107, 0.107, 0.087, 0.087, 0.089, 0.089,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +218,27 @@ class ROIConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """Cascade R-CNN (Cai & Vasconcelos, arXiv:1712.00726): detection heads
+    trained at rising IoU thresholds, each refining the boxes of the one
+    before. Stage 1 samples with the shared balanced sampler; later stages
+    relabel the same RoIs at their threshold (no resampling). Boxes are
+    class-agnostic in every stage. Every field and default of the JAX
+    group."""
+
+    # Foreground IoU threshold of each stage (and the stage count).
+    stage_iou_thresholds: Tuple[float, ...] = (0.5, 0.6, 0.7)
+    # Box-delta normalization of each stage (tighter boxes, tighter stds).
+    stage_box_reg_weights: Tuple[Tuple[float, float, float, float], ...] = (
+        (10.0, 10.0, 5.0, 5.0),
+        (20.0, 20.0, 10.0, 10.0),
+        (30.0, 30.0, 15.0, 15.0),
+    )
+    # Loss weight of each stage (the paper's: equal).
+    stage_loss_weights: Tuple[float, ...] = (1.0, 1.0, 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
 class DeformableDETRConfig:
     """Deformable DETR (Zhu et al., arXiv:2010.04159): multi-scale
     deformable attention over C3..C5 + extra strided levels, reference-point
@@ -255,6 +300,38 @@ class MaskConfig:
     class_agnostic: bool = False
     # Binarization threshold when pasting predicted masks (eval, visualize).
     binarize_thresh: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class PanopticConfig:
+    """Panoptic FPN's semantic branch (Kirillov et al., arXiv:1901.02446
+    §3) and the host-side panoptic fusion. Every field and default of the
+    JAX group."""
+
+    conv_channels: int = 128
+    loss_weight: float = 0.5  # the paper's lambda for the semantic term
+    # Fusion (eval.panoptic.fuse_panoptic): paste instances by score, drop
+    # one when more than overlap_thresh of it is claimed already; keep a
+    # stuff segment of at least stuff_min_area cells.
+    overlap_thresh: float = 0.5
+    stuff_min_area: int = 64
+    instance_score_thresh: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class KeypointConfig:
+    """Keypoint R-CNN's keypoint branch (He et al., arXiv:1703.06870 §5): an
+    FCN over RoI features predicting one heatmap per keypoint, trained as a
+    softmax over the heatmap's cells. Every field and default of the JAX
+    group."""
+
+    # FCN tower: num_convs 3x3 convs at conv_channels.
+    num_convs: int = 8
+    conv_channels: int = 512
+    # RoI features pooled at this size; the deconv doubles it and a bilinear
+    # upsample doubles it again (14 -> 28 -> 56).
+    roi_output_size: int = 14
+    loss_weight: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,8 +398,11 @@ class Config:
     anchors: AnchorConfig = AnchorConfig()
     rpn: RPNConfig = RPNConfig()
     roi: ROIConfig = ROIConfig()
+    cascade: CascadeConfig = CascadeConfig()
     deformable_detr: DeformableDETRConfig = DeformableDETRConfig()
     mask: MaskConfig = MaskConfig()
+    keypoint: KeypointConfig = KeypointConfig()
+    panoptic: PanopticConfig = PanopticConfig()
     train: TrainConfig = TrainConfig()
     eval: EvalConfig = EvalConfig()
     # Kept for parity with the JAX config and never read: the port
@@ -397,6 +477,50 @@ def tiny_maskrcnn_config(canvas: int = 128, num_classes: int = 3) -> Config:
         model="mask_rcnn",
         data=dataclasses.replace(base.data, load_masks=True, gt_mask_size=28),
         mask=MaskConfig(num_convs=2, conv_channels=32, roi_output_size=7),
+    )
+
+
+def tiny_cascade_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small Cascade R-CNN config for the CPU tests (the fields of
+    ``tpudet.config.tiny_cascade_config``): the tiny two-stage config with
+    class-agnostic boxes and the cascade group's defaults."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="cascade_rcnn",
+        roi=dataclasses.replace(base.roi, class_agnostic_bbox=True),
+    )
+
+
+def tiny_keypoint_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small Keypoint R-CNN config for the CPU tests (the fields of
+    ``tpudet.config.tiny_keypoint_config``): the tiny two-stage config with
+    the synthetic dataset's 5 keypoints (centre and four edge midpoints;
+    pair (1, 2) the left and right ones) and a 2-conv, 32-wide FCN pooled
+    at 7."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="keypoint_rcnn",
+        data=dataclasses.replace(
+            base.data, load_keypoints=True, num_keypoints=5,
+            keypoint_flip_pairs=((1, 2),),
+            keypoint_sigmas=(0.1, 0.1, 0.1, 0.1, 0.1),
+        ),
+        keypoint=KeypointConfig(num_convs=2, conv_channels=32,
+                                roi_output_size=7),
+    )
+
+
+def tiny_panoptic_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small Panoptic FPN config for the CPU tests (the fields of
+    ``tpudet.config.tiny_panoptic_config``): the tiny Mask R-CNN config
+    with the FPN (the semantic head reads p2..p5), semantic maps loaded and
+    a 32-wide semantic head."""
+    base = tiny_maskrcnn_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="panoptic_fpn",
+        backbone=dataclasses.replace(base.backbone, use_fpn=True),
+        data=dataclasses.replace(base.data, load_semantic=True),
+        panoptic=PanopticConfig(conv_channels=32, stuff_min_area=16),
     )
 
 

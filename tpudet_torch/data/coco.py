@@ -1,8 +1,9 @@
-"""COCO 2017 ingestion (``tpudet.data.coco``, a copy: boxes, crowd, area
-and the category map; the instance masks and keypoints it also carries wait
-for their families).
+"""COCO 2017 ingestion (``tpudet.data.coco``, a copy): boxes, crowd, area,
+the category map, the instance masks (polygons or RLE, for Mask R-CNN) and
+the keypoints (for Keypoint R-CNN).
 
-Reads ``annotations/instances_{split}2017.json`` + ``{split}2017/`` images.
+Reads ``annotations/instances_{split}2017.json`` (``person_keypoints_`` with
+``data.load_keypoints``) + ``{split}2017/`` images.
 Category ids are remapped to contiguous 1..C (COCO's 80 categories have
 non-contiguous ids); boxes convert from [x, y, w, h] to [x1, y1, x2, y2].
 Pure-Python JSON parsing — no pycocotools dependency."""

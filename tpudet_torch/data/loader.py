@@ -2,7 +2,8 @@
 
 ``Dataset``: ``len`` and ``get_example(i)`` returning ``{"image": uint8
 [h, w, 3], "boxes": [n, 4], "classes": [n]}`` (and optionally
-``difficult``, ``crowd``, ``area``, ``id``).
+``difficult``, ``crowd``, ``area``, ``masks``, ``keypoints``,
+``semantic``, ``id``).
 
 ``DataLoader`` shuffles per epoch, plans bucket-homogeneous batches, runs
 ``prepare_example`` on a thread pool (``prepare_example_jpeg`` where the
@@ -218,7 +219,8 @@ class DataLoader:
                         self.cfg.data, ex["jpeg"], ex["boxes"], ex["classes"],
                         difficult=ex.get("difficult"), crowd=ex.get("crowd"),
                         area=ex.get("area"), masks=ex.get("masks"),
-                        scale_factor=factor)
+                        keypoints=ex.get("keypoints"),
+                        semantic=ex.get("semantic"), scale_factor=factor)
                 except NativeDecodeError:
                     # libjpeg does not take everything PIL does (CMYK/YCCK):
                     # this image goes through get_example. Other
@@ -233,6 +235,7 @@ class DataLoader:
                 self.cfg.data, ex["image"], ex["boxes"], ex["classes"],
                 difficult=ex.get("difficult"), crowd=ex.get("crowd"),
                 area=ex.get("area"), masks=ex.get("masks"),
+                keypoints=ex.get("keypoints"), semantic=ex.get("semantic"),
                 scale_factor=factor)
 
         examples = list(pool.map(one, indices))

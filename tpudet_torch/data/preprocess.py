@@ -13,7 +13,8 @@ front end (``tpudet_torch/native``) instead.
 
 Device half (on the batch's device, inside the train or eval step): uint8
 -> f32, the per-channel normalization and, in training, the colour jitter
-and the random horizontal flip of each image's valid region with its boxes.
+and the random horizontal flip of each image's valid region with its boxes
+(and the masks, semantic maps and keypoints that come with them).
 Their random draws come in as tensors (``augment_draws``), as the samplers'
 do, so a test can give both packages the same ones.
 """
@@ -156,13 +157,20 @@ def _finalize_example(cfg: DataConfig, canvas: np.ndarray, nh: int, nw: int,
                       difficult: Optional[np.ndarray] = None,
                       crowd: Optional[np.ndarray] = None,
                       area: Optional[np.ndarray] = None,
-                      masks=None) -> Dict[str, np.ndarray]:
+                      masks=None, keypoints=None,
+                      semantic=None) -> Dict[str, np.ndarray]:
     """The ground truth packed to ``max_gt_boxes`` rows and the boxes scaled
     by the per-axis resize factors. ``area`` is the annotation's own area in
     original pixels (COCO); -1 marks none (the evaluator then uses the
     box's). With ``data.load_masks``, ``gt_masks`` [max_gt_boxes, M, M]
     uint8: each instance's mask rep (``data.masks``) cropped to its
-    original-pixel box, which makes the crop resize-invariant."""
+    original-pixel box, which makes the crop resize-invariant. With
+    ``data.load_semantic``, ``gt_semantic`` [ceil(H/4), ceil(W/4)] int32 of
+    the canvas: each cell the original map's pixel nearest to the cell's
+    canvas centre ``4i + 1.5``, 0 (void) outside the image. With
+    ``data.load_keypoints``, ``gt_keypoints`` [max_gt_boxes, K, 3]: each
+    instance's ``[K, 3]`` (x, y, v) in original pixels (None: unannotated,
+    v stays 0) with x and y scaled as the boxes."""
     g = cfg.max_gt_boxes
     gt_boxes = np.zeros((g, 4), np.float32)
     gt_classes = np.zeros((g,), np.int32)
@@ -194,6 +202,35 @@ def _finalize_example(cfg: DataConfig, canvas: np.ndarray, nh: int, nw: int,
         gt_classes[:n] = classes[:n]
         gt_valid[:n] = True
     extra = {}
+    if cfg.load_semantic:
+        ch, cw = canvas.shape[:2]
+        s4h, s4w = -(-ch // 4), -(-cw // 4)
+        gt_semantic = np.zeros((s4h, s4w), np.int32)
+        if semantic is not None:
+            sem = np.asarray(semantic)
+            cyc = np.arange(s4h) * 4.0 + 1.5  # each cell's canvas centre
+            cxc = np.arange(s4w) * 4.0 + 1.5
+            oy = np.clip((cyc * (h / nh)).astype(np.int64), 0, h - 1)
+            ox = np.clip((cxc * (w / nw)).astype(np.int64), 0, w - 1)
+            inside = (cyc < nh)[:, None] & (cxc < nw)[None, :]
+            gt_semantic = np.where(inside, sem[oy[:, None], ox[None, :]],
+                                   0).astype(np.int32)
+        extra["gt_semantic"] = gt_semantic
+    if cfg.load_keypoints:
+        kk = cfg.num_keypoints
+        gt_keypoints = np.zeros((g, kk, 3), np.float32)
+        for i in range(n if keypoints is not None else 0):
+            if keypoints[i] is None:  # an instance without keypoints
+                continue
+            ki = np.asarray(keypoints[i], np.float32)
+            if ki.shape != (kk, 3):
+                raise ValueError(
+                    f"instance keypoints shaped {ki.shape} but "
+                    f"data.num_keypoints = {kk} (want [{kk}, 3])")
+            gt_keypoints[i, :, 0] = ki[:, 0] * (nw / w)
+            gt_keypoints[i, :, 1] = ki[:, 1] * (nh / h)
+            gt_keypoints[i, :, 2] = ki[:, 2]
+        extra["gt_keypoints"] = gt_keypoints
     if cfg.load_masks:
         m = cfg.gt_mask_size
         gt_masks = np.zeros((g, m, m), np.uint8)
@@ -221,12 +258,15 @@ def prepare_example(cfg: DataConfig, image: np.ndarray, boxes: np.ndarray,
                     difficult: Optional[np.ndarray] = None,
                     crowd: Optional[np.ndarray] = None,
                     area: Optional[np.ndarray] = None,
-                    masks=None,
+                    masks=None, keypoints=None, semantic=None,
                     scale_factor: float = 1.0) -> Dict[str, np.ndarray]:
     """One example -> fixed-shape arrays. ``image`` [h, w, 3] uint8, boxes
     [n, 4] (x1, y1, x2, y2) pixels, classes [n] in 1..C, ``masks`` one rep
-    per instance (read with ``data.load_masks``); ``scale_factor`` is the
-    train-time scale jitter (``jittered_minmax``)."""
+    per instance (read with ``data.load_masks``), ``keypoints`` one [K, 3]
+    or None per instance (``data.load_keypoints``), ``semantic`` the
+    original-resolution class map (``data.load_semantic``);
+    ``scale_factor`` is the train-time scale jitter
+    (``jittered_minmax``)."""
     h, w = image.shape[:2]
     ch, cw = canvas_for_hw(cfg, h, w)
     if scale_factor == 1.0:
@@ -240,7 +280,8 @@ def prepare_example(cfg: DataConfig, image: np.ndarray, boxes: np.ndarray,
     canvas = np.zeros((ch, cw, 3), np.uint8)
     canvas[:nh, :nw] = image
     return _finalize_example(cfg, canvas, nh, nw, h, w, boxes, classes,
-                             difficult, crowd, area, masks)
+                             difficult, crowd, area, masks, keypoints,
+                             semantic)
 
 
 def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
@@ -248,7 +289,7 @@ def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
                          difficult: Optional[np.ndarray] = None,
                          crowd: Optional[np.ndarray] = None,
                          area: Optional[np.ndarray] = None,
-                         masks=None,
+                         masks=None, keypoints=None, semantic=None,
                          scale_factor: float = 1.0) -> Dict[str, np.ndarray]:
     """``prepare_example`` through the native front end: the C++ library
     fuses the JPEG decode (DCT-scaled when ``fast_jpeg_scale``), the resize
@@ -268,7 +309,8 @@ def prepare_example_jpeg(cfg: DataConfig, jpeg: bytes, boxes: np.ndarray,
     canvas, (nh, nw), (h, w) = native_decode.decode_resize_pad(
         jpeg, min_size, max_size, ch, cw, fast_dct_scale=cfg.fast_jpeg_scale)
     return _finalize_example(cfg, canvas, nh, nw, h, w, boxes, classes,
-                             difficult, crowd, area, masks)
+                             difficult, crowd, area, masks, keypoints,
+                             semantic)
 
 
 def rescale_to_original(boxes: np.ndarray, image_scale: np.ndarray,
@@ -281,6 +323,17 @@ def rescale_to_original(boxes: np.ndarray, image_scale: np.ndarray,
     out[:, [1, 3]] /= sy
     out[:, [0, 2]] = out[:, [0, 2]].clip(0, orig_hw[1])
     out[:, [1, 3]] = out[:, [1, 3]].clip(0, orig_hw[0])
+    return out
+
+
+def rescale_keypoints_to_original(kps: np.ndarray, image_scale: np.ndarray,
+                                  orig_hw: np.ndarray) -> np.ndarray:
+    """Canvas keypoints [..., 3] (x, y, v or score) -> original-image
+    pixels, clipped to the image: ``rescale_to_original`` for keypoints."""
+    sy, sx = image_scale[0], image_scale[1]
+    out = kps.copy()
+    out[..., 0] = (out[..., 0] / sx).clip(0, orig_hw[1])
+    out[..., 1] = (out[..., 1] / sy).clip(0, orig_hw[0])
     return out
 
 
@@ -374,6 +427,32 @@ def flip_horizontal(image: torch.Tensor, boxes: torch.Tensor,
     return flipped, flip_boxes_horizontal(boxes, w_img[:, None])
 
 
+def flip_semantic(sem: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:
+    """Mirror each quarter-scale map ``[B, H4, W4]``'s valid columns, those
+    whose canvas centre ``4j + 1.5`` lies inside the image: ``w4 =
+    ceil((w - 1.5) / 4)`` of them."""
+    b, h4, w4 = sem.shape
+    valid = torch.ceil((image_hw[:, 1] - 1.5) / 4.0)[:, None]
+    cols = torch.arange(w4, device=sem.device, dtype=valid.dtype)[None, :]
+    src = torch.where(cols < valid, valid - 1 - cols, cols).to(torch.int64)
+    return torch.gather(sem, 2, src[:, None, :].expand(b, h4, w4))
+
+
+def flip_keypoints(kps: torch.Tensor, image_hw: torch.Tensor,
+                   flip_pairs) -> torch.Tensor:
+    """Mirror the x of each labeled keypoint ``[B, G, K, 3]`` about its
+    image's width (as the boxes; v = 0 rows keep their zeros) and swap the
+    left/right ``flip_pairs``."""
+    w_img = image_hw[:, 1][:, None, None]
+    labeled = kps[..., 2] > 0
+    fx = torch.where(labeled, w_img - kps[..., 0], kps[..., 0])
+    flipped = torch.stack([fx, kps[..., 1], kps[..., 2]], dim=-1)
+    perm = list(range(kps.shape[2]))
+    for a, b in flip_pairs:
+        perm[a], perm[b] = perm[b], perm[a]
+    return flipped[:, :, perm, :]
+
+
 def device_preprocess(cfg: Config, batch: Dict[str, torch.Tensor],
                       training: bool = False,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
@@ -382,18 +461,15 @@ def device_preprocess(cfg: Config, batch: Dict[str, torch.Tensor],
     """Normalize ``batch["image"]`` (``[B, H, W, 3]``) on its device to
     ``(x - mean) / std`` (bf16 when the backbone computes in bf16). In
     training, first the colour jitter (when ``data.color_jitter`` is not all
-    zero) and the random flip of the image, ``gt_boxes`` and ``gt_masks``
-    (when ``data.random_flip``), with ``draws`` (``augment_draws``'s layout)
-    or draws from ``generator``. The other entries pass through."""
+    zero) and the random flip of the image, ``gt_boxes``, ``gt_masks``,
+    ``gt_semantic`` and ``gt_keypoints`` (when ``data.random_flip``; the
+    keypoints' left/right pairs swapped), with ``draws``
+    (``augment_draws``'s layout) or draws from ``generator``. The other
+    entries pass through."""
     d = cfg.data
     image = batch["image"].to(torch.float32)
     out = dict(batch)
     if training:
-        if any(k in batch for k in ("gt_keypoints", "gt_semantic")):
-            raise NotImplementedError(
-                "device_preprocess(training=True) flips boxes and masks "
-                "only: keypoints and semantic maps come with their families "
-                "(ROADMAP.md, Queue 1 step 4)")
         if draws is None:
             if generator is None:
                 raise ValueError("device_preprocess(training=True) draws its "
@@ -419,6 +495,15 @@ def device_preprocess(cfg: Config, batch: Dict[str, torch.Tensor],
                 gm = batch["gt_masks"]
                 out["gt_masks"] = torch.where(do_flip[:, None, None, None],
                                               gm.flip(-1), gm)
+            if "gt_semantic" in batch:
+                gs = batch["gt_semantic"]
+                out["gt_semantic"] = torch.where(
+                    do_flip[:, None, None], flip_semantic(gs, image_hw), gs)
+            if "gt_keypoints" in batch:
+                gk = batch["gt_keypoints"].to(torch.float32)
+                out["gt_keypoints"] = torch.where(
+                    do_flip[:, None, None, None],
+                    flip_keypoints(gk, image_hw, d.keypoint_flip_pairs), gk)
     mean = torch.tensor(d.pixel_mean, dtype=torch.float32, device=image.device)
     std = torch.tensor(d.pixel_std, dtype=torch.float32, device=image.device)
     normalized = (image - mean) / std

@@ -1,5 +1,6 @@
 """Evaluation and visualization (``tpudet.eval``): the host-side mAP
-evaluators and the detection drawing."""
+evaluators (boxes, masks, keypoints), panoptic fusion and PQ
+(``eval.panoptic``), and the detection drawing."""
 
 from tpudet_torch.eval.metrics import (  # noqa: F401
     CocoStyleEvaluator,

@@ -28,7 +28,8 @@ handed in (``draws``), since torch cannot repeat ``jax.random``'s stream.
 Two hooks let a family extend the pipeline, as in the JAX package:
 ``_extra_losses`` adds loss terms from the second stage's samples and
 ``_predict_extras`` adds outputs from the final detections (Mask R-CNN,
-``models/mask_rcnn.py``).
+Keypoint R-CNN, Panoptic FPN). Cascade R-CNN (``models/cascade_rcnn.py``)
+overrides ``loss`` and ``predict`` and shares the rest.
 """
 
 from __future__ import annotations
@@ -48,10 +49,12 @@ from tpudet_torch.kernels import roi_align as roi_align_kernel
 from tpudet_torch.kernels import roi_align_window as roi_align_window_kernel
 from tpudet_torch.models.det_head import FastRCNNHead
 from tpudet_torch.models.fpn import FPN
+from tpudet_torch.models.keypoint_head import KeypointHead
 from tpudet_torch.models.layers import Conv, init_module
 from tpudet_torch.models.mask_head import MaskHead
 from tpudet_torch.models.resnet import build_backbone
 from tpudet_torch.models.rpn_head import RPNHead
+from tpudet_torch.models.semantic_head import SemanticHead
 from tpudet_torch.ops import anchors as anchor_ops
 from tpudet_torch.ops import boxes as box_ops
 from tpudet_torch.ops import selection
@@ -89,10 +92,12 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class DetectorCore(nn.Module):
-    """Backbone, neck (single-level) or FPN, RPN head, Fast R-CNN head and,
-    for Mask R-CNN, the mask head. Parameter names follow the Flax tree
+    """Backbone, neck (single-level) or FPN, RPN head, Fast R-CNN head and
+    the families' heads: the cascade's later stages, the mask head (Mask
+    R-CNN, Panoptic FPN), the semantic head (Panoptic FPN) and the keypoint
+    head (Keypoint R-CNN). Parameter names follow the Flax tree
     (``backbone.*``, ``neck_conv``, ``fpn.*``, ``rpn_head``, ``det_head``,
-    ``mask_head``)."""
+    ``det_head2``, ``mask_head``, ``semantic_head``, ``keypoint_head``)."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()
@@ -121,12 +126,30 @@ class DetectorCore(nn.Module):
                                      cfg.roi.fc_dim,
                                      cfg.roi.class_agnostic_bbox, dtype,
                                      device)
+        # Cascade stages 2..T: class-agnostic heads named as Flax names
+        # them (det_head2, det_head3).
+        if cfg.model == "cascade_rcnn":
+            for t in range(2, len(cfg.cascade.stage_iou_thresholds) + 1):
+                self.add_module(f"det_head{t}", FastRCNNHead(
+                    s * s * feat_ch, cfg.data.num_classes, cfg.roi.fc_dim,
+                    True, dtype, device))
         self.mask_head = None
-        if cfg.model == "mask_rcnn":
+        if cfg.model in ("mask_rcnn", "panoptic_fpn"):
             m = cfg.mask
             self.mask_head = MaskHead(
                 feat_ch, 1 if m.class_agnostic else cfg.data.num_classes,
                 m.num_convs, m.conv_channels, dtype, device)
+        self.semantic_head = None
+        if cfg.model == "panoptic_fpn":
+            self.semantic_head = SemanticHead(
+                feat_ch, cfg.data.num_stuff_classes + cfg.data.num_classes,
+                cfg.panoptic.conv_channels, dtype, device)
+        self.keypoint_head = None
+        if cfg.model == "keypoint_rcnn":
+            k = cfg.keypoint
+            self.keypoint_head = KeypointHead(
+                feat_ch, cfg.data.num_keypoints, k.num_convs,
+                k.conv_channels, dtype, device)
 
     def features(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``[B, H, W, 3]`` images -> ``{"c4": [B, C, H/16, W/16]}``, or
@@ -150,13 +173,25 @@ class DetectorCore(nn.Module):
         return (torch.cat([o[0] for o in outs], dim=1),
                 torch.cat([o[1] for o in outs], dim=1))
 
-    def roi_head(self, pooled: torch.Tensor
+    def roi_head(self, pooled: torch.Tensor, stage: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.det_head(pooled)
+        """Stage ``stage``'s head (0: ``det_head``; the cascade's later
+        stages ``det_head2``, ...)."""
+        if stage == 0:
+            return self.det_head(pooled)
+        return getattr(self, f"det_head{stage + 1}")(pooled)
 
     def masks(self, pooled: torch.Tensor) -> torch.Tensor:
         """The mask FCN: ``[N, s, s, C_feat]`` -> ``[N, 2s, 2s, classes]``."""
         return self.mask_head(pooled)
+
+    def keypoints(self, pooled: torch.Tensor) -> torch.Tensor:
+        """The keypoint FCN: ``[N, s, s, C_feat]`` -> ``[N, 4s, 4s, K]``."""
+        return self.keypoint_head(pooled)
+
+    def semantic(self, feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The semantic FCN: p2..p5 -> ``[B, H/4, W/4, S + C]`` logits."""
+        return self.semantic_head(feats)
 
 
 class FasterRCNN(nn.Module):
@@ -402,11 +437,13 @@ class FasterRCNN(nn.Module):
         return idx, is_pos, valid, target_deltas
 
     def _roi_targets_single(self, proposals, prop_valid, gt_boxes, gt_classes,
-                            gt_valid, draws):
+                            gt_valid, draws, reg_weights=None):
         """Per image of the batch: append the ground truth, match at 0.5,
         sample -> ``(boxes [B, K, 4], target_classes, target_deltas,
         is_fg, valid, mgt)`` (``mgt``: each RoI's matched ground truth,
-        meaningful where ``is_fg & valid``)."""
+        meaningful where ``is_fg & valid``). ``reg_weights`` overrides the
+        delta normalization (the cascade's stage 1); None is
+        ``roi.box_reg_weights``."""
         cfg = self.cfg.roi
         if cfg.append_gt:
             proposals = torch.cat([proposals, gt_boxes], dim=1)
@@ -421,8 +458,9 @@ class FasterRCNN(nn.Module):
                                             cfg.positive_fraction)
         boxes = _gather_rows(proposals, idx)
         mgt = torch.gather(matched, 1, idx.long())
-        target_deltas = box_ops.encode_boxes(_gather_rows(gt_boxes, mgt), boxes,
-                                             cfg.box_reg_weights)
+        target_deltas = box_ops.encode_boxes(
+            _gather_rows(gt_boxes, mgt), boxes,
+            cfg.box_reg_weights if reg_weights is None else reg_weights)
         classes = torch.gather(gt_classes, 1, mgt.long()).to(torch.int32)
         target_classes = torch.where(is_fg & valid, classes,
                                      torch.zeros_like(classes))
@@ -442,6 +480,25 @@ class FasterRCNN(nn.Module):
         num_pos = (is_pos & valid).sum(dim=1).to(torch.float32).mean()
         return rpn_cls.mean(), rpn_box.mean(), num_pos
 
+    def _loss_inputs(self, batch, generator, draws):
+        """The batch with f32 ``image_hw`` and ``gt_boxes``, and the
+        samplers' draws: ``draws``, else drawn from ``generator``."""
+        if self.cfg.rpn_only and self.cfg.det_only:
+            raise ValueError(
+                "rpn_only and det_only are mutually exclusive training modes")
+        batch = dict(batch, image_hw=batch["image_hw"].to(torch.float32),
+                     gt_boxes=batch["gt_boxes"].to(torch.float32))
+        if draws is None:
+            if generator is None:
+                raise ValueError(
+                    f"{type(self).__name__}.loss samples anchors and RoIs at "
+                    f"random: pass a torch.Generator on {self.device} or the "
+                    "draws")
+            images = batch["image"]
+            draws = self.draw_samples(generator, images.shape[0],
+                                      images.shape[1:3])
+        return batch, draws
+
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
@@ -454,20 +511,10 @@ class FasterRCNN(nn.Module):
         ``draws`` (shapes of :meth:`draw_shapes`) or come from ``generator``
         (on the model's device)."""
         cfg = self.cfg
-        if cfg.rpn_only and cfg.det_only:
-            raise ValueError(
-                "rpn_only and det_only are mutually exclusive training modes")
+        batch, draws = self._loss_inputs(batch, generator, draws)
         images = batch["image"]
         b = images.shape[0]
         canvas = images.shape[1:3]
-        batch = dict(batch, image_hw=batch["image_hw"].to(torch.float32),
-                     gt_boxes=batch["gt_boxes"].to(torch.float32))
-        if draws is None:
-            if generator is None:
-                raise ValueError(
-                    "FasterRCNN.loss samples anchors and RoIs at random: pass "
-                    f"a torch.Generator on {self.device} or the draws")
-            draws = self.draw_samples(generator, b, canvas)
         anchors = self.anchor_boxes(canvas)
         feats = self.core.features(images)
         rpn_logits, rpn_deltas = self.core.rpn(feats)

@@ -5,10 +5,10 @@ The tree is ``{"params": ..., "constants": ...}`` as nested mappings of
 arrays (numpy, or anything ``np.asarray`` takes). The port's module names
 follow the Flax names, so the mapping is mechanical:
 
-* a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW); the mask head's
-  ``deconv`` (Flax's ``ConvTranspose``, HW-in-out, applied unflipped)
-  becomes torch's ``[in, out, kh, kw]`` transposed-conv weight flipped in
-  both spatial axes;
+* a conv ``kernel`` (HWIO) becomes ``weight`` (OIHW); the mask and
+  keypoint heads' ``deconv`` (Flax's ``ConvTranspose``, HW-in-out, applied
+  unflipped) becomes torch's ``[in, out, kh, kw]`` transposed-conv weight
+  flipped in both spatial axes;
 * a Dense ``kernel`` (``[in, out]``) becomes a Linear ``weight``
   (``[out, in]``); the RoI head flattens NHWC in both packages, so ``fc1``
   needs no row permutation;
@@ -20,7 +20,8 @@ follow the Flax names, so the mapping is mechanical:
   names;
 * Flax's inner ``GroupNorm_0`` scope of ``AdaptiveGroupNorm_i`` is dropped
   (its ``scale`` keeps the name); every other ``scale`` parameter (Flax's
-  LayerNorm, ``MaskedGroupNorm``) becomes ``weight``;
+  LayerNorm, ``MaskedGroupNorm``, the semantic head's ``nn.GroupNorm``
+  layers ``p{l}_gn{j}``) becomes ``weight``;
 * parameters that are no layer's (``level_embed``, ``query_embed``) keep
   their names and values.
 

@@ -1,7 +1,7 @@
 """Shared building blocks (``tpudet.models.layers``): convolution and dense
 layers that compute in a given dtype over float32 parameters, Flax's
-initializers, the two backbone normalizations, Flax's LayerNorm and Flax's
-dropout over an explicit generator.
+initializers, the two backbone normalizations, Flax's GroupNorm and
+LayerNorm and Flax's dropout over an explicit generator.
 
 Tensors are NCHW in ``torch.channels_last`` memory format inside the
 backbone, so an NHWC view of any feature map is a free permute.
@@ -97,19 +97,26 @@ class Conv(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """Flax's ``nn.ConvTranspose`` with kernel == stride (no overlap, so
-    "SAME" gives ``stride`` times the input) over NCHW input. ``weight`` is
-    torch's ``[in, out, kh, kw]`` f32, cast to ``dtype`` at call time. Flax
-    applies its ``(kh, kw, in, out)`` kernel unflipped
-    (``transpose_kernel=False``), so the weight is that kernel flipped in
-    both spatial axes (``import_weights`` converts it). Drawn from
-    ``variance_scaling(2, "fan_out", "normal")``: std ``sqrt(2 / (kh * kw *
-    out))``."""
+    """Flax's ``nn.ConvTranspose`` with "SAME" padding over NCHW input:
+    ``stride`` times the input (``stride`` defaults to ``kernel``, where the
+    taps do not overlap). An overlapping kernel (the keypoint head's 4x4 at
+    stride 2) is torch's transposed convolution at padding ``(kernel -
+    stride) / 2``. ``weight`` is torch's ``[in, out, kh, kw]`` f32, cast to
+    ``dtype`` at call time. Flax applies its ``(kh, kw, in, out)`` kernel
+    unflipped (``transpose_kernel=False``), so the weight is that kernel
+    flipped in both spatial axes (``import_weights`` converts it). Drawn
+    from ``variance_scaling(2, "fan_out", "normal")``: std ``sqrt(2 / (kh *
+    kw * out))``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 stride: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.stride = kernel
+        self.stride = stride or kernel
+        if kernel < self.stride or (kernel - self.stride) % 2:
+            raise ValueError(f"ConvTranspose: kernel {kernel} at stride "
+                             f"{self.stride} has no symmetric SAME padding")
+        self.padding = (kernel - self.stride) // 2
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.zeros(in_ch, out_ch, kernel, kernel, device=device))
@@ -123,7 +130,8 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose2d(x.to(self.dtype), self.weight.to(self.dtype),
-                                  self.bias.to(self.dtype), stride=self.stride)
+                                  self.bias.to(self.dtype), stride=self.stride,
+                                  padding=self.padding)
 
 
 class Dense(nn.Module):
@@ -202,6 +210,34 @@ class AdaptiveGroupNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """Flax's ``nn.GroupNorm(num_groups=min(32, C))``: epsilon 1e-6,
+    statistics in f32, output in the input's dtype. Its parameters are
+    ``weight`` and ``bias`` (Flax's ``scale`` and ``bias`` sit directly
+    under the layer's scope, and ``import_weights`` renames such a
+    ``scale``)."""
+
+    def __init__(self, channels: int, device=None):
+        super().__init__()
+        self.groups = min(32, channels)
+        if channels % self.groups:
+            raise ValueError(f"GroupNorm: {channels} channels in "
+                             f"{self.groups} groups")
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.groups, self.weight, self.bias,
+                         eps=1e-6)
+        return y.to(x.dtype)
+
+
 class LayerNorm(nn.Module):
     """Flax's ``nn.LayerNorm`` over the last axis: epsilon 1e-6 (torch's
     default is 1e-5), statistics in f32 as ``E[x^2] - E[x]^2`` clamped at
@@ -257,5 +293,5 @@ def init_module(module: nn.Module, generator: torch.Generator) -> None:
     order."""
     for m in module.modules():
         if isinstance(m, (Conv, ConvTranspose, Dense, FrozenBatchNorm,
-                          AdaptiveGroupNorm, LayerNorm)):
+                          AdaptiveGroupNorm, GroupNorm, LayerNorm)):
             m.reset_parameters(generator)

@@ -1,6 +1,6 @@
 """Detection losses (``tpudet.train.losses``): Faster R-CNN's RPN and
-detection-head losses, Mask R-CNN's mask loss and the Deformable DETR set
-loss.
+detection-head losses, Mask R-CNN's mask loss, Keypoint R-CNN's keypoint
+loss, Panoptic FPN's semantic loss and the Deformable DETR set loss.
 
 Each is JAX's per-image function with any leading axes (a batch of images
 where JAX ``vmap``s): the reductions run over the last sample axis and the
@@ -15,7 +15,11 @@ cross-entropy over C + 1 classes and smooth-L1 (beta 1) over the
 foreground rows' matched-class deltas, both divided by the number of
 sampled RoIs. Mask R-CNN (arXiv:1703.06870 §3): a per-pixel sigmoid BCE on
 the matched class's mask, the mean over pixels, then over the foreground
-RoIs. Every loss is 0, not NaN, where nothing is sampled.
+RoIs. Keypoint R-CNN (§5): a softmax cross-entropy over the heatmap's cells
+for each labeled keypoint of a foreground RoI, their mean. Panoptic FPN
+(arXiv:1901.02446 §3): a per-pixel softmax cross-entropy, its mean over
+the non-void pixels of the whole batch (the JAX package calls it once
+over the batch). Every loss is 0, not NaN, where nothing is sampled.
 """
 
 from __future__ import annotations
@@ -80,6 +84,38 @@ def mask_loss(
            + torch.log1p(torch.exp(-logits.abs())))
     per_roi = bce.mean(dim=(-2, -1))
     return _safe_mean(per_roi, fg_valid.to(torch.float32))
+
+
+def keypoint_loss(
+    logits: torch.Tensor,        # [..., R, S, S, K] heatmap logits
+    target_idx: torch.Tensor,    # [..., R, K] flat cell index
+    target_valid: torch.Tensor,  # [..., R, K] bool: labeled, inside the RoI
+    fg_valid: torch.Tensor,      # [..., R] bool: foreground and valid
+) -> torch.Tensor:
+    """Keypoint R-CNN's loss per image ``[...]``: each valid keypoint of a
+    foreground RoI is one class of the S^2 cells; the mean of their softmax
+    cross-entropies, 0 for an image with none."""
+    *lead, r, s1, s2, k = logits.shape
+    flat = logits.float().reshape(*lead, r, s1 * s2, k).transpose(-1, -2)
+    logp = torch.log_softmax(flat, dim=-1)                 # [..., R, K, S^2]
+    ce = -torch.gather(logp, -1, target_idx.long()[..., None])[..., 0]
+    use = (target_valid & fg_valid[..., None]).to(torch.float32)
+    return _safe_mean(ce.flatten(-2), use.flatten(-2))
+
+
+def semantic_loss(
+    logits: torch.Tensor,   # [B, H, W, C] semantic logits
+    targets: torch.Tensor,  # [B, H, W] labels, 0 void (ignored)
+) -> torch.Tensor:
+    """Panoptic FPN's semantic loss, a scalar: the per-pixel softmax
+    cross-entropy of label l > 0 at channel l - 1, its mean over the
+    non-void pixels of the batch; 0 when every pixel is void."""
+    c = logits.shape[-1]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    slot = (targets.long() - 1).clamp(0, c - 1)
+    ce = -torch.gather(logp, -1, slot[..., None])[..., 0]
+    valid = (targets > 0).to(torch.float32)
+    return _safe_mean(ce.reshape(-1), valid.reshape(-1))
 
 
 def rpn_losses(
