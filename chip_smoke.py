@@ -223,14 +223,36 @@ no result):
     semantic head, 53 stuff classes) the same way: planted ellipses with
     their quarter-scale semantic map; the f32 masks and semantic map
     against the CPU;
-42. the three tiny learning checks at tpudet's bars (SGD 0.02, b=2, 20
-    steps on one synthetic batch): cascade_tiny's loss falls;
+42. the six tiny learning checks at tpudet's bars (b=2, one synthetic
+    batch): SGD 0.02 for 20 steps: cascade_tiny's loss falls;
     keypoint_tiny's loss and keypoint_loss fall, the first keypoint_loss
     under 1.5 ln(S^2); panoptic_tiny's first semantic_loss within 10% of
-    0.5 ln(S + C), its loss and semantic_loss fall;
-43. the three tiny presets through ``cli.train --dataset synthetic`` (b=8,
+    0.5 ln(S + C), its loss and semantic_loss fall; retinanet_tiny and
+    fcos_tiny (SGD 0.02, 15 steps) under 0.8x their first loss,
+    detr_tiny (adam 1e-3, clip 0.1, 20 steps) under 0.6x;
+43. the six tiny presets through ``cli.train --dataset synthetic`` (b=8,
     30 steps) and ``cli.eval``: the ``kp/*`` and ``panoptic/*`` metrics
-    printed and finite; launches.
+    printed and finite; launches;
+44-45. coco_retinanet_r50 (ResNet-50 + P3-P7, 9 anchors per cell, 4-conv
+    towers of 256, 80 classes, bf16) inference through ``make_eval_step``
+    (run before phases 42-43): b = 8 on the 832x832 and 832x1344 buckets
+    with launch counts (1 NMS per predict: one class-aware select over the
+    five levels' top-1000), the live NMS candidates per image (thousands:
+    the class convs are drawn wider, ``ONE_STAGE_STD``), the NMS kernel on
+    the 832x832 call's own input (8 x 5,000 unsorted class-offset
+    candidates, 0.5 -> 100) against its plain version, timed, with its
+    bound (``retinanet_final`` in the kernels line), an f32 b=2 256x256
+    predict on the card against the CPU, ms per batch at b = 8 on both
+    buckets and b = 32 on 832x832, peak memory and a profile; then 20
+    train steps at b=8 832x832 on planted boxes (no kernel on this path:
+    none launched), ms per step, peak memory, a profile, and an f32 b=2
+    256x256 step on the card against the CPU (targets, every loss term,
+    gradients, the updated parameters);
+46-47. coco_fcos_r50 (GroupNorm towers, the trainable level scales,
+    centre sampling) the same way, its NMS at 0.6 (``fcos_final``);
+48-49. coco_detr_r50 (ResNet-50 C5, 6+6 layers of 256, FFN 2048, 100
+    queries, bf16) the same way: no kernel on either path, the f32
+    reference step's matches equal, the host matcher's ms per step.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -860,6 +882,14 @@ def phase_roi_align_window():
 def wide_layers(model):
     """(layer, std) of the layers drawn wider than Flax's init."""
     core = model.core
+    if model.cfg.model in ("retinanet", "fcos"):
+        yield core.head.cls_logits, ONE_STAGE_STD[model.cfg.model]
+        if model.cfg.model == "fcos":
+            yield core.head.centerness, ONE_STAGE_STD["centerness"]
+        return
+    if model.cfg.model == "detr":
+        yield core.class_head, ONE_STAGE_STD["class_head"]
+        return
     if model.cfg.model == "deformable_detr":
         for name, module in core.named_modules():
             last = name.split(".")[-1]
@@ -887,7 +917,7 @@ def wide_layers(model):
 def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
     """The preset at full width with random weights from ``seed`` and the
     kernels that Flax's init leaves degenerate drawn wider (``HEAD_STD``,
-    ``DETR_STD``)."""
+    ``DETR_STD``, ``ONE_STAGE_STD``)."""
     import torch
 
     from tpudet_torch.cli.common import preset_config
@@ -4112,11 +4142,12 @@ def keypoint_head_times():
     return {"forward_ms": forward_ms, "train_ms": train_ms}
 
 
-def family_learning_losses(preset, device="cuda"):
+def family_learning_losses(preset, device="cuda", steps=None, train=None):
     """The tiny recipe (``FAMILY_LEARNING``) of ``preset`` on ``device``:
     SGD 0.02 with no warmup, 20 steps on one synthetic batch of 2 with the
     family's ground truth (the JAX tests' ``make_batch``) -> each step's
-    metrics."""
+    metrics. ``steps`` and ``train`` (fields of the train config) replace
+    the recipe's."""
     import torch
 
     from tpudet_torch.cli.common import preset_config
@@ -4128,8 +4159,8 @@ def family_learning_losses(preset, device="cuda"):
 
     cfg = preset_config(preset)
     cfg = cfg.replace(train=dataclasses.replace(
-        cfg.train, learning_rate=FAMILY_LEARNING["lr"], warmup_steps=0,
-        batch_size=2))
+        cfg.train, **{"learning_rate": FAMILY_LEARNING["lr"],
+                      "warmup_steps": 0, "batch_size": 2, **(train or {})}))
     d = cfg.data
     ds = SyntheticDataset(num_classes=d.num_classes, num_examples=2,
                           image_size=d.canvas_height, seed=0,
@@ -4144,7 +4175,7 @@ def family_learning_losses(preset, device="cuda"):
     state = create_train_state(model, cfg.train, seed=0, device=device)
     step = make_train_step(model, cfg, device=device)
     rows = []
-    for _ in range(FAMILY_LEARNING["steps"]):
+    for _ in range(steps or FAMILY_LEARNING["steps"]):
         state, metrics = step(state, batch)
         rows.append({k: float(v) for k, v in metrics.items()})
     return cfg, rows
@@ -4187,7 +4218,10 @@ def phase_families_learning(card):
     cascade_tiny's last loss under its first; keypoint_tiny's loss and
     keypoint_loss fall, the first keypoint_loss under 1.5 ln(S^2);
     panoptic_tiny's first semantic_loss within 10% of 0.5 ln(S + C), its
-    loss and semantic_loss fall."""
+    loss and semantic_loss fall. Then ``ONE_STAGE_LEARNING``: RetinaNet's,
+    FCOS's and DETR's tiny recipes at their bars, no kernel launched."""
+    import math
+
     out = {}
     for preset in ("cascade_tiny", "keypoint_tiny", "panoptic_tiny"):
         zero_launches()
@@ -4205,15 +4239,34 @@ def phase_families_learning(card):
               f"{steps} steps on one synthetic batch: {text} | {card}",
               flush=True)
         out[f"{preset} learning"] = launches
+    for preset, recipe in ONE_STAGE_LEARNING.items():
+        zero_launches()
+        cfg, rows = family_learning_losses(preset, steps=recipe["steps"],
+                                           train=recipe["train"])
+        launches = read_launches()
+        expect_launches(launches, f"{preset} learning")
+        first, last = rows[0]["loss"], rows[-1]["loss"]
+        finite = all(math.isfinite(v) for r in rows for v in r.values())
+        text = (f"loss {first:.4f} -> {last:.4f} ({last / first:.3f}x, "
+                f"needs < {recipe['bar']}x; first under {recipe['first']})")
+        check(finite and first < recipe["first"]
+              and last < recipe["bar"] * first,
+              f"{preset} learning check: {text}")
+        print(f"families_learning {preset}: {json.dumps(recipe['train'])}, "
+              f"{recipe['steps']} steps on one synthetic batch: {text} | "
+              f"{card}", flush=True)
+        out[f"{preset} learning"] = launches
     return out
 
 
 def phase_families_cli(card):
-    """The three tiny presets through the CLIs on the card: ``cli.train
-    --dataset synthetic`` (b=8, ``FAMILY_CLI_STEPS`` steps), then
-    ``cli.eval`` over the 64 val images: the family's loss terms in the
-    train log, ``kp/*`` for keypoint_tiny and ``panoptic/*`` with
-    ``semantic_mIoU`` for panoptic_tiny printed and finite; launches."""
+    """The six tiny presets of slices 13 and 14 through the CLIs on the
+    card: ``cli.train --dataset synthetic`` (b=8, ``FAMILY_CLI_STEPS``
+    steps), then ``cli.eval`` over the 64 val images: the family's loss
+    terms in the train log, ``kp/*`` for keypoint_tiny and ``panoptic/*``
+    with ``semantic_mIoU`` for panoptic_tiny printed and finite; launches
+    (RetinaNet and FCOS: one NMS per eval batch and none in training;
+    DETR: none)."""
     import math
     import tempfile
 
@@ -4226,15 +4279,24 @@ def phase_families_cli(card):
                                                    "kp/mAP@0.5")),
               "panoptic_tiny": ("semantic_loss=", (
                   "mAP", "segm/mAP", "panoptic/PQ", "panoptic/SQ",
-                  "panoptic/RQ", "panoptic/semantic_mIoU"))}
+                  "panoptic/RQ", "panoptic/semantic_mIoU")),
+              **{preset: (loss, ("mAP",))
+                 for preset, loss in ONE_STAGE_CLI_LOSS.items()}}
     steps = FAMILY_CLI_STEPS
     out = {}
     for preset, (loss, metrics) in wanted.items():
         argv = ["--preset", preset, "--dataset", "synthetic"]
         cfg = preset_config(preset)
-        pools = roi_pools(cfg)
-        pooler = ("roi_align_window" if cfg.backbone.use_fpn
-                  else "roi_align")
+        if preset in ONE_STAGE_CLI_LOSS:  # one NMS per predict or none
+            train_want = {}
+            eval_want = {"nms": 8 * one_stage_nms_per_predict(cfg)}
+        else:  # 2 NMS per predict, 1 per train step; the RoI pools
+            pools = roi_pools(cfg)
+            pooler = ("roi_align_window" if cfg.backbone.use_fpn
+                      else "roi_align")
+            train_want = {"nms": steps, pooler: pools * steps,
+                          f"{pooler}_backward": pools * steps}
+            eval_want = {"nms": 16, pooler: pools * 8}
         with tempfile.TemporaryDirectory() as tmp:
             zero_launches()
             state, text = run_cli(ctrain.main, argv + [
@@ -4247,11 +4309,8 @@ def phase_families_cli(card):
             eval_launches = read_launches()
         check(state.step == steps and loss in text,
               f"cli.train {preset}: step {state.step}, no {loss}")
-        expect_launches(train_launches, f"{preset} cli.train", nms=steps,
-                        **{pooler: pools * steps,
-                           f"{pooler}_backward": pools * steps})
-        expect_launches(eval_launches, f"{preset} cli.eval", nms=16,
-                        **{pooler: pools * 8})
+        expect_launches(train_launches, f"{preset} cli.train", **train_want)
+        expect_launches(eval_launches, f"{preset} cli.eval", **eval_want)
         for m in metrics:
             check(m in summary and f"{m}: " in eval_text
                   and math.isfinite(summary[m]),
@@ -4263,6 +4322,461 @@ def phase_families_cli(card):
         out[f"{preset} cli_train"] = train_launches
         out[f"{preset} cli_eval"] = eval_launches
     return out
+
+
+# ------------------------------------------------- RetinaNet, FCOS, DETR
+# RetinaNet, FCOS and DETR at full width (phases 44-49), each on its COCO
+# preset; their tiny presets join phases 42 and 43.
+ONE_STAGE_PRESETS = {"retinanet": "coco_retinanet_r50",
+                     "fcos": "coco_fcos_r50", "detr_r50": "coco_detr_r50"}
+# The predictors drawn wider than Flax's init, where no score would reach
+# score_thresh 0.05: RetinaNet's and FCOS's class convs (normal(0.01) at
+# the 0.01 prior; FCOS's score is also times sigmoid(centerness), ~0.5) and
+# DETR's class head (lecun-normal: a softmax over 81 columns near 0.012).
+# Their inputs' rms at this init, on these 832x832 canvases (measured on
+# the CPU in f32): RetinaNet's class tower 1.05 at p3 falling to 0.24 at
+# p7, FCOS's towers 0.7 (GroupNorm), DETR's decoder output 1.0
+# (LayerNorm). Over a 3x3x256 fan-in these widths give logits of std ~1.5
+# at RetinaNet's p3 and ~2.4 at FCOS's (centerness ~1.7): the top thousand
+# of a level's millions sit some 4 std above the prior, so the scores
+# spread below 1 (a CPU check at b=1: RetinaNet 4,000 live candidates of
+# 5,000, scores up to 0.80; FCOS 3,268, up to 0.45), and ~4 at DETR's
+# class head (over 256).
+ONE_STAGE_STD = {"retinanet": 0.03, "fcos": 0.07, "centerness": 0.05,
+                 "class_head": 0.25}
+# The live (score above score_thresh) candidates of RetinaNet's and FCOS's
+# final NMS that each image must bring: thousands of its 5 x 1,000.
+LIVE_CANDIDATES_MIN = 1000
+# The tiny learning recipes and bars of tests/test_retinanet.py,
+# tests/test_fcos.py and tests/test_detr.py (one synthetic batch of 2, no
+# warmup): the last loss under ``bar`` times the first, the first under
+# ``first``.
+ONE_STAGE_LEARNING = {
+    "retinanet_tiny": {"steps": 15, "bar": 0.8, "first": 10.0,
+                       "train": {"learning_rate": 0.02}},
+    "fcos_tiny": {"steps": 15, "bar": 0.8, "first": 10.0,
+                  "train": {"learning_rate": 0.02}},
+    "detr_tiny": {"steps": 20, "bar": 0.6, "first": 30.0,
+                  "train": {"optimizer": "adam", "learning_rate": 1e-3,
+                            "grad_clip_norm": 0.1, "weight_decay": 1e-4}}}
+# The loss term each family's train CLI prints.
+ONE_STAGE_CLI_LOSS = {"retinanet_tiny": "focal_cls_loss=",
+                      "fcos_tiny": "centerness_loss=",
+                      "detr_tiny": "class_ce_loss="}
+
+
+def one_stage_nms_per_predict(cfg):
+    """NMS launches per predict: one class-aware select over the levels'
+    union for RetinaNet and FCOS, none for DETR."""
+    return 1 if cfg.model in ("retinanet", "fcos") else 0
+
+
+def recording_select(calls):
+    """Wrap the class-aware select of RetinaNet's and FCOS's postprocess
+    (``models.retinanet.class_aware_select``) so that each call's inputs are
+    appended to ``calls``; returns the original to restore. The wrapped call
+    is the path's own (its launch counts as the path's)."""
+    from tpudet_torch.models import retinanet as tret
+
+    original = tret.class_aware_select
+
+    def wrapped(boxes, scores, classes, iou_threshold, max_outputs, **kw):
+        calls.append({"boxes": boxes, "scores": scores, "classes": classes,
+                      "thr": iou_threshold, "max_outputs": max_outputs,
+                      "valid": kw["valid_mask"],
+                      "offset": kw["coordinate_offset"]})
+        return original(boxes, scores, classes, iou_threshold, max_outputs,
+                        **kw)
+
+    tret.class_aware_select = wrapped
+    return original
+
+
+def final_nms_at(call, label):
+    """The NMS kernel on one recorded final select (sorted and class-offset
+    as ``kernels.batched_nms_dispatch`` does) against its plain version on
+    the card: equal keeps, the kernel's eager time, the plain version's, and
+    the bound of this input (the boxes and flags up to where each image's
+    walk stops, the keeps out; the walk's IoU tests)."""
+    import torch
+
+    from tpudet_torch.kernels import nms as knms
+    from tpudet_torch.ops import nms as tnms
+
+    shifted = tnms.class_offset_boxes(call["boxes"], call["classes"],
+                                      call["offset"])
+    scores = tnms.masked_scores(call["scores"], call["valid"])
+    sorted_scores, order = tnms.sort_desc(scores)
+    cand = sorted_scores > tnms._f32(tnms.NEG_INF / 2, scores.device)
+    boxes = torch.gather(shifted, 1, order[..., None].expand(-1, -1, 4))
+    boxes = boxes.contiguous()
+    thr, k = call["thr"], call["max_outputs"]
+    pos, valid = knms.nms_keep_cuda(boxes, cand, thr, k)
+    ref_pos, ref_valid = knms.nms_keep_plain(boxes, cand, thr, k)
+    torch.cuda.synchronize()
+    err = max(int((pos - ref_pos).abs().max()),
+              int((valid != ref_valid).sum()))
+    check(err == 0, f"NMS {label}: kernel and plain version keep different "
+                    f"boxes (mismatch {err})")
+    reach, pairs = nms_work(tnms.greedy_keep(boxes, cand, thr), k)
+    bytes_ms = ((int(reach.sum()) * (16 + 1) + pos.numel() * 4
+                 + boxes.shape[0] * 4) / HBM_BYTES_PER_S * 1e3)
+    ops_ms = pairs * NMS_OPS_PER_PAIR / F32_OPS_PER_S * 1e3
+    ms = time_ms(lambda: knms.nms_keep_cuda(boxes, cand, thr, k))
+    device_ms = graph_ms(lambda: knms.nms_keep_cuda(boxes, cand, thr, k),
+                         iters=50)
+    plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
+                       iters=2, warmup=1)
+    b, n = cand.shape
+    out = {"ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "max_abs_err": float(err), "shape": [b, n], "thr": thr,
+           "max_outputs": k,
+           "live_per_image": cand.sum(1).tolist(),
+           "walk_reach": [int(reach.min()), int(reach.max())],
+           "iou_tests": pairs}
+    print(f"nms {label}: b={b} P={n} class-offset candidates (live/image "
+          f"{int(cand.sum(1).min())}..{int(cand.sum(1).max())}) thr={thr} -> "
+          f"{k}: indices equal, kept/image {int(valid.sum(1).min())}.."
+          f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
+          f"{int(reach.max())} | kernel {ms:.4f} ms eager, {device_ms:.4f} "
+          f"ms device (CUDA-graph replays), plain {plain_ms:.2f} ms, bound "
+          f"{max(bytes_ms, ops_ms):.6f} ms (bytes {bytes_ms:.6f}, "
+          f"operations {ops_ms:.6f}: {pairs} IoU tests)", flush=True)
+    return out
+
+
+def phase_one_stage_predict(card, family, seed):
+    """One of ``ONE_STAGE_PRESETS`` at full width through
+    ``make_eval_step``, bf16: b = 8 on the 832x832 and 832x1344 buckets with
+    launch counts (one NMS per RetinaNet or FCOS predict, none for DETR),
+    the live NMS candidates per image, the final NMS kernel on the
+    832x832 call's own input against its plain version, the f32 b=2
+    256x256 reference on the card against the CPU (``card_equals_cpu``), ms
+    per batch at b = 8 on both buckets and b = 32 on 832x832, and peak
+    memory -> (launches, a b=8 832x832 predict as a call, the NMS
+    measurement or None)."""
+    import torch
+
+    from tpudet_torch.models import retinanet as tret
+    from tpudet_torch.train.step import make_eval_step
+
+    preset = ONE_STAGE_PRESETS[family]
+    cfg, model = preset_model(preset, "bfloat16", seed=seed)
+    step = make_eval_step(model, cfg)
+    batches = {"832x832": canvases(8, 832, 832, seed=seed),
+               "832x1344": canvases(8, 832, 1344, seed=seed + 1)}
+    torch.cuda.synchronize()
+    calls = []
+    original = recording_select(calls)
+    try:
+        # The path: counts set to 0 just before, read just after.
+        zero_launches()
+        outs = {name: step(batch) for name, batch in batches.items()}
+        launches = read_launches()
+    finally:
+        tret.class_aware_select = original
+    per = one_stage_nms_per_predict(cfg)
+    expect_launches(launches, f"{family}_predict", nms=per * len(batches))
+    check(len(calls) == per * len(batches), f"{family}_predict: "
+          f"{len(calls)} final selects")
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        print(f"{preset} bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}, mean score "
+              f"{float(out['scores'][out['valid']].mean()):.4f}", flush=True)
+    nms = None
+    for name, call in zip(batches, calls):
+        live = call["valid"].sum(1)
+        check(int(live.min()) >= LIVE_CANDIDATES_MIN, f"{family}_predict "
+              f"{name}: live NMS "
+              f"candidates per image {live.tolist()}, not thousands")
+        print(f"{family}_predict {name}: final NMS over "
+              f"{call['valid'].shape[1]} candidates per image, live "
+              f"{live.tolist()}", flush=True)
+    if calls:
+        nms = final_nms_at(calls[0], f"{family}_final")
+    print(f"{family}_predict launches: {json.dumps(launches)} over "
+          f"{len(batches)} predicts ({per} NMS per predict)", flush=True)
+    _, _, dets = card_equals_cpu(preset, seed + 2, family)
+    print(f"{family} reference: f32 b=2 256x256 predict on the card equals "
+          f"the CPU plain path (detections {dets})", flush=True)
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.reset_peak_memory_stats()
+    for name, (h, w), sizes in (("832x832", (832, 832), (8, 32)),
+                                ("832x1344", (832, 1344), (8,))):
+        for b in sizes:
+            batch = batches[name] if b == 8 else canvases(b, h, w,
+                                                          seed=seed + 3)
+            ms = time_ms(lambda: step(batch), iters=5, warmup=2)
+            print(f"{preset} bf16 predict b={b} {name}: {ms:.2f} ms/batch, "
+                  f"{1e3 * b / ms:.1f} img/s (uint8 canvases on the card, "
+                  f"preprocess included) | {card}", flush=True)
+    print(f"peak device memory ({family} predict timings): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    batch = batches["832x832"]
+    return launches, (lambda: step(batch)), nms
+
+
+def phase_one_stage_train_path(card, family, seed):
+    """One of ``ONE_STAGE_PRESETS`` training at full width: the preset's
+    train config and plain init through ``create_train_state`` and
+    ``make_train_step`` (bf16; DETR's dropout 0.1), b=8 832x832 with 1-20
+    planted boxes per image, 20 steps: every loss, ms per step, img/s, peak
+    memory, the launches per step (none: no kernel is on these train
+    paths) and DETR's host matcher ms."""
+    import math
+
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.ops import hungarian
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    preset = ONE_STAGE_PRESETS[family]
+    cfg = preset_config(preset)
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.train, seed=0)
+    step = make_train_step(model, cfg)
+    batch = planted_batch(cfg, 8, 832, 832, seed=seed)
+    steps = 20
+    label = f"{preset} bf16 b=8 832x832"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hungarian.SECONDS = 0.0
+    # The main path: counts set to 0 just before, read just after.
+    zero_launches()
+    times, rows = [], []
+    for i in range(steps):
+        start = time.perf_counter()
+        state, metrics = step(state, batch)
+        values = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        rows.append(values)
+        check(all(math.isfinite(v) for v in values.values()),
+              f"{preset} train step {i}: {values}")
+        print(f"train {label} step {i}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+              + f" | {times[-1]:.2f} ms", flush=True)
+    launches = read_launches()
+    expect_launches(launches, f"{family}_train")
+    ms = sum(times[5:]) / len(times[5:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    matcher = ""
+    if cfg.model == "detr":
+        matcher = (f", matcher (host, lockstep over {cfg.detr.dec_layers} "
+                   f"layers x 8 images) "
+                   f"{hungarian.SECONDS / steps * 1e3:.2f} ms/step")
+    print(f"{label} train (preset {cfg.train.optimizer}, planted 1-20 "
+          f"boxes/image): {ms:.2f} ms/step over steps 5..{steps - 1} (first "
+          f"{times[0]:.2f} ms), {8e3 / ms:.1f} img/s{matcher}, no kernel "
+          f"launches, peak device memory {peak:.2f} GiB, loss "
+          f"{rows[0]['loss']:.4f} (step 0) -> {rows[-1]['loss']:.4f} (step "
+          f"{steps - 1}) | {card}", flush=True)
+    return launches, (lambda: step(state, batch))
+
+
+def cpu_gradient_spread(cfg, batch):
+    """The f32 sensitivity of one step's gradients to summation order: the
+    loss's gradients on the CPU from the seed-0 weights with the process's
+    threads and with one thread -> the largest difference of a weight's
+    gradient over its norm, and that weight. Weights of 2+ dimensions only:
+    a bias before a normalization has a gradient that is zero in exact
+    arithmetic, rounding noise on both sides. The random ResNet-50's
+    backbone gradients (a few dozen positives at 256x256 feed them) move by
+    up to ~0.4% here."""
+    import torch
+
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+
+    threads = torch.get_num_threads()
+    grads = []
+    try:
+        for n in (threads, 1):
+            torch.set_num_threads(n)
+            model = build_model(cfg, device="cpu")
+            create_train_state(model, cfg.train, seed=0, device="cpu")
+            loss, _ = model.train().loss({k: v.cpu() for k, v in
+                                          batch.items()})
+            loss.backward()
+            grads.append({k: p.grad for k, p in
+                          model.core.named_parameters() if p.grad is not None})
+    finally:
+        torch.set_num_threads(threads)
+    many, one = grads
+    return max((float((one[k] - g).norm()) / float(g.norm()), k)
+               for k, g in many.items() if g.ndim >= 2 and g.any())
+
+
+def phase_one_stage_train_reference(family, seed):
+    """One f32 b=2 256x256 train step of the full preset (DETR's dropout 0)
+    on the card against the same step on the CPU plain path: equal targets
+    (RetinaNet's labels, classes and positives' deltas; FCOS's positives,
+    classes, boxes and centerness) or matches (DETR), every metric within
+    1e-4 relative, each gradient within 1e-2 of its norm, or within 4x the
+    step's own f32 sensitivity where that is larger (``cpu_gradient_spread``:
+    the CPU against itself on one thread), floored at 1e-6 of the global
+    norm, and each parameter after the update within ``PARAM_TOL`` of how
+    far the CPU's update moved it (under Adam, outside the elements whose
+    gradient's sign differs between the two)."""
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train import losses as train_losses
+    from tpudet_torch.train.state import create_train_state, lr_schedule
+    from tpudet_torch.train.step import make_train_step
+
+    preset = ONE_STAGE_PRESETS[family]
+    cfg = preset_config(preset)
+    cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                   dtype="float32"))
+    if cfg.model == "detr":
+        cfg = cfg.replace(detr=dataclasses.replace(cfg.detr, dropout=0.0))
+    label = f"f32 {preset} train step"
+    batch = planted_batch(cfg, 2, 256, 256, seed=seed, boxes=(2, 8))
+    runs = {}
+    original_match = train_losses.hungarian_masked
+    for device in ("cuda", "cpu"):
+        model = build_model(cfg, device=device)
+        state = create_train_state(model, cfg.train, seed=0, device=device)
+        # A copy: on the CPU ``.cpu()`` returns the parameter itself.
+        before = {k: p.detach().clone().cpu() for k, p in state.params.items()}
+        seen = []
+        if cfg.model == "detr":
+            def matcher(cost, valid, seen=seen):
+                match = original_match(cost, valid)
+                seen.append([match.cpu()])
+                return match
+
+            train_losses.hungarian_masked = matcher
+        else:
+            own = model._targets_single
+
+            def targets(*args, seen=seen, own=own):
+                out = own(*args)
+                seen.append([t.cpu() for t in out])
+                return out
+
+            model._targets_single = targets
+        try:
+            state, metrics = make_train_step(model, cfg, device=device)(
+                state, {k: v.to(device) for k, v in batch.items()})
+        finally:
+            train_losses.hungarian_masked = original_match
+        runs[device] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "seen": seen[0], "before": before,
+            "grads": {k: p.grad.detach().cpu() for k, p in state.params.items()
+                      if p.grad is not None},
+            "params": {k: p.detach().cpu() for k, p in state.params.items()}}
+        del model, state
+    card, cpu = runs["cuda"], runs["cpu"]
+    if cfg.model == "retinanet":
+        (cls, deltas, labels), (cls_c, deltas_c, labels_c) = (
+            card["seen"], cpu["seen"])
+        pos = labels_c == 1
+        same = (torch.equal(labels, labels_c) and torch.equal(cls, cls_c)
+                and bool(torch.isclose(deltas, deltas_c, rtol=1e-4,
+                                       atol=1e-4)[pos].all()))
+        what = f"targets equal ({pos.sum(1).tolist()} positive anchors)"
+    elif cfg.model == "fcos":
+        (cls, boxes, ctr, pos), (cls_c, boxes_c, ctr_c, pos_c) = (
+            card["seen"], cpu["seen"])
+        same = (torch.equal(pos, pos_c) and torch.equal(cls, cls_c)
+                and bool(torch.isclose(ctr, ctr_c, rtol=1e-5,
+                                       atol=1e-6).all())
+                and bool(torch.equal(boxes[pos_c], boxes_c[pos_c])))
+        what = f"targets equal ({pos_c.sum(1).tolist()} positive points)"
+    else:
+        same = torch.equal(card["seen"][0], cpu["seen"][0])
+        what = (f"matches equal ({int((cpu['seen'][0] < cfg.detr.num_queries).sum())}"
+                f" matched pairs over {cfg.detr.dec_layers} layers)")
+    check(same, f"{label}: the card's targets or matches differ from the "
+                "CPU's")
+    for k, v in cpu["metrics"].items():
+        if k == "grad_norm":
+            continue
+        check(abs(card["metrics"][k] - v) <= 1e-4 * abs(v) + 1e-7,
+              f"{label}: {k} {card['metrics'][k]} on the card, {v} on the "
+              "CPU")
+    check(set(card["grads"]) == set(cpu["grads"]),
+          f"{label}: different parameters got gradients")
+    global_norm = float(torch.stack([g.norm() for g in cpu["grads"].values()]
+                                    ).norm())
+    floor = 1e-6 * global_norm
+    # Adam's first step moves each element by about lr * sign(g): an element
+    # whose gradient the two sides' rounding leaves of either sign moves
+    # 2 lr apart (one such element of a 256-wide bias is 0.125 of its
+    # move), so those elements are counted, not compared.
+    adam = cfg.train.optimizer in ("adam", "adamw")
+    grad_err, param_err, noise, flipped = {}, {}, [], 0
+    for k, g in cpu["grads"].items():
+        grad_err[k] = (float((card["grads"][k] - g).norm())
+                       / max(float(g.norm()), floor))
+        if float(g.norm()) <= floor:
+            noise.append(k)
+            continue
+        p = cpu["params"][k]
+        same = (card["grads"][k].sign() == g.sign()) if adam else (
+            torch.ones_like(g, dtype=torch.bool))
+        flipped += int((~same).sum())
+        if not same.any():
+            continue
+        param_err[k] = (float((card["params"][k] - p)[same].norm())
+                        / float((p - cpu["before"][k])[same].norm()))
+    worst = {"gradient": max(grad_err.items(), key=lambda kv: kv[1]),
+             "parameter": max(param_err.items(), key=lambda kv: kv[1])}
+    spread, spread_at = cpu_gradient_spread(cfg, batch)
+    grad_tol = max(1e-2, 4 * spread)
+    check(worst["gradient"][1] <= grad_tol
+          and worst["parameter"][1] <= PARAM_TOL,
+          f"{label}: card and CPU differ: {worst} (gradient tolerance "
+          f"{grad_tol:.2e}; the CPU against itself on one thread "
+          f"{spread:.2e} at {spread_at})")
+    loss, loss_c = card["metrics"]["loss"], cpu["metrics"]["loss"]
+    print(f"{family} train reference: f32 b=2 256x256 step of the full "
+          f"preset (TF32 off) on the card against the CPU plain path: {what}"
+          f"; loss {loss:.6f} vs {loss_c:.6f} (rel "
+          f"{abs(loss - loss_c) / abs(loss_c):.2e}), every term within 1e-4; "
+          f"worst gradient error {worst['gradient'][1]:.2e} of its norm "
+          f"({worst['gradient'][0]}, tolerance {grad_tol:.2e}; the CPU "
+          f"against itself on one thread {spread:.2e} at {spread_at}); "
+          f"parameters after the "
+          f"{cfg.train.optimizer} update (lr {lr_schedule(cfg.train)(0):.3e}), "
+          f"worst {worst['parameter'][1]:.2e} of how far they moved "
+          f"({worst['parameter'][0]}, tolerance {PARAM_TOL})"
+          + (f", {flipped} elements whose gradient's sign the rounding "
+             "flips not compared" if adam else "")
+          + f"; {len(noise)} gradients below 1e-6 of the global norm "
+          f"{global_norm:.4f} not compared", flush=True)
+
+
+def one_stage_predict_profile(card, family, seed):
+    """``phase_one_stage_predict``, then a profile of one of its b=8
+    832x832 predicts -> (the path's launches, the final NMS
+    measurement)."""
+    launches, run, nms = phase_one_stage_predict(card, family, seed)
+    phase_profile(card, f"{ONE_STAGE_PRESETS[family]} bf16 b=8 832x832 "
+                  "predict", run)
+    return launches, nms
+
+
+def one_stage_train_profile(card, family, seed):
+    """``phase_one_stage_train_path``, a profile of one of its steps, then
+    the f32 reference step -> the path's launches."""
+    launches, run = phase_one_stage_train_path(card, family, seed)
+    phase_profile(card, f"{ONE_STAGE_PRESETS[family]} bf16 b=8 832x832 train "
+                  "step", run, warmup=1)
+    del run
+    phase_one_stage_train_reference(family, seed + 1)
+    return launches
 
 
 def phase_precision_probe():
@@ -4480,6 +4994,17 @@ PHASES = {
                                                         111),
     "families_learning": lambda card: phase_families_learning(card),
     "families_cli": lambda card: phase_families_cli(card),
+    "retinanet_predict": lambda card: one_stage_predict_profile(
+        card, "retinanet", 121),
+    "retinanet_train": lambda card: one_stage_train_profile(
+        card, "retinanet", 123),
+    "fcos_predict": lambda card: one_stage_predict_profile(card, "fcos",
+                                                           125),
+    "fcos_train": lambda card: one_stage_train_profile(card, "fcos", 127),
+    "detr_r50_predict": lambda card: one_stage_predict_profile(
+        card, "detr_r50", 129),
+    "detr_r50_train": lambda card: one_stage_train_profile(
+        card, "detr_r50", 131),
 }
 
 
@@ -4628,6 +5153,16 @@ def main(argv=None) -> None:
             card, family, seed)
         slice_launches[f"{preset} train"] = family_train_profile(
             card, family, seed + 2)
+    one_stage_nms = {}
+    for family, seed in (("retinanet", 121), ("fcos", 125),
+                         ("detr_r50", 129)):
+        preset = ONE_STAGE_PRESETS[family]
+        slice_launches[f"{preset} predict"], nms_at = (
+            one_stage_predict_profile(card, family, seed))
+        if nms_at is not None:
+            one_stage_nms[f"{family}_final"] = nms_at
+        slice_launches[f"{preset} train"] = one_stage_train_profile(
+            card, family, seed + 2)
     slice_launches.update(phase_families_learning(card))
     slice_launches.update(phase_families_cli(card))
 
@@ -4659,9 +5194,9 @@ def main(argv=None) -> None:
                 if counts[kernel]}
 
     def slice_paths(kernel):
-        """The Mask R-CNN, data-parallel, Cascade R-CNN, Keypoint R-CNN and
-        Panoptic FPN paths' counts of ``kernel`` (phases 30-34 and 36-43),
-        each zeroed just before its path."""
+        """The Mask R-CNN, data-parallel, Cascade R-CNN, Keypoint R-CNN,
+        Panoptic FPN, RetinaNet, FCOS and DETR paths' counts of ``kernel``
+        (phases 30-34 and 36-49), each zeroed just before its path."""
         return {path: counts[kernel] for path, counts in slice_launches.items()
                 if counts[kernel]}
 
@@ -4695,8 +5230,10 @@ def main(argv=None) -> None:
                                                       m7["ops_ms"])}
 
     # NMS: launches over the main paths; times of voc_r50's two predict
-    # calls on clustered scenes (the others are printed in phase 3), and of
-    # the evaluator's final NMS at its two candidate counts beside them.
+    # calls on clustered scenes (the others are printed in phase 3), of the
+    # evaluator's final NMS at its two candidate counts, and of RetinaNet's
+    # and FCOS's final NMS on their own b=8 832x832 input (5,000 unsorted
+    # class-offset candidates per image) beside them.
     eval_final = {path: t for path, t in nms.items()
                   if path.startswith("voc_r50 eval")}
     kernels = [
@@ -4709,7 +5246,8 @@ def main(argv=None) -> None:
                    nms["voc_r50"], nms_err),
              eval_final={path: {k: t[k] for k in ("ms", "plain_ms",
                                                   "bound_ms")}
-                         for path, t in eval_final.items()}),
+                         for path, t in eval_final.items()},
+             **one_stage_nms),
         entry("roi_align", kra,
               {"voc_r50 predict": voc_launches["roi_align"],
                "voc_r50 train": voc_train_launches["roi_align"],

@@ -5,8 +5,8 @@ Each worker joins the group (``tpudet_torch.parallel.init_data_parallel``)
 and, on its rows of the same global inputs:
 
 * plans the loader's epoch over a bucketed dataset and loads its rows;
-* takes one ``tiny`` Faster R-CNN train step and one
-  ``deformable_detr_tiny`` step (dropout 0) through ``make_train_step``
+* takes one ``tiny`` Faster R-CNN train step, one ``deformable_detr_tiny``
+  step and one ``detr_tiny`` step (dropout 0) through ``make_train_step``
   with the group, each in one batch and in two accumulated microbatches;
 * saves a checkpoint from rank 0 behind a barrier, then restores it on
   every rank into a state drawn from another seed.
@@ -90,11 +90,13 @@ def step_configs():
     from tpudet_torch.config import (
         apply_overrides,
         tiny_deformable_detr_config,
+        tiny_detr_config,
         tiny_test_config,
     )
 
     configs = {"faster_rcnn": tiny_test_config(),
-               "deformable_detr": tiny_deformable_detr_config()}
+               "deformable_detr": tiny_deformable_detr_config(),
+               "detr": tiny_detr_config()}
     for name, cfg in list(configs.items()):
         configs[name + "_accum2"] = apply_overrides(
             cfg, {"train.accum_steps": 2})
@@ -156,12 +158,13 @@ def main():
          "canvas": list(b["image"].shape[1:3]),
          "gt_boxes": b["gt_boxes"]} for b in loader.batches(1)]
 
-    state = None
+    states = {}
     for name, cfg in step_configs().items():
         rows = process_rows(GLOBAL_BATCH, dp.rank, dp.world_size,
                             cfg.train.accum_steps)
         batch = {k: v[rows] for k, v in global_batch(cfg, seed=5).items()}
-        state, result[name] = train_one(cfg, batch, dp)
+        states[name], result[name] = train_one(cfg, batch, dp)
+    state = states["deformable_detr_accum2"]  # the checkpoint's
 
     # Rank 0 writes, every rank waits, then every rank restores into a
     # state drawn from another seed.

@@ -1277,3 +1277,132 @@ def test_roi_align_window_backward_at_the_keypoint_shape(cuda, dtype):
     ref, terms = plain_grad(cot.float()), plain_grad(cot.float().abs())
     for g, want, t in zip(got, ref, terms):
         assert_gradient_close(g, want, dtype, t)
+
+
+def one_stage_pair(cuda, name, seed=0, **fields):
+    """The tiny RetinaNet, FCOS or DETR preset on the card and on the CPU
+    with the same weights (``fields`` replacing entries of the family's
+    group), the output convs drawn wider so that detections pass
+    score_thresh."""
+    import dataclasses
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+
+    cfg = preset_config(name)
+    group = cfg.model
+    if fields:
+        cfg = cfg.replace(**{group: dataclasses.replace(getattr(cfg, group),
+                                                        **fields)})
+    cpu = build_model(cfg, device="cpu").init(seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for layer, std in (("cls_logits", 0.05), ("box_deltas", 0.02),
+                           ("box_dists", 0.02), ("centerness", 0.05)):
+            conv = getattr(getattr(cpu.core, "head", None), layer, None)
+            if conv is not None:
+                conv.weight.normal_(0, std, generator=gen)
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [100.0, 120.0]])}
+    return cfg, card, cpu, batch
+
+
+@pytest.mark.parametrize("name,fields,nms", [
+    ("retinanet_tiny", {"prefilter": "off"}, 1),
+    ("retinanet_tiny", {"prefilter": "on"}, 1),
+    ("fcos_tiny", {}, 1), ("detr_tiny", {}, 0)])
+def test_one_stage_and_detr_predict_on_card_equals_plain_path(cuda, name,
+                                                              fields, nms):
+    """retinanet_tiny with the prefilter off and on, fcos_tiny and
+    detr_tiny on the card against the CPU: one NMS launch per RetinaNet or
+    FCOS predict (the class-aware select over the levels' union), none for
+    DETR; the detections equal."""
+    _, card, cpu, batch = one_stage_pair(cuda, name, **fields)
+    before = (knms.LAUNCHES, kra.LAUNCHES, krw.LAUNCHES, kda.LAUNCHES)
+    out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+    after = (knms.LAUNCHES, kra.LAUNCHES, krw.LAUNCHES, kda.LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == (nms, 0, 0, 0)
+    ref = cpu.predict(batch)
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    assert (ref["num_detections"] > 0).all()
+    assert torch.equal(out["classes"].cpu(), ref["classes"])
+    torch.testing.assert_close(out["boxes"].cpu(), ref["boxes"], rtol=1e-4,
+                               atol=1e-3)
+    torch.testing.assert_close(out["scores"].cpu(), ref["scores"], rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["retinanet_tiny", "fcos_tiny", "detr_tiny"])
+def test_one_stage_and_detr_train_step_on_card_equals_plain_path(cuda, name):
+    """One f32 step of each tiny preset (its SGD, clipped) on the
+    card against the CPU: the same metrics within 1e-5 relative, each
+    gradient within 1e-2 of its norm; a gradient that is zero in exact
+    arithmetic (the biases before a GroupNorm), below 1e-6 of the global
+    norm on the CPU, is rounding noise and must be so on the card."""
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg, card, cpu, _ = one_stage_pair(cuda, name)
+    gen = torch.Generator().manual_seed(5)
+    boxes = torch.tensor([[[10.0, 12.0, 60.0, 70.0], [40.0, 30.0, 120.0, 90.0],
+                           [20.0, 20.0, 44.0, 40.0]]] * 2)
+    g = cfg.data.max_gt_boxes
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [96.0, 120.0]]),
+             "gt_boxes": torch.cat([boxes, torch.zeros(2, g - 3, 4)], 1),
+             "gt_classes": torch.tensor([[1, 3, 2] + [0] * (g - 3)] * 2),
+             "gt_valid": torch.tensor([[True] * 3 + [False] * (g - 3)] * 2)}
+    runs = {}
+    for device, model in ((cuda, card), ("cpu", cpu)):
+        state = create_train_state(model, cfg.train, seed=None,
+                                   device=device)
+        _, metrics = make_train_step(model, cfg, device=device)(state, batch)
+        runs[str(device)] = ({k: float(v) for k, v in metrics.items()},
+                             {k: p.grad.cpu() for k, p in
+                              state.params.items()})
+    (m_card, g_card), (m_cpu, g_cpu) = runs[str(cuda)], runs["cpu"]
+    for k, v in m_cpu.items():
+        assert m_card[k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
+    floor = 1e-6 * float(torch.stack([g.norm() for g in g_cpu.values()]).norm())
+    for k, g in g_cpu.items():
+        if float(g.norm()) <= floor:
+            assert float(g_card[k].norm()) <= floor, k
+            continue
+        assert float((g_card[k] - g).norm()) <= 1e-2 * float(g.norm()), k
+
+
+def test_final_nms_at_the_one_stage_shape_equals_plain(cuda):
+    """RetinaNet's and FCOS's final NMS at the COCO presets' b=8 832x832
+    shape: 5 levels x 1,000 unsorted candidates of 80 classes, 0.5 -> 100,
+    through ``class_aware_select`` against the CPU's plain version."""
+    gen = torch.Generator().manual_seed(14)
+    b, n = 8, 5000
+    centres = torch.rand(b, 12, 2, generator=gen) * 800
+    pick = torch.randint(0, 12, (b, n), generator=gen)
+    centre = torch.gather(centres, 1, pick[..., None].expand(b, n, 2))
+    wh = 16 + torch.rand(b, n, 2, generator=gen) * 200
+    bx = (torch.cat([centre - wh / 2, centre + wh / 2], -1)
+          + torch.randn(b, n, 4, generator=gen) * 4).clamp(0, 832)
+    scores = torch.rand(b, n, generator=gen)
+    cls = torch.randint(1, 81, (b, n), generator=gen, dtype=torch.int32)
+    valid = scores > 0.05
+    ref = tk.class_aware_select(bx, scores, cls, 0.5, 100, valid_mask=valid,
+                                coordinate_offset=4096.0)
+    out = tk.class_aware_select(bx.to(cuda), scores.to(cuda), cls.to(cuda),
+                                0.5, 100, valid_mask=valid.to(cuda),
+                                coordinate_offset=4096.0)
+    for got, want in zip(out, ref):
+        assert torch.equal(got.cpu(), want)
+    assert int(ref[2].sum()) == b * 100
+
+
+def test_argmin_of_ties_on_card_takes_the_first(cuda):
+    """FCOS's assignment takes the first smallest box (and index 0 where a
+    point has no candidate, every area inf), as jnp.argmin: torch.argmin
+    on the card does too."""
+    x = torch.full((2, 14414, 100), float("inf"), device=cuda)
+    x[0, :, 5] = x[0, :, 60] = x[0, :, 99] = 3.0
+    assert (torch.argmin(x[0], dim=-1) == 5).all()
+    assert (torch.argmin(x[1], dim=-1) == 0).all()

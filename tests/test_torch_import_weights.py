@@ -123,13 +123,19 @@ def test_full_preset_tree_loads_by_name():
 
 @pytest.mark.parametrize("name", ["coco_cascade_r50_fpn",
                                   "coco_keypoint_r50_fpn",
-                                  "coco_panoptic_r50_fpn"])
+                                  "coco_panoptic_r50_fpn",
+                                  "coco_retinanet_r50", "coco_fcos_r50",
+                                  "coco_detr_r50"])
 def test_family_preset_trees_load_by_name(name):
-    """Every parameter of the three families' full presets (the cascade's
+    """Every parameter of the families' full presets (the cascade's
     det_head2/3, the 8x512 keypoint head and its 4x4 deconv, the mask and
-    semantic heads with their GroupNorm scales) maps onto the port's model,
-    names and shapes, strictly (no key left over either way), and
-    ``flax_param_ndims`` gives each the ndim of its Flax leaf."""
+    semantic heads with their GroupNorm scales; RetinaNet's and FCOS's
+    level-agnostic heads, FCOS's GroupNorm towers and bare ``level_scales``;
+    DETR's attention kernels and bare ``query_embed``) maps onto the port's
+    model, names and shapes, strictly (no key left over either way), and
+    ``flax_param_ndims`` gives each the ndim of its Flax leaf (the decay
+    mask's: ``level_scales`` is 1-D and not decayed, the attention's
+    flattened kernels and biases are 3-D and 2-D in Flax)."""
     from tpudet_torch.models.import_weights import flax_param_ndims
 
     jm = jax_build_model(jax_preset(name))
@@ -140,15 +146,26 @@ def test_family_preset_trees_load_by_name(name):
     sd = from_flax_variables(zeros)
     assert set(sd) == set(model.core.state_dict())
     model.core.load_state_dict(sd)  # strict: names and shapes
-    # No attention here: each converted parameter keeps its leaf's ndim.
-    params = from_flax_variables({"params": zeros["params"]})
-    ndims = flax_param_ndims(model.core)
-    assert set(ndims) == set(params)
-    for key, arr in params.items():
-        assert ndims[key] == arr.ndim, key
+    # Each Flax leaf converted alone names its port parameter.
+    want = {}
+    for path, leaf in flax.traverse_util.flatten_dict(
+            zeros["params"]).items():
+        (key,) = from_flax_variables({"params": flax.traverse_util
+                                      .unflatten_dict({path: leaf})})
+        want[key] = leaf.ndim
+    assert flax_param_ndims(model.core) == want
     core = model.core
     if name == "coco_keypoint_r50_fpn":
         assert core.keypoint_head.deconv.weight.shape == (512, 17, 4, 4)
     if name == "coco_panoptic_r50_fpn":
         assert core.semantic_head.p5_gn2.weight.shape == (128,)
         assert core.semantic_head.predict.weight.shape == (133, 128, 1, 1)
+    if name == "coco_retinanet_r50":
+        assert core.head.cls_logits.weight.shape == (9 * 80, 256, 3, 3)
+    if name == "coco_fcos_r50":
+        assert want["level_scales"] == 1 and core.head.box_gn3.weight.shape \
+            == (256,)
+    if name == "coco_detr_r50":
+        assert want["dec5.cross_attn.query.weight"] == 3
+        assert want["query_embed"] == 2
+        assert core.dec5.cross_attn.out.weight.shape == (256, 256)

@@ -87,6 +87,8 @@ def test_sources_import_no_jax_and_no_tpudet():
 
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
+                                   "RetinaNetConfig", "FCOSConfig",
+                                   "DETRConfig",
                                    "DeformableDETRConfig", "MaskConfig",
                                    "CascadeConfig", "KeypointConfig",
                                    "PanopticConfig", "TrainConfig",
@@ -165,7 +167,10 @@ def test_tiny_maskrcnn_config_equals_jax_fields():
                                   "maskrcnn_tiny", "cascade_tiny",
                                   "coco_cascade_r50_fpn", "keypoint_tiny",
                                   "coco_keypoint_r50_fpn", "panoptic_tiny",
-                                  "coco_panoptic_r50_fpn"])
+                                  "coco_panoptic_r50_fpn", "retinanet_tiny",
+                                  "coco_retinanet_r50", "fcos_tiny",
+                                  "coco_fcos_r50", "detr_tiny",
+                                  "coco_detr_r50"])
 def test_slice_presets_equal_jax(name):
     from tpudet.cli.common import preset_config as jax_preset
     from tpudet_torch.cli.common import PRESETS, preset_config
@@ -173,8 +178,9 @@ def test_slice_presets_equal_jax(name):
     assert name in PRESETS
     port, ref = preset_config(name), jax_preset(name)
     assert port.model == ref.model
-    for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
-                  "cascade", "keypoint", "panoptic", "train"):
+    for group in ("data", "backbone", "anchors", "rpn", "roi", "retinanet",
+                  "fcos", "detr", "mask", "cascade", "keypoint", "panoptic",
+                  "train"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), \
@@ -183,12 +189,15 @@ def test_slice_presets_equal_jax(name):
 
 @pytest.mark.parametrize("name", ["tiny_cascade_config",
                                   "tiny_keypoint_config",
-                                  "tiny_panoptic_config"])
+                                  "tiny_panoptic_config",
+                                  "tiny_retinanet_config", "tiny_fcos_config",
+                                  "tiny_detr_config"])
 def test_family_tiny_configs_equal_jax_fields(name):
     port, ref = getattr(tconfig, name)(), getattr(jconfig, name)()
     assert port.model == ref.model
-    for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
-                  "cascade", "keypoint", "panoptic", "train"):
+    for group in ("data", "backbone", "anchors", "rpn", "roi", "retinanet",
+                  "fcos", "detr", "mask", "cascade", "keypoint", "panoptic",
+                  "train"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), \
@@ -196,6 +205,7 @@ def test_family_tiny_configs_equal_jax_fields(name):
         # Every JAX field of the group is in the port.
         assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
                 >= {f.name for f in dataclasses.fields(getattr(port, group))})
-    for group in ("cascade", "keypoint", "panoptic"):
+    for group in ("retinanet", "fcos", "detr", "cascade", "keypoint",
+                  "panoptic"):
         assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
                 == {f.name for f in dataclasses.fields(getattr(port, group))})

@@ -108,8 +108,8 @@ def assert_preset_equals_jax(name):
     """Every field the port's config has equals the JAX preset's."""
     port, ref = preset_config(name), preset_jax(name)
     assert port.model == ref.model
-    for group in ("data", "backbone", "anchors", "rpn", "roi",
-                  "deformable_detr", "train"):
+    for group in ("data", "backbone", "anchors", "rpn", "roi", "retinanet",
+                  "fcos", "detr", "deformable_detr", "train"):
         for f in dataclasses.fields(getattr(port, group)):
             assert (getattr(getattr(port, group), f.name)
                     == getattr(getattr(ref, group), f.name)), f"{group}.{f.name}"
@@ -121,8 +121,8 @@ def test_voc_r50_preset_equals_jax():
     assert_preset_equals_jax("coco_r101_fpn")
     assert_preset_equals_jax("coco_maskrcnn_r50_fpn")  # Mask R-CNN
     assert_preset_equals_jax("coco_cascade_r50_fpn")  # Cascade R-CNN
-    with pytest.raises(ValueError):  # a family still to port
-        preset_config("coco_detr_r50")
+    with pytest.raises(ValueError):  # a backbone still to port
+        preset_config("coco_vitdet_b")
 
 
 def test_deformable_detr_presets_equal_jax():

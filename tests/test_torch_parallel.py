@@ -10,9 +10,11 @@ the suite. They check:
   and load disjoint rows whose union is the one-process loader's batch;
 * with one and with two accumulated microbatches, each rank's
   microbatch is its share of the global microbatch;
-* one ``tiny`` Faster R-CNN step at global b=4 and one
+* one ``tiny`` Faster R-CNN step at global b=4, one
   ``deformable_detr_tiny`` step (dropout 0: the set loss divides by the
-  group's positive count), each also in two accumulated microbatches: the
+  group's positive count) and one ``detr_tiny`` step (its CE also by the
+  group's sum of class weights), each also in two accumulated
+  microbatches: the
   loss, every gradient and every updated
   parameter equal the one-process step on the joined batch within
   ``1e-6`` relative (the mean of two half-batch gradients against one
@@ -152,7 +154,8 @@ def test_each_ranks_microbatch_is_its_share_of_the_global_one(accum):
 
 @pytest.mark.parametrize("name", ["faster_rcnn", "deformable_detr",
                                   "faster_rcnn_accum2",
-                                  "deformable_detr_accum2"])
+                                  "deformable_detr_accum2", "detr",
+                                  "detr_accum2"])
 def test_two_process_step_equals_one_process_step(ranks, name):
     cfg = worker.step_configs()[name]
     _, ref = worker.train_one(cfg, worker.global_batch(cfg, seed=5))
@@ -180,7 +183,7 @@ def test_two_process_step_equals_one_process_step(ranks, name):
     for k in ref["params"]:
         assert torch.equal(ranks[0][name]["params"][k],
                            ranks[1][name]["params"][k]), k
-    if name.startswith("deformable_detr"):
+    if "detr" in name:
         assert ref["metrics"]["num_gt"] > 0
 
 

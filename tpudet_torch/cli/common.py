@@ -9,19 +9,25 @@ import ast
 import dataclasses
 
 from tpudet_torch.config import (
+    AnchorConfig,
     BackboneConfig,
     Config,
     DataConfig,
+    DETRConfig,
     DeformableDETRConfig,
+    FCOSConfig,
     ROIConfig,
     RPNConfig,
     TrainConfig,
     apply_overrides,
     tiny_cascade_config,
     tiny_deformable_detr_config,
+    tiny_detr_config,
+    tiny_fcos_config,
     tiny_keypoint_config,
     tiny_maskrcnn_config,
     tiny_panoptic_config,
+    tiny_retinanet_config,
     tiny_test_config,
 )
 
@@ -113,6 +119,63 @@ def preset_config(name: str) -> Config:
         return tiny_keypoint_config()
     if name == "panoptic_tiny":
         return tiny_panoptic_config()
+    if name == "retinanet_tiny":
+        return tiny_retinanet_config()
+    if name == "coco_retinanet_r50":
+        # RetinaNet-R50-FPN on COCO (arXiv:1708.02002 §5): P3-P7, anchors
+        # of 32..512 px at three sub-octaves and three ratios, 4-conv towers
+        # of 256, focal alpha 0.25, gamma 2, bf16; gradients clipped at 10
+        # (the 1/num_pos normalizer spikes on sparse-positive batches).
+        return Config(
+            model="retinanet",
+            data=DataConfig(dataset="coco", num_classes=80, min_size=800,
+                            max_size=1333, canvas_height=1344,
+                            canvas_width=1344, aspect_buckets=COCO_BUCKETS),
+            backbone=BackboneConfig(name="resnet50", use_fpn=True,
+                                    dtype="bfloat16"),
+            anchors=AnchorConfig(
+                fpn_strides=(8, 16, 32, 64, 128),
+                fpn_scales=(32.0, 64.0, 128.0, 256.0, 512.0),
+                fpn_octave_scales=(1.0, 2 ** (1.0 / 3.0), 2 ** (2.0 / 3.0))),
+            train=TrainConfig(grad_clip_norm=10.0),
+        )
+    if name == "fcos_tiny":
+        return tiny_fcos_config()
+    if name == "coco_fcos_r50":
+        # FCOS-R50-FPN on COCO (arXiv:1904.01355 §4): P3-P7, regression
+        # ranges 64/128/256/512, 4-conv GroupNorm towers of 256, centre
+        # sampling, centerness-weighted GIoU, bf16, clip 10.
+        return Config(
+            model="fcos",
+            data=DataConfig(dataset="coco", num_classes=80, min_size=800,
+                            max_size=1333, canvas_height=1344,
+                            canvas_width=1344, aspect_buckets=COCO_BUCKETS),
+            backbone=BackboneConfig(name="resnet50", use_fpn=True,
+                                    dtype="bfloat16"),
+            anchors=AnchorConfig(fpn_strides=(8, 16, 32, 64, 128)),
+            fcos=FCOSConfig(),
+            train=TrainConfig(grad_clip_norm=10.0),
+        )
+    if name == "detr_tiny":
+        return tiny_detr_config()
+    if name == "coco_detr_r50":
+        # DETR-R50 on COCO (arXiv:2005.12872 §4: d=256, 8 heads, 6+6
+        # layers, FFN 2048, 100 queries, costs and weights 1/5/2, eos 0.1,
+        # auxiliary losses), single-scale C5, bf16. AdamW at 1e-4 (the
+        # backbone at 0.1x), weight decay 1e-4, grad clip 0.1.
+        return Config(
+            model="detr",
+            data=DataConfig(dataset="coco", num_classes=80, min_size=800,
+                            max_size=1333, canvas_height=1344,
+                            canvas_width=1344, aspect_buckets=COCO_BUCKETS,
+                            max_gt_boxes=100),
+            backbone=BackboneConfig(name="resnet50", use_fpn=False,
+                                    dtype="bfloat16"),
+            detr=DETRConfig(),
+            train=TrainConfig(optimizer="adamw", learning_rate=1e-4,
+                              weight_decay=1e-4, grad_clip_norm=0.1,
+                              backbone_lr_factor=0.1),
+        )
     if name == "deformable_detr_tiny":
         return tiny_deformable_detr_config()
     if name == "coco_deformable_detr_r50":
@@ -142,7 +205,8 @@ PRESETS = ("tiny", "voc_r50", "coco_r50", "coco_r101_fpn",
            "maskrcnn_tiny", "coco_maskrcnn_r50_fpn", "deformable_detr_tiny",
            "coco_deformable_detr_r50", "cascade_tiny", "coco_cascade_r50_fpn",
            "keypoint_tiny", "coco_keypoint_r50_fpn", "panoptic_tiny",
-           "coco_panoptic_r50_fpn")
+           "coco_panoptic_r50_fpn", "retinanet_tiny", "coco_retinanet_r50",
+           "fcos_tiny", "coco_fcos_r50", "detr_tiny", "coco_detr_r50")
 
 
 def add_common_args(p: argparse.ArgumentParser):

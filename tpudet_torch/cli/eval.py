@@ -308,14 +308,19 @@ def referee_config(cfg):
     approximation goes back to the protocol-exact form. The final NMS's
     candidate cap sentinel 0 becomes -1 (all P * C (box, class) candidates,
     as the reference's dynamic-shape postprocess; ``--set
-    roi.max_nms_candidates=1024`` restores the serving cap), and any top-k
-    method other than the exact ones becomes "exact"."""
+    roi.max_nms_candidates=1024`` restores the serving cap), any top-k
+    method other than the exact ones becomes "exact", and RetinaNet's
+    prefilter "auto" becomes "off" (the paper's flattened (anchor, class)
+    selection)."""
     if cfg.roi.max_nms_candidates == 0:
         cfg = cfg.replace(
             roi=dataclasses.replace(cfg.roi, max_nms_candidates=-1))
     if cfg.rpn.topk_method not in ("exact", "blocked"):
         print("eval: forcing rpn.topk_method=exact (parity referee)")
         cfg = cfg.replace(rpn=dataclasses.replace(cfg.rpn, topk_method="exact"))
+    if cfg.model == "retinanet" and cfg.retinanet.prefilter == "auto":
+        cfg = cfg.replace(retinanet=dataclasses.replace(cfg.retinanet,
+                                                        prefilter="off"))
     return cfg
 
 

@@ -1,7 +1,8 @@
 """Configuration for the PyTorch port (the fields of ``tpudet.config`` that
 Faster R-CNN, Mask R-CNN, Cascade R-CNN, Keypoint R-CNN and Panoptic FPN
-inference and training, single-level and FPN, Deformable DETR inference
-and training, the data path and the evaluators read).
+inference and training, single-level and FPN, RetinaNet, FCOS, DETR and
+Deformable DETR inference and training, the data path and the evaluators
+read).
 
 Field names and defaults are those of the JAX package's dataclasses, so a
 config built for one package reads the same in the other; a test holds the
@@ -239,6 +240,106 @@ class CascadeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RetinaNetConfig:
+    """RetinaNet (Lin et al., arXiv:1708.02002): P3-P7, conv towers shared
+    across levels, sigmoid focal loss over every anchor. Every field and
+    default of the JAX group."""
+
+    # Head towers (paper §4: four 3x3 convs of 256 per tower).
+    num_convs: int = 4
+    head_channels: int = 256
+    # Every anchor starts at foreground probability prior_prob (§3.3).
+    prior_prob: float = 0.01
+    # Focal loss -alpha_t (1 - p_t)^gamma log(p_t) (Eq. 4-5).
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    # Assignment: foreground at IoU >= 0.5, background below 0.4, the band
+    # between ignored; each ground-truth box also claims its best anchors.
+    fg_iou_thresh: float = 0.5
+    bg_iou_thresh: float = 0.4
+    smooth_l1_beta: float = 0.11
+    loss_weight_box: float = 1.0
+    box_reg_weights: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    # Inference: per level the top-k (anchor, class) pairs, then one
+    # class-aware NMS over the levels' union.
+    pre_nms_topk: int = 1000
+    score_thresh: float = 0.05
+    nms_thresh: float = 0.5
+    max_detections: int = 100
+    # The per-level selection: "off" is the flattened (anchor, class)
+    # top-k; "on" takes each anchor's best class first, the top-k of those
+    # anchors, then the top-k of their class rows; "auto" is "on" but the
+    # eval CLI (the parity referee) pins it to "off".
+    prefilter: str = "auto"
+    # Final NMS: "hard" | "soft_linear" | "soft_gaussian" (only "hard" is
+    # ported).
+    nms_method: str = "hard"
+    soft_nms_sigma: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class FCOSConfig:
+    """FCOS (Tian et al., arXiv:1904.01355): per-location classification,
+    (l, t, r, b) distances and centerness on P3-P7, no anchors. Every field
+    and default of the JAX group."""
+
+    # Shared towers (§3.1: four 3x3 convs + GroupNorm per tower).
+    num_convs: int = 4
+    head_channels: int = 256
+    head_norm: str = "gn"  # "gn" | "none"
+    prior_prob: float = 0.01
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    # A location is a candidate for a box when it lies within radius *
+    # stride of its centre (0: anywhere inside it) and its largest distance
+    # falls in the level's range; ties go to the smallest box.
+    center_sampling_radius: float = 1.5
+    # Level i regresses (bounds[i-1], bounds[i]], the last level to inf.
+    regress_range_bounds: Tuple[float, ...] = (64.0, 128.0, 256.0, 512.0)
+    loss_weight_box: float = 1.0
+    loss_weight_ctr: float = 1.0
+    # Inference: per level the top-k of sigmoid(class) * sigmoid(ctr), then
+    # one class-aware NMS.
+    pre_nms_topk: int = 1000
+    score_thresh: float = 0.05
+    nms_thresh: float = 0.6
+    max_detections: int = 100
+    nms_method: str = "hard"
+    soft_nms_sigma: float = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class DETRConfig:
+    """DETR (Carion et al., arXiv:2005.12872): a transformer encoder over
+    the C5 tokens and a decoder over learned queries, trained with
+    Hungarian-matched set losses. Every field and default of the JAX
+    group."""
+
+    # Transformer (paper appendix: d=256, 8 heads, 6+6 layers, FFN 2048).
+    d_model: int = 256
+    num_heads: int = 8
+    enc_layers: int = 6
+    dec_layers: int = 6
+    ffn_dim: int = 2048
+    num_queries: int = 100
+    dropout: float = 0.1
+    # Matching costs (§2: class probability, L1, GIoU at 1/5/2).
+    cost_class: float = 1.0
+    cost_bbox: float = 5.0
+    cost_giou: float = 2.0
+    # Loss weights; eos_coef weighs the no-object class in the CE.
+    loss_weight_class: float = 1.0
+    loss_weight_bbox: float = 5.0
+    loss_weight_giou: float = 2.0
+    eos_coef: float = 0.1
+    # The set loss on every decoder layer's output (§3.4).
+    aux_loss: bool = True
+    # Inference: top-k over the (query, class) posterior, no NMS.
+    score_thresh: float = 0.05
+    max_detections: int = 100
+
+
+@dataclasses.dataclass(frozen=True)
 class DeformableDETRConfig:
     """Deformable DETR (Zhu et al., arXiv:2010.04159): multi-scale
     deformable attention over C3..C5 + extra strided levels, reference-point
@@ -398,7 +499,10 @@ class Config:
     anchors: AnchorConfig = AnchorConfig()
     rpn: RPNConfig = RPNConfig()
     roi: ROIConfig = ROIConfig()
+    retinanet: RetinaNetConfig = RetinaNetConfig()
+    fcos: FCOSConfig = FCOSConfig()
     cascade: CascadeConfig = CascadeConfig()
+    detr: DETRConfig = DETRConfig()
     deformable_detr: DeformableDETRConfig = DeformableDETRConfig()
     mask: MaskConfig = MaskConfig()
     keypoint: KeypointConfig = KeypointConfig()
@@ -448,6 +552,59 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
         roi=ROIConfig(fc_dim=64, batch_size_per_image=32, max_detections=20),
         train=TrainConfig(batch_size=2, checkpoint_every=10**9),
         use_pallas=False,
+    )
+
+
+def tiny_retinanet_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small RetinaNet config for the CPU tests (the fields of
+    ``tpudet.config.tiny_retinanet_config``): the tiny backbone with the FPN
+    (c3..c5 at strides 8/16/32, P6 and P7 grown by stride-2 convs), anchors
+    of 16..128 px at two sub-octaves and three ratios, 2 towers of 64, 64
+    candidates per level, 20 detections, gradients clipped at 10."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="retinanet",
+        backbone=dataclasses.replace(base.backbone, use_fpn=True),
+        anchors=AnchorConfig(
+            aspect_ratios=(0.5, 1.0, 2.0),
+            fpn_strides=(8, 16, 32, 64, 128),
+            fpn_scales=(16.0, 32.0, 64.0, 96.0, 128.0),
+            fpn_octave_scales=(1.0, 1.26),
+        ),
+        retinanet=RetinaNetConfig(num_convs=2, head_channels=64,
+                                  pre_nms_topk=64, max_detections=20),
+        train=dataclasses.replace(base.train, grad_clip_norm=10.0),
+    )
+
+
+def tiny_fcos_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small FCOS config for the CPU tests (the fields of
+    ``tpudet.config.tiny_fcos_config``): the tiny RetinaNet's pyramid,
+    2 GroupNorm towers of 64, regression ranges 16/32/64/96 for the 128-px
+    canvas, 64 candidates per level, 20 detections, clip 10."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="fcos",
+        backbone=dataclasses.replace(base.backbone, use_fpn=True),
+        anchors=AnchorConfig(fpn_strides=(8, 16, 32, 64, 128)),
+        fcos=FCOSConfig(num_convs=2, head_channels=64, pre_nms_topk=64,
+                        max_detections=20,
+                        regress_range_bounds=(16.0, 32.0, 64.0, 96.0)),
+        train=dataclasses.replace(base.train, grad_clip_norm=10.0),
+    )
+
+
+def tiny_detr_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small DETR config for the CPU tests (the fields of
+    ``tpudet.config.tiny_detr_config``): the tiny backbone (a 4x4 grid of
+    C5 tokens at 128 px), a 2+2-layer transformer of width 32 with 4 heads,
+    20 queries, dropout off."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        model="detr",
+        detr=DETRConfig(d_model=32, num_heads=4, enc_layers=2, dec_layers=2,
+                        ffn_dim=64, num_queries=20, dropout=0.0,
+                        max_detections=20),
     )
 
 

@@ -6,7 +6,7 @@ once per canvas and moved to the device by the caller.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -41,6 +41,33 @@ def generate_anchors_np(
     centers = np.stack([cxv, cyv, cxv, cyv], axis=-1)  # [H, W, 4]
     anchors = centers[:, :, None, :] + base[None, None, :, :]  # [H, W, A, 4]
     return anchors.reshape(-1, 4)
+
+
+def generate_fpn_anchors(
+    feat_shapes: Sequence[Tuple[int, int]],
+    strides: Sequence[int],
+    scales: Sequence[float],
+    aspect_ratios: Sequence[float],
+) -> Tuple[np.ndarray, List[int]]:
+    """Multi-level anchors, one scale per level and every ratio -> (anchors
+    [sum_l H_l*W_l*A, 4] in level order, the per-level counts)."""
+    assert len(feat_shapes) == len(strides) == len(scales)
+    per_level = [generate_anchors_np(fh, fw, stride, [scale], aspect_ratios)
+                 for (fh, fw), stride, scale in zip(feat_shapes, strides,
+                                                    scales)]
+    return (np.concatenate(per_level, axis=0),
+            [a.shape[0] for a in per_level])
+
+
+def generate_points_np(feat_height: int, feat_width: int,
+                       stride: int) -> np.ndarray:
+    """[H*W, 2] anchor-free location grid (FCOS, arXiv:1904.01355 §3.1):
+    each feature cell's centre in image pixels, (x, y), row-major over
+    (y, x)."""
+    cx = (np.arange(feat_width, dtype=np.float32) + 0.5) * stride
+    cy = (np.arange(feat_height, dtype=np.float32) + 0.5) * stride
+    cxv, cyv = np.meshgrid(cx, cy)  # [H, W]
+    return np.stack([cxv, cyv], axis=-1).reshape(-1, 2)
 
 
 def anchor_validity_mask_np(anchors, image_height, image_width):

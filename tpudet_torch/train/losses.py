@@ -1,12 +1,13 @@
 """Detection losses (``tpudet.train.losses``): Faster R-CNN's RPN and
 detection-head losses, Mask R-CNN's mask loss, Keypoint R-CNN's keypoint
-loss, Panoptic FPN's semantic loss and the Deformable DETR set loss.
+loss, Panoptic FPN's semantic loss, RetinaNet's and FCOS's losses, and the
+DETR and Deformable DETR set losses.
 
 Each is JAX's per-image function with any leading axes (a batch of images
 where JAX ``vmap``s): the reductions run over the last sample axis and the
-results keep the leading ones. ``deformable_detr_set_loss`` is called once
-over every (decoder layer, image) problem, so the matcher solves them all
-in one lockstep batch.
+results keep the leading ones. The set losses are called once over every
+(decoder layer, image) problem, so the matcher solves them all in one
+lockstep batch.
 
 RPN (Faster R-CNN §3.1.2): binary cross-entropy over the sampled anchors
 and smooth-L1 (beta 1/9) over the positives' deltas, both divided by the
@@ -19,7 +20,10 @@ RoIs. Keypoint R-CNN (§5): a softmax cross-entropy over the heatmap's cells
 for each labeled keypoint of a foreground RoI, their mean. Panoptic FPN
 (arXiv:1901.02446 §3): a per-pixel softmax cross-entropy, its mean over
 the non-void pixels of the whole batch (the JAX package calls it once
-over the batch). Every loss is 0, not NaN, where nothing is sampled.
+over the batch). RetinaNet (arXiv:1708.02002 Eq. 4-5) and FCOS
+(arXiv:1904.01355 §3): a sigmoid focal loss over every anchor or location,
+divided by the positive count. Every loss is 0, not NaN, where nothing is
+sampled.
 """
 
 from __future__ import annotations
@@ -118,6 +122,91 @@ def semantic_loss(
     return _safe_mean(ce.reshape(-1), valid.reshape(-1))
 
 
+def _one_hot(target_classes: torch.Tensor, num_classes: int,
+             positive: torch.Tensor) -> torch.Tensor:
+    """``[..., N]`` classes 1..C -> ``[..., N, C]`` f32 one-hot rows where
+    ``positive``, zero rows elsewhere (``jax.nn.one_hot(c - 1) * pos``)."""
+    classes = torch.arange(num_classes, device=target_classes.device)
+    return (((target_classes.long() - 1)[..., None] == classes)
+            & positive[..., None]).to(torch.float32)
+
+
+def _focal(logits: torch.Tensor, onehot: torch.Tensor, alpha: float,
+           gamma: float) -> torch.Tensor:
+    """Elementwise sigmoid focal loss: BCE with logits times ``alpha_t (1 -
+    p_t)^gamma``, in JAX's formula and order."""
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    bce = (torch.maximum(logits, zero) - logits * onehot
+           + torch.log1p(torch.exp(-logits.abs())))
+    p = torch.sigmoid(logits)
+    p_t = p * onehot + (1.0 - p) * (1.0 - onehot)
+    alpha_t = alpha * onehot + (1.0 - alpha) * (1.0 - onehot)
+    return alpha_t * torch.pow(1.0 - p_t, gamma) * bce
+
+
+def retinanet_losses(
+    cls_logits: torch.Tensor,      # [..., N, C] per-anchor class logits
+    deltas: torch.Tensor,          # [..., N, 4] predicted deltas
+    target_classes: torch.Tensor,  # [..., N] 0 background, 1..C foreground
+    target_deltas: torch.Tensor,   # [..., N, 4] encoded ground truth
+    labels: torch.Tensor,          # [..., N] 1 fg, 0 bg, -1 ignored
+    alpha: float = 0.25,
+    gamma: float = 2.0,
+    box_weight: float = 1.0,
+    beta: float = 0.11,
+):
+    """-> ``(cls_loss [...], box_weight * box_loss [...])``: the focal loss
+    over every anchor that is not ignored and smooth-L1 over the positives'
+    deltas, both divided by the positive count clamped to 1."""
+    num_classes = cls_logits.shape[-1]
+    use = (labels >= 0).to(torch.float32)
+    pos = labels == 1
+    pos_f = pos.to(torch.float32)
+    num_pos = pos_f.sum(dim=-1).clamp(min=1.0)
+    onehot = _one_hot(target_classes, num_classes, pos)
+    focal = _focal(cls_logits, onehot, alpha, gamma)
+    cls_loss = (focal * use[..., None]).sum(dim=(-2, -1)) / num_pos
+    box_per = smooth_l1(deltas, target_deltas, beta).sum(dim=-1)
+    box_loss = (box_per * pos_f).sum(dim=-1) / num_pos
+    return cls_loss, box_weight * box_loss
+
+
+def fcos_losses(
+    cls_logits: torch.Tensor,      # [..., N, C] per-location class logits
+    pred_boxes: torch.Tensor,      # [..., N, 4] decoded predicted boxes
+    ctr_logits: torch.Tensor,      # [..., N] centerness logits
+    target_classes: torch.Tensor,  # [..., N] 0 background, 1..C
+    target_boxes: torch.Tensor,    # [..., N, 4] matched ground truth
+    target_ctr: torch.Tensor,      # [..., N] centerness targets
+    pos: torch.Tensor,             # [..., N] bool
+    alpha: float = 0.25,
+    gamma: float = 2.0,
+    box_weight: float = 1.0,
+    ctr_weight: float = 1.0,
+):
+    """-> ``(cls_loss, box_weight * box_loss, ctr_weight * ctr_loss)``, each
+    ``[...]``: the focal loss over every location divided by the positive
+    count (clamped to 1); 1 - GIoU over the positives weighted by their
+    centerness targets and divided by the targets' sum (0 without a
+    positive); the centerness BCE's mean over the positives."""
+    num_classes = cls_logits.shape[-1]
+    pos_f = pos.to(torch.float32)
+    num_pos = pos_f.sum(dim=-1).clamp(min=1.0)
+    onehot = _one_hot(target_classes, num_classes, pos)
+    cls_loss = _focal(cls_logits, onehot, alpha, gamma).sum(dim=(-2, -1)) / num_pos
+    giou = elementwise_giou(pred_boxes, target_boxes)
+    ctr_w = target_ctr * pos_f
+    box_loss = ((1.0 - giou) * ctr_w).sum(dim=-1) / ctr_w.sum(dim=-1).clamp(
+        min=1e-6)
+    box_loss = torch.where(pos_f.sum(dim=-1) > 0, box_loss,
+                           torch.zeros_like(box_loss))
+    zero = torch.zeros((), dtype=ctr_logits.dtype, device=ctr_logits.device)
+    ctr_bce = (torch.maximum(ctr_logits, zero) - ctr_logits * target_ctr
+               + torch.log1p(torch.exp(-ctr_logits.abs())))
+    ctr_loss = _safe_mean(ctr_bce, pos_f, denom=num_pos)
+    return cls_loss, box_weight * box_loss, ctr_weight * ctr_loss
+
+
 def rpn_losses(
     logits: torch.Tensor,         # [..., K] objectness of the sampled anchors
     deltas: torch.Tensor,         # [..., K, 4] their predicted deltas
@@ -173,6 +262,80 @@ def detection_losses(
     return cls_loss, box_loss
 
 
+def _matched_box_terms(pred_boxes, gt_boxes, gt_valid, match):
+    """The set losses' box terms over the matched valid pairs -> ``(l1_sum,
+    giou_sum, num_pos)``, each ``[...]``. The matcher's sentinel ``Q`` of an
+    invalid row is clamped to ``Q - 1`` in the gather (JAX's gathers clamp),
+    whose row the validity mask then zeroes."""
+    index = match.clamp(max=pred_boxes.shape[-2] - 1)
+    matched = torch.gather(pred_boxes, -2,
+                           index[..., None].expand(*index.shape, 4))
+    valid_f = gt_valid.to(torch.float32)
+    l1 = (matched - gt_boxes).abs().sum(dim=-1)
+    giou = elementwise_giou(cxcywh_to_xyxy(matched), cxcywh_to_xyxy(gt_boxes))
+    return ((l1 * valid_f).sum(dim=-1), ((1.0 - giou) * valid_f).sum(dim=-1),
+            valid_f.sum(dim=-1))
+
+
+def _target_classes(match, gt_classes, num_queries):
+    """``[..., Q]`` each query's matched class, 0 for unmatched queries:
+    JAX's ``zeros(Q).at[match].set(gt_classes, mode="drop")``, the
+    sentinel ``Q`` landing in an extra column that is then dropped."""
+    tgt = torch.zeros((*match.shape[:-1], num_queries + 1), dtype=torch.long,
+                      device=match.device)
+    return tgt.scatter(-1, match, gt_classes.long())[..., :num_queries]
+
+
+def detr_set_loss(
+    logits: torch.Tensor,      # [..., Q, C+1] class logits, 0 = no object
+    pred_boxes: torch.Tensor,  # [..., Q, 4] normalized (cx, cy, w, h)
+    gt_boxes: torch.Tensor,    # [..., G, 4] normalized (cx, cy, w, h), padded
+    gt_classes: torch.Tensor,  # [..., G] int 1..C (padding rows arbitrary)
+    gt_valid: torch.Tensor,    # [..., G] bool
+    cost_class: float,
+    cost_bbox: float,
+    cost_giou: float,
+    eos_coef: float,
+):
+    """DETR's set loss (Carion et al., arXiv:2005.12872 §2) per problem of
+    the leading axes: Hungarian matching of the valid ground truth to the
+    queries under the cost ``-p(class) * cost_class + L1 * cost_bbox -
+    GIoU * cost_giou``, then the softmax cross-entropy of every query
+    against its matched class (no-object for the rest, weighted
+    ``eos_coef``) and L1 + (1 - GIoU) over the matched pairs. Returns the
+    per-problem sums ``(ce_sum, ce_weight_sum, l1_sum, giou_sum,
+    num_pos)``, each ``[...]``, for the batch-level normalization of
+    ``DETR.loss``. A padding row's class is clamped into ``0..C`` for the
+    cost (JAX's gathers clamp); its cost row is zeroed anyway."""
+    num_queries, width = logits.shape[-2:]
+    logits = logits.to(torch.float32)
+
+    # --- matching cost [..., G, Q]; no gradient reaches the matcher.
+    with torch.no_grad():
+        probs = torch.softmax(logits, dim=-1)                 # [..., Q, C+1]
+        cls_col = gt_classes.long().clamp(0, width - 1)
+        c_class = -torch.gather(
+            probs, -1, cls_col[..., None, :].expand(*probs.shape[:-1], -1)
+        ).transpose(-1, -2)                                   # [..., G, Q]
+        c_bbox = (gt_boxes[..., :, None, :]
+                  - pred_boxes[..., None, :, :]).abs().sum(dim=-1)
+        c_giou = -pairwise_giou(cxcywh_to_xyxy(gt_boxes),
+                                cxcywh_to_xyxy(pred_boxes))
+        cost = cost_class * c_class + cost_bbox * c_bbox + cost_giou * c_giou
+        cost = torch.where(gt_valid[..., None], cost, torch.zeros_like(cost))
+        match = hungarian_masked(cost, gt_valid)              # [..., G]
+
+    # --- classification: CE over every query, eos_coef on no-object.
+    tgt_cls = _target_classes(match, gt_classes, num_queries)
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, tgt_cls[..., None])[..., 0]
+    w = torch.where(tgt_cls > 0, torch.ones_like(ce),
+                    torch.full_like(ce, eos_coef))
+    l1_sum, giou_sum, num_pos = _matched_box_terms(pred_boxes, gt_boxes,
+                                                   gt_valid, match)
+    return (ce * w).sum(dim=-1), w.sum(dim=-1), l1_sum, giou_sum, num_pos
+
+
 def deformable_detr_set_loss(
     logits: torch.Tensor,      # [..., Q, C] sigmoid class logits
     pred_boxes: torch.Tensor,  # [..., Q, 4] normalized (cx, cy, w, h)
@@ -224,28 +387,9 @@ def deformable_detr_set_loss(
         match = hungarian_masked(cost, gt_valid)              # [..., G]
 
     # --- classification: sigmoid focal over every (query, class) ---------
-    # The sentinel lands in an extra column that is then dropped.
-    tgt_cls = torch.zeros((*match.shape[:-1], num_queries + 1),
-                          dtype=torch.long, device=logits.device)
-    tgt_cls = tgt_cls.scatter(-1, match, gt_classes.long())[..., :num_queries]
-    classes = torch.arange(num_classes, device=logits.device)
-    onehot = (((tgt_cls - 1)[..., None] == classes)
-              & (tgt_cls > 0)[..., None]).to(torch.float32)
-    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
-    bce = (torch.maximum(logits, zero) - logits * onehot
-           + torch.log1p(torch.exp(-logits.abs())))
-    p_t = p * onehot + (1.0 - p) * (1.0 - onehot)
-    alpha_t = alpha * onehot + (1.0 - alpha) * (1.0 - onehot)
-    focal_sum = (alpha_t * torch.pow(1.0 - p_t, gamma) * bce).sum(dim=(-2, -1))
-
-    # --- box terms on the matched valid pairs -----------------------------
-    index = match.clamp(max=num_queries - 1)
-    matched = torch.gather(pred_boxes, -2,
-                           index[..., None].expand(*index.shape, 4))
-    valid_f = gt_valid.to(torch.float32)
-    l1 = (matched - gt_boxes).abs().sum(dim=-1)
-    giou = elementwise_giou(cxcywh_to_xyxy(matched), cxcywh_to_xyxy(gt_boxes))
-    l1_sum = (l1 * valid_f).sum(dim=-1)
-    giou_sum = ((1.0 - giou) * valid_f).sum(dim=-1)
-    num_pos = valid_f.sum(dim=-1)
+    tgt_cls = _target_classes(match, gt_classes, num_queries)
+    onehot = _one_hot(tgt_cls, num_classes, tgt_cls > 0)
+    focal_sum = _focal(logits, onehot, alpha, gamma).sum(dim=(-2, -1))
+    l1_sum, giou_sum, num_pos = _matched_box_terms(pred_boxes, gt_boxes,
+                                                   gt_valid, match)
     return focal_sum, l1_sum, giou_sum, num_pos

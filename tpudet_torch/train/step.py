@@ -81,9 +81,11 @@ def make_train_step(model, cfg: Config, device="cuda",
       their metrics averaged;
     * with ``dp``, the batch is this process's rows of the global batch
       (``data.loader.process_rows``): the sampler and augmentation uniforms
-      are drawn for the global microbatch and cut to its rows, the Deformable DETR set loss divides by the
-      group's positive count, and the gradients and metrics are averaged
-      over the group (one all-reduce of a flat buffer);
+      are drawn for the global microbatch and cut to its rows, the DETR
+      and Deformable DETR set losses divide by the group's positive count
+      (DETR's CE by the group's sum of class weights too), and the
+      gradients and metrics are averaged over the group (one all-reduce of
+      a flat buffer);
     * frozen parameters' gradients dropped before the ``grad_norm`` metric
       (the norm of the gradients before clipping);
     * clipping by global norm as ``optax.clip_by_global_norm``: ``g / norm *
@@ -109,8 +111,9 @@ def make_train_step(model, cfg: Config, device="cuda",
                          f"of the data-parallel group drives {dp.device}")
     share = 1 if dp is None else dp.world_size
     rank = 0 if dp is None else dp.rank
-    # Faster R-CNN's samplers draw from the step's generator; Deformable
-    # DETR's dropout does, inside its loss.
+    # Faster R-CNN's samplers draw from the step's generator; DETR's and
+    # Deformable DETR's dropout does, inside their losses; RetinaNet and
+    # FCOS draw nothing.
     draws_samples = hasattr(model, "draw_samples")
     loss_kw = {} if dp is None else {"dp": dp}
     accum = max(1, tcfg.accum_steps)
