@@ -252,7 +252,31 @@ no result):
     centre sampling) the same way, its NMS at 0.6 (``fcos_final``);
 48-49. coco_detr_r50 (ResNet-50 C5, 6+6 layers of 256, FFN 2048, 100
     queries, bf16) the same way: no kernel on either path, the f32
-    reference step's matches equal, the host matcher's ms per step.
+    reference step's matches equal, the host matcher's ms per step;
+50-51. coco_vitdet_b (ViT-B/16, window 14, 4 global blocks, the simple
+    feature pyramid, the FPN RoI Align at window 56, 80 classes, bf16)
+    inference through ``make_eval_step`` (run before phases 42-43): b = 8
+    on 832x832 and 832x1344 (the 64 position grid shrunk and grown) with
+    launch counts (2 NMS and 1 FPN RoI Align per predict), an f32 b=2
+    256x256 predict on the card against the CPU, ms per batch and peak
+    memory at b = 8 and b = 32, the four global blocks' attention timed
+    alone, a profile (softmax named); then 20 AdamW steps at b=8 832x832
+    (1 NMS, 1 FPN forward and 1 backward per step), a profile, and an f32
+    b=2 256x256 step against the CPU (gradients within max(1e-2, 4x the
+    CPU's own thread-count spread), AdamW's sign-flipped elements
+    counted);
+52-53. voc_vgg16 (VGG-16 c4, neck 256, fc 4096) the same way on 640x640
+    and 640x1024 with the single-level RoI Align, SGD, its f32 step at
+    320x320 (the proposals held up to near-tie flips);
+54. Soft-NMS (``class_aware_select``, soft_gaussian and soft_linear) at
+    8 x 1,024 and 8 x 5,000 candidates of 80 classes on the card against
+    the CPU, ms per call beside the hard route, and a coco_r101_fpn b=8
+    predict with ``roi.nms_method=soft_gaussian``;
+55. vitdet_tiny's learning check, ``cli.train``, ``cli.eval`` with and
+    without ``--tta hflip`` and ``detect_image``; ``cli.train
+    --backbone-weights`` from a converted torchvision ResNet-50 (voc_r50)
+    and a timm ViT-B/16 (coco_vitdet_b), the loaded backbone equal to the
+    npz before step 1.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -2073,7 +2097,7 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
           f"{pools} {pooler} forward and {pools} backward per step")
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"{label} train (preset SGD, planted 1-20 "
+    print(f"{label} train (preset {cfg.train.optimizer}, planted 1-20 "
           f"{'ellipses' if cfg.data.load_masks else 'boxes'}/image"
           f"{', 17 keypoints each' if cfg.data.load_keypoints else ''}"
           f"{', semantic map' if cfg.data.load_semantic else ''}): {ms:.2f} "
@@ -2110,18 +2134,19 @@ REFERENCE_FIELDS = {
                              "matched"), lambda t: t[3] & t[4])}
 
 
-def reference_runs(preset, size):
+def reference_runs(preset, size, card_proposals=None):
     """One f32 b=2 ``size`` x ``size`` train step of the full ``preset``
-    (voc_r50 or coco_r101_fpn) on the card and the same step on the CPU,
+    (a Faster R-CNN preset) on the card and the same step on the CPU,
     where every wrapper runs its plain version, the samplers given the same
-    draws (numpy, once) -> ``(batch, {"cuda": run, "cpu": run})``: each
+    draws (numpy, once) -> ``(batch, {"cuda": run, "cpu": run}, draws)``:
+    each
     run's loss, the stages of ``REFERENCE_FIELDS`` and its proposals
     (``seen``), the parameters before and after the update and the
     gradients. With FPN two planted boxes per image are long and thin (the
-    fit window moves such RoIs up a level), and the CPU step computes its
-    own proposals (recorded) but trains on the card's (see
-    ``phase_faster_rcnn_train_reference``). The backward kernels' launch
-    counts start from 0."""
+    fit window moves such RoIs up a level). With FPN, or with
+    ``card_proposals``, the CPU step computes its own proposals (recorded)
+    but trains on the card's (see ``phase_faster_rcnn_train_reference``).
+    The backward kernels' launch counts start from 0."""
     import numpy as np
     import torch
 
@@ -2139,6 +2164,8 @@ def reference_runs(preset, size):
     cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
                                                    dtype="float32"))
     fpn = cfg.backbone.use_fpn
+    if card_proposals is None:
+        card_proposals = fpn
     batch = planted_batch(cfg, 2, size, size, seed=55, boxes=(2, 8),
                           slivers=2 if fpn else 0)
     rng = np.random.default_rng(56)
@@ -2170,7 +2197,7 @@ def reference_runs(preset, size):
         for name in ("_rpn_targets_single", "_roi_targets_single",
                      "proposals"):
             setattr(model, name, recording(name, getattr(model, name)))
-        if fpn and device == "cpu":
+        if card_proposals and device == "cpu":
             own = model.proposals
 
             def proposals(*args, **kw):
@@ -2191,10 +2218,10 @@ def reference_runs(preset, size):
                       if p.grad is not None},
             "params": {k: p.detach().cpu() for k, p in state.params.items()}}
         del model, state
-    return batch, runs
+    return batch, runs, draws
 
 
-def phase_faster_rcnn_train_reference(preset, size):
+def phase_faster_rcnn_train_reference(preset, size, spread=False):
     """The f32 b=2 ``size`` x ``size`` step of ``reference_runs`` on the
     card against the CPU: proposal keeps, samples and labels equal, loss
     within 1e-4, gradients and the updated parameters within their
@@ -2212,7 +2239,11 @@ def phase_faster_rcnn_train_reference(preset, size):
     cfg = preset_config(preset)
     label = f"f32 {preset} train step"
     fpn = cfg.backbone.use_fpn
-    _, runs = reference_runs(preset, size)
+    # The backbones' presets hold the proposals up to near-tie flips on one
+    # level too: VGG-16's RPN scores (13 ReLUs deep) tie within an ulp.
+    near_ties = fpn or spread
+    batch, runs, draws = reference_runs(preset, size,
+                                        card_proposals=near_ties)
     card, cpu = runs["cuda"], runs["cpu"]
     launched = (kra.BACKWARD_LAUNCHES, krw.BACKWARD_LAUNCHES)
     pools = roi_pools(cfg)
@@ -2228,7 +2259,7 @@ def phase_faster_rcnn_train_reference(preset, size):
         bumped = (f"; {moved} of {int(valid.sum())} sampled RoIs moved up a "
                   f"level by the fit window {cfg.roi.window}")
     flips = ""
-    if fpn:
+    if near_ties:
         # The FPN union of the levels' candidates goes to NMS sorted by
         # sigmoid score (in tpudet too), and at this init thousands of
         # scores lie within an f32 ulp or two of their neighbours, so the
@@ -2250,7 +2281,7 @@ def phase_faster_rcnn_train_reference(preset, size):
                  f"keeps, kept scores within {float(gap.max()):.1e}; the "
                  f"CPU step then trains on the card's proposals)")
     for key, (names, positives) in REFERENCE_FIELDS.items():
-        if fpn and key == "proposal keeps":
+        if near_ties and key == "proposal keeps":
             continue
         mask = positives(cpu["seen"][key]) if positives else None
         for name, a, b in zip(names, card["seen"][key], cpu["seen"][key]):
@@ -2274,13 +2305,19 @@ def phase_faster_rcnn_train_reference(preset, size):
     # Gradients within 1e-2 of their norms (f32 both sides, convolutions and
     # GEMMs summed in other orders), floored at 1e-6 of the global norm;
     # parameters after the update outside those noise gradients within
-    # PARAM_TOL of how far the CPU's update moved them (PR 4's rule).
+    # PARAM_TOL of how far the CPU's update moved them (PR 4's rule). With
+    # ``spread`` (the backbones' presets), the gradient tolerance is the
+    # larger of 1e-2 and 4x the step's own f32 sensitivity (the CPU against
+    # itself on one thread, ``cpu_gradient_spread``), as the
+    # one-stage references; under Adam, the elements whose gradient's sign
+    # the rounding flips move 2 lr apart and are counted, not compared.
     check(set(card["grads"]) == set(cpu["grads"]),
           f"{label}: different parameters got gradients")
     global_norm = float(torch.stack([g.norm() for g in cpu["grads"].values()]
                                     ).norm())
     floor = 1e-6 * global_norm
-    grad_err, param_err, noise = {}, {}, []
+    adam = cfg.train.optimizer in ("adam", "adamw")
+    grad_err, param_err, noise, flipped = {}, {}, [], 0
     for k, g in cpu["grads"].items():
         grad_err[k] = (float((card["grads"][k] - g).norm())
                        / max(float(g.norm()), floor))
@@ -2288,12 +2325,28 @@ def phase_faster_rcnn_train_reference(preset, size):
             noise.append(k)
             continue
         p = cpu["params"][k]
-        param_err[k] = (float((card["params"][k] - p).norm())
-                        / float((p - cpu["before"][k]).norm()))
+        same = (card["grads"][k].sign() == g.sign()) if adam else (
+            torch.ones_like(g, dtype=torch.bool))
+        flipped += int((~same).sum())
+        if not same.any():
+            continue
+        param_err[k] = (float((card["params"][k] - p)[same].norm())
+                        / float((p - cpu["before"][k])[same].norm()))
     worst = {"gradient": max(grad_err.items(), key=lambda kv: kv[1]),
              "parameter": max(param_err.items(), key=lambda kv: kv[1])}
-    check(worst["gradient"][1] <= 1e-2 and worst["parameter"][1] <= PARAM_TOL,
-          f"{label}: card and CPU differ: {worst}")
+    grad_tol, sensitivity = 1e-2, ""
+    if spread:
+        dev, dev_at = cpu_gradient_spread(
+            cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                     dtype="float32")),
+            batch, draws)
+        grad_tol = max(1e-2, 4 * dev)
+        sensitivity = (f"; the CPU against itself on one thread {dev:.2e} "
+                       f"at {dev_at}")
+    check(worst["gradient"][1] <= grad_tol
+          and worst["parameter"][1] <= PARAM_TOL,
+          f"{label}: card and CPU differ: {worst} (gradient tolerance "
+          f"{grad_tol:.2e}{sensitivity})")
     keeps = card["seen"]["proposal keeps"][1]
     rpn, roi = card["seen"]["_rpn_targets_single"], card["seen"]["_roi_targets_single"]
     print(f"{preset} train reference: f32 b=2 {size}x{size} step of the full "
@@ -2305,10 +2358,13 @@ def phase_faster_rcnn_train_reference(preset, size):
           f"foreground){bumped}; loss {card['loss']:.6f} vs {cpu['loss']:.6f} "
           f"(rel {rel_loss:.2e}); worst gradient error "
           f"{worst['gradient'][1]:.2e} of its norm ({worst['gradient'][0]}, "
-          f"tolerance 1e-2); parameters after the SGD update (lr "
+          f"tolerance {grad_tol:.2e}{sensitivity}); parameters after the "
+          f"{cfg.train.optimizer} update (lr "
           f"{lr_schedule(cfg.train)(0):.3e}), worst "
           f"{worst['parameter'][1]:.2e} of how far they moved "
-          f"({worst['parameter'][0]}, tolerance {PARAM_TOL}); {len(noise)} "
+          f"({worst['parameter'][0]}, tolerance {PARAM_TOL})"
+          + (f", {flipped} elements whose gradient's sign the rounding "
+             "flips not compared" if adam else "") + f"; {len(noise)} "
           f"gradients below 1e-6 of the global norm {global_norm:.4f} not "
           "compared", flush=True)
 
@@ -3762,6 +3818,10 @@ KEYPOINT_POSITIVES = 128
 # tests/test_keypoint.py and tests/test_panoptic.py: SGD 0.02, no warmup,
 # b=2, 20 steps on one synthetic batch.
 FAMILY_LEARNING = {"steps": 20, "lr": 0.02}
+# vitdet_tiny on FAMILY_LEARNING's recipe: the last loss under this share of
+# the first. tpudet's own CPU runs fall to 0.46-0.54 and the
+# port's to 0.46-0.59 (tests/test_torch_vit_learning.py prints them).
+VITDET_LEARNING_RATIO = 0.7
 FAMILY_CLI_STEPS = 30
 
 
@@ -4581,7 +4641,7 @@ def phase_one_stage_train_path(card, family, seed):
     return launches, (lambda: step(state, batch))
 
 
-def cpu_gradient_spread(cfg, batch):
+def cpu_gradient_spread(cfg, batch, draws=None):
     """The f32 sensitivity of one step's gradients to summation order: the
     loss's gradients on the CPU from the seed-0 weights with the process's
     threads and with one thread -> the largest difference of a weight's
@@ -4589,7 +4649,7 @@ def cpu_gradient_spread(cfg, batch):
     a bias before a normalization has a gradient that is zero in exact
     arithmetic, rounding noise on both sides. The random ResNet-50's
     backbone gradients (a few dozen positives at 256x256 feed them) move by
-    up to ~0.4% here."""
+    up to ~0.4% here. A two-stage model's samplers take ``draws``."""
     import torch
 
     from tpudet_torch.models import build_model
@@ -4602,8 +4662,10 @@ def cpu_gradient_spread(cfg, batch):
             torch.set_num_threads(n)
             model = build_model(cfg, device="cpu")
             create_train_state(model, cfg.train, seed=0, device="cpu")
+            kw = {} if draws is None else {"draws": {
+                k: tuple(d.cpu() for d in v) for k, v in draws.items()}}
             loss, _ = model.train().loss({k: v.cpu() for k, v in
-                                          batch.items()})
+                                          batch.items()}, **kw)
             loss.backward()
             grads.append({k: p.grad for k, p in
                           model.core.named_parameters() if p.grad is not None})
@@ -4851,6 +4913,7 @@ def phase_precision_probe():
 
 
 KINDS = (
+    ("softmax", ("softmax",)),
     ("deform_attn kernel", ("ms_deform_attn_fwd_kernel",)),
     ("roi_align backward kernel", ("roi_align_bwd_kernel",)),
     ("roi_align_window backward kernel", ("roi_align_window_bwd_kernel",)),
@@ -4933,6 +4996,423 @@ def predict_run(preset, h, w):
     return lambda: step(batch)
 
 
+# ---------------------------------- ViTDet, VGG-16, Soft-NMS, TTA, weights
+# The backbones' full-width paths (phases 50-55): coco_vitdet_b on the FPN
+# RoI Align kernels and NMS, voc_vgg16 on the single-level ones; Soft-NMS
+# at the final selections' shapes; vitdet_tiny, TTA and
+# ``--backbone-weights`` through the CLIs.
+BACKBONE_PATHS = {"vitdet": ("coco_vitdet_b", (832, 832), (832, 1344)),
+                  "vgg": ("voc_vgg16", (640, 640), (640, 1024))}
+# Soft-NMS inputs: Faster R-CNN's final selection (1,024 class-offset
+# candidates of 80 classes per image) and RetinaNet's (5,000).
+SOFT_NMS_SHAPES = {"faster_rcnn": (1024, 100, 0.5),
+                   "retinanet": (5000, 100, 0.5)}
+# cli.train --backbone-weights: steps of each run.
+WEIGHTS_CLI_STEPS = 2
+
+
+def torchvision_resnet_state_dict(name, seed):
+    """A torchvision-layout ResNet state dict (``conv1``/``bn1``,
+    ``layer{s}.{i}.conv{j}``/``bn{j}``, ``downsample.{0,1}``) drawn from
+    ``seed``: He-scaled conv weights, BN statistics near the identity."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.models.resnet import BASIC_BLOCK, STAGE_BLOCKS
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(key, out_ch, in_ch, k):
+        std = (2.0 / (in_ch * k * k)) ** 0.5
+        sd[key + ".weight"] = torch.from_numpy(
+            rng.normal(0, std, (out_ch, in_ch, k, k)).astype(np.float32))
+
+    def bn(key, ch):
+        for field, lo, hi in (("weight", 0.5, 1.0), ("bias", -0.1, 0.1),
+                              ("running_mean", -0.1, 0.1),
+                              ("running_var", 0.5, 1.5)):
+            sd[f"{key}.{field}"] = torch.from_numpy(
+                rng.uniform(lo, hi, ch).astype(np.float32))
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    basic = name in BASIC_BLOCK
+    in_ch = 64
+    for s, n_blocks in enumerate(STAGE_BLOCKS[name]):
+        width = 64 * 2 ** s
+        out_ch = width if basic else 4 * width
+        for i in range(n_blocks):
+            t = f"layer{s + 1}.{i}"
+            if i == 0 and (in_ch != out_ch or s > 0):
+                conv(f"{t}.downsample.0", out_ch, in_ch, 1)
+                bn(f"{t}.downsample.1", out_ch)
+            if basic:
+                convs = ((width, in_ch, 3), (width, width, 3))
+            else:
+                convs = ((width, in_ch, 1), (width, width, 3),
+                         (out_ch, width, 1))
+            for j, (o, c, k) in enumerate(convs, start=1):
+                conv(f"{t}.conv{j}", o, c, k)
+                bn(f"{t}.bn{j}", o)
+            in_ch = out_ch
+    return sd
+
+
+def torchvision_vgg16_state_dict(seed):
+    """A torchvision-layout VGG16 ``features`` state dict from ``seed``."""
+    import numpy as np
+    import torch
+
+    from tpudet_torch.models.vgg import VGG16_STAGES
+
+    rng = np.random.default_rng(seed)
+    sd, idx, in_ch = {}, 0, 3
+    for n_convs, ch in VGG16_STAGES:
+        for _ in range(n_convs):
+            std = (2.0 / (in_ch * 9)) ** 0.5
+            sd[f"features.{idx}.weight"] = torch.from_numpy(
+                rng.normal(0, std, (ch, in_ch, 3, 3)).astype(np.float32))
+            sd[f"features.{idx}.bias"] = torch.from_numpy(
+                rng.normal(0, 0.01, ch).astype(np.float32))
+            idx, in_ch = idx + 2, ch
+        idx += 1
+    return sd
+
+
+def timm_vit_state_dict(dim, depth, grid, seed, cls_token=True, patch=16):
+    """A timm-layout plain-ViT state dict (``patch_embed.proj``,
+    ``pos_embed`` of ``grid`` x ``grid`` tokens after an optional cls token,
+    ``blocks.{i}`` with a fused ``attn.qkv``, ``norm``) from ``seed``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def arr(shape, std):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(np.float32))
+
+    n = grid * grid + (1 if cls_token else 0)
+    sd = {"patch_embed.proj.weight": arr((dim, 3, patch, patch), 0.02),
+          "patch_embed.proj.bias": arr((dim,), 0.02),
+          "pos_embed": arr((1, n, dim), 0.02)}
+    if cls_token:
+        sd["cls_token"] = arr((1, 1, dim), 0.02)
+    for i in range(depth):
+        b = f"blocks.{i}"
+        for ln in ("norm1", "norm2"):
+            sd[f"{b}.{ln}.weight"] = 1.0 + arr((dim,), 0.05)
+            sd[f"{b}.{ln}.bias"] = arr((dim,), 0.05)
+        for key, (o, c) in (("attn.qkv", (3 * dim, dim)),
+                            ("attn.proj", (dim, dim)),
+                            ("mlp.fc1", (4 * dim, dim)),
+                            ("mlp.fc2", (dim, 4 * dim))):
+            sd[f"{b}.{key}.weight"] = arr((o, c), c ** -0.5)
+            sd[f"{b}.{key}.bias"] = arr((o,), 0.02)
+    sd["norm.weight"] = 1.0 + arr((dim,), 0.05)
+    sd["norm.bias"] = arr((dim,), 0.05)
+    return sd
+
+
+def phase_backbone_predict(card, path, seed):
+    """One backbone's preset at full width through ``make_eval_step``,
+    bf16 (``BACKBONE_PATHS``): b = 8 on its two canvases with launch counts
+    (2 NMS and 1 RoI Align per predict: the FPN kernel under the simple
+    feature pyramid, the single-level one under VGG's c4), the f32
+    reference on the card against the CPU (``family_reference``), ms per
+    batch and the peak device memory at b = 8 on both canvases and b = 32
+    on the first; for ViTDet the four global blocks' attention timed
+    alone (its share of the b = 8 predict)."""
+    import torch
+
+    from tpudet_torch.train.step import make_eval_step
+
+    preset, first, second = BACKBONE_PATHS[path]
+    cfg, model = preset_model(preset, "bfloat16")
+    step = make_eval_step(model, cfg)
+    sizes = {f"{h}x{w}": (h, w) for h, w in (first, second)}
+    batches = {name: canvases(8, h, w, seed=seed + i)
+               for i, (name, (h, w)) in enumerate(sizes.items())}
+    torch.cuda.synchronize()
+    # The path: counts set to 0 just before, read just after.
+    zero_launches()
+    outs = {name: step(batch) for name, batch in batches.items()}
+    launches = read_launches()
+    pooler = "roi_align_window" if cfg.backbone.use_fpn else "roi_align"
+    expect_launches(launches, f"{path}_predict", nms=2 * len(batches),
+                    **{pooler: len(batches)})
+    for name, out in outs.items():
+        check_detections(out, batches[name], cfg.data.num_classes, name)
+        print(f"{preset} bf16 b=8 {name}: detections/image "
+              f"{out['num_detections'].tolist()}", flush=True)
+    print(f"{path}_predict launches: {json.dumps(launches)} over "
+          f"{len(batches)} predicts", flush=True)
+    print(f"{path} reference: " + family_reference(preset, seed + 2, path),
+          flush=True)
+
+    torch.backends.cudnn.benchmark = True
+    ms_by = {}
+    for name, (h, w) in sizes.items():
+        for b in ((8, 32) if name == next(iter(sizes)) else (8,)):
+            batch = batches[name] if b == 8 else canvases(b, h, w,
+                                                          seed=seed + 3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = ms_by[name, b] = time_ms(lambda: step(batch), iters=5,
+                                          warmup=2)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"{preset} bf16 predict b={b} {name}: {ms:.2f} ms/batch, "
+                  f"{1e3 * b / ms:.1f} img/s, peak device memory "
+                  f"{peak:.2f} GiB (uint8 canvases on the card, preprocess "
+                  f"included) | {card}", flush=True)
+            del batch
+    if path == "vitdet":
+        bb = model.core.backbone
+        h, w = first
+        tokens = (h // 16) * (w // 16)
+        x = torch.randn(8, tokens, bb.dim, device="cuda").to(torch.bfloat16)
+        glob = [getattr(bb, f"block{i}") for i in range(bb.depth)
+                if getattr(bb, f"block{i}").window == 0]
+        with torch.no_grad():
+            attn_ms = sum(time_ms(lambda blk=blk: blk.attn(x), iters=5,
+                                  warmup=2) for blk in glob)
+        name = next(iter(sizes))
+        print(f"{preset} global attention: {len(glob)} blocks of {tokens} "
+              f"tokens, attention alone (q/k/v/out projections, f32 logits, "
+              f"softmax, product with v) {attn_ms:.2f} ms at b=8 {name}, "
+              f"{100 * attn_ms / ms_by[name, 8]:.1f}% of the b=8 predict "
+              f"| {card}", flush=True)
+        del x
+    batch = batches[next(iter(sizes))]
+    return launches, (lambda: step(batch))
+
+
+def backbone_predict_profile(card, path, seed):
+    launches, run = phase_backbone_predict(card, path, seed)
+    preset, (h, w), _ = BACKBONE_PATHS[path]
+    phase_profile(card, f"{preset} bf16 b=8 {h}x{w} predict", run)
+    return launches
+
+
+def backbone_train_profile(card, path, seed):
+    """The preset's training at full width (b=8 on its first canvas, 20
+    steps, the preset's optimizer), a profile of one step, then the f32
+    b=2 step on the card against the CPU -> the path's launches."""
+    preset, (size, _), _ = BACKBONE_PATHS[path]
+    launches, run = phase_faster_rcnn_train_path(card, preset, size, seed)
+    phase_profile(card, f"{preset} bf16 b=8 {size}x{size} train step", run,
+                  warmup=1)
+    del run
+    phase_faster_rcnn_train_reference(preset, 256 if path == "vitdet"
+                                      else 320, spread=True)
+    return launches
+
+
+def phase_soft_nms(card):
+    """``class_aware_select``'s Soft-NMS route (plain PyTorch on every
+    device, chosen by ``nms_method``) at the final selections' shapes
+    (``SOFT_NMS_SHAPES``, b=8, 80 classes) on the card against the CPU:
+    indices and validity equal, rescored scores within 1e-6; the time per
+    call beside the hard route's (the NMS kernel) on the same inputs; then
+    one coco_r101_fpn b=8 832x832 predict with
+    ``roi.nms_method=soft_gaussian`` (one NMS launch per predict: the
+    proposals')."""
+    import torch
+
+    from tpudet_torch.kernels import class_aware_select
+    from tpudet_torch.train.step import make_eval_step
+
+    gen = torch.Generator().manual_seed(141)
+    for label, (n, d, thr) in SOFT_NMS_SHAPES.items():
+        boxes = random_boxes(gen, (8, n), 832, 832, device="cpu")
+        scores = torch.rand(8, n, generator=gen)
+        classes = torch.randint(1, 81, (8, n), generator=gen,
+                                dtype=torch.int32)
+        valid = torch.rand(8, n, generator=gen) > 0.1
+        on_card = [t.cuda() for t in (boxes, scores, classes, valid)]
+        times = {}
+        for method in ("soft_gaussian", "soft_linear", "hard"):
+            def call(b, s, c, v, method=method):
+                return class_aware_select(b, s, c, thr, d, method=method,
+                                          sigma=0.5, prune_threshold=0.05,
+                                          valid_mask=v,
+                                          coordinate_offset=4096.0)
+
+            out = [t.cpu() for t in call(*on_card)]
+            ref = call(boxes, scores, classes, valid)
+            err = float((out[1] - ref[1]).abs().max())
+            check(torch.equal(out[0], ref[0]) and torch.equal(out[2], ref[2])
+                  and err <= 1e-6, f"soft_nms {label} {method}: the card "
+                  f"differs from the CPU (indices equal "
+                  f"{torch.equal(out[0], ref[0])}, scores {err:.2e} apart)")
+            times[method] = time_ms(lambda: call(*on_card), iters=5,
+                                    warmup=2)
+            if method != "hard":
+                check(bool((ref[2].sum(1) > 0).all()),
+                      f"soft_nms {label} {method}: no valid pick")
+        print(f"soft_nms {label}: 8 x {n} candidates of 80 classes -> {d}: "
+              f"card equals CPU (indices, validity; scores within 1e-6) | "
+              + ", ".join(f"{k} {v:.3f} ms/call" for k, v in times.items())
+              + f" | {card}", flush=True)
+    cfg, model = preset_model("coco_r101_fpn", "bfloat16")
+    cfg = cfg.replace(roi=dataclasses.replace(cfg.roi,
+                                              nms_method="soft_gaussian"))
+    model.cfg = cfg
+    step = make_eval_step(model, cfg)
+    batch = canvases(8, 832, 832, seed=142)
+    zero_launches()
+    out = step(batch)
+    launches = read_launches()
+    expect_launches(launches, "soft_nms coco_r101_fpn predict", nms=1,
+                    roi_align_window=1)
+    check_detections(out, batch, cfg.data.num_classes, "soft_gaussian")
+    ms = time_ms(lambda: step(batch), iters=5, warmup=1)
+    print(f"soft_nms coco_r101_fpn bf16 b=8 832x832 predict with "
+          f"roi.nms_method=soft_gaussian: detections/image "
+          f"{out['num_detections'].tolist()}, {ms:.2f} ms/batch | {card}",
+          flush=True)
+    return {"coco_r101_fpn soft_gaussian predict": launches}
+
+
+def phase_backbones_cli(card):
+    """vitdet_tiny's learning check (``family_learning_losses``: the last
+    loss under ``VITDET_LEARNING_RATIO`` of the first) and its
+    ``cli.train`` (b=8, ``FAMILY_CLI_STEPS`` steps), ``cli.eval`` over the
+    64 val images, with and without ``--tta hflip``, and ``detect_image``;
+    then ``cli.train --backbone-weights`` from two npz files converted here
+    from seeded state dicts: a torchvision ResNet-50 into voc_r50
+    (``stride_in_1x1=False``) and a timm ViT-B/16 (14 x 14 tokens and a cls
+    token, grown to the 64 grid) into coco_vitdet_b, each
+    ``WEIGHTS_CLI_STEPS`` steps at b=2; the backbone each run loaded equals
+    its npz before the first step."""
+    import math
+    import tempfile
+
+    import torch
+
+    from tpudet_torch.cli import detect as cdetect
+    from tpudet_torch.cli import eval as ceval
+    from tpudet_torch.cli import train as ctrain
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.config import apply_overrides
+    from tpudet_torch.data.synthetic import SyntheticDataset
+    from tpudet_torch.models import build_model
+    from tpudet_torch.models import import_weights as iw
+    from tpudet_torch.train.checkpoint import CheckpointManager
+    from tpudet_torch.train.state import create_train_state
+
+    out = {}
+    zero_launches()
+    cfg, rows = family_learning_losses("vitdet_tiny")
+    launches = read_launches()
+    steps = FAMILY_LEARNING["steps"]
+    expect_launches(launches, "vitdet_tiny learning", nms=steps,
+                    roi_align_window=steps,
+                    roi_align_window_backward=steps)
+    first, last = rows[0]["loss"], rows[-1]["loss"]
+    check(all(math.isfinite(v) for r in rows for v in r.values())
+          and last < VITDET_LEARNING_RATIO * first,
+          f"vitdet_tiny learning check: loss {first:.4f} -> {last:.4f}")
+    print(f"backbones_cli vitdet_tiny learning: SGD "
+          f"{FAMILY_LEARNING['lr']}, {steps} steps on one synthetic batch: "
+          f"loss {first:.4f} -> {last:.4f} ({last / first:.3f}x, needs < "
+          f"{VITDET_LEARNING_RATIO}x) | {card}", flush=True)
+    out["vitdet_tiny learning"] = launches
+
+    argv = ["--preset", "vitdet_tiny", "--dataset", "synthetic"]
+    steps = FAMILY_CLI_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        state, text = run_cli(ctrain.main, argv + [
+            "--batch-size", "8", "--lr", "0.02", "--steps", str(steps),
+            "--checkpoint-dir", f"{tmp}/ckpt"], "cli.train vitdet_tiny")
+        out["vitdet_tiny cli_train"] = read_launches()
+        check(state.step == steps and "det_cls_loss=" in text,
+              f"cli.train vitdet_tiny: step {state.step}")
+        expect_launches(out["vitdet_tiny cli_train"], "vitdet_tiny cli.train",
+                        nms=steps, roi_align_window=steps,
+                        roi_align_window_backward=steps)
+        summaries = {}
+        for tta in ("", "hflip"):
+            zero_launches()
+            summaries[tta], text = run_cli(ceval.main, argv + [
+                "--checkpoint-dir", f"{tmp}/ckpt"]
+                + (["--tta", tta] if tta else []),
+                f"cli.eval vitdet_tiny{' --tta ' + tta if tta else ''}")
+            key = f"vitdet_tiny cli_eval{'_tta' if tta else ''}"
+            out[key] = read_launches()
+            predicts = 8 * (2 if tta else 1)  # 64 images at b=8
+            expect_launches(out[key], key, nms=2 * predicts,
+                            roi_align_window=predicts)
+            check("mAP" in summaries[tta]
+                  and math.isfinite(summaries[tta]["mAP"])
+                  and "eval: 64 images" in text,
+                  f"cli.eval vitdet_tiny tta={tta!r}: no finite mAP")
+        # The CLI's synthetic config (8 classes), every box the few steps
+        # give (their scores may sit under 0.05).
+        cfg = apply_overrides(preset_config("vitdet_tiny"), {
+            "data.dataset": "synthetic", "data.num_classes": 8,
+            "roi.score_thresh": 0.0})
+        model = build_model(cfg)
+        state = CheckpointManager(f"{tmp}/ckpt").restore_eval(
+            create_train_state(model, cfg.train, seed=0))
+        image = SyntheticDataset(8, image_size=128).get_example(5)["image"]
+        boxes, scores, classes, _, _ = cdetect.detect_image(
+            cfg, state.eval_model(), image)
+        check(len(boxes) > 0 and np_finite(boxes) and np_finite(scores),
+              f"detect_image vitdet_tiny: {len(boxes)} detections")
+    print(f"backbones_cli vitdet_tiny: cli.train synthetic b=8, {steps} "
+          f"steps; cli.eval 64 val images mAP {summaries['']['mAP']:.4f}, "
+          f"with --tta hflip {summaries['hflip']['mAP']:.4f}; detect_image "
+          f"{len(boxes)} boxes | {card}", flush=True)
+
+    runs = {"voc_r50": (iw.convert_torch_resnet(
+                torchvision_resnet_state_dict("resnet50", seed=143)),
+                ["--set", "backbone.stride_in_1x1=False"]),
+            "coco_vitdet_b": (iw.convert_torch_vit(
+                timm_vit_state_dict(768, 12, 14, seed=144), pos_grid=64),
+                [])}
+    apply = ctrain.apply_backbone_weights
+    for preset, ((params, constants), extra) in runs.items():
+        want = iw.from_flax_variables({"params": {"backbone": params},
+                                       "constants": {"backbone": constants}})
+        loaded = {}
+
+        def recording(model, p, c, loaded=loaded):
+            apply(model, p, c)
+            loaded.update({k: v.detach().cpu().clone()
+                           for k, v in model.core.state_dict().items()
+                           if k.startswith("backbone.")})
+            return model
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/{preset}.npz"
+            iw.save_backbone_npz(path, params, constants)
+            ctrain.apply_backbone_weights = recording
+            try:
+                zero_launches()
+                state, text = run_cli(ctrain.main, [
+                    "--preset", preset, "--dataset", "synthetic",
+                    "--batch-size", "2", "--steps", str(WEIGHTS_CLI_STEPS),
+                    "--backbone-weights", path] + extra,
+                    f"cli.train {preset} --backbone-weights")
+                out[f"{preset} backbone_weights"] = read_launches()
+            finally:
+                ctrain.apply_backbone_weights = apply
+        check(set(want) <= set(loaded) and all(torch.equal(loaded[k], v)
+                                               for k, v in want.items()),
+              f"{preset}: the loaded backbone differs from the npz")
+        check(state.step == WEIGHTS_CLI_STEPS
+              and "loaded backbone weights" in text,
+              f"cli.train {preset} --backbone-weights: step {state.step}")
+        print(f"backbones_cli {preset} --backbone-weights: {len(want)} "
+              f"tensors loaded equal to the npz before step 1, "
+              f"{WEIGHTS_CLI_STEPS} steps at b=2 | {card}", flush=True)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
 # Phases that ``--phases`` runs alone (after the device and build phases),
 # each a call on the card's name.
 PHASES = {
@@ -5005,6 +5485,13 @@ PHASES = {
         card, "detr_r50", 129),
     "detr_r50_train": lambda card: one_stage_train_profile(
         card, "detr_r50", 131),
+    "vitdet_predict": lambda card: backbone_predict_profile(card, "vitdet",
+                                                            151),
+    "vitdet_train": lambda card: backbone_train_profile(card, "vitdet", 153),
+    "vgg_predict": lambda card: backbone_predict_profile(card, "vgg", 155),
+    "vgg_train": lambda card: backbone_train_profile(card, "vgg", 157),
+    "soft_nms": lambda card: phase_soft_nms(card),
+    "backbones_cli": lambda card: phase_backbones_cli(card),
 }
 
 
@@ -5091,8 +5578,18 @@ def main(argv=None) -> None:
         else:
             run_phases(names)
         return
+    laps = [time.perf_counter()]
+
+    def lap(label):
+        """Seconds since the previous lap, so a later slice sees where the
+        script's time goes."""
+        laps.append(time.perf_counter())
+        print(f"time: {label} {laps[-1] - laps[-2]:.1f} s (total "
+              f"{laps[-1] - laps[0]:.1f} s)", flush=True)
+
     card = phase_device()
     phase_build()
+    lap("device and build")
     nms, nms_err = phase_nms()
     roi = phase_roi_align()
     roi_window = phase_roi_align_window()
@@ -5112,6 +5609,7 @@ def main(argv=None) -> None:
     fpn_train_launches, fpn_train_run = phase_fpn_train_path(card)
     phase_fpn_train_reference()
     phase_faster_rcnn_tiny_learning(fpn=True)
+    lap("phases 3-22 (kernels, main paths, references, learning)")
     probe_launches, probe = phase_precision_probe()
     for label, step, (h, w) in (("voc_r50", voc_step, (640, 640)),
                                 ("coco_r101_fpn", fpn_step, (832, 832)),
@@ -5126,11 +5624,16 @@ def main(argv=None) -> None:
                   warmup=1)
     phase_profile(card, "coco_r101_fpn bf16 b=8 832x832 train step",
                   fpn_train_run, warmup=1)
+    lap("precision probe and profiles")
     cli_launches, _ = phase_voc_cli(card)
+    lap("voc_cli")
     cli_launches.update(phase_tiny_cli_learning(card))
+    lap("tiny_cli_learning")
     cli_launches.update(phase_voc_learning(card))
+    lap("voc_learning")
     bench_launches, _ = phase_bench(card, voc_predict_b32_ms)
     bench_launches.update(phase_native_decode(card))
+    lap("bench and native_decode")
     mask_pool = phase_mask_pool()
     mask_launches, mask_step = phase_mask_predict(card)
     mask_train_launches, mask_train_run = phase_mask_train_path(card)
@@ -5145,6 +5648,7 @@ def main(argv=None) -> None:
         "coco_maskrcnn_r50_fpn train": mask_train_launches,
         **phase_mask_learning(card), **phase_coco_r50_dp(card),
         **phase_mask_cli(card)}
+    lap("Mask R-CNN and data parallel")
     keypoint_pool = phase_keypoint_pool()
     for family, seed in (("cascade", 101), ("keypoint", 105),
                          ("panoptic", 109)):
@@ -5153,6 +5657,7 @@ def main(argv=None) -> None:
             card, family, seed)
         slice_launches[f"{preset} train"] = family_train_profile(
             card, family, seed + 2)
+    lap("cascade, keypoint, panoptic")
     one_stage_nms = {}
     for family, seed in (("retinanet", 121), ("fcos", 125),
                          ("detr_r50", 129)):
@@ -5163,8 +5668,20 @@ def main(argv=None) -> None:
             one_stage_nms[f"{family}_final"] = nms_at
         slice_launches[f"{preset} train"] = one_stage_train_profile(
             card, family, seed + 2)
+    lap("RetinaNet, FCOS, DETR")
     slice_launches.update(phase_families_learning(card))
     slice_launches.update(phase_families_cli(card))
+    lap("families_learning and families_cli")
+    for path, seed in (("vitdet", 151), ("vgg", 155)):
+        preset = BACKBONE_PATHS[path][0]
+        slice_launches[f"{preset} predict"] = backbone_predict_profile(
+            card, path, seed)
+        slice_launches[f"{preset} train"] = backbone_train_profile(
+            card, path, seed + 2)
+    lap("ViTDet and VGG-16")
+    slice_launches.update(phase_soft_nms(card))
+    slice_launches.update(phase_backbones_cli(card))
+    lap("soft_nms and backbones_cli")
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms

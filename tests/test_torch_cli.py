@@ -170,10 +170,26 @@ def test_training_modes(tmp_path, capsys):
     assert "warm-started params" in out and "det_cls_loss" in out
     assert "rpn_cls_loss" not in out.split("warm-started params")[1]
     assert state.step == 2
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        ttrain.main(TINY + ["--steps", "1", "--backbone-weights", "w.npz"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        teval.main(TINY + ["--tta", "hflip"])
+    # Once refused: pretrained backbone weights (tpudet's tiny backbone
+    # through the npz format both packages write) and the flipped eval.
+    from tpudet import config as jconfig
+    from tpudet.models import FasterRCNN as JaxFasterRCNN
+    from tpudet_torch.models.import_weights import save_backbone_npz
+
+    v = jax.jit(JaxFasterRCNN(jconfig.tiny_test_config()).init)(
+        jax.random.key(1))
+    weights = tmp_path / "w.npz"
+    save_backbone_npz(str(weights), jax.tree_util.tree_map(
+        np.asarray, v["params"]["backbone"]), {})
+    state = ttrain.main(TINY + ["--steps", "1", "--batch-size", "2",
+                                "--backbone-weights", str(weights),
+                                "--checkpoint-dir", str(tmp_path / "bw")])
+    assert "loaded backbone weights" in capsys.readouterr().out
+    assert state.step == 1
+    summary = teval.main(TINY + ["--tta", "hflip", "--max-images", "4",
+                                 "--batch-size", "2", "--checkpoint-dir",
+                                 str(tmp_path / "bw")])
+    assert "mAP" in summary
 
 
 def test_evaluate_equals_jax():

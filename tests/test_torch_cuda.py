@@ -910,7 +910,7 @@ def test_voc_r50_f32_step_at_128_differs_only_off_the_positives(cuda):
     from tpudet_torch.models import build_model
     from tpudet_torch.ops import boxes as box_ops
 
-    batch, runs = chip_smoke.reference_runs("voc_r50", 128)
+    batch, runs, _ = chip_smoke.reference_runs("voc_r50", 128)
     card, cpu = runs["cuda"], runs["cpu"]
     gt, gt_valid = batch["gt_boxes"].cpu(), batch["gt_valid"].cpu()
     anchors = build_model(preset_config("voc_r50"),
@@ -1406,3 +1406,122 @@ def test_argmin_of_ties_on_card_takes_the_first(cuda):
     x[0, :, 5] = x[0, :, 60] = x[0, :, 99] = 3.0
     assert (torch.argmin(x[0], dim=-1) == 5).all()
     assert (torch.argmin(x[1], dim=-1) == 0).all()
+
+
+# ------------------------------------ ViTDet, VGG-16, Soft-NMS, TTA, weights
+@pytest.mark.parametrize("name,launches", [
+    ("vitdet_tiny", {"roi_align_window": 1}),
+    ("maskrcnn_tiny", {"roi_align": 2})])
+def test_backbone_predict_on_card_equals_plain_path(cuda, name, launches):
+    """vitdet_tiny (the ViT, the simple feature pyramid and the FPN RoI
+    Align) and a VGG-16 under maskrcnn_tiny's heads (c4 through the neck):
+    detections on the card equal to the CPU's."""
+    import dataclasses
+
+    from tpudet_torch.cli.common import preset_config
+
+    if name == "maskrcnn_tiny":
+        cfg = preset_config(name)
+        cfg = cfg.replace(backbone=dataclasses.replace(
+            cfg.backbone, name="vgg16", norm="frozen_bn"))
+        from tpudet_torch.models import build_model
+
+        cpu = build_model(cfg, device="cpu").init(seed=0)
+        with torch.no_grad():
+            cpu.core.det_head.cls.weight.normal_(
+                0, 1.0, generator=torch.Generator().manual_seed(1))
+        card = build_model(cfg, device=cuda)
+        card.load_state_dict(cpu.state_dict())
+        batch = {"image": torch.randn(2, 128, 128, 3,
+                                      generator=torch.Generator()
+                                      .manual_seed(2)),
+                 "image_hw": torch.tensor([[128.0, 128.0], [100.0, 120.0]])}
+    else:
+        _, card, cpu, batch = family_pair(cuda, name)
+    counts = {"roi_align": lambda: kra.LAUNCHES,
+              "roi_align_window": lambda: krw.LAUNCHES}
+    before = {k: counts[k]() for k in launches}
+    out = card.predict({k: v.to(cuda) for k, v in batch.items()})
+    assert {k: counts[k]() - before[k] for k in launches} == launches
+    ref = cpu.predict(batch)
+    assert torch.equal(out["valid"].cpu(), ref["valid"])
+    assert (ref["num_detections"] > 0).all()
+    torch.testing.assert_close(out["boxes"].cpu(), ref["boxes"], rtol=1e-4,
+                               atol=1e-3)
+    torch.testing.assert_close(out["scores"].cpu(), ref["scores"], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_pos_embed_resize_on_card_equals_cpu(cuda):
+    """The antialiased bilinear resize of the position grid, both ways,
+    and its gradient, on N(0, 1) values: the card's kernel sums its taps
+    in another order than the CPU's, up to 5.5e-6 apart (about 11 f32 ulps
+    at the grid's largest values, ~4)."""
+    from tpudet_torch.models.vit import resize_pos_embed
+
+    pos = torch.randn(1, 64, 64, 8, generator=torch.Generator().manual_seed(3))
+    for hw in ((52, 52), (52, 84), (84, 84)):
+        card = pos.to(cuda).requires_grad_()
+        host = pos.clone().requires_grad_()
+        out, ref = resize_pos_embed(card, hw), resize_pos_embed(host, hw)
+        torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+        out.square().sum().backward()
+        ref.square().sum().backward()
+        torch.testing.assert_close(card.grad.cpu(), host.grad, rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["soft_linear", "soft_gaussian"])
+def test_soft_nms_on_card_equals_cpu(cuda, method):
+    gen = torch.Generator().manual_seed(4)
+    bx = boxes(gen, 3, 600)
+    scores = torch.rand(3, 600, generator=gen)
+    classes = torch.randint(1, 6, (3, 600), generator=gen, dtype=torch.int32)
+    valid = torch.rand(3, 600, generator=gen) > 0.1
+    kw = dict(method=method, sigma=0.5, prune_threshold=0.05,
+              coordinate_offset=4096.0)
+    out = tk.class_aware_select(bx.to(cuda), scores.to(cuda),
+                                classes.to(cuda), 0.5, 100,
+                                valid_mask=valid.to(cuda), **kw)
+    ref = tk.class_aware_select(bx, scores, classes, 0.5, 100,
+                                valid_mask=valid, **kw)
+    assert torch.equal(out[0].cpu(), ref[0])
+    assert torch.equal(out[2].cpu(), ref[2])
+    torch.testing.assert_close(out[1].cpu(), ref[1], rtol=0, atol=1e-6)
+
+
+def test_flip_batch_on_card_equals_cpu(cuda):
+    from tpudet_torch.eval.tta import flip_batch
+
+    gen = torch.Generator().manual_seed(5)
+    image = torch.randint(0, 256, (3, 32, 48, 3), generator=gen,
+                          dtype=torch.uint8)
+    hw = torch.tensor([[32.0, 48.0], [20.0, 31.0], [32.0, 1.0]])
+    out = flip_batch({"image": image.to(cuda), "image_hw": hw.to(cuda)})
+    ref = flip_batch({"image": image, "image_hw": hw})
+    assert torch.equal(out["image"].cpu(), ref["image"])
+
+
+def test_backbone_weights_load_into_a_card_model(cuda):
+    """``apply_backbone_weights`` into a model on the card: its backbone
+    equals the converted tree."""
+    import dataclasses
+
+    import chip_smoke
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.models import import_weights as tiw
+
+    cfg = tiny_test_config()
+    cfg = cfg.replace(backbone=dataclasses.replace(
+        cfg.backbone, name="resnet18", norm="frozen_bn"))
+    model = build_model(cfg, device=cuda).init(0)
+    params, constants = tiw.convert_torch_resnet(
+        chip_smoke.torchvision_resnet_state_dict("resnet18", seed=6),
+        "resnet18")
+    tiw.apply_backbone_weights(model, params, constants)
+    want = tiw.from_flax_variables({"params": {"backbone": params},
+                                    "constants": {"backbone": constants}})
+    state = model.core.state_dict()
+    for k, v in want.items():
+        assert state[k].is_cuda and torch.equal(state[k].cpu(), v), k

@@ -1,7 +1,8 @@
 """``from_flax_variables`` on the trees of both families: the 3-D
 ``DenseGeneral`` kernels of Flax attention, LayerNorm scales and the bare
-embedding parameters of Deformable DETR, and Faster R-CNN trees mapped
-exactly as before those rules existed."""
+embedding parameters of Deformable DETR, Faster R-CNN trees mapped
+exactly as before those rules existed, and the transposed convolutions of
+ViTDet's simple feature pyramid (flipped, as the mask head's)."""
 
 import dataclasses
 
@@ -125,7 +126,8 @@ def test_full_preset_tree_loads_by_name():
                                   "coco_keypoint_r50_fpn",
                                   "coco_panoptic_r50_fpn",
                                   "coco_retinanet_r50", "coco_fcos_r50",
-                                  "coco_detr_r50"])
+                                  "coco_detr_r50", "coco_vitdet_b",
+                                  "voc_vgg16"])
 def test_family_preset_trees_load_by_name(name):
     """Every parameter of the families' full presets (the cascade's
     det_head2/3, the 8x512 keypoint head and its 4x4 deconv, the mask and
@@ -169,3 +171,42 @@ def test_family_preset_trees_load_by_name(name):
         assert want["dec5.cross_attn.query.weight"] == 3
         assert want["query_embed"] == 2
         assert core.dec5.cross_attn.out.weight.shape == (256, 256)
+    if name == "coco_vitdet_b":
+        assert want["backbone.pos_embed"] == 4
+        assert core.backbone.pos_embed.shape == (1, 64, 64, 768)
+        assert core.fpn.up4_deconv2.weight.shape == (384, 192, 2, 2)
+    if name == "voc_vgg16":
+        assert core.backbone.stage5.conv5_3.weight.shape == (512, 512, 3, 3)
+        assert core.det_head.fc1.weight.shape == (4096, 7 * 7 * 256)
+
+
+def test_simple_feature_pyramid_deconvs_load_flipped():
+    """tpudet's ``SimpleFeaturePyramid`` with random weights on a random
+    plain map: the port's p2 and p3, which go through the three 2x2
+    stride-2 ``ConvTranspose`` layers (``up4_deconv1``, ``up4_deconv2``,
+    ``up2_deconv``), within 1e-5 of tpudet's. Flax applies those kernels
+    unflipped: loaded without the flip, each output 2x2 cell comes out
+    permuted."""
+    from tpudet.models.vit import SimpleFeaturePyramid as JaxSFP
+    from tpudet_torch.models.import_weights import CONV_TRANSPOSE_LAYERS
+    from tpudet_torch.models.vit import SimpleFeaturePyramid
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 1, (2, 6, 8, 32)).astype(np.float32)
+    jsfp = JaxSFP(channels=16)
+    v = numpy_tree(jax.jit(jsfp.init)(jax.random.key(2), {"plain": x}))
+    v = jax.tree_util.tree_map(
+        lambda a: rng.normal(0, 0.3, a.shape).astype(np.float32), v)
+    ref = jax.jit(jsfp.apply)(v, {"plain": x})
+    sfp = SimpleFeaturePyramid(32, channels=16)
+    sfp.load_state_dict(from_flax_variables(v))  # strict
+    with torch.no_grad():
+        out = sfp({"plain": torch.from_numpy(x)})
+    assert {"up4_deconv1", "up4_deconv2", "up2_deconv",
+            "deconv"} <= CONV_TRANSPOSE_LAYERS
+    for name in ("p2", "p3", "p4", "p5", "p6"):
+        want = np.asarray(ref[name])
+        np.testing.assert_allclose(out[name].permute(0, 2, 3, 1).numpy(),
+                                   want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it loads neither JAX nor any module of
-the JAX package or of ``scripts/`` (whose probe imports JAX), nor does
-``chip_smoke.py``; and its config keeps the JAX package's defaults."""
+"""The port stands alone: importing it loads neither JAX nor TensorFlow
+nor any module of the JAX package or of ``scripts/`` (whose probe imports
+JAX), nor does ``chip_smoke.py``; and its config keeps the JAX package's
+defaults."""
 
 import ast
 import dataclasses
@@ -17,7 +18,8 @@ from tpudet_torch import config as tconfig
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "tpudet_torch"
 # Top-level names neither the port nor chip_smoke.py may import.
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tpudet", "scripts")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tpudet", "scripts",
+          "tensorflow", "keras")
 
 
 def test_import_loads_no_jax_and_no_tpudet_module():
@@ -33,8 +35,9 @@ def test_import_loads_no_jax_and_no_tpudet_module():
                          capture_output=True, text=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    # The data-parallel group and Mask R-CNN are walked too.
-    for name in NEW_MODULES:
+    # The data-parallel group, Mask R-CNN and the backbones' slice are
+    # walked too.
+    for name in NEW_MODULES + BACKBONE_MODULES:
         assert name in result["modules"], name
     assert not [m for m in result["loaded"] if m.split(".")[0] in BANNED]
 
@@ -68,6 +71,31 @@ def test_new_modules_import_torch_distributed_and_nothing_else_new():
     torch_packages = {n for n in found if n.startswith("torch.")}
     assert torch_packages <= {"torch.distributed", "torch.nn.functional"}
     assert "torch.distributed" in found
+
+
+# The modules of the backbones' slice (ViTDet, VGG-16, the converters,
+# TTA) and the top-level names they may import: no TensorFlow (the Keras
+# converters read the model's layers by duck typing), and no torch package
+# beyond torch.nn.functional.
+BACKBONE_MODULES = ("tpudet_torch.models.vit", "tpudet_torch.models.vgg",
+                    "tpudet_torch.models.import_weights",
+                    "tpudet_torch.eval.tta")
+BACKBONE_IMPORTS = {"__future__", "math", "typing", "numpy", "torch",
+                    "tpudet_torch"}
+
+
+@pytest.mark.parametrize("name", BACKBONE_MODULES)
+def test_backbone_modules_import_nothing_new(name):
+    path = ROOT / (name.replace(".", "/") + ".py")
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            found.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            found.add(node.module or "")
+    assert {n.split(".")[0] for n in found} <= BACKBONE_IMPORTS, found
+    assert {n for n in found if n.startswith("torch.")} <= {
+        "torch.nn.functional"}
 
 
 def test_sources_import_no_jax_and_no_tpudet():
@@ -113,6 +141,23 @@ FPN_FIELDS = {
                   "topk_block_size"),
     "ROIConfig": ("pooler", "window"),
 }
+# ... and the backbones' slice: the ViT's knobs and the final selections'
+# method.
+BACKBONE_FIELDS = {
+    "BackboneConfig": ("vit_window", "vit_global_attn_every",
+                       "vit_pos_grid"),
+    "ROIConfig": ("nms_method", "soft_nms_sigma"),
+    "RetinaNetConfig": ("nms_method", "soft_nms_sigma"),
+    "FCOSConfig": ("nms_method", "soft_nms_sigma"),
+}
+
+
+@pytest.mark.parametrize("group", sorted(BACKBONE_FIELDS))
+def test_backbone_config_fields_equal_jax(group):
+    port = getattr(tconfig, group)()
+    ref = getattr(jconfig, group)()
+    for name in BACKBONE_FIELDS[group]:
+        assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
 
 
 @pytest.mark.parametrize("group", sorted(FPN_FIELDS))
@@ -170,7 +215,8 @@ def test_tiny_maskrcnn_config_equals_jax_fields():
                                   "coco_panoptic_r50_fpn", "retinanet_tiny",
                                   "coco_retinanet_r50", "fcos_tiny",
                                   "coco_fcos_r50", "detr_tiny",
-                                  "coco_detr_r50"])
+                                  "coco_detr_r50", "voc_vgg16",
+                                  "vitdet_tiny", "coco_vitdet_b"])
 def test_slice_presets_equal_jax(name):
     from tpudet.cli.common import preset_config as jax_preset
     from tpudet_torch.cli.common import PRESETS, preset_config
@@ -191,7 +237,7 @@ def test_slice_presets_equal_jax(name):
                                   "tiny_keypoint_config",
                                   "tiny_panoptic_config",
                                   "tiny_retinanet_config", "tiny_fcos_config",
-                                  "tiny_detr_config"])
+                                  "tiny_detr_config", "tiny_vitdet_config"])
 def test_family_tiny_configs_equal_jax_fields(name):
     port, ref = getattr(tconfig, name)(), getattr(jconfig, name)()
     assert port.model == ref.model
@@ -209,3 +255,25 @@ def test_family_tiny_configs_equal_jax_fields(name):
                   "panoptic"):
         assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
                 == {f.name for f in dataclasses.fields(getattr(port, group))})
+
+
+def test_every_jax_preset_is_ported():
+    """The port's ``PRESETS`` are the JAX package's 23 (the names its
+    ``preset_config`` tests for), each equal to JAX's group by group."""
+    import re
+
+    from tpudet.cli.common import preset_config as jax_preset
+    from tpudet_torch.cli.common import PRESETS, preset_config
+
+    source = (ROOT / "tpudet" / "cli" / "common.py").read_text()
+    names = set(re.findall(r'name == "([a-z0-9_]+)"', source))
+    assert set(PRESETS) == names and len(PRESETS) == 23
+    for name in PRESETS:
+        port, ref = preset_config(name), jax_preset(name)
+        for f in dataclasses.fields(port):
+            group = getattr(port, f.name)
+            if dataclasses.is_dataclass(group):
+                for g in dataclasses.fields(group):
+                    assert (getattr(group, g.name)
+                            == getattr(getattr(ref, f.name), g.name)), \
+                        f"{name}: {f.name}.{g.name}"

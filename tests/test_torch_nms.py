@@ -176,11 +176,27 @@ def test_class_aware_select_hard_equals_jax():
 
 @pytest.mark.parametrize("method", ["soft_linear", "soft_gaussian"])
 def test_class_aware_select_soft_methods_not_ported(method):
+    """The soft methods, once refused, now run Soft-NMS: tpudet's indices,
+    validity and decayed scores (``tests/test_torch_soft_nms.py`` has the
+    fuzzed cases)."""
     boxes, scores = scene(13, 16)
     classes = np.ones(16, np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.class_aware_select(torch.from_numpy(boxes), torch.from_numpy(scores),
-                              torch.from_numpy(classes), 0.5, 8, method=method)
+    out = tk.class_aware_select(torch.from_numpy(boxes),
+                                torch.from_numpy(scores),
+                                torch.from_numpy(classes), 0.5, 8,
+                                method=method, prune_threshold=0.05)
+    ref = jk.class_aware_select(jnp.asarray(boxes), jnp.asarray(scores),
+                                jnp.asarray(classes), 0.5, 8, method=method,
+                                prune_threshold=0.05, use_pallas=False)
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(ref[1]), rtol=0,
+                               atol=1e-6)
+    # Decayed, not the gathered originals (the Gaussian decays every
+    # overlap; no pair here overlaps above the linear threshold).
+    if method == "soft_gaussian":
+        assert (out[1][out[2]]
+                < torch.from_numpy(scores)[out[0].long()][out[2]]).any()
 
 
 def test_kernel_plain_version_keep_walk():

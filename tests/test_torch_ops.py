@@ -121,8 +121,10 @@ def test_voc_r50_preset_equals_jax():
     assert_preset_equals_jax("coco_r101_fpn")
     assert_preset_equals_jax("coco_maskrcnn_r50_fpn")  # Mask R-CNN
     assert_preset_equals_jax("coco_cascade_r50_fpn")  # Cascade R-CNN
-    with pytest.raises(ValueError):  # a backbone still to port
-        preset_config("coco_vitdet_b")
+    assert_preset_equals_jax("coco_vitdet_b")  # ViTDet, once still to port
+    assert_preset_equals_jax("voc_vgg16")
+    with pytest.raises(ValueError, match="unknown preset"):
+        preset_config("coco_vitdet_l")
 
 
 def test_deformable_detr_presets_equal_jax():

@@ -29,6 +29,7 @@ from tpudet_torch.config import (
     tiny_panoptic_config,
     tiny_retinanet_config,
     tiny_test_config,
+    tiny_vitdet_config,
 )
 
 # Aspect buckets of the VOC presets: square, 4:3, wide and portrait mirrors.
@@ -49,6 +50,17 @@ def preset_config(name: str) -> Config:
                             max_size=1000, canvas_height=1024,
                             canvas_width=1024, aspect_buckets=VOC_BUCKETS),
             backbone=BackboneConfig(name="resnet50"),
+        )
+    if name == "voc_vgg16":
+        # The paper's Faster R-CNN (arXiv:1506.01497 §4.1): VGG-16 to
+        # conv5_3 (stride 16) through the 256 neck, VOC 2007, 600/1000, a
+        # 4096-wide fc6/fc7 head.
+        return Config(
+            data=DataConfig(dataset="voc", num_classes=20, min_size=600,
+                            max_size=1000, canvas_height=1024,
+                            canvas_width=1024, aspect_buckets=VOC_BUCKETS),
+            backbone=BackboneConfig(name="vgg16"),
+            roi=ROIConfig(fc_dim=4096),
         )
     if name == "coco_r50":
         # COCO 2017, ResNet-50 to c4 (neck 256), 800/1333 onto the COCO
@@ -73,6 +85,19 @@ def preset_config(name: str) -> Config:
                           post_nms_topk_test=300, topk_method="blocked"),
             roi=ROIConfig(pooler="roi_align_window", window=56),
         )
+    if name == "vitdet_tiny":
+        return tiny_vitdet_config()
+    if name == "coco_vitdet_b":
+        # ViTDet-B Faster R-CNN (arXiv:2203.16527 A.2): a plain ViT-B/16,
+        # window 14 with four global blocks, the simple feature pyramid
+        # p2..p6, on coco_r101_fpn's pipeline (blocked top-k, windowed
+        # pooler); AdamW at 1e-4, weight decay 0.1.
+        base = preset_config("coco_r101_fpn")
+        return base.replace(
+            backbone=dataclasses.replace(base.backbone, name="vit_b",
+                                         freeze_stem=False),
+            train=dataclasses.replace(base.train, optimizer="adamw",
+                                      learning_rate=1e-4, weight_decay=0.1))
     if name == "coco_maskrcnn_r50_fpn":
         # Mask R-CNN R50-FPN (arXiv:1703.06870 §4.1): coco_r101_fpn with a
         # ResNet-50, instance masks loaded, and the mask group's defaults
@@ -201,7 +226,8 @@ def preset_config(name: str) -> Config:
     raise ValueError(f"unknown preset {name!r}: the port has {PRESETS}")
 
 
-PRESETS = ("tiny", "voc_r50", "coco_r50", "coco_r101_fpn",
+PRESETS = ("tiny", "voc_r50", "voc_vgg16", "coco_r50", "coco_r101_fpn",
+           "vitdet_tiny", "coco_vitdet_b",
            "maskrcnn_tiny", "coco_maskrcnn_r50_fpn", "deformable_detr_tiny",
            "coco_deformable_detr_r50", "cascade_tiny", "coco_cascade_r50_fpn",
            "keypoint_tiny", "coco_keypoint_r50_fpn", "panoptic_tiny",

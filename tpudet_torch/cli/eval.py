@@ -10,8 +10,8 @@ Runs on the CUDA card unless ``--device cpu`` is passed. The box metrics
 (``voc``, ``coco``, ``proposal-recall``); for Mask R-CNN and Panoptic FPN
 the same protocol on pasted-mask IoU under ``segm/``; for Keypoint R-CNN
 the COCO OKS protocol under ``kp/``; for Panoptic FPN PQ, SQ, RQ and the
-semantic mIoU under ``panoptic/``. ``--tta`` (test-time augmentation)
-waits (ROADMAP.md).
+semantic mIoU under ``panoptic/``. ``--tta hflip`` also predicts on each
+mirrored canvas and merges the two sets (``eval/tta.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +41,12 @@ from tpudet_torch.eval.panoptic import (
     PanopticEvaluator,
     fuse_panoptic,
     gt_panoptic,
+)
+from tpudet_torch.eval.tta import (
+    flip_batch,
+    merge_detections,
+    tta_knobs,
+    unflip_detections,
 )
 from tpudet_torch.models import build_model
 from tpudet_torch.train.checkpoint import CheckpointManager
@@ -86,11 +92,11 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
     ``eval_step`` lets a caller that evaluates repeatedly (the train CLI's
     ``--eval-every``) reuse one step. Detections are fetched once per batch;
     up to three batches are in flight, so the host prepares the next ones
-    while the card runs."""
-    if tta:
-        raise NotImplementedError(
-            "--tta: test-time augmentation is not ported yet (ROADMAP.md, "
-            "Queue 1 item 25)")
+    while the card runs. ``tta="hflip"`` predicts each mirrored canvas too
+    and merges the unflipped candidates with the originals through the
+    family's per-class NMS (about twice the cost)."""
+    if tta not in ("", "hflip"):
+        raise ValueError(f"unknown tta {tta!r} (use '' or 'hflip')")
     if eval_step is None:
         eval_step = make_eval_step(model, cfg, fused_preprocess=True)
     model.eval()  # dropout off (the train step turns it back on)
@@ -163,7 +169,9 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
     def submitted():
         for batch in loader.batches(0):
             batch_valid = batch.pop("batch_valid", np.ones(batch_size, bool))
-            yield batch, batch_valid, eval_step(_host_to_device(batch, device))
+            inputs = _host_to_device(batch, device)
+            flipped = eval_step(flip_batch(inputs)) if tta else None
+            yield batch, batch_valid, eval_step(inputs), flipped
 
     # COCO-format results: image_id from dataset.image_id(index) where the
     # dataset has it (COCO ids, VOC file stems), else the index; category
@@ -185,15 +193,25 @@ def evaluate(cfg, model, dataset, batch_size=8, max_images=-1,
                 done = True
         if not pending:  # no batch in the split
             break
-        batch, batch_valid, out_dev = pending.pop(0)
+        batch, batch_valid, out_dev, flip_dev = pending.pop(0)
         out = {k: out_dev[k].cpu().numpy() for k in _FIELDS if k in out_dev}
+        fout = None
+        if flip_dev is not None:
+            fout = unflip_detections(
+                {k: flip_dev[k].cpu().numpy() for k in _FIELDS
+                 if k in flip_dev}, batch["image_hw"],
+                flip_pairs=cfg.data.keypoint_flip_pairs)
         for i in range(len(batch_valid)):
             if not batch_valid[i] or (0 <= max_images <= seen):
                 continue
             seen += 1
-            v = out["valid"][i]
-            det = {k: out[k][i][v] for k in ("boxes", "scores", "classes",
-                                             "masks", "keypoints") if k in out}
+            if fout is None:
+                v = out["valid"][i]
+                det = {k: out[k][i][v] for k in ("boxes", "scores", "classes",
+                                                 "masks", "keypoints")
+                       if k in out}
+            else:
+                det = merge_detections(out, fout, i, *tta_knobs(cfg))
             boxes = rescale_to_original(det["boxes"], batch["image_scale"][i],
                                         batch["orig_hw"][i])
             # Keypoints rescale once; the records and the OKS evaluator read
@@ -345,11 +363,9 @@ def main(argv=None):
                    help="evaluate the EMA average of the params "
                         "(train.ema_decay > 0 during training)")
     p.add_argument("--tta", default="", choices=["", "hflip"],
-                   help="test-time augmentation (not ported yet)")
+                   help="test-time augmentation: also predict on each "
+                        "mirrored image and merge the candidates (~2x cost)")
     args = p.parse_args(argv)
-    if args.tta:
-        raise SystemExit("--tta: test-time augmentation is not ported yet "
-                         "(ROADMAP.md, Queue 1 item 25)")
     cfg = referee_config(config_from_args(args))
     metric = args.metric or ("coco" if cfg.data.dataset == "coco" else "voc")
     if metric == "proposal-recall":
@@ -379,7 +395,7 @@ def main(argv=None):
     return evaluate(cfg, state.eval_model(args.ema), dataset,
                     batch_size=args.batch_size, max_images=args.max_images,
                     class_names=names, metric_style=metric,
-                    save_json=args.save_json)
+                    save_json=args.save_json, tta=args.tta)
 
 
 if __name__ == "__main__":

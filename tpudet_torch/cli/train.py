@@ -12,8 +12,9 @@ Runs on the CUDA card unless ``--device cpu`` is passed. The loader's uint8
 canvases go to the card and the train step normalizes, jitters and flips
 them there (``fused_preprocess``). RPN-only training via ``--rpn-only``; the
 other stages of the alternating schedule via ``--det-only``, ``--freeze``
-and ``--init-from``. A resumed run restarts the loader at epoch 0, as the
-JAX CLI does.
+and ``--init-from``; pretrained backbone weights (an ``.npz`` of
+``models/import_weights.py``'s converters) via ``--backbone-weights``. A
+resumed run restarts the loader at epoch 0, as the JAX CLI does.
 
 Under torchrun (``WORLD_SIZE`` in the environment) each process joins the
 data-parallel group (NCCL on the cards, gloo with ``--device cpu``) and
@@ -37,6 +38,10 @@ import torch
 from tpudet_torch.cli.common import add_common_args, config_from_args
 from tpudet_torch.data import DataLoader, build_dataset
 from tpudet_torch.models import build_model
+from tpudet_torch.models.import_weights import (
+    apply_backbone_weights,
+    load_backbone_npz,
+)
 from tpudet_torch.parallel import init_data_parallel
 from tpudet_torch.train.checkpoint import CheckpointManager
 from tpudet_torch.train.state import create_train_state
@@ -78,15 +83,14 @@ def parse_args(argv=None):
                    help="fail on the first non-finite metric (reads every "
                         "step's metrics)")
     p.add_argument("--backbone-weights", default="",
-                   help="pretrained backbone weights (not ported yet)")
+                   help=".npz of converted pretrained backbone weights "
+                        "(models/import_weights.py: save_backbone_npz), "
+                        "applied before the first step")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.backbone_weights:
-        raise SystemExit("--backbone-weights: the weight converters are not "
-                         "ported yet (ROADMAP.md, Queue 1 item 30)")
     cfg = config_from_args(args)
     overrides = {}
     if args.steps:
@@ -135,8 +139,15 @@ def main(argv=None):
 
 def _train(args, cfg, device, dp, writer):
     model = build_model(cfg, device=device)
-    state = create_train_state(model, cfg.train, seed=cfg.train.seed,
-                               device=device)
+    seed = cfg.train.seed
+    if args.backbone_weights:
+        # Drawn, then the backbone overwritten, before the optimizer and
+        # the EMA copy are made.
+        model.init(seed)
+        apply_backbone_weights(model, *load_backbone_npz(args.backbone_weights))
+        print(f"loaded backbone weights from {args.backbone_weights}")
+        seed = None
+    state = create_train_state(model, cfg.train, seed=seed, device=device)
     if args.init_from:
         # A stage transition: the previous stage's parameters, this stage's
         # fresh optimizer and step.

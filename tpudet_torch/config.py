@@ -104,7 +104,9 @@ class DataConfig:
 class BackboneConfig:
     """Conv feature extractor."""
 
-    name: str = "resnet50"  # "resnet50" | "resnet101" | "tiny" (tests)
+    # "resnet18" | "resnet34" | "resnet50" | "resnet101" | "vgg16" | a ViT
+    # of models/vit.py's VIT_VARIANTS | "tiny" (tests).
+    name: str = "resnet50"
     # False: the single c4 map (stride 16) through the neck; True: FPN
     # p2..p6 (models/fpn.py).
     use_fpn: bool = False
@@ -118,8 +120,15 @@ class BackboneConfig:
     # Compute dtype of convs and matmuls; parameters stay float32.
     dtype: str = "float32"  # "float32" | "bfloat16"
     # True: stride on the first 1x1 of a bottleneck (Keras/caffe);
-    # False: stride on the 3x3 (torchvision "v1.5").
+    # False: stride on the 3x3 (torchvision "v1.5"). Basic blocks ignore it.
     stride_in_1x1: bool = True
+    # ViTDet (models/vit.py): the side of a windowed block's window, every
+    # k-th block attends globally (depth 12, k=3: four global blocks), and
+    # the side of the square position-embedding grid (resized to the canvas
+    # token grid at call time).
+    vit_window: int = 14
+    vit_global_attn_every: int = 3
+    vit_pos_grid: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +211,7 @@ class ROIConfig:
     score_thresh: float = 0.05
     nms_thresh: float = 0.5
     max_detections: int = 100
-    # "hard" only; the soft methods raise NotImplementedError.
+    # "hard" (greedy) | "soft_linear" | "soft_gaussian" (Soft-NMS).
     nms_method: str = "hard"
     soft_nms_sigma: float = 0.5
     # Candidate cap for the final NMS: 0 -> 1024, -1 -> all P*C candidates.
@@ -271,8 +280,7 @@ class RetinaNetConfig:
     # anchors, then the top-k of their class rows; "auto" is "on" but the
     # eval CLI (the parity referee) pins it to "off".
     prefilter: str = "auto"
-    # Final NMS: "hard" | "soft_linear" | "soft_gaussian" (only "hard" is
-    # ported).
+    # Final NMS: "hard" | "soft_linear" | "soft_gaussian".
     nms_method: str = "hard"
     soft_nms_sigma: float = 0.5
 
@@ -553,6 +561,19 @@ def tiny_test_config(canvas: int = 128, num_classes: int = 3,
         train=TrainConfig(batch_size=2, checkpoint_every=10**9),
         use_pallas=False,
     )
+
+
+def tiny_vitdet_config(canvas: int = 128, num_classes: int = 3) -> Config:
+    """Small ViTDet config for the CPU tests (the fields of
+    ``tpudet.config.tiny_vitdet_config``): vit_tiny (width 32, two blocks,
+    window 4, the second block global) and the simple feature pyramid over
+    the tiny two-stage knobs. A 128 px canvas is an 8x8 token grid, the
+    position grid's own size; another canvas resizes it."""
+    base = tiny_test_config(canvas=canvas, num_classes=num_classes)
+    return base.replace(
+        backbone=dataclasses.replace(
+            base.backbone, name="vit_tiny", use_fpn=True,
+            vit_window=4, vit_global_attn_every=2, vit_pos_grid=8))
 
 
 def tiny_retinanet_config(canvas: int = 128, num_classes: int = 3) -> Config:

@@ -413,18 +413,24 @@ def color_jitter(image: torch.Tensor, image_hw: torch.Tensor,
     return torch.clamp(out, 0.0, 255.0) * valid
 
 
-def flip_horizontal(image: torch.Tensor, boxes: torch.Tensor,
-                    image_hw: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mirror each image's valid columns [0, w) (the padding stays where it
-    is) and its boxes about its width."""
+def flip_image(image: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:
+    """Mirror each ``[B, H, W, C]`` canvas's valid columns [0, w) (the
+    padding stays where it is)."""
     b, h, w, c = image.shape
     w_img = image_hw[:, 1]
     cols = torch.arange(w, device=image.device, dtype=w_img.dtype)[None, :]
     src = torch.where(cols < w_img[:, None], w_img[:, None] - 1 - cols,
                       cols).to(torch.int64)
-    flipped = torch.gather(image, 2, src[:, None, :, None].expand(b, h, w, c))
-    return flipped, flip_boxes_horizontal(boxes, w_img[:, None])
+    return torch.gather(image, 2, src[:, None, :, None].expand(b, h, w, c))
+
+
+def flip_horizontal(image: torch.Tensor, boxes: torch.Tensor,
+                    image_hw: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mirror each image's valid columns [0, w) (the padding stays where it
+    is) and its boxes about its width."""
+    return (flip_image(image, image_hw),
+            flip_boxes_horizontal(boxes, image_hw[:, 1:2]))
 
 
 def flip_semantic(sem: torch.Tensor, image_hw: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,7 @@ from tpudet_torch.ops.nms import (
     NEG_INF,
     _batched,
     _f32,
+    batched_soft_nms,
     class_offset_boxes,
     masked_scores,
     sort_desc,
@@ -75,13 +76,17 @@ def class_aware_select(boxes, scores, class_ids, iou_threshold: float,
                        coordinate_offset: float = 4096.0):
     """One class-aware selection over flat (box, score, class) candidates ->
     ``(indices [.., D] int32, scores [.., D], valid [.., D])``, scores zeroed
-    where invalid. Only ``method="hard"`` is ported."""
-    del sigma, prune_threshold  # soft-NMS knobs
+    where invalid: the original scores of greedy NMS (``method="hard"``,
+    the NMS kernel on the card), or the decayed scores of Soft-NMS
+    (``"soft_linear"``, ``"soft_gaussian"``: ``ops.nms.batched_soft_nms``,
+    plain PyTorch on every device, chosen by the config as in the JAX
+    package)."""
     if method in ("soft_linear", "soft_gaussian"):
-        raise NotImplementedError(
-            f"nms_method={method!r}: Soft-NMS is not ported yet "
-            "(ROADMAP.md, Queue 1 item 24)"
-        )
+        return batched_soft_nms(
+            boxes, scores, class_ids, iou_threshold, max_outputs,
+            method=method.removeprefix("soft_"), sigma=sigma,
+            valid_mask=valid_mask, prune_threshold=prune_threshold,
+            coordinate_offset=coordinate_offset)
     if method != "hard":
         raise ValueError(
             f"nms_method must be 'hard', 'soft_linear' or 'soft_gaussian', "

@@ -22,8 +22,8 @@ def build_model(cfg, device="cuda"):
     unless the caller passes "cpu"). The port has every family of the JAX
     package: the two-stage Faster R-CNN, Mask R-CNN, Cascade R-CNN,
     Keypoint R-CNN and Panoptic FPN, the one-stage RetinaNet and FCOS, and
-    DETR and Deformable DETR. (The ViT backbone of ViTDet waits: ROADMAP.md,
-    Queue 1 step 4h.)"""
+    DETR and Deformable DETR; the two-stage families take any backbone,
+    ViTDet's ViT with the simple feature pyramid among them."""
     if cfg.model in MODELS:
         return MODELS[cfg.model](cfg, device=device)
     raise ValueError(f"unknown model {cfg.model!r}: the port has "

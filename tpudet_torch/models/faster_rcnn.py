@@ -55,6 +55,11 @@ from tpudet_torch.models.mask_head import MaskHead
 from tpudet_torch.models.resnet import build_backbone
 from tpudet_torch.models.rpn_head import RPNHead
 from tpudet_torch.models.semantic_head import SemanticHead
+from tpudet_torch.models.vit import (
+    VIT_VARIANTS,
+    SimpleFeaturePyramid,
+    build_vit,
+)
 from tpudet_torch.ops import anchors as anchor_ops
 from tpudet_torch.ops import boxes as box_ops
 from tpudet_torch.ops import selection
@@ -92,24 +97,38 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 class DetectorCore(nn.Module):
-    """Backbone, neck (single-level) or FPN, RPN head, Fast R-CNN head and
-    the families' heads: the cascade's later stages, the mask head (Mask
-    R-CNN, Panoptic FPN), the semantic head (Panoptic FPN) and the keypoint
-    head (Keypoint R-CNN). Parameter names follow the Flax tree
-    (``backbone.*``, ``neck_conv``, ``fpn.*``, ``rpn_head``, ``det_head``,
-    ``det_head2``, ``mask_head``, ``semantic_head``, ``keypoint_head``)."""
+    """Backbone, neck (single-level) or FPN (with a ViT the simple feature
+    pyramid), RPN head, Fast R-CNN head and the families' heads: the
+    cascade's later stages, the mask head (Mask R-CNN, Panoptic FPN), the
+    semantic head (Panoptic FPN) and the keypoint head (Keypoint R-CNN).
+    Parameter names follow the Flax tree (``backbone.*``, ``neck_conv``,
+    ``fpn.*``, ``rpn_head``, ``det_head``, ``det_head2``, ``mask_head``,
+    ``semantic_head``, ``keypoint_head``)."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         bb = cfg.backbone
         dtype = torch.bfloat16 if bb.dtype == "bfloat16" else torch.float32
-        self.backbone = build_backbone(bb.name, bb.norm, dtype,
-                                       bb.stride_in_1x1, device,
-                                       freeze_stem=bb.freeze_stem)
         self.neck_conv = None
         self.fpn = None
-        if bb.use_fpn:
-            self.fpn = FPN(self.backbone.channels, dtype=dtype, device=device)
+        if bb.name in VIT_VARIANTS:
+            if not bb.use_fpn:
+                raise ValueError(
+                    "ViTDet backbones are defined with the simple feature "
+                    "pyramid (p2-p6): set backbone.use_fpn=True")
+            # ViTDet's pyramid comes from the one stride-16 map, with FPN's
+            # p2..p6 contract.
+            self.backbone = build_vit(bb.name, bb, dtype, device)
+            self.fpn = SimpleFeaturePyramid(self.backbone.dim, dtype=dtype,
+                                            device=device)
+        else:
+            self.backbone = build_backbone(bb.name, bb.norm, dtype,
+                                           bb.stride_in_1x1, device,
+                                           freeze_stem=bb.freeze_stem)
+            if bb.use_fpn:
+                self.fpn = FPN(self.backbone.channels, dtype=dtype,
+                               device=device)
+        if self.fpn is not None:
             feat_ch = self.fpn.channels
             num_anchors = cfg.anchors.num_fpn_anchors_per_cell
         else:
@@ -229,7 +248,10 @@ class FasterRCNN(nn.Module):
     def init(self, seed: int = 0) -> "FasterRCNN":
         """Draw every weight from ``seed`` with the Flax initializers'
         distributions (the numbers differ from JAX's)."""
-        init_module(self.core, torch.Generator().manual_seed(seed))
+        generator = torch.Generator().manual_seed(seed)
+        init_module(self.core, generator)
+        if hasattr(self.core.backbone, "reset_parameters"):
+            self.core.backbone.reset_parameters(generator)  # ViT pos_embed
         return self
 
     # ------------------------------------------------------------- anchors

@@ -106,12 +106,15 @@ class ConvTranspose(nn.Module):
     unflipped (``transpose_kernel=False``), so the weight is that kernel
     flipped in both spatial axes (``import_weights`` converts it). Drawn
     from ``variance_scaling(2, "fan_out", "normal")``: std ``sqrt(2 / (kh *
-    kw * out))``."""
+    kw * out))``; ``lecun_init`` draws Flax's default lecun-normal over the
+    fan-in ``kh * kw * in`` instead (the simple feature pyramid's)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
                  stride: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 lecun_init: bool = False):
         super().__init__()
+        self.lecun_init = lecun_init
         self.stride = stride or kernel
         if kernel < self.stride or (kernel - self.stride) % 2:
             raise ValueError(f"ConvTranspose: kernel {kernel} at stride "
@@ -124,7 +127,10 @@ class ConvTranspose(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         i, o, kh, kw = self.weight.shape
-        normal_(self.weight, math.sqrt(2.0 / (kh * kw * o)), generator)
+        if self.lecun_init:
+            lecun_normal_(self.weight, kh * kw * i, generator)
+        else:
+            normal_(self.weight, math.sqrt(2.0 / (kh * kw * o)), generator)
         with torch.no_grad():
             self.bias.zero_()
 

@@ -1,4 +1,6 @@
-"""ResNet backbones (``tpudet.models.resnet``).
+"""ResNet backbones (``tpudet.models.resnet``): ResNet-18/34 of basic
+blocks, ResNet-50/101 of bottlenecks, the tiny test backbone, and the
+backbone factory (VGG-16 in ``models.vgg``).
 
 Tensors are NCHW in ``torch.channels_last`` memory format, so every feature
 map is also a contiguous NHWC view. Module names follow the Flax tree
@@ -20,8 +22,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudet_torch.models.layers import Conv, make_norm
+from tpudet_torch.models.vgg import VGG
 
-STAGE_BLOCKS = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3)}
+STAGE_BLOCKS = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+}
+# Basic-block (3x3 -> 3x3) variants; the rest are bottlenecks.
+BASIC_BLOCK = {"resnet18", "resnet34"}
 LEVELS = ("c2", "c3", "c4", "c5")
 
 
@@ -59,15 +69,45 @@ class Bottleneck(nn.Module):
         return F.relu(y + shortcut)
 
 
+class BasicBlock(nn.Module):
+    """3x3 -> 3x3 residual block (ResNet-18/34) with a projection shortcut
+    on a shape change. The stride sits on the first 3x3 in every
+    convention: ``stride_in_1x1`` is accepted and ignored, as in the JAX
+    package."""
+
+    def __init__(self, in_ch: int, channels: int, stride: int, norm: str,
+                 dtype: torch.dtype, stride_in_1x1: bool = True, device=None):
+        super().__init__()
+        del stride_in_1x1
+        self.has_proj = in_ch != channels or stride != 1
+        if self.has_proj:
+            self.conv_proj = Conv(in_ch, channels, 1, stride, bias=False,
+                                  dtype=dtype, device=device)
+            self.norm_proj = make_norm(norm, channels, device)
+        self.conv1 = Conv(in_ch, channels, 3, stride, padding=1, bias=False,
+                          dtype=dtype, device=device)
+        self.norm1 = make_norm(norm, channels, device)
+        self.conv2 = Conv(channels, channels, 3, padding=1, bias=False,
+                          dtype=dtype, device=device)
+        self.norm2 = make_norm(norm, channels, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = self.norm2(self.conv2(y))
+        return F.relu(y + shortcut)
+
+
 class ResNet(nn.Module):
-    """ResNet with bottleneck blocks (``STAGE_BLOCKS``): 7x7/2 stem,
-    3x3/2 max-pool, stages c2..c5 at strides 4..32. ``freeze_stem`` detaches
-    c2, so no gradient reaches the stem or stage c2."""
+    """ResNet (``STAGE_BLOCKS``): 7x7/2 stem, 3x3/2 max-pool, stages c2..c5
+    at strides 4..32, of bottleneck blocks (256..2048 wide) or with
+    ``basic`` of basic blocks (64..512). ``freeze_stem`` detaches c2, so no
+    gradient reaches the stem or stage c2."""
 
     def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3),
                  norm: str = "frozen_bn", dtype: torch.dtype = torch.float32,
                  stride_in_1x1: bool = True, freeze_stem: bool = True,
-                 device=None):
+                 device=None, basic: bool = False):
         super().__init__()
         self.dtype = dtype
         self.blocks = tuple(blocks)
@@ -76,17 +116,18 @@ class ResNet(nn.Module):
                               device=device)
         self.norm_stem = make_norm(norm, 64, device)
         in_ch = 64
-        for stage, (n_blocks, ch) in enumerate(
-                zip(self.blocks, (256, 512, 1024, 2048))):
+        widths = (64, 128, 256, 512) if basic else (256, 512, 1024, 2048)
+        block_cls = BasicBlock if basic else Bottleneck
+        for stage, (n_blocks, ch) in enumerate(zip(self.blocks, widths)):
             for i in range(n_blocks):
                 stride = 2 if (i == 0 and stage > 0) else 1
                 self.add_module(
                     f"stage{stage + 2}_block{i}",
-                    Bottleneck(in_ch, ch, stride, norm, dtype, stride_in_1x1,
-                               device),
+                    block_cls(in_ch, ch, stride, norm, dtype, stride_in_1x1,
+                              device),
                 )
                 in_ch = ch
-        self.channels = {"c2": 256, "c3": 512, "c4": 1024, "c5": 2048}
+        self.channels = dict(zip(LEVELS, widths))
 
     def forward(self, x: torch.Tensor,
                 stop_at: str = "c5") -> Dict[str, torch.Tensor]:
@@ -145,13 +186,18 @@ class TinyBackbone(nn.Module):
 def build_backbone(name: str, norm: str, dtype: torch.dtype,
                    stride_in_1x1: bool = True, device=None,
                    freeze_stem: bool = True) -> nn.Module:
-    """``freeze_stem`` stops the gradient after stage c2 of a ResNet, as
-    the JAX package does; the tiny backbone ignores it, as JAX's does."""
+    """``freeze_stem`` stops the gradient after stage c2 of a ResNet and
+    after stage 2 of VGG-16, as the JAX package does; the tiny backbone
+    ignores it, as JAX's does. VGG has no norm layers: ``norm`` and
+    ``stride_in_1x1`` do not apply to it. (The ViTs are built by
+    ``models.vit.build_vit``.)"""
     if name == "tiny":
         return TinyBackbone(norm=norm, dtype=dtype, device=device)
     if name in STAGE_BLOCKS:
         return ResNet(STAGE_BLOCKS[name], norm=norm, dtype=dtype,
                       stride_in_1x1=stride_in_1x1, freeze_stem=freeze_stem,
-                      device=device)
-    raise ValueError(f"unknown backbone {name!r}: the port has "
-                     f"{sorted(STAGE_BLOCKS)} and 'tiny'")
+                      device=device, basic=name in BASIC_BLOCK)
+    if name == "vgg16":
+        return VGG(dtype=dtype, freeze_stem=freeze_stem, device=device)
+    raise ValueError(f"unknown backbone {name!r}")
+

@@ -167,3 +167,100 @@ def batched_nms(
         scores, iou_threshold, max_outputs,
         valid_mask=valid_mask, score_threshold=score_threshold,
     )
+
+
+def _iou_one_vs_many(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """IoU of ``[B, 4]`` boxes against their image's ``[B, N, 4]`` -> ``[B,
+    N]``, in f32 with ``tpudet/ops/nms.py::_iou_one_vs_many``'s operation
+    order."""
+    box = box[:, None, :]
+    a1 = ((box[..., 2] - box[..., 0]).clamp(min=0.0)
+          * (box[..., 3] - box[..., 1]).clamp(min=0.0))
+    a2 = ((boxes[..., 2] - boxes[..., 0]).clamp(min=0.0)
+          * (boxes[..., 3] - boxes[..., 1]).clamp(min=0.0))
+    lt = torch.maximum(box[..., :2], boxes[..., :2])
+    rb = torch.minimum(box[..., 2:], boxes[..., 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = a1 + a2 - inter
+    return torch.where(union > 0.0, inter / union, torch.zeros_like(inter))
+
+
+def soft_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    iou_threshold: float,
+    max_outputs: int,
+    method: str = "gaussian",
+    sigma: float = 0.5,
+    valid_mask: Optional[torch.Tensor] = None,
+    prune_threshold: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Soft-NMS (Bodla et al., arXiv:1704.04503): each of ``max_outputs``
+    steps picks the highest live score (the first on a tie), then decays
+    the others by their IoU with the pick: ``gaussian`` ``exp(-iou^2 /
+    sigma)``, ``linear`` ``1 - iou`` where ``iou > iou_threshold``.
+
+    Returns ``(indices [.., max_outputs] int32, rescored [..,
+    max_outputs], valid)``: the picks' decayed scores, non-increasing. A
+    pick is valid iff its score exceeds ``prune_threshold``; the invalid
+    ones form a suffix pointing at index 0 with score 0. Dead entries hold
+    ``NEG_INF`` and are never decayed (a sentinel times a decay near 0
+    would not stay dead). Plain PyTorch on every device, batched over
+    images: an accuracy knob, not the throughput path (the JAX package has
+    no Pallas form of it either)."""
+    if method not in ("linear", "gaussian"):
+        raise ValueError(f"soft_nms method must be 'linear' or 'gaussian', "
+                         f"got {method!r}")
+    boxes, scores, (valid_mask,), squeeze = _batched(boxes, scores, valid_mask)
+    device = scores.device
+    dead = _f32(NEG_INF, device)
+    s = scores.float()
+    if valid_mask is not None:
+        s = torch.where(valid_mask, s, dead)
+    boxes = boxes.float()
+    thr, sig = _f32(iou_threshold, device), _f32(sigma, device)
+    one = _f32(1.0, device)
+    rows = torch.arange(s.shape[0], device=device)
+    picks, picked = [], []
+    for _ in range(max_outputs):
+        i = torch.argmax(s, dim=-1)
+        picked.append(s[rows, i])
+        picks.append(i)
+        iou = _iou_one_vs_many(boxes[rows, i], boxes)
+        if method == "linear":
+            decay = torch.where(iou > thr, one - iou, one)
+        else:
+            decay = torch.exp(-(iou * iou) / sig)
+        s = torch.where(s > dead / 2, s * decay, dead)
+        s = s.index_put((rows, i), dead)
+    idx = torch.stack(picks, dim=-1).to(torch.int32)
+    picked = torch.stack(picked, dim=-1)
+    valid = picked > _f32(prune_threshold, device)
+    idx = torch.where(valid, idx, torch.zeros_like(idx))
+    picked = torch.where(valid, picked, torch.zeros_like(picked))
+    if squeeze:
+        return idx[0], picked[0], valid[0]
+    return idx, picked, valid
+
+
+def batched_soft_nms(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    class_ids: torch.Tensor,
+    iou_threshold: float,
+    max_outputs: int,
+    method: str = "gaussian",
+    sigma: float = 0.5,
+    valid_mask: Optional[torch.Tensor] = None,
+    prune_threshold: float = 0.0,
+    coordinate_offset: float = 4096.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-class Soft-NMS through the class offset: boxes of two classes
+    have IoU 0, so they never decay each other (``exp(0) = 1``, and ``1 -
+    0`` is never above the threshold)."""
+    return soft_nms(
+        class_offset_boxes(boxes, class_ids, coordinate_offset),
+        scores, iou_threshold, max_outputs, method=method, sigma=sigma,
+        valid_mask=valid_mask, prune_threshold=prune_threshold,
+    )
