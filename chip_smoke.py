@@ -276,7 +276,25 @@ no result):
     without ``--tta hflip`` and ``detect_image``; ``cli.train
     --backbone-weights`` from a converted torchvision ResNet-50 (voc_r50)
     and a timm ViT-B/16 (coco_vitdet_b), the loaded backbone equal to the
-    npz before step 1.
+    npz before step 1;
+56-58. serving (``tpudet_torch.serving``; the full run takes 56-60 right
+    after phase 2, before any phase turns on cuDNN's autotuner): voc_r50 at
+    b=8 640x640, coco_r101_fpn and coco_deformable_detr_r50 at b=8 832x832,
+    each exported on the card with ``save_artifact`` in f32 and in bf16 (the
+    preset's widths, random weights from a seed): the graph calls the
+    ``tpudet::`` operators (``nms_keep`` and ``roi_align_fwd``,
+    ``roi_align_window_fwd``, ``ms_deform_attn_fwd``) and
+    ``kernels_embedded`` is true; the artifacts loaded in a fresh python3
+    that imports ``tpudet_torch.serving`` alone (no ``tpudet_torch.models``
+    after the load) and run on seeded canvases, their detections against the
+    live predict's (``serve_match``); export seconds, artifact MB, the
+    program's ms per batch (CUDA events, median of 20) beside the live
+    ``make_eval_step``'s, ``ServingModel.detect``'s img/s over 64 mixed-size
+    images (host half included), launches per call;
+59. ``python -m tpudet_torch.cli.export --preset voc_r50 --batch-size 8
+    --output ... --verify`` on its 640x640 bucket, and its refusal of an
+    empty checkpoint directory;
+60. ``python -m tpudet_torch.cli.parity --dry-run`` on the card.
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -675,8 +693,10 @@ def phase_nms():
         ms = time_ms(lambda: knms.nms_keep_cuda(boxes, cand, thr, k))
         passes = kernel_ms_by_name(
             lambda: knms.nms_keep_cuda(boxes, cand, thr, k), NMS_KERNELS)
+        # One timed call of the plain version (a Python loop over the
+        # boxes, seconds per scene); the comparison above warmed it up.
         plain_ms = time_ms(lambda: knms.nms_keep_plain(boxes, cand, thr, k),
-                           iters=2, warmup=1)
+                           iters=1, warmup=0)
         if scene == "clustered":
             t = total.setdefault(nms_path(name), dict.fromkeys(
                 ("ms", "plain_ms", "bytes_ms", "ops_ms", "bound_ms"), 0.0))
@@ -689,7 +709,7 @@ def phase_nms():
               f"{int(valid.sum(1).max())}, walk reached {int(reach.min())}.."
               f"{int(reach.max())} boxes ({int(blocks.min())}.."
               f"{int(blocks.max())} of {(p + 63) // 64} blocks) | kernel "
-              f"{ms:.4f} ms (device, by kernel: "
+              f"through tpudet::nms_keep {ms:.4f} ms (device, by kernel: "
               + (", ".join(f"{n} {v:.4f} ms" for n, v in passes.items()
                            if v is not None) or "not measured")
               + f"), plain {plain_ms:.2f} ms, bound "
@@ -5415,6 +5435,345 @@ def phase_backbones_cli(card):
 
 # Phases that ``--phases`` runs alone (after the device and build phases),
 # each a call on the card's name.
+SERVE_PATHS = {
+    # phase: (preset, canvas, the tpudet:: forward operator its graph calls)
+    "serve_voc": ("voc_r50", (640, 640), ("nms_keep", "roi_align_fwd")),
+    "serve_fpn": ("coco_r101_fpn", (832, 832),
+                  ("nms_keep", "roi_align_window_fwd")),
+    "serve_deformable": ("coco_deformable_detr_r50", (832, 832),
+                         ("ms_deform_attn_fwd",)),
+}
+SERVE_BATCH = 8
+SERVE_IMAGES = 64
+# The bf16 parity rule of tests/test_torch_bf16_parity.py: scores within
+# 2^-5, boxes within 1 px, at most a fifth of an image's detections
+# flipped.
+BF16_REL = 2 ** -5
+BF16_BOX_TOL = 1.0
+BF16_FLIP_SHARE = 0.2
+
+# Runs in a fresh python3 that imports tpudet_torch.serving and nothing else
+# of the port: loads each artifact, checks its graphs and its imports, runs
+# it on the seeded canvases (outputs to an npz), times the program (CUDA
+# events, median of 20 calls after 3) and ServingModel.detect on mixed-size
+# images (host half included), and counts the kernels' launches.
+SERVE_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from tpudet_torch.serving import ServingModel
+from tpudet_torch.serving.export import program_ops
+from tpudet_torch.kernels import nms as knms, roi_align as kra
+from tpudet_torch.kernels import roi_align_window as krw, deform_attn as kda
+
+KERNELS = {"nms": knms, "roi_align": kra, "roi_align_window": krw,
+           "deform_attn": kda}
+
+def counts():
+    torch.cuda.synchronize()
+    return {name: m.LAUNCHES for name, m in KERNELS.items()}
+
+def zero():
+    for m in KERNELS.values():
+        m.LAUNCHES = 0
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.benchmark = False
+torch.backends.cudnn.deterministic = True
+report = {}
+for spec in json.loads(sys.argv[1]):
+    data = np.load(spec["input"])
+    rng = np.random.default_rng(spec["seed"])
+    lo, hi = spec["sizes"]
+    images = [rng.integers(0, 256, (int(rng.integers(lo, hi + 1)),
+                                    int(rng.integers(lo, hi + 1)), 3),
+                           np.uint8) for _ in range(spec["images"])]
+    for label, path in spec["artifacts"].items():
+        start = time.perf_counter()
+        serving = ServingModel.load(path)
+        load_s = time.perf_counter() - start
+        image = torch.from_numpy(data["image"]).cuda()
+        hw = torch.from_numpy(data["image_hw"]).cuda()
+        zero()
+        out = serving(image, hw)
+        per_call = counts()
+        np.savez(spec["output"].format(label=label),
+                 **{k: v.float().cpu().numpy() if v.is_floating_point()
+                    else v.cpu().numpy() for k, v in out.items()})
+        for _ in range(3):
+            serving(image, hw)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            serving(image, hw)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(begin.elapsed_time(end))
+        serving.detect(images[:serving.batch_size])
+        torch.cuda.synchronize()
+        zero()
+        start = time.perf_counter()
+        dets = serving.detect(images)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        report.setdefault(spec["phase"], {})[label] = {
+            "load_s": load_s, "meta": serving.meta,
+            "ops": sorted({op for p in serving.programs.values()
+                           for op in program_ops(p)}),
+            "program_ms": float(np.median(times)),
+            "launches_per_call": per_call,
+            "detect_img_s": len(images) / seconds,
+            "detect_launches": counts(),
+            "detections": [len(d["boxes"]) for d in dets],
+            "finite": all(bool(np.isfinite(d["boxes"]).all())
+                          for d in dets)}
+        del serving
+        torch.cuda.empty_cache()
+print(json.dumps({"report": report, "modules": sorted(sys.modules)}))
+"""
+
+
+def serve_match(got, want, dtype):
+    """The artifact's detections against the live predict's. f32: the same
+    valid masks, each live detection with a counterpart of its class among
+    the artifact's (near-tied detections may trade places), boxes within
+    1e-3 px + 1e-4 relative, scores within 1e-5. bf16: the bf16 parity rule
+    of ``tests/test_torch_bf16_parity.py``: the same detection counts, and
+    per image at most ``BF16_FLIP_SHARE`` of the live detections without a
+    counterpart of their class within 2^-5 in score and 1 px in box.
+    -> (held, exact, detections without a counterpart)."""
+    import numpy as np
+
+    exact = all(np.array_equal(got[k], want[k]) for k in want)
+    if dtype == "float32":
+        if not np.array_equal(got["valid"], want["valid"]):
+            return False, exact, None
+        box_atol, box_rtol, score_atol = 1e-3, 1e-4, 1e-5
+    else:
+        if not np.array_equal(got["num_detections"], want["num_detections"]):
+            return False, exact, None
+        box_atol, box_rtol, score_atol = BF16_BOX_TOL, 0.0, BF16_REL
+    flips, held = 0, True
+    for b in range(want["valid"].shape[0]):
+        free = [k for k in range(want["valid"].shape[1]) if got["valid"][b, k]]
+        want_b = np.flatnonzero(want["valid"][b])
+        missed = 0
+        for i in want_b:
+            match = [k for k in free
+                     if got["classes"][b, k] == want["classes"][b, i]
+                     and abs(got["scores"][b, k] - want["scores"][b, i])
+                     <= score_atol
+                     and (np.abs(got["boxes"][b, k] - want["boxes"][b, i])
+                          <= box_atol + box_rtol
+                          * np.abs(want["boxes"][b, i])).all()]
+            if match:
+                free.remove(min(match, key=lambda m: abs(m - i)))
+            else:
+                missed += 1
+        flips += missed
+        limit = 0 if dtype == "float32" else BF16_FLIP_SHARE * len(want_b)
+        held &= missed <= limit
+    return held, exact, flips
+
+
+def phase_serve(card, phases):
+    """``phases`` (names of SERVE_PATHS with their seeds) at full width, in
+    f32 and in bf16: the preset (random weights from the seed, the
+    degenerate heads drawn wider) exported on the card at b=8 on its canvas
+    with ``save_artifact``; every artifact then loaded and run in one fresh
+    python3 that imports ``tpudet_torch.serving`` alone (no
+    ``tpudet_torch.models`` after the loads) on the seeded canvases, its
+    detections held against the live ``make_eval_step``'s (``serve_match``)
+    and its graph's ``tpudet::`` operators and ``kernels_embedded`` read;
+    export seconds, artifact MB, the program's ms per batch beside the live
+    step's, ``ServingModel.detect``'s img/s over 64 mixed-size images and
+    the launches per call -> each path's launches ({label: counts}) over
+    its detect run, zeroed just before it. Both sides run cuDNN without
+    its autotuner and with deterministic algorithms: this process keeps
+    the execution plans that earlier phases autotuned (the plan cache is
+    keyed by the deterministic flag, not the autotuner's), so without that
+    the two would run other convolution algorithms on the same shapes."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpudet_torch.serving import save_artifact
+    from tpudet_torch.train.step import make_eval_step
+
+    cudnn = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.empty_cache()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        live, facts, jobs = {}, {}, []
+        for phase, seed in phases:
+            preset, (h, w), ops = SERVE_PATHS[phase]
+            batch = canvases(SERVE_BATCH, h, w, seed=seed)
+            data = str(Path(tmp) / f"{phase}_input.npz")
+            np.savez(data, image=batch["image"].cpu().numpy(),
+                     image_hw=batch["image_hw"].cpu().numpy())
+            artifacts = {}
+            for dtype in ("float32", "bfloat16"):
+                cfg, model = preset_model(preset, dtype, seed=seed)
+                cfg = cfg.replace(data=dataclasses.replace(
+                    cfg.data, aspect_buckets=((h, w),)))
+                step = make_eval_step(model, cfg)
+                live[phase, dtype] = {
+                    k: (v.float() if v.is_floating_point() else v)
+                    .cpu().numpy() for k, v in step(batch).items()}
+                live_ms = time_ms(lambda: step(batch))
+                path = str(Path(tmp) / f"{preset}_{dtype}.tpudet")
+                start = time.perf_counter()
+                meta = save_artifact(path, cfg, model, SERVE_BATCH, ["cuda"])
+                export_s = time.perf_counter() - start
+                check(meta["kernels_embedded"] is True and meta["platforms"]
+                      == ["cuda"], f"{phase} {dtype}: metadata {meta}")
+                artifacts[dtype] = path
+                facts[phase, dtype] = {"export_s": export_s,
+                                       "live_ms": live_ms,
+                                       "mb": os.path.getsize(path) / 1e6}
+                del step, model
+                torch.cuda.empty_cache()
+            jobs.append({"phase": phase, "input": data, "seed": seed,
+                         "images": SERVE_IMAGES,
+                         "sizes": (min(h, w) * 5 // 8, h),
+                         "artifacts": artifacts,
+                         "output": str(Path(tmp) / f"{phase}_{{label}}.npz")})
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = (
+            cudnn)
+        torch.cuda.empty_cache()  # the serving process's memory
+        start = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SERVE_WORKER,
+                               json.dumps(jobs)], cwd=HERE,
+                              capture_output=True, text=True, timeout=900)
+        worker_s = time.perf_counter() - start
+        check(proc.returncode == 0, f"the serving process failed "
+              f"({proc.returncode}): {proc.stderr[-3000:]}")
+        result = json.loads(proc.stdout.strip().splitlines()[-1])
+        models = [m for m in result["modules"]
+                  if m.startswith("tpudet_torch.models")
+                  or m.split(".")[0] in ("jax", "flax", "tpudet")]
+        check(not models, f"the serving process imported {models}")
+        for job in jobs:
+            phase = job["phase"]
+            preset, (h, w), ops = SERVE_PATHS[phase]
+            for dtype in job["artifacts"]:
+                r = result["report"][phase][dtype]
+                got = dict(np.load(job["output"].format(label=dtype)))
+                held, exact, flips = serve_match(got, live[phase, dtype],
+                                                 dtype)
+                check(held, f"{phase} {dtype}: the artifact's detections "
+                      f"differ from the live predict's ({flips} without a "
+                      "counterpart)")
+                check(all(op in r["ops"] for op in ops),
+                      f"{phase} {dtype}: the graph calls {r['ops']}, not "
+                      f"{ops}")
+                check(r["finite"] and sum(r["detections"]) > 0,
+                      f"{phase} {dtype}: detect gave {r['detections']}")
+                f = facts[phase, dtype]
+                print(f"{phase} {preset} {dtype} b={SERVE_BATCH} {h}x{w}: "
+                      f"export {f['export_s']:.1f} s, artifact "
+                      f"{f['mb']:.1f} MB, graph calls "
+                      f"{', '.join('tpudet::' + o for o in r['ops'])}, "
+                      f"kernels_embedded {r['meta']['kernels_embedded']}; "
+                      f"loaded in a fresh process in {r['load_s']:.1f} s "
+                      f"(no model code imported); detections "
+                      + ("equal" if exact else f"within the {dtype} rule "
+                         f"({flips} flipped)")
+                      + f" to the live predict's; program "
+                      f"{r['program_ms']:.2f} ms "
+                      f"per batch (median of 20), live make_eval_step "
+                      f"{f['live_ms']:.2f} ms; detect "
+                      f"{r['detect_img_s']:.1f} img/s over {SERVE_IMAGES} "
+                      f"images of {job['sizes'][0]}..{job['sizes'][1]} px "
+                      f"(host half included); launches per call "
+                      f"{r['launches_per_call']}", flush=True)
+                launches[f"{preset} serve {dtype}"] = {
+                    **dict.fromkeys(("roi_align_backward",
+                                     "roi_align_window_backward",
+                                     "deform_attn_backward"), 0),
+                    **r["detect_launches"]}
+        print(f"serving: one process loaded and ran the "
+              f"{sum(len(j['artifacts']) for j in jobs)} artifacts in "
+              f"{worker_s:.1f} s", flush=True)
+    return launches
+
+
+EXPORT_CLI_BUCKETS = "data.aspect_buckets=((640, 640),)"
+
+
+def phase_export_cli(card):
+    """``python -m tpudet_torch.cli.export --preset voc_r50 --batch-size 8
+    --output ... --verify`` on the card (its ``main`` in this process, as
+    the other CLI phases run theirs; random weights), cut to the 640x640
+    bucket (``EXPORT_CLI_BUCKETS``: each bucket is the same export, and
+    the five took 68-86 s on an H100; the CPU tests export several),
+    then its refusal of a checkpoint directory with no checkpoint."""
+    import tempfile
+
+    from tpudet_torch.cli import export as cexport
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "voc_r50.tpudet"
+        start = time.perf_counter()
+        meta, text = run_cli(cexport.main, [
+            "--preset", "voc_r50", "--batch-size", "8", "--output", str(out),
+            "--verify", "--set", EXPORT_CLI_BUCKETS], "cli.export")
+        seconds = time.perf_counter() - start
+        check(meta["kernels_embedded"] is True and meta["platforms"]
+              == ["cuda"] and meta["buckets"] == [[640, 640]]
+              and "verify: ok" in text, f"cli.export: {meta}")
+        mb = out.stat().st_size / 1e6
+        (Path(tmp) / "empty").mkdir()
+        try:
+            cexport.main(["--preset", "voc_r50", "--output",
+                          str(Path(tmp) / "x.tpudet"), "--checkpoint-dir",
+                          str(Path(tmp) / "empty")])
+            refusal = "none"
+        except SystemExit as e:
+            refusal = str(e)
+        check("no checkpoint found" in refusal
+              and not (Path(tmp) / "x.tpudet").exists(),
+              f"cli.export on an empty checkpoint directory: {refusal}")
+    print(f"export_cli: voc_r50 b=8 on the 640x640 bucket exported, "
+          f"written ({mb:.1f} MB) and verified in {seconds:.1f} s; an empty "
+          "checkpoint directory refused", flush=True)
+
+
+def phase_parity_cli(card):
+    """``python -m tpudet_torch.cli.parity --dry-run`` on the card: the
+    tiny preset through cli.train and cli.eval on synthetic data, the
+    parity table printed -> the path's launches."""
+    import tempfile
+
+    from tpudet_torch.cli import parity
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        start = time.perf_counter()
+        summary, text = run_cli(parity.main, [
+            "--dry-run", "--workdir", str(Path(tmp) / "w"), "--batch-size",
+            "8"], "cli.parity")
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+    check("mAP" in summary and "stage 4/4" in text
+          and np_finite(summary["mAP"]), f"cli.parity: {summary}")
+    check(launches["nms"] > 0 and launches["roi_align"] > 0,
+          f"cli.parity launches {launches}")
+    print(f"parity_cli: --dry-run on the card in {seconds:.1f} s, mAP@0.5 "
+          f"{summary['mAP']:.4f} (30 steps of the tiny preset: a proof of "
+          f"the command, not a parity number); launches {launches}",
+          flush=True)
+    return {"tiny cli.parity --dry-run": launches}
+
+
 PHASES = {
     "nms": lambda card: phase_nms(),
     "roi_align": lambda card: phase_roi_align(),
@@ -5492,6 +5851,12 @@ PHASES = {
     "vgg_train": lambda card: backbone_train_profile(card, "vgg", 157),
     "soft_nms": lambda card: phase_soft_nms(card),
     "backbones_cli": lambda card: phase_backbones_cli(card),
+    "serve_voc": lambda card: phase_serve(card, [("serve_voc", 161)]),
+    "serve_fpn": lambda card: phase_serve(card, [("serve_fpn", 163)]),
+    "serve_deformable": lambda card: phase_serve(
+        card, [("serve_deformable", 165)]),
+    "export_cli": lambda card: phase_export_cli(card),
+    "parity_cli": lambda card: phase_parity_cli(card),
 }
 
 
@@ -5590,6 +5955,13 @@ def main(argv=None) -> None:
     card = phase_device()
     phase_build()
     lap("device and build")
+    # Serving first (phases 56-60): its live predicts and the serving
+    # process then start from the same fresh cuDNN state.
+    serve_launches = phase_serve(card, [("serve_voc", 161), ("serve_fpn", 163),
+                                        ("serve_deformable", 165)])
+    phase_export_cli(card)
+    serve_launches.update(phase_parity_cli(card))
+    lap("serving, export_cli and parity_cli")
     nms, nms_err = phase_nms()
     roi = phase_roi_align()
     roi_window = phase_roi_align_window()
@@ -5682,6 +6054,7 @@ def main(argv=None) -> None:
     slice_launches.update(phase_soft_nms(card))
     slice_launches.update(phase_backbones_cli(card))
     lap("soft_nms and backbones_cli")
+    slice_launches.update(serve_launches)
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -5712,8 +6085,9 @@ def main(argv=None) -> None:
 
     def slice_paths(kernel):
         """The Mask R-CNN, data-parallel, Cascade R-CNN, Keypoint R-CNN,
-        Panoptic FPN, RetinaNet, FCOS and DETR paths' counts of ``kernel``
-        (phases 30-34 and 36-49), each zeroed just before its path."""
+        Panoptic FPN, RetinaNet, FCOS, DETR, ViTDet, VGG-16, Soft-NMS,
+        serving and parity-CLI paths' counts of ``kernel`` (phases 30-34,
+        36-55, 56-58 and 60), each zeroed just before its path."""
         return {path: counts[kernel] for path, counts in slice_launches.items()
                 if counts[kernel]}
 
@@ -5806,7 +6180,10 @@ def main(argv=None) -> None:
     for name, result, by_path in (
             ("deform_attn", deform,
              {f"{detr} predict": detr_launches["deform_attn"],
-              f"{detr} train": train_launches["deform_attn"]}),
+              f"{detr} train": train_launches["deform_attn"],
+              **{path: counts["deform_attn"]
+                 for path, counts in serve_launches.items()
+                 if counts["deform_attn"]}}),
             ("deform_attn_backward", deform_bwd,
              {f"{detr} train": train_launches["deform_attn_backward"]})):
         pair = [result[(call, "bf16")] for call in ("encoder", "decoder")]

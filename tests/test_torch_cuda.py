@@ -1525,3 +1525,128 @@ def test_backbone_weights_load_into_a_card_model(cuda):
     state = model.core.state_dict()
     for k, v in want.items():
         assert state[k].is_cuda and torch.equal(state[k].cpu(), v), k
+
+
+# ------------------------------------------ the tpudet:: operators (serving)
+def op_cases(cuda):
+    """One small input of each of the seven operators -> {name: (op, args,
+    plain result)}: the plain versions' values (the gradients through
+    autograd) on the same inputs."""
+    gen = torch.Generator().manual_seed(31)
+    b_, s_ = boxes(gen, 2, 150), torch.rand(2, 150, generator=gen)
+    order = s_.argsort(1, descending=True)
+    sorted_boxes = torch.gather(b_, 1, order[..., None].expand(-1, -1, 4))
+    cand = torch.rand(2, 150, generator=gen) > 0.1
+    pos, valid = knms.nms_keep_plain(sorted_boxes, cand, 0.5, 40)
+    count = valid.sum(1).to(torch.int32)
+
+    feat = torch.randn(2, 24, 20, 40, generator=gen)
+    rois = (boxes(gen, 1, 30)[0] / 16).contiguous()
+    index = torch.randint(0, 2, (30,), generator=gen, dtype=torch.int32)
+    cot = torch.randn(30, 7, 7, 40, generator=gen)
+    wide = feat.clone().requires_grad_()
+    ref = kra.roi_align_plain(wide, rois, index, 7, 2)
+    (ref_grad,) = torch.autograd.grad(ref, wide, cot)
+
+    strides = [4.0, 8.0, 16.0, 32.0]
+    maps = [torch.randn(2, s, s + 2, 24, generator=gen)
+            for s in (64, 32, 16, 8)]
+    fpn_rois = boxes(gen, 2, 20, extent=200.0)
+    levels = fpn_assign_levels(fpn_rois, fit_window=56) - 2
+    wcot = torch.randn(2, 20, 7, 7, 24, generator=gen)
+    wmaps = [m.clone().requires_grad_() for m in maps]
+    wref = krw.roi_align_window_plain(wmaps, strides, fpn_rois, levels, 7, 2)
+    wgrads = torch.autograd.grad(wref, wmaps, wcot)
+
+    shapes = ((12, 10), (6, 5), (3, 3))
+    values, loc, weights = deform_inputs(gen, 2, 17, 4, 16, shapes, 3,
+                                         torch.float32)
+    dcot = torch.randn(2, 17, 4, 16, generator=gen)
+    leaves = [t.clone().requires_grad_() for t in (values, loc, weights)]
+    dref = kda.ms_deform_attn_plain(leaves[0], shapes, leaves[1], leaves[2])
+    dgrads = torch.autograd.grad(dref, leaves, dcot)
+    flat = [d for s in shapes for d in s]
+
+    def on(*ts):
+        return [t.to(cuda) if torch.is_tensor(t) else
+                [x.to(cuda) for x in t] if isinstance(t, list)
+                and t and torch.is_tensor(t[0]) else t for t in ts]
+
+    return {
+        "nms_keep": (knms.nms_keep_op, on(sorted_boxes, cand, 0.5, 40),
+                     (pos, count)),
+        "roi_align_fwd": (kra.roi_align_fwd, on(feat, rois, index, 7, 2),
+                          (ref.detach(),)),
+        "roi_align_bwd": (kra.roi_align_bwd,
+                          on(cot, rois, index, list(feat.shape),
+                             torch.float32, 2), (ref_grad,)),
+        "roi_align_window_fwd": (krw.roi_align_window_fwd,
+                                 on(maps, strides, fpn_rois, levels, 7, 2),
+                                 (wref.detach(),)),
+        "roi_align_window_bwd": (
+            krw.roi_align_window_bwd,
+            on(wcot, fpn_rois, levels, [d for m in maps for d in m.shape],
+               strides, torch.float32, 2),
+            (torch.cat([g.reshape(-1) for g in wgrads]),)),
+        "ms_deform_attn_fwd": (kda.ms_deform_attn_fwd,
+                               on(values, flat, loc, weights),
+                               (dref.detach(),)),
+        "ms_deform_attn_bwd": (kda.ms_deform_attn_bwd,
+                               on(values, flat, loc, weights, dcot), dgrads),
+    }
+
+
+OPS = ("nms_keep", "roi_align_fwd", "roi_align_bwd", "roi_align_window_fwd",
+       "roi_align_window_bwd", "ms_deform_attn_fwd", "ms_deform_attn_bwd")
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_tpudet_op_equals_plain(cuda, name):
+    op, args, want = op_cases(cuda)[name]
+    got = op(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if name == "nms_keep":
+            assert torch.equal(g.cpu(), w)
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_tpudet_op_passes_opcheck(cuda, name):
+    op, args, _ = op_cases(cuda)[name]
+    torch.library.opcheck(op, tuple(args))
+
+
+def test_exported_tiny_artifact_holds_the_ops(cuda, tmp_path):
+    """A tiny voc_r50-shaped (single-level) Faster R-CNN exported on the
+    card: its graph calls tpudet::nms_keep and tpudet::roi_align_fwd, the
+    metadata says so, and the loaded artifact launches the kernels and
+    equals the live predict."""
+    from tpudet_torch.config import tiny_test_config
+    from tpudet_torch.data.preprocess import device_preprocess
+    from tpudet_torch.models import build_model
+    from tpudet_torch.serving import ServingModel, save_artifact
+    from tpudet_torch.serving.export import program_ops
+
+    cfg = tiny_test_config()
+    model = build_model(cfg, device="cuda").init(0)
+    path = tmp_path / "tiny.tpudet"
+    meta = save_artifact(str(path), cfg, model, 2)
+    assert meta["platforms"] == ["cuda"] and meta["kernels_embedded"] is True
+    serving = ServingModel.load(str(path))
+    assert [program_ops(p) for p in serving.programs.values()] == [
+        ["nms_keep", "roi_align_fwd"]]
+    gen = torch.Generator().manual_seed(0)
+    image = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                          generator=gen).to(cuda)
+    hw = torch.tensor([[128.0, 128.0], [100.0, 120.0]], device=cuda)
+    with torch.no_grad():
+        want = model.predict(device_preprocess(
+            cfg, {"image": image, "image_hw": hw}))
+    before = (knms.LAUNCHES, kra.LAUNCHES)
+    got = serving(image, hw)
+    assert (knms.LAUNCHES, kra.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

@@ -193,9 +193,11 @@ def test_build_dataset_equals_jax(tmp_path):
             tconfig.tiny_test_config(),
             {"data.dataset": "voc", "data.data_dir": str(tmp_path / "voc")}),
             "trainval")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # nuImages is ported: a root without its version tables is refused.
+    with pytest.raises(FileNotFoundError, match="v1.0-"):
         build_dataset(tconfig.apply_overrides(
-            tconfig.tiny_test_config(), {"data.dataset": "nuimages"}))
+            tconfig.tiny_test_config(),
+            {"data.dataset": "nuimages", "data.data_dir": str(tmp_path)}))
 
 
 class SizedDataset:

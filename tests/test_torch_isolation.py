@@ -35,9 +35,9 @@ def test_import_loads_no_jax_and_no_tpudet_module():
                          capture_output=True, text=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(result["modules"]) >= 20
-    # The data-parallel group, Mask R-CNN and the backbones' slice are
-    # walked too.
-    for name in NEW_MODULES + BACKBONE_MODULES:
+    # The data-parallel group, Mask R-CNN, the backbones' and the serving
+    # slices are walked too.
+    for name in NEW_MODULES + BACKBONE_MODULES + SERVING_MODULES:
         assert name in result["modules"], name
     assert not [m for m in result["loaded"] if m.split(".")[0] in BANNED]
 
@@ -96,6 +96,36 @@ def test_backbone_modules_import_nothing_new(name):
     assert {n.split(".")[0] for n in found} <= BACKBONE_IMPORTS, found
     assert {n for n in found if n.startswith("torch.")} <= {
         "torch.nn.functional"}
+
+
+# The modules of the serving slice: the artifact and its loader, the
+# kernels' operator namespace, the export and parity CLIs, nuImages.
+SERVING_MODULES = ("tpudet_torch.serving", "tpudet_torch.serving.export",
+                   "tpudet_torch.kernels._ops", "tpudet_torch.cli.export",
+                   "tpudet_torch.cli.parity", "tpudet_torch.data.nuimages")
+
+
+def test_serving_import_loads_no_model_code_and_builds_nothing():
+    """What a serving process loads: ``import tpudet_torch.serving`` brings
+    neither JAX, tpudet nor the port's model code, and registering the
+    kernels' operators builds and loads no library (no nvcc)."""
+    code = (
+        "import json, sys\n"
+        "import tpudet_torch.serving\n"
+        "from tpudet_torch.kernels import _build\n"
+        "print(json.dumps({'loaded': sorted(sys.modules),"
+        " 'built': sorted(_build._loaded)}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={"PATH": "/usr/bin:/bin", "CUDA_HOME": "/none"})
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    loaded = result["loaded"]
+    assert "tpudet_torch.serving.export" in loaded
+    assert "tpudet_torch.kernels.roi_align_window" in loaded
+    assert not [m for m in loaded if m.startswith("tpudet_torch.models")]
+    assert not [m for m in loaded if m.split(".")[0] in BANNED]
+    assert result["built"] == []
 
 
 def test_sources_import_no_jax_and_no_tpudet():

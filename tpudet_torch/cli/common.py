@@ -239,7 +239,8 @@ def add_common_args(p: argparse.ArgumentParser):
     p.add_argument("--preset", default="voc_r50", choices=PRESETS)
     p.add_argument("--data-dir", default="", help="dataset root")
     p.add_argument("--dataset", default="",
-                   help="override the dataset type (voc|coco|synthetic)")
+                   help="override the dataset type "
+                        "(voc|coco|nuimages|synthetic)")
     p.add_argument(
         "--set", action="append", default=[], metavar="KEY=VALUE",
         help="dotted config override, e.g. --set rpn.nms_thresh=0.6")

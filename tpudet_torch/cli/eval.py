@@ -367,7 +367,8 @@ def main(argv=None):
                         "mirrored image and merge the candidates (~2x cost)")
     args = p.parse_args(argv)
     cfg = referee_config(config_from_args(args))
-    metric = args.metric or ("coco" if cfg.data.dataset == "coco" else "voc")
+    metric = args.metric or ("coco" if cfg.data.dataset in ("coco", "nuimages")
+                             else "voc")
     if metric == "proposal-recall":
         if cfg.model not in ("faster_rcnn", "mask_rcnn"):
             raise SystemExit(

@@ -1,11 +1,13 @@
 """Input pipeline (``tpudet.data``): annotation parsing (VOC XML, COCO JSON,
-COCO panoptic JSON and PNGs, synthetic), decode, the aspect-preserving
-resize and padding onto uint8 canvases on the host; normalization and
-train-time augmentation on the card (``preprocess.device_preprocess``)."""
+COCO panoptic JSON and PNGs, nuImages JSON tables, synthetic), decode, the
+aspect-preserving resize and padding onto uint8 canvases on the host;
+normalization and train-time augmentation on the card
+(``preprocess.device_preprocess``)."""
 
 from tpudet_torch.data.coco import CocoDataset  # noqa: F401
 from tpudet_torch.data.coco_panoptic import CocoPanopticDataset  # noqa: F401
 from tpudet_torch.data.loader import DataLoader, Dataset  # noqa: F401
+from tpudet_torch.data.nuimages import NuImagesDataset  # noqa: F401
 from tpudet_torch.data.preprocess import (  # noqa: F401
     device_preprocess,
     prepare_example,
@@ -15,8 +17,8 @@ from tpudet_torch.data.voc import VOC_CLASSES, VOCDataset  # noqa: F401
 
 
 def build_dataset(cfg, split: str | None = None):
-    """Dataset factory: ``data.dataset`` "synthetic", "voc" or "coco" (COCO
-    panoptic with ``data.load_semantic``)."""
+    """Dataset factory: ``data.dataset`` "synthetic", "voc", "coco" (COCO
+    panoptic with ``data.load_semantic``) or "nuimages"."""
     d = cfg.data
     split = split or d.split
     if d.dataset == "synthetic":
@@ -54,9 +56,9 @@ def build_dataset(cfg, split: str | None = None):
                          ann_prefix=("person_keypoints" if d.load_keypoints
                                      else "instances"))
     elif d.dataset == "nuimages":
-        raise NotImplementedError(
-            "data.dataset='nuimages' is not ported yet (ROADMAP.md, Queue 1 "
-            "item 29)")
+        # nuScenes-style autonomous-driving annotations; no crowd or
+        # difficult flags, so eval needs no ignore regions.
+        ds = NuImagesDataset(d.data_dir, split=split)
     else:
         raise ValueError(f"unknown dataset {d.dataset!r}")
     # A class-count mismatch would give class ids beyond the heads and the

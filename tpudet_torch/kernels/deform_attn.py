@@ -31,6 +31,11 @@ values' dtype (for f32 values the accumulator is the result).
 ``ms_deform_attn`` is the differentiable entry: on the card an autograd
 Function runs the forward kernel and, for the gradients, the backward
 kernel; on the CPU autograd runs through the plain version.
+
+The launchers are the CUDA bodies of the operators
+``tpudet::ms_deform_attn_fwd`` and ``tpudet::ms_deform_attn_bwd``
+(``kernels/_ops.py``), so ``torch.export`` carries the kernels into a
+serving artifact; training calls them through the autograd Function.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from tpudet_torch.kernels import _build
+from tpudet_torch.kernels import _build, _ops
 # The plain version: the gather-then-weighted-sum form, in ``ops.deform_attn``.
 from tpudet_torch.ops.deform_attn import (
     level_start_offsets,
@@ -107,15 +112,23 @@ def _check(values, level_shapes, locations, weights, name):
     return (b, n, q, h, d, lv, p), table
 
 
-def ms_deform_attn_cuda(values: torch.Tensor,
-                        level_shapes: Sequence[Tuple[int, int]],
-                        locations: torch.Tensor,
-                        weights: torch.Tensor) -> torch.Tensor:
-    """The forward kernel: ``values [B, N, H, D]`` (f32 or bf16), ``locations
-    [B, Q, H, L, P, 2]`` f32, ``weights [B, Q, H, L, P]`` f32, all
-    contiguous on one CUDA device -> ``[B, Q, H, D]`` f32. Any head count,
-    head dim and number of samples per query."""
+def _pairs(flat: Sequence[int]):
+    """``[h0, w0, h1, w1, ...]`` -> ``((h0, w0), (h1, w1), ...)``."""
+    return tuple((int(flat[i]), int(flat[i + 1]))
+                 for i in range(0, len(flat), 2))
+
+
+def _flat(level_shapes: Sequence[Tuple[int, int]]):
+    return [int(d) for shape in level_shapes for d in shape]
+
+
+def _launch_forward(values: torch.Tensor, level_shapes: Sequence[int],
+                    locations: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """The CUDA body of ``tpudet::ms_deform_attn_fwd`` (``level_shapes``
+    flattened, ``[h0, w0, h1, w1, ...]``): checks and one launch."""
     global LAUNCHES
+    level_shapes = _pairs(level_shapes)
     dims, table = _check(values, level_shapes, locations, weights,
                          "ms_deform_attn_cuda")
     b, n, q, h, d, lv, p = dims
@@ -134,17 +147,13 @@ def ms_deform_attn_cuda(values: torch.Tensor,
     return out
 
 
-def ms_deform_attn_backward_cuda(values: torch.Tensor,
-                                 level_shapes: Sequence[Tuple[int, int]],
-                                 locations: torch.Tensor,
-                                 weights: torch.Tensor,
-                                 grad_out: torch.Tensor):
-    """The backward kernel: the forward's inputs and the f32 cotangent
-    ``grad_out [B, Q, H, D]`` -> ``(d_values [B, N, H, D]`` in the values'
-    dtype (summed in f32, cast once; f32 values are summed in place),
-    ``d_locations``, ``d_weights)`` f32 in the shapes of the inputs. Any
-    head count, head dim and number of samples per query."""
+def _launch_backward(values: torch.Tensor, level_shapes: Sequence[int],
+                     locations: torch.Tensor, weights: torch.Tensor,
+                     grad_out: torch.Tensor):
+    """The CUDA body of ``tpudet::ms_deform_attn_bwd``: checks and one
+    launch."""
     global BACKWARD_LAUNCHES
+    level_shapes = _pairs(level_shapes)
     dims, table = _check(values, level_shapes, locations, weights,
                          "ms_deform_attn_backward_cuda")
     b, n, q, h, d, lv, p = dims
@@ -172,6 +181,59 @@ def ms_deform_attn_backward_cuda(values: torch.Tensor,
     return grad_values.to(values.dtype), grad_loc, grad_weights
 
 
+def _fake_forward(values, level_shapes, locations, weights):
+    b, q, h = locations.shape[:3]
+    return values.new_empty((b, q, h, values.shape[-1]), dtype=torch.float32)
+
+
+def _fake_backward(values, level_shapes, locations, weights, grad_out):
+    return (torch.empty_like(values), torch.empty_like(locations),
+            torch.empty_like(weights))
+
+
+ms_deform_attn_fwd = _ops.register(
+    "ms_deform_attn_fwd", "(Tensor values, int[] level_shapes, Tensor "
+    "locations, Tensor weights) -> Tensor", _launch_forward, _fake_forward)
+ms_deform_attn_bwd = _ops.register(
+    "ms_deform_attn_bwd", "(Tensor values, int[] level_shapes, Tensor "
+    "locations, Tensor weights, Tensor grad_out) -> (Tensor, Tensor, Tensor)",
+    _launch_backward, _fake_backward)
+
+
+def _require_cuda(values: torch.Tensor, name: str) -> None:
+    if values.device.type != "cuda":
+        raise ValueError(f"{name} needs all inputs on one CUDA device")
+
+
+def ms_deform_attn_cuda(values: torch.Tensor,
+                        level_shapes: Sequence[Tuple[int, int]],
+                        locations: torch.Tensor,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """The forward kernel, through ``tpudet::ms_deform_attn_fwd``: ``values
+    [B, N, H, D]`` (f32 or bf16), ``locations [B, Q, H, L, P, 2]`` f32,
+    ``weights [B, Q, H, L, P]`` f32, all contiguous on one CUDA device ->
+    ``[B, Q, H, D]`` f32. Any head count, head dim and number of samples per
+    query."""
+    _require_cuda(values, "ms_deform_attn_cuda")
+    return ms_deform_attn_fwd(values, _flat(level_shapes), locations, weights)
+
+
+def ms_deform_attn_backward_cuda(values: torch.Tensor,
+                                 level_shapes: Sequence[Tuple[int, int]],
+                                 locations: torch.Tensor,
+                                 weights: torch.Tensor,
+                                 grad_out: torch.Tensor):
+    """The backward kernel, through ``tpudet::ms_deform_attn_bwd``: the
+    forward's inputs and the f32 cotangent ``grad_out [B, Q, H, D]`` ->
+    ``(d_values [B, N, H, D]`` in the values' dtype (summed in f32, cast
+    once; f32 values are summed in place), ``d_locations``, ``d_weights)``
+    f32 in the shapes of the inputs. Any head count, head dim and number of
+    samples per query."""
+    _require_cuda(values, "ms_deform_attn_backward_cuda")
+    return ms_deform_attn_bwd(values, _flat(level_shapes), locations, weights,
+                              grad_out)
+
+
 class _MSDeformAttnCUDA(torch.autograd.Function):
     """The forward kernel, with the backward kernel for its gradients."""
 
@@ -195,13 +257,17 @@ def ms_deform_attn(values: torch.Tensor,
                    level_shapes: Sequence[Tuple[int, int]],
                    locations: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
-    """Dispatch by device: CUDA -> the kernels (the backward one when
-    autograd asks for gradients; under ``no_grad`` or ``inference_mode``
-    nothing is recorded), CPU -> the plain version (autograd runs through
+    """Dispatch by device: CUDA -> the kernels through their ``tpudet::``
+    operators (an autograd Function adds the backward one when autograd
+    asks for gradients; under ``no_grad`` or ``inference_mode`` the forward
+    operator alone), CPU -> the plain version (autograd runs through
     it)."""
     if values.device.type == "cuda":
-        return _MSDeformAttnCUDA.apply(values, locations, weights,
-                                       tuple(level_shapes))
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (values, locations, weights)):
+            return _MSDeformAttnCUDA.apply(values, locations, weights,
+                                           tuple(level_shapes))
+        return ms_deform_attn_cuda(values, level_shapes, locations, weights)
     if values.device.type == "cpu":
         return ms_deform_attn_plain(values, level_shapes, locations, weights)
     raise ValueError(f"no deformable attention for device {values.device}")

@@ -22,6 +22,10 @@ tests a step, all steps in parallel.
 Decisions are bit-exact against the plain version (and the JAX kernel): f32
 IoU in the JAX operation order, no FMA (``-fmad=false`` and round-to-nearest
 intrinsics), the threshold passed as a 32-bit float.
+
+The launcher is the CUDA body of the ``tpudet::nms_keep`` operator
+(``kernels/_ops.py``), so ``torch.export`` carries the kernel into a
+serving artifact.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Tuple
 
 import torch
 
-from tpudet_torch.kernels import _build
+from tpudet_torch.kernels import _build, _ops
 from tpudet_torch.ops.nms import _select_kept, greedy_keep
 
 # Launches of the CUDA kernel, one per wrapper call on a CUDA tensor.
@@ -67,10 +71,11 @@ def _lib():
     return fn
 
 
-def nms_keep_cuda(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
-                  iou_threshold: float, max_outputs: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel: same contract as :func:`nms_keep_plain`."""
+def _launch(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
+            iou_threshold: float, max_outputs: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA body of ``tpudet::nms_keep``: checks and one launch ->
+    ``(positions [B, max_outputs] int32, count [B] int32)``."""
     global LAUNCHES
     if boxes_sorted.device.type != "cuda" or candidate.device != boxes_sorted.device:
         raise ValueError("nms_keep_cuda needs boxes and candidates on one CUDA device")
@@ -99,8 +104,32 @@ def nms_keep_cuda(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: cudaError {err}")
     LAUNCHES += 1
-    valid = torch.arange(max_outputs, device=dev)[None, :] < count[:, None]
-    return positions, valid
+    return positions, count
+
+
+def _fake(boxes_sorted, candidate, iou_threshold, max_outputs):
+    b = candidate.shape[0]
+    return (candidate.new_empty((b, max_outputs), dtype=torch.int32),
+            candidate.new_empty((b,), dtype=torch.int32))
+
+
+nms_keep_op = _ops.register(
+    "nms_keep", "(Tensor boxes_sorted, Tensor candidate, float iou_threshold, "
+    "int max_outputs) -> (Tensor, Tensor)", _launch, _fake)
+
+
+def nms_keep_cuda(boxes_sorted: torch.Tensor, candidate: torch.Tensor,
+                  iou_threshold: float, max_outputs: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel, through ``tpudet::nms_keep``: same contract as
+    :func:`nms_keep_plain`."""
+    if boxes_sorted.device.type != "cuda":
+        raise ValueError("nms_keep_cuda needs boxes and candidates on one "
+                         "CUDA device")
+    positions, count = nms_keep_op(boxes_sorted, candidate, iou_threshold,
+                                   max_outputs)
+    rank = torch.arange(max_outputs, device=count.device)
+    return positions, rank[None, :] < count[:, None]
 
 
 def nms_keep(boxes_sorted: torch.Tensor, candidate: torch.Tensor,

@@ -47,6 +47,11 @@ contention on shared cells (``PERF.md``).
 ``roi_align`` is the differentiable entry: on the card an autograd Function
 runs the forward kernel and, for the gradient, the backward kernel; on the
 CPU autograd runs through the plain version.
+
+The launchers are the CUDA bodies of the operators
+``tpudet::roi_align_fwd`` and ``tpudet::roi_align_bwd``
+(``kernels/_ops.py``), so ``torch.export`` carries the kernels into a
+serving artifact; training calls them through the autograd Function.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ import ctypes
 
 import torch
 
-from tpudet_torch.kernels import _build
+from tpudet_torch.kernels import _build, _ops
 # The plain version: the gather form in ``ops.roi_align``, batched.
 from tpudet_torch.ops.roi_align import roi_align_batched as roi_align_plain
 
@@ -108,12 +113,10 @@ def _check_rois(boxes, image_index, dev, name):
         raise ValueError(f"{name} needs contiguous boxes and indices")
 
 
-def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
-                   image_index: torch.Tensor, output_size: int,
-                   sampling_ratio: int = 2) -> torch.Tensor:
-    """The kernel: ``[B, H, W, C]`` features (f32 or bf16), ``[K, 4]`` f32
-    boxes in feature coordinates, ``[K]`` int32 image indices ->
-    ``[K, S, S, C]`` in the features' dtype."""
+def _launch_forward(features: torch.Tensor, boxes: torch.Tensor,
+                    image_index: torch.Tensor, output_size: int,
+                    sampling_ratio: int) -> torch.Tensor:
+    """The CUDA body of ``tpudet::roi_align_fwd``: checks and one launch."""
     global LAUNCHES
     dev = features.device
     if dev.type != "cuda":
@@ -140,14 +143,10 @@ def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
     return out
 
 
-def roi_align_backward_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
-                            image_index: torch.Tensor, feature_shape,
-                            dtype: torch.dtype,
-                            sampling_ratio: int = 2) -> torch.Tensor:
-    """The backward kernel: the cotangent ``[K, S, S, C]`` (f32 or bf16) of
-    :func:`roi_align_cuda` on ``[B, H, W, C]`` = ``feature_shape`` features
-    and the same boxes and indices -> the features' gradient in ``dtype``,
-    summed in f32 and cast once."""
+def _launch_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
+                     image_index: torch.Tensor, feature_shape,
+                     dtype: torch.dtype, sampling_ratio: int) -> torch.Tensor:
+    """The CUDA body of ``tpudet::roi_align_bwd``: checks and one launch."""
     global BACKWARD_LAUNCHES
     dev = grad_out.device
     if dev.type != "cuda":
@@ -179,6 +178,59 @@ def roi_align_backward_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
     return grad.to(dtype)
 
 
+def _fake_forward(features, boxes, image_index, output_size,
+                  sampling_ratio):
+    return features.new_empty((boxes.shape[0], output_size, output_size,
+                               features.shape[-1]))
+
+
+def _fake_backward(grad_out, boxes, image_index, feature_shape, dtype,
+                   sampling_ratio):
+    return grad_out.new_empty(feature_shape, dtype=dtype)
+
+
+roi_align_fwd = _ops.register(
+    "roi_align_fwd", "(Tensor features, Tensor boxes, Tensor image_index, "
+    "int output_size, int sampling_ratio) -> Tensor", _launch_forward,
+    _fake_forward)
+roi_align_bwd = _ops.register(
+    "roi_align_bwd", "(Tensor grad_out, Tensor boxes, Tensor image_index, "
+    "int[] feature_shape, ScalarType dtype, int sampling_ratio) -> Tensor",
+    _launch_backward, _fake_backward)
+
+
+def _require_cuda(tensor: torch.Tensor, name: str) -> None:
+    if tensor.device.type != "cuda":
+        raise ValueError(f"{name} needs all inputs on one CUDA device")
+
+
+def roi_align_cuda(features: torch.Tensor, boxes: torch.Tensor,
+                   image_index: torch.Tensor, output_size: int,
+                   sampling_ratio: int = 2) -> torch.Tensor:
+    """The kernel, through ``tpudet::roi_align_fwd``: ``[B, H, W, C]``
+    features (f32 or bf16), ``[K, 4]`` f32 boxes in feature coordinates,
+    ``[K]`` int32 image indices -> ``[K, S, S, C]`` in the features'
+    dtype."""
+    _require_cuda(features, "roi_align_cuda")
+    return roi_align_fwd(features, boxes, image_index, output_size,
+                         sampling_ratio)
+
+
+def roi_align_backward_cuda(grad_out: torch.Tensor, boxes: torch.Tensor,
+                            image_index: torch.Tensor, feature_shape,
+                            dtype: torch.dtype,
+                            sampling_ratio: int = 2) -> torch.Tensor:
+    """The backward kernel, through ``tpudet::roi_align_bwd``: the
+    cotangent ``[K, S, S, C]`` (f32 or bf16) of :func:`roi_align_cuda` on
+    ``[B, H, W, C]`` = ``feature_shape`` features and the same boxes and
+    indices -> the features' gradient in ``dtype``, summed in f32 and cast
+    once."""
+    _require_cuda(grad_out, "roi_align_backward_cuda")
+    return roi_align_bwd(grad_out, boxes, image_index,
+                         [int(d) for d in feature_shape], dtype,
+                         sampling_ratio)
+
+
 class _RoIAlignCUDA(torch.autograd.Function):
     """The forward kernel, with the backward kernel for the features'
     gradient."""
@@ -207,12 +259,16 @@ class _RoIAlignCUDA(torch.autograd.Function):
 def roi_align(features: torch.Tensor, boxes: torch.Tensor,
               image_index: torch.Tensor, output_size: int,
               sampling_ratio: int = 2) -> torch.Tensor:
-    """Dispatch by device: CUDA -> the kernels (the backward one when
-    autograd asks for the features' gradient), CPU -> the plain version
-    (autograd runs through it)."""
+    """Dispatch by device: CUDA -> the kernels through their ``tpudet::``
+    operators (an autograd Function adds the backward one when autograd
+    asks for the features' gradient), CPU -> the plain version (autograd
+    runs through it)."""
     if features.device.type == "cuda":
-        return _RoIAlignCUDA.apply(features, boxes, image_index, output_size,
-                                   sampling_ratio)
+        if torch.is_grad_enabled() and features.requires_grad:
+            return _RoIAlignCUDA.apply(features, boxes, image_index,
+                                       output_size, sampling_ratio)
+        return roi_align_cuda(features, boxes, image_index, output_size,
+                              sampling_ratio)
     if features.device.type == "cpu":
         return roi_align_plain(features, boxes, image_index, output_size,
                                sampling_ratio)

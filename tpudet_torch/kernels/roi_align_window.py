@@ -39,6 +39,11 @@ ms on an H100 and the passes 0.38 ms, against a 0.078 ms bound
 ``roi_align_window`` is the differentiable entry: on the card an autograd
 Function runs the forward kernel and, for the maps' gradient, the backward
 kernel; on the CPU autograd runs through the plain version.
+
+The launchers are the CUDA bodies of the operators
+``tpudet::roi_align_window_fwd`` and ``tpudet::roi_align_window_bwd``
+(``kernels/_ops.py``), so ``torch.export`` carries the kernels into a
+serving artifact; training calls them through the autograd Function.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from typing import Sequence
 
 import torch
 
-from tpudet_torch.kernels import _build
+from tpudet_torch.kernels import _build, _ops
 from tpudet_torch.kernels.roi_align import vectorized
 # The plain version: per-level gather form, in ``ops.roi_align``.
 from tpudet_torch.ops.roi_align import roi_align_levels as roi_align_window_plain
@@ -111,13 +116,12 @@ def _check_rois(boxes, levels, dev, name):
     return levels.shape
 
 
-def roi_align_window_cuda(features: Sequence[torch.Tensor],
-                          strides: Sequence[float], boxes: torch.Tensor,
-                          levels: torch.Tensor, output_size: int,
-                          sampling_ratio: int = 2) -> torch.Tensor:
-    """The kernel: ``[B, H_l, W_l, C]`` NHWC maps (f32 or bf16, one dtype),
-    their strides, ``[B, N, 4]`` f32 image-pixel boxes and ``[B, N]`` int32
-    0-based levels -> ``[B, N, S, S, C]`` in the features' dtype."""
+def _launch_forward(features: Sequence[torch.Tensor],
+                    strides: Sequence[float], boxes: torch.Tensor,
+                    levels: torch.Tensor, output_size: int,
+                    sampling_ratio: int) -> torch.Tensor:
+    """The CUDA body of ``tpudet::roi_align_window_fwd``: checks and one
+    launch."""
     global LAUNCHES
     dev = boxes.device
     if dev.type != "cuda" or levels.device != dev or any(
@@ -198,6 +202,76 @@ def scatter_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
     BACKWARD_LAUNCHES += 1
 
 
+def _launch_backward(grad_out: torch.Tensor, boxes: torch.Tensor,
+                     levels: torch.Tensor, feature_shapes: Sequence[int],
+                     strides: Sequence[float], dtype: torch.dtype,
+                     sampling_ratio: int) -> torch.Tensor:
+    """The CUDA body of ``tpudet::roi_align_window_bwd``: the levels'
+    gradients, ``feature_shapes`` flattened 4 numbers a level, as one flat
+    buffer in ``dtype`` (the levels one after another). The f32 sums are
+    views of one flat buffer: one zero pass, and one cast pass for bf16."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the FPN RoI Align backward gives f32 or bf16, got "
+                        f"{dtype}")
+    shapes = _unflatten_shapes(feature_shapes)
+    flat = torch.zeros(sum(_sizes(shapes)), dtype=torch.float32,
+                       device=grad_out.device)
+    scatter_backward(grad_out, boxes, levels, _views(flat, shapes), strides,
+                     sampling_ratio)
+    return flat.to(dtype)
+
+
+def _unflatten_shapes(flat: Sequence[int]):
+    return [tuple(flat[i:i + 4]) for i in range(0, len(flat), 4)]
+
+
+def _sizes(shapes):
+    return [int(torch.Size(shape).numel()) for shape in shapes]
+
+
+def _views(buffer: torch.Tensor, shapes):
+    return [part.view(shape) for part, shape in
+            zip(torch.split(buffer, _sizes(shapes)), shapes)]
+
+
+def _fake_forward(features, strides, boxes, levels, output_size,
+                  sampling_ratio):
+    b, n = levels.shape
+    return features[0].new_empty((b, n, output_size, output_size,
+                                  features[0].shape[-1]))
+
+
+def _fake_backward(grad_out, boxes, levels, feature_shapes, strides, dtype,
+                   sampling_ratio):
+    size = sum(_sizes(_unflatten_shapes(feature_shapes)))
+    return grad_out.new_empty((size,), dtype=dtype)
+
+
+roi_align_window_fwd = _ops.register(
+    "roi_align_window_fwd", "(Tensor[] features, float[] strides, Tensor "
+    "boxes, Tensor levels, int output_size, int sampling_ratio) -> Tensor",
+    _launch_forward, _fake_forward)
+roi_align_window_bwd = _ops.register(
+    "roi_align_window_bwd", "(Tensor grad_out, Tensor boxes, Tensor levels, "
+    "int[] feature_shapes, float[] strides, ScalarType dtype, "
+    "int sampling_ratio) -> Tensor", _launch_backward, _fake_backward)
+
+
+def roi_align_window_cuda(features: Sequence[torch.Tensor],
+                          strides: Sequence[float], boxes: torch.Tensor,
+                          levels: torch.Tensor, output_size: int,
+                          sampling_ratio: int = 2) -> torch.Tensor:
+    """The kernel, through ``tpudet::roi_align_window_fwd``: ``[B, H_l, W_l,
+    C]`` NHWC maps (f32 or bf16, one dtype), their strides, ``[B, N, 4]`` f32
+    image-pixel boxes and ``[B, N]`` int32 0-based levels -> ``[B, N, S, S,
+    C]`` in the features' dtype."""
+    if boxes.device.type != "cuda":
+        raise ValueError("roi_align_window_cuda needs all inputs on one CUDA "
+                         "device")
+    return roi_align_window_fwd(list(features), [float(st) for st in strides],
+                                boxes, levels, output_size, sampling_ratio)
+
+
 def roi_align_window_backward_cuda(grad_out: torch.Tensor,
                                    boxes: torch.Tensor, levels: torch.Tensor,
                                    feature_shapes, strides: Sequence[float],
@@ -205,22 +279,17 @@ def roi_align_window_backward_cuda(grad_out: torch.Tensor,
                                    sampling_ratio: int = 2):
     """The gradient of :func:`roi_align_window_cuda` on maps of
     ``feature_shapes`` (``[B, H_l, W_l, C]`` each) for the cotangent
-    ``[B, N, S, S, C]`` -> one gradient per map in ``dtype``, summed in f32
-    and cast once. The levels' f32 sums are views of one flat buffer: one
-    zero pass, and one cast pass for bf16."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"the FPN RoI Align backward gives f32 or bf16, got "
-                        f"{dtype}")
-    sizes = [int(torch.Size(shape).numel()) for shape in feature_shapes]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad_out.device)
-
-    def views(buffer):
-        return [part.view(shape) for part, shape in
-                zip(torch.split(buffer, sizes), feature_shapes)]
-
-    scatter_backward(grad_out, boxes, levels, views(flat), strides,
-                     sampling_ratio)
-    return views(flat.to(dtype))
+    ``[B, N, S, S, C]``, through ``tpudet::roi_align_window_bwd`` -> one
+    gradient per map in ``dtype``, summed in f32 and cast once (views of
+    the operator's one flat output)."""
+    if grad_out.device.type != "cuda":
+        raise ValueError("the FPN RoI Align backward needs all inputs on one "
+                         "CUDA device")
+    shapes = [tuple(int(d) for d in shape) for shape in feature_shapes]
+    flat = roi_align_window_bwd(
+        grad_out, boxes, levels, [d for shape in shapes for d in shape],
+        [float(st) for st in strides], dtype, sampling_ratio)
+    return _views(flat, shapes)
 
 
 class _RoIAlignWindowCUDA(torch.autograd.Function):
@@ -253,13 +322,17 @@ def roi_align_window(features: Sequence[torch.Tensor],
                      strides: Sequence[float], boxes: torch.Tensor,
                      levels: torch.Tensor, output_size: int,
                      sampling_ratio: int = 2) -> torch.Tensor:
-    """Dispatch by device: CUDA -> the kernels (the backward one when
-    autograd asks for the maps' gradient), CPU -> the plain version
-    (autograd runs through it)."""
+    """Dispatch by device: CUDA -> the kernels through their ``tpudet::``
+    operators (an autograd Function adds the backward one when autograd
+    asks for the maps' gradient), CPU -> the plain version (autograd runs
+    through it)."""
     if boxes.device.type == "cuda":
-        return _RoIAlignWindowCUDA.apply(boxes, levels, tuple(strides),
-                                         output_size, sampling_ratio,
-                                         *features)
+        if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+            return _RoIAlignWindowCUDA.apply(boxes, levels, tuple(strides),
+                                             output_size, sampling_ratio,
+                                             *features)
+        return roi_align_window_cuda(features, strides, boxes, levels,
+                                     output_size, sampling_ratio)
     if boxes.device.type == "cpu":
         # The boxes are data on both devices (the kernels give them no
         # gradient, tpudet's VJP gives them zeros).

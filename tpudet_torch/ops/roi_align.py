@@ -44,6 +44,8 @@ def _sample_grid(starts, extents, size, s, r):
     pos = (starts - 0.5)[:, None] + grid[None, :] * (
         extents.clamp(min=1e-6) / s_div)[:, None]
     valid = (pos >= -1.0) & (pos <= size)
+    if isinstance(size, torch.Tensor):  # one size per row, [K, 1]
+        return _clamp_upto(pos, size - 1), valid
     return pos.clamp(0, size - 1), valid
 
 
@@ -200,6 +202,12 @@ def fpn_assign_levels(
     return k
 
 
+def _clamp_upto(x: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``x.clamp(0, hi)`` for a per-row ``hi`` tensor (clamp's order: the
+    lower bound, then the upper)."""
+    return torch.minimum(x.clamp(min=0), hi)
+
+
 def roi_align_levels(
     features: Sequence[torch.Tensor],
     strides: Sequence[float],
@@ -214,21 +222,53 @@ def roi_align_levels(
     level names no map pools to zeros.
 
     The value of the JAX package's windowed pooler and of its all-level
-    masked sum under the same levels: each level's RoIs go through the
-    gather form on ``boxes / stride`` and back to their places."""
+    masked sum under the same levels: each RoI goes through the arithmetic
+    of ``roi_align_batched`` on ``boxes / stride`` at its level, in one
+    gather pass over the levels laid out one after another in one flat f32
+    buffer (each RoI with its level's row offset, height, width and
+    stride). Its shapes depend on no data, so ``torch.export`` traces it."""
     b, n = boxes.shape[:2]
     dev = boxes.device
     c = features[0].shape[-1]
-    s = output_size
-    flat_boxes = boxes.reshape(b * n, 4).float()
-    flat_levels = levels.reshape(b * n)
-    image_index = torch.arange(b, dtype=torch.int32, device=dev
-                               ).repeat_interleave(n)
-    out = torch.zeros((b * n, s, s, c), dtype=features[0].dtype, device=dev)
-    for level, (feat, stride) in enumerate(zip(features, strides)):
-        sel = torch.nonzero(flat_levels == level).squeeze(1)
-        if sel.numel():
-            out[sel] = roi_align_batched(
-                feat, flat_boxes[sel] / torch.tensor(float(stride), device=dev),
-                image_index[sel], s, sampling_ratio)
-    return out.reshape(b, n, s, s, c)
+    s, r = output_size, sampling_ratio
+    k = b * n
+    flat_levels = levels.reshape(k).long()
+    known = (flat_levels >= 0) & (flat_levels < len(features))
+    lvl = torch.where(known, flat_levels, torch.zeros_like(flat_levels))
+    # Per level: row offset in the flat buffer, height, width, stride.
+    sizes = [f.shape[0] * f.shape[1] * f.shape[2] for f in features]
+    bases = torch.tensor([sum(sizes[:i]) for i in range(len(features))],
+                         dtype=torch.int64, device=dev)[lvl]
+    heights = torch.tensor([f.shape[1] for f in features], dtype=torch.int64,
+                           device=dev)[lvl]
+    widths = torch.tensor([f.shape[2] for f in features], dtype=torch.int64,
+                          device=dev)[lvl]
+    stride = torch.tensor([float(st) for st in strides], dtype=torch.float32,
+                          device=dev)[lvl]
+    table = torch.cat([f.float().reshape(-1, c) for f in features])
+    image = torch.arange(b, dtype=torch.int64, device=dev).repeat_interleave(n)
+
+    rois = boxes.reshape(k, 4).float() / stride[:, None]
+    h32, w32 = heights.float()[:, None], widths.float()[:, None]
+    ys, vy = _sample_grid(rois[:, 1], rois[:, 3] - rois[:, 1], h32, s, r)
+    xs, vx = _sample_grid(rois[:, 0], rois[:, 2] - rois[:, 0], w32, s, r)
+    hmax, wmax = heights[:, None] - 1, widths[:, None] - 1
+    y0 = _clamp_upto(ys.floor().long(), hmax)
+    x0 = _clamp_upto(xs.floor().long(), wmax)
+    y1 = torch.minimum(y0 + 1, hmax)
+    x1 = torch.minimum(x0 + 1, wmax)
+    ly = (ys - y0.float())[:, :, None, None]
+    lx = (xs - x0.float())[:, None, :, None]
+    row0 = (bases + image * heights * widths)[:, None, None]
+    width = widths[:, None, None]
+
+    def corner(yi, xi):  # [K, s*r, s*r, C] in f32
+        return table[row0 + yi[:, :, None] * width + xi[:, None, :]]
+
+    top = corner(y0, x0) * (1.0 - lx) + corner(y0, x1) * lx
+    bot = corner(y1, x0) * (1.0 - lx) + corner(y1, x1) * lx
+    sampled = top * (1.0 - ly) + bot * ly
+    vmask = (vy[:, :, None] & vx[:, None, :] & known[:, None, None])[..., None]
+    sampled = torch.where(vmask, sampled, torch.zeros_like(sampled))
+    pooled = sampled.reshape(k, s, r, s, r, c).mean(dim=(2, 4))
+    return pooled.to(features[0].dtype).reshape(b, n, s, s, c)
