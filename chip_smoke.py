@@ -288,13 +288,33 @@ no result):
     that imports ``tpudet_torch.serving`` alone (no ``tpudet_torch.models``
     after the load) and run on seeded canvases, their detections against the
     live predict's (``serve_match``); export seconds, artifact MB, the
-    program's ms per batch (CUDA events, median of 20) beside the live
-    ``make_eval_step``'s, ``ServingModel.detect``'s img/s over 64 mixed-size
+    program's ms per batch (CUDA events, median of 10) beside the live
+    ``make_eval_step``'s, ``ServingModel.detect``'s img/s over 32 mixed-size
     images (host half included), launches per call;
 59. ``python -m tpudet_torch.cli.export --preset voc_r50 --batch-size 8
     --output ... --verify`` on its 640x640 bucket, and its refusal of an
     empty checkpoint directory;
-60. ``python -m tpudet_torch.cli.parity --dry-run`` on the card.
+60. ``python -m tpudet_torch.cli.parity --dry-run`` on the card;
+61. tensor parallelism (right after the serving phases, while this process
+    holds little of the card): two NCCL ranks on one card are refused
+    (recorded), so two processes on the one card form a tp=2 gloo group
+    on CUDA tensors; coco_r101_fpn (its RoI head's fc1 and fc2 cut) and
+    coco_deformable_detr_r50 (4 of 8 heads per rank) at full width with
+    their plain init, bf16, 5 steps at b=8 832x832, each step held
+    against the one-process step from the same state (losses within
+    2^-7, gradients and SGD updates within phase 33's 5% or 4x the bf16
+    step's own distance from f32, the Hungarian matching replayed), ms
+    and peak memory per step of each, launches per rank (1 NMS, 1 FPN
+    forward and 1 backward; 12 deformable forward and 12 backward);
+62. the remaining options: approx and the routed poolers bit-equal to
+    their defaults (voc_r50, coco_r101_fpn), ``crop_and_resize`` on
+    voc_r50 against the CPU and through a bf16 predict and train step,
+    ``s2d_stem`` against the standard stem with converted weights,
+    ``remat`` on the coco_r101_fpn b=8 step (equal losses, updates by
+    phase 33's rule, each one's peak memory and ms), head-shared
+    deformable locations against the CPU and through a bf16 predict and
+    train step with launch counts; then the deformable kernels at a tp=2
+    rank's 4 of 8 heads (phase 8's shapes).
 
 Then one JSON line of per-kernel numbers, the card line of nvidia-smi, and
 last ``{"ok": true, "device": {...}}``. Weights are random from a seed.
@@ -958,16 +978,19 @@ def wide_layers(model):
         yield core.semantic_head.predict, SEMANTIC_PREDICT_STD
 
 
-def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0):
+def preset_model(preset: str, dtype: str, device="cuda", seed: int = 0,
+                 overrides=None):
     """The preset at full width with random weights from ``seed`` and the
     kernels that Flax's init leaves degenerate drawn wider (``HEAD_STD``,
-    ``DETR_STD``, ``ONE_STAGE_STD``)."""
+    ``DETR_STD``, ``ONE_STAGE_STD``); ``overrides`` are ``--set``'s dotted
+    fields."""
     import torch
 
     from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.config import apply_overrides
     from tpudet_torch.models import build_model
 
-    cfg = preset_config(preset)
+    cfg = apply_overrides(preset_config(preset), overrides or {})
     cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone, dtype=dtype))
     model = build_model(cfg, device=device).init(seed=seed)
     gen = torch.Generator().manual_seed(seed + 1)
@@ -1036,15 +1059,16 @@ def same_detections(port, ref):
     return True
 
 
-def card_equals_cpu(preset, seed, label):
+def card_equals_cpu(preset, seed, label, overrides=None):
     """Reference on a small input: the f32 preset with the kernels on the
     card against the same weights on the CPU, where every wrapper runs its
     plain version. Returns the card model, the input and the detection
     counts."""
     from tpudet_torch.train.step import make_eval_step
 
-    cfg32, model32 = preset_model(preset, "float32")
-    cpu_cfg, cpu_model = preset_model(preset, "float32", device="cpu")
+    cfg32, model32 = preset_model(preset, "float32", overrides=overrides)
+    cpu_cfg, cpu_model = preset_model(preset, "float32", device="cpu",
+                                      overrides=overrides)
     cpu_model.load_state_dict(model32.state_dict())
     small = canvases(2, 256, 256, seed=seed)
     gpu_out = {k: v.cpu()
@@ -1293,10 +1317,11 @@ def deform_backward_work(values, shapes, loc, weights):
     return bytes_moved / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
 
-def phase_deform_attn():
+def phase_deform_attn(heads=8):
     """The deformable attention kernel at coco_deformable_detr_r50's
     832x832 shapes: an encoder layer (b=8, Q = N = 14,365) and a decoder
-    layer (Q = 300), bf16 and f32 values."""
+    layer (Q = 300), bf16 and f32 values; ``heads=4`` is a tp=2 rank's
+    share of the 8 heads."""
     import torch
 
     from tpudet_torch.kernels import deform_attn as kda
@@ -1304,14 +1329,15 @@ def phase_deform_attn():
 
     gen = torch.Generator().manual_seed(21)
     cuda_gen = torch.Generator(device="cuda").manual_seed(21)
-    b, heads, d = 8, 8, 32
+    b, d = 8, 32
     n = sum(hl * wl for hl, wl in DEFORM_SHAPES)
     values32 = torch.randn(b, n, heads, d, generator=cuda_gen, device="cuda")
     scenes = {"encoder": deform_scene(gen, b,
-                                      level_reference_points(DEFORM_SHAPES)),
+                                      level_reference_points(DEFORM_SHAPES),
+                                      heads=heads),
               "decoder": deform_scene(gen, b,
                                       torch.rand(300, 2, generator=gen) * 0.9
-                                      + 0.05)}
+                                      + 0.05, heads=heads)}
     result = {}
     for call, (loc, weights) in scenes.items():
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -5444,7 +5470,7 @@ SERVE_PATHS = {
                          ("ms_deform_attn_fwd",)),
 }
 SERVE_BATCH = 8
-SERVE_IMAGES = 64
+SERVE_IMAGES = 32
 # The bf16 parity rule of tests/test_torch_bf16_parity.py: scores within
 # 2^-5, boxes within 1 px, at most a fifth of an image's detections
 # flipped.
@@ -5455,7 +5481,7 @@ BF16_FLIP_SHARE = 0.2
 # Runs in a fresh python3 that imports tpudet_torch.serving and nothing else
 # of the port: loads each artifact, checks its graphs and its imports, runs
 # it on the seeded canvases (outputs to an npz), times the program (CUDA
-# events, median of 20 calls after 3) and ServingModel.detect on mixed-size
+# events, median of 10 calls after 3) and ServingModel.detect on mixed-size
 # images (host half included), and counts the kernels' launches.
 SERVE_WORKER = r"""
 import json, sys, time
@@ -5505,7 +5531,7 @@ for spec in json.loads(sys.argv[1]):
             serving(image, hw)
         torch.cuda.synchronize()
         times = []
-        for _ in range(20):
+        for _ in range(10):
             begin = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             begin.record()
@@ -5590,7 +5616,7 @@ def phase_serve(card, phases):
     detections held against the live ``make_eval_step``'s (``serve_match``)
     and its graph's ``tpudet::`` operators and ``kernels_embedded`` read;
     export seconds, artifact MB, the program's ms per batch beside the live
-    step's, ``ServingModel.detect``'s img/s over 64 mixed-size images and
+    step's, ``ServingModel.detect``'s img/s over 32 mixed-size images and
     the launches per call -> each path's launches ({label: counts}) over
     its detect run, zeroed just before it. Both sides run cuDNN without
     its autotuner and with deterministic algorithms: this process keeps
@@ -5689,7 +5715,7 @@ def phase_serve(card, phases):
                          f"({flips} flipped)")
                       + f" to the live predict's; program "
                       f"{r['program_ms']:.2f} ms "
-                      f"per batch (median of 20), live make_eval_step "
+                      f"per batch (median of 10), live make_eval_step "
                       f"{f['live_ms']:.2f} ms; detect "
                       f"{r['detect_img_s']:.1f} img/s over {SERVE_IMAGES} "
                       f"images of {job['sizes'][0]}..{job['sizes'][1]} px "
@@ -5772,6 +5798,611 @@ def phase_parity_cli(card):
           f"the command, not a parity number); launches {launches}",
           flush=True)
     return {"tiny cli.parity --dry-run": launches}
+
+
+# --------------------------------------------------------------------------
+# Tensor parallelism and the remaining options (phases 61-62).
+
+# preset -> (seed, launches per step). The models take the plain init of
+# the train phases: with the widened heads of ``preset_model`` the
+# coco_r101_fpn step drives the logits into the hundreds by step 2, where
+# one bf16 ulp of a logit moves the loss by percents (a first card run:
+# the same state's one-process and TP losses 7% apart from step 2 on,
+# equal to 5 digits at steps 0 and 1).
+TP_PATHS = {"coco_r101_fpn": (171, {"nms": 1, "roi_align_window": 1,
+                                    "roi_align_window_backward": 1}),
+            "coco_deformable_detr_r50": (173, {"deform_attn": 12,
+                                               "deform_attn_backward": 12})}
+TP_STEPS = 5
+TP_BATCH = 8
+TP_WORKER = r"""
+import json, sys
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+chip_smoke.tp_worker(json.loads(sys.argv[1]))
+"""
+NCCL_TWO_RANKS = r"""
+import datetime, sys
+import torch
+import torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=sys.argv[2], rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=60))
+x = torch.ones(4, device="cuda:0")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("all_reduce returned", x.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_pair(argvs, timeout):
+    """Two processes at once; the first to fail (or the time limit) ends
+    both. -> (return codes, outputs)."""
+    import subprocess as sp
+
+    procs = [sp.Popen(argv, cwd=HERE, stdout=sp.PIPE, stderr=sp.STDOUT,
+                      text=True) for argv in argvs]
+    outs = [None, None]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if (time.monotonic() > deadline
+                    or any(p.poll() not in (None, 0) for p in procs)):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate()[0]
+    return [p.returncode for p in procs], outs
+
+
+def tp_worker(spec):
+    """One rank of the tp_step phase's tp=2 group (two processes on the one
+    card over gloo), for each preset of ``TP_PATHS`` in turn: the preset at
+    full width with its plain init (both ranks draw it from one seed),
+    bf16, ``TP_STEPS`` steps on planted ``TP_BATCH`` x 832x832 canvases.
+    Each step is taken three times from the same state: once by the
+    sharded model, then by an unsharded model in this process (the
+    one-process step, the sharded state joined into it), in bf16 and again
+    in f32 (the bf16 step's own rounding), both replaying the TP step's
+    Hungarian matching. The losses, each gradient shard and
+    each updated shard are compared (AdamW moves each element by the rate
+    times a sign that rounding flips where the gradient is noise: its
+    flips are counted), and the TP step's launches counted. Prints one
+    JSON record per preset."""
+    import copy
+
+    import torch
+
+    from tpudet_torch.cli.common import preset_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.parallel import init_mesh
+    from tpudet_torch.train import losses
+    from tpudet_torch.train.checkpoint import optimizer_map
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    mesh = init_mesh(2, 1, "cuda:0", rank=spec["rank"], world_size=2,
+                     init_method=spec["init"], backend="gloo", timeout_s=300)
+    dev = mesh.device
+    # The set losses' Hungarian matching, recorded in the TP step and
+    # replayed in the one-process steps: a near tie of two queries' costs
+    # (bf16 roundings apart) would route the gradient to another query.
+    # The assignments the one-process step would have made otherwise are
+    # counted.
+    matcher = {"mode": None}
+    solve = losses.hungarian_masked
+
+    def hungarian_masked(cost, valid):
+        got = solve(cost, valid)
+        if matcher["mode"] == "record":
+            matcher["record"].append(got)
+        elif matcher["mode"] == "replay":
+            want = matcher["record"][matcher["replayed"]]
+            matcher["replayed"] += 1
+            matcher["differ"] += int((got != want).sum())
+            matcher["pairs"] += got.numel()
+            return want
+        return got
+
+    losses.hungarian_masked = hungarian_masked
+    for preset, (seed, _) in TP_PATHS.items():
+        cfg = preset_config(preset)
+        cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
+                                                       dtype="bfloat16"))
+        model, ref_model = build_model(cfg), build_model(cfg)
+        state = create_train_state(model, cfg.train, seed=seed, device=dev,
+                                   dp=mesh)
+        ref = create_train_state(ref_model, cfg.train, seed=seed, device=dev)
+        tp = model.core.tp
+        layout = tp.layout
+        batch = planted_batch(cfg, TP_BATCH, 832, 832, seed=seed)
+        step = make_train_step(model, cfg, device=dev, dp=mesh)
+        ref_step = make_train_step(ref_model, cfg, device=dev)
+        record = {"preset": preset, "rank": mesh.model_rank, "steps": [],
+                  "optimizer": cfg.train.optimizer, "launches": {},
+                  "cut": sum(s.kind != "replicated" for s in layout.values())}
+        def sync():
+            """The one-process state := the TP state, joined."""
+            with torch.no_grad():
+                for name, p in ref.params.items():
+                    p.copy_(tp.join(state.params[name], layout[name].dim))
+            # Copies: the optimizer keeps the tensors it is given, and a
+            # replicated one would be the TP optimizer's own buffer.
+            ref.optimizer.load_state_dict(optimizer_map(
+                state, state.optimizer.state_dict(),
+                lambda t, dim: tp.join(t, dim).clone()))
+            ref.step = state.step
+
+        dtypes = {m: m.dtype for m in ref_model.modules()
+                  if isinstance(getattr(m, "dtype", None), torch.dtype)}
+
+        def compute_in(f32):
+            """Every layer of the one-process model computes in f32 (its
+            parameters are f32 either way), or each in its own dtype."""
+            for m, dtype in dtypes.items():
+                m.dtype = torch.float32 if f32 else dtype
+
+        def shards(which):
+            """This rank's shard of each gradient or parameter of the
+            one-process state."""
+            return {k: tp.shard((p.grad if which == "grad" else p).detach(),
+                                layout[k].dim).clone()
+                    for k, p in ref.params.items()
+                    if which != "grad" or p.grad is not None}
+
+        def gaps(got, want, base=None):
+            """Per tensor: max |got - want| over the largest of ``want``
+            (``base``: of ``want - base``), floored at 1e-3 of the largest
+            of all."""
+            if base is not None:
+                got = {k: g - base[k] for k, g in got.items()}
+                want = {k: w - base[k] for k, w in want.items()}
+            floor = 1e-3 * max(float(w.abs().max()) for w in want.values())
+            return {k: float((got[k] - w).abs().max())
+                    / (float(w.abs().max()) + floor)
+                    for k, w in want.items()}
+
+        for _ in range(TP_STEPS):
+            before = {k: p.detach().clone() for k, p in state.params.items()}
+            sync()
+            saved = ({k: p.detach().clone() for k, p in ref.params.items()},
+                     copy.deepcopy(ref.optimizer.state_dict()))
+            out, seen = {}, {}
+            matcher.update(record=[], replayed=0, differ=0, pairs=0)
+            for label, run, st in (("tp", step, state),
+                                   ("one", ref_step, ref),
+                                   ("f32", ref_step, ref)):
+                if label == "f32":  # back to the state before "one"
+                    with torch.no_grad():
+                        for k, p in ref.params.items():
+                            p.copy_(saved[0][k])
+                    ref.optimizer.load_state_dict(saved[1])
+                    ref.step = state.step - 1
+                    matcher["replayed"] = 0
+                    compute_in(True)
+                    torch.cuda.empty_cache()
+                matcher["mode"] = "record" if label == "tp" else "replay"
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                zero_launches()
+                start = time.perf_counter()
+                _, metrics = run(st, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize(dev)
+                out[label] = {"ms": (time.perf_counter() - start) * 1e3,
+                              "peak_gib": torch.cuda.max_memory_allocated(dev)
+                              / 2 ** 30, "loss": loss}
+                if label == "tp":
+                    for k, v in read_launches().items():
+                        record["launches"][k] = (record["launches"].get(k, 0)
+                                                 + v)
+                    seen[label] = (
+                        {k: p.grad.detach().clone()
+                         for k, p in state.params.items()
+                         if p.grad is not None},
+                        {k: p.detach().clone()
+                         for k, p in state.params.items()})
+                else:
+                    seen[label] = (shards("grad"), shards("param"))
+            compute_in(False)
+            torch.cuda.empty_cache()
+            matcher["mode"] = None
+            out["matches"] = (matcher["differ"], matcher["pairs"])
+            (g1, p1), (g2, p2), (gt, pt) = (seen[k] for k in
+                                            ("one", "f32", "tp"))
+            # The bf16 step's own rounding: the one-process step in bf16
+            # against the same step computed in f32.
+            spread_g, tp_g = gaps(g2, g1), gaps(gt, g1)
+            spread_u, tp_u = gaps(p2, p1, before), gaps(pt, p1, before)
+            moved = {k: p1[k] - before[k] for k in p1}
+            flips = sum(int(((pt[k] - before[k]) * m < 0).sum())
+                        for k, m in moved.items())
+            spread_flips = sum(int(((p2[k] - before[k]) * m < 0).sum())
+                               for k, m in moved.items())
+            worst = max((tp_g[k] / max(0.05, 4 * spread_g[k]), k)
+                        for k in tp_g)
+            worst_u = max((tp_u[k] / max(0.05, 4 * spread_u[k]), k)
+                          for k in tp_u)
+            out.update(
+                grad_gap=(tp_g[worst[1]], spread_g[worst[1]], worst[1],
+                          worst[0]),
+                update_gap=(tp_u[worst_u[1]], spread_u[worst_u[1]],
+                            worst_u[1], worst_u[0]),
+                sign_flips=(flips, spread_flips,
+                            sum(m.numel() for m in moved.values())))
+            record["steps"].append(out)
+            del seen, g1, p1, g2, p2, gt, pt, moved
+        print("TP_RECORD " + json.dumps(record), flush=True)
+        del model, ref_model, state, ref, step, ref_step, batch
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    mesh.close()
+
+
+def nccl_two_ranks_one_card():
+    """Two NCCL ranks on one card: the error NCCL gives (it refuses the
+    pair), or None where the all-reduce went through."""
+    init = f"tcp://127.0.0.1:{free_port()}"
+    rcs, outs = run_pair([[sys.executable, "-c", NCCL_TWO_RANKS, str(r),
+                           init] for r in range(2)], timeout=120)
+    if all(rc == 0 for rc in rcs):
+        return None
+    text = "\n".join(outs)
+    lines = [ln for ln in text.splitlines()
+             if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln]
+    return (lines[0].strip() if lines else
+            f"return codes {rcs}: {text.strip().splitlines()[-1:]}")
+
+
+def phase_tp_step(card):
+    """Tensor parallelism on the card: coco_r101_fpn (the RoI head's fc
+    1024 -> 512 per rank) and coco_deformable_detr_r50 (4 of 8 heads per
+    rank) at full width, bf16, global b=``TP_BATCH``, tp=2 x dp=1, in two
+    processes on the one card. NCCL refuses two ranks on one card, so the
+    pair forms a gloo group on CUDA tensors (the TP layers use
+    ``all_reduce`` alone). Per rank and step (``tp_worker``): the loss
+    equals the one-process step's within bf16 rounding (2^-7 relative),
+    each gradient and (under SGD) each update agrees within 5% of the
+    tensor's largest (phase 33's rule: the backward kernels' atomics and
+    the bf16 convolution gradients) or 4x the one-process bf16 step's
+    distance from its f32 step where that is wider, AdamW's sign flips
+    are counted, and the launches are the path's per step. The ms and peak memory per step
+    of each are a record: two processes share the card and gloo stages
+    through the host."""
+    import torch
+
+    torch.cuda.empty_cache()  # this process's cached blocks, for the pair
+    refused = nccl_two_ranks_one_card()
+    print(f"tp_step: two NCCL ranks on one card: "
+          f"{refused or 'the all-reduce went through'}", flush=True)
+    init = f"tcp://127.0.0.1:{free_port()}"
+    start = time.perf_counter()
+    rcs, outs = run_pair([[sys.executable, "-c", TP_WORKER, json.dumps(
+        {"rank": r, "init": init}), str(HERE)] for r in range(2)],
+        timeout=900)
+    seconds = time.perf_counter() - start
+    check(rcs == [0, 0], f"tp_step: the ranks failed {rcs}:\n"
+          + "\n".join(o[-3000:] for o in outs))
+    records = [json.loads(ln[len("TP_RECORD "):]) for o in outs
+               for ln in o.splitlines() if ln.startswith("TP_RECORD ")]
+    check(len(records) == 2 * len(TP_PATHS), f"tp_step: {len(records)} "
+          "records from the two ranks")
+    launches = {}
+    for rec in records:
+        preset, r = rec["preset"], rec["rank"]
+        adam = rec["optimizer"] != "sgd"
+        for i, st in enumerate(rec["steps"]):
+            one, tp = st["one"], st["tp"]
+            (g_tp, g_spread, g_name, g_ratio) = st["grad_gap"]
+            (u_tp, u_spread, u_name, u_ratio) = st["update_gap"]
+            flips, spread_flips, elements = st["sign_flips"]
+            print(f"tp_step {preset} rank {r} step {i}: loss {tp['loss']:.6f}"
+                  f" (one process {one['loss']:.6f}, in f32 "
+                  f"{st['f32']['loss']:.6f}); worst gradient {g_name}: "
+                  f"{g_tp:.3e} (one process, bf16 against f32: "
+                  f"{g_spread:.3e}); worst update {u_name}: {u_tp:.3e} "
+                  f"({u_spread:.3e}); update "
+                  f"signs flipped {flips} ({spread_flips}) of {elements}; "
+                  f"Hungarian assignments the one-process step makes "
+                  f"otherwise {st['matches'][0]} of {st['matches'][1]}; "
+                  f"tp {tp['ms']:.1f} ms, {tp['peak_gib']:.2f} GiB; one "
+                  f"process {one['ms']:.1f} ms, {one['peak_gib']:.2f} GiB",
+                  flush=True)
+            check(abs(tp["loss"] - one["loss"]) <= 2 ** -7 * abs(one["loss"]),
+                  f"tp_step {preset} rank {r} step {i}: loss {tp['loss']} "
+                  f"against one process {one['loss']}")
+            # Phase 33's rule, 5% of the tensor's largest, or 4x the bf16
+            # step's own distance from the f32 step where that is wider
+            # (as the f32 card steps are held within 4x the CPU's own
+            # spread, ROADMAP.md Queue 3).
+            check(g_ratio <= 1.0, f"tp_step {preset} rank {r} step {i}: "
+                  f"gradient {g_name} differs from the one-process step's "
+                  f"by {g_tp:.3e} of its largest (spread {g_spread:.3e})")
+            check(adam or u_ratio <= 1.0, f"tp_step {preset} rank {r} step "
+                  f"{i}: update {u_name} differs from the one-process "
+                  f"step's by {u_tp:.3e} of its size (spread "
+                  f"{u_spread:.3e})")
+        expect_launches(rec["launches"], f"tp_step {preset} rank {r}",
+                        **{k: v * TP_STEPS
+                           for k, v in TP_PATHS[preset][1].items()})
+        steps = rec["steps"][1:]
+        mean = {k: {f: sum(s[k][f] for s in steps) / len(steps)
+                    for f in ("ms", "peak_gib")} for k in ("one", "tp")}
+        print(f"tp_step {preset} bf16 b={TP_BATCH} 832x832 tp=2 rank {r} "
+              f"({rec['cut']} tensors cut): steps 1..{TP_STEPS - 1}: tp "
+              f"{mean['tp']['ms']:.1f} ms/step, peak "
+              f"{mean['tp']['peak_gib']:.2f} GiB; one process "
+              f"{mean['one']['ms']:.1f} ms/step, peak "
+              f"{mean['one']['peak_gib']:.2f} GiB (both processes on the "
+              f"card at once, gloo through the host); launches "
+              f"{json.dumps(rec['launches'])} | {card}", flush=True)
+        launches[f"{preset} tp_step rank {r}"] = rec["launches"]
+    print(f"tp_step: {seconds:.1f} s for the pair", flush=True)
+    return launches
+
+
+def phase_options(card):
+    """The remaining options at full width on the card:
+
+    * ``rpn.topk_method="approx"``: voc_r50 and coco_r101_fpn f32 b=2
+      320x320 predicts equal the exact ones bit for bit;
+    * the routed poolers (``roi_align_gather``/``_pallas``/``_packed``):
+      pooled features of 300 RoIs per image equal ``roi_align``'s bit for
+      bit, on c4 and with FPN, one pooling launch each;
+    * ``crop_and_resize`` on voc_r50: its features and their gradient on
+      the f32 c4 map equal the CPU's, an f32 b=2 256x256 predict equals the
+      CPU's, a bf16 b=8 640x640 predict and train step launch NMS and no
+      RoI Align;
+    * ``s2d_stem`` on voc_r50 (f32): c4 and the predict equal the standard
+      stem's with converted weights;
+    * ``remat`` on coco_r101_fpn, bf16 b=8 832x832: one step with and one
+      without from the same state: equal losses, updates by phase 33's
+      rule, and each one's peak memory;
+    * ``shared_sampling_locations`` with the patch gather on
+      coco_deformable_detr_r50: an f32 b=2 256x256 predict equals the
+      CPU's; a bf16 b=8 832x832 predict and train step launch 12 forward
+      (and 12 backward) deformable kernels."""
+    import copy
+
+    import torch
+
+    from tpudet_torch.models import build_model
+    from tpudet_torch.models.resnet import convert_params_to_s2d
+    from tpudet_torch.ops.roi_align import crop_and_resize_batched
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_eval_step, make_train_step
+
+    launches = {}
+    saved = (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+    def counted(label, fn):
+        zero_launches()
+        out = fn()
+        launches[label] = read_launches()
+        return out
+
+    def with_cfg(model, cfg):
+        """``model``'s layers under another config (its pipeline reads it)."""
+        other = copy.copy(model)
+        other.cfg = cfg
+        return other
+
+    def dotted(cfg, **fields):
+        from tpudet_torch.config import apply_overrides
+
+        return apply_overrides(cfg, fields)
+
+    # approx against exact.
+    for preset, seed in (("voc_r50", 181), ("coco_r101_fpn", 183)):
+        cfg, model = preset_model(preset, "float32", seed=seed)
+        batch = canvases(2, 320, 320, seed=seed)
+        exact = make_eval_step(model, cfg)(batch)
+        approx_cfg = dotted(cfg, **{"rpn.topk_method": "approx"})
+        approx = counted(f"{preset} approx predict", lambda: make_eval_step(
+            with_cfg(model, approx_cfg), approx_cfg)(batch))
+        check(all(torch.equal(exact[k], approx[k]) for k in exact),
+              f"options: {preset} approx predict differs from exact")
+        pool = "roi_align_window" if cfg.backbone.use_fpn else "roi_align"
+        expect_launches(launches[f"{preset} approx predict"],
+                        f"{preset} approx predict", nms=2, **{pool: 1})
+        # The routed poolers: one pooling launch, roi_align's bits.
+        gen = torch.Generator().manual_seed(seed)
+        rois = random_boxes(gen, (2, 300), 320, 320, lo=8.0, hi=300.0)
+        with torch.no_grad():
+            feats = model.core.features(
+                torch.randn(2, 320, 320, 3, generator=gen).cuda())
+            # coco_r101_fpn's preset pools with "roi_align_window": the
+            # routed poolers are "roi_align" (no fit-bumped levels).
+            base = with_cfg(model, dotted(cfg, **{"roi.pooler": "roi_align"})
+                            )._pool_batch(feats, rois)
+            for pooler in ("roi_align_gather", "roi_align_pallas",
+                           "roi_align_packed"):
+                routed = with_cfg(model, dotted(cfg, **{"roi.pooler": pooler}))
+                got = counted(f"{preset} {pooler} pool",
+                              lambda: routed._pool_batch(feats, rois))
+                check(torch.equal(got, base), f"options: {preset} {pooler} "
+                      "differs from roi_align")
+                expect_launches(launches[f"{preset} {pooler} pool"],
+                                f"{preset} {pooler}", **{pool: 1})
+        print(f"options {preset} f32 b=2 320x320: approx predict equals "
+              f"exact bit for bit (detections "
+              f"{exact['num_detections'].tolist()}); roi_align_gather, "
+              "roi_align_pallas and roi_align_packed pool 2x300 RoIs to "
+              f"{pool}'s bits in one launch each", flush=True)
+        del model, feats
+
+    # crop_and_resize on voc_r50.
+    crop = {"roi.pooler": "crop_and_resize"}
+    cfg32, model32 = preset_model("voc_r50", "float32", seed=185,
+                                  overrides=crop)
+    cpu_cfg, cpu_model = preset_model("voc_r50", "float32", device="cpu",
+                                      seed=185, overrides=crop)
+    cpu_model.load_state_dict(model32.state_dict())
+    gen = torch.Generator().manual_seed(185)
+    fmap = torch.randn(2, 40, 40, 1024, generator=gen)
+    boxes = random_boxes(gen, (2 * 64,), 40, 40, lo=0.5, hi=30.0,
+                         device="cpu")
+    index = torch.arange(2, dtype=torch.int32).repeat_interleave(64)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        x = fmap.to(dev).requires_grad_(True)
+        out = crop_and_resize_batched(x, boxes.to(dev), index.to(dev), 7)
+        out.square().sum().backward()
+        grads.append((out.detach().cpu(), x.grad.cpu()))
+    err = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(*grads))
+    check(err <= 1e-5, f"options: crop_and_resize on the card differs from "
+          f"the CPU by {err:.3e} of the largest value or gradient")
+    small = canvases(2, 256, 256, seed=186)
+    card_out = {k: v.cpu() for k, v in counted(
+        "voc_r50 crop_and_resize predict f32",
+        lambda: make_eval_step(model32, cfg32)(small)).items()}
+    cpu_out = make_eval_step(cpu_model, cpu_cfg)(
+        {k: v.cpu() for k, v in small.items()})
+    check(bool((cpu_out["num_detections"] > 0).all())
+          and same_detections(card_out, cpu_out),
+          "options: f32 voc_r50 crop_and_resize predict on the card differs "
+          "from the CPU")
+    del model32, cpu_model
+    cfg, model = preset_model("voc_r50", "bfloat16", seed=187,
+                              overrides=crop)
+    big = canvases(8, 640, 640, seed=187)
+    out = counted("voc_r50 crop_and_resize predict",
+                  lambda: make_eval_step(model, cfg)(big))
+    check_detections(out, big, cfg.data.num_classes, "crop_and_resize")
+    state = create_train_state(model, cfg.train, seed=None)
+    train_batch = planted_batch(cfg, 8, 640, 640, seed=188)
+    step = make_train_step(model, cfg)
+    _, metrics = counted("voc_r50 crop_and_resize train",
+                         lambda: step(state, train_batch))
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+          f"options: crop_and_resize train step {metrics}")
+    for label, want in (("voc_r50 crop_and_resize predict f32", 2),
+                        ("voc_r50 crop_and_resize predict", 2),
+                        ("voc_r50 crop_and_resize train", 1)):
+        expect_launches(launches[label], label, nms=want)
+    print(f"options voc_r50 crop_and_resize: features and gradient on a "
+          f"1024-channel c4 map equal the CPU's within {err:.2e}; f32 b=2 "
+          f"256x256 predict equals the CPU's; bf16 b=8 640x640 predict and "
+          f"train step (loss {float(metrics['loss']):.4f}) launch NMS and "
+          f"no RoI Align", flush=True)
+    del model, state, step
+
+    # s2d_stem on voc_r50.
+    cfg, std = preset_model("voc_r50", "float32", seed=189)
+    s2d_cfg = dotted(cfg, **{"backbone.s2d_stem": True})
+    s2d = build_model(s2d_cfg)
+    s2d.core.load_state_dict(convert_params_to_s2d(std.core.state_dict()))
+    batch = canvases(2, 320, 320, seed=189)
+    with torch.no_grad():
+        images = torch.randn(2, 320, 320, 3, generator=gen).cuda()
+        c4, c4_s2d = (m.core.features(images)["c4"] for m in (std, s2d))
+    c4_err = float((c4 - c4_s2d).abs().max()) / float(c4.abs().max())
+    out_std = make_eval_step(std, cfg)(batch)
+    out_s2d = counted("voc_r50 s2d_stem predict",
+                      lambda: make_eval_step(s2d, s2d_cfg)(batch))
+    check(c4_err <= 1e-4 and same_detections(
+        {k: v.cpu() for k, v in out_s2d.items()},
+        {k: v.cpu() for k, v in out_std.items()}),
+        f"options: the s2d stem differs from the standard stem (c4 "
+        f"{c4_err:.3e} of its largest value)")
+    expect_launches(launches["voc_r50 s2d_stem predict"], "s2d_stem",
+                    nms=2, roi_align=1)
+    print(f"options voc_r50 s2d_stem f32 b=2 320x320: c4 within {c4_err:.2e}"
+          " of the standard stem's largest value, the same detections",
+          flush=True)
+    del std, s2d
+
+    # remat on coco_r101_fpn.
+    results = {}
+    fpn_batch = None
+    for remat in (False, True):
+        cfg, model = preset_model("coco_r101_fpn", "bfloat16", seed=191,
+                                  overrides={"backbone.remat": remat})
+        state = create_train_state(model, cfg.train, seed=None)
+        fpn_batch = fpn_batch or planted_batch(cfg, 8, 832, 832, seed=191)
+        step = make_train_step(model, cfg)
+        before = {k: p.detach().clone() for k, p in state.params.items()}
+        _, metrics = counted(f"coco_r101_fpn remat={remat} train",
+                             lambda: step(state, fpn_batch))
+        loss = float(metrics["loss"])
+        updates = {k: p.detach() - before[k] for k, p in state.params.items()}
+        del before
+        # A second step, timed, its peak memory read.
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        step(state, fpn_batch)
+        torch.cuda.synchronize()
+        results[remat] = (loss, torch.cuda.max_memory_allocated() / 2 ** 30,
+                          (time.perf_counter() - start) * 1e3, updates)
+        expect_launches(launches[f"coco_r101_fpn remat={remat} train"],
+                        f"remat={remat}", nms=1, roi_align_window=1,
+                        roi_align_window_backward=1)
+        del model, state, step
+    (loss0, peak0, ms0, up0), (loss1, peak1, ms1, up1) = (results[False],
+                                                          results[True])
+    gap = max(float((up1[k] - u).abs().max()) / float(u.abs().max())
+              for k, u in up0.items() if float(u.abs().max()) > 0)
+    check(loss0 == loss1 and gap <= 0.05, f"options: remat changes the step "
+          f"(loss {loss0} / {loss1}, update gap {gap:.3e})")
+    print(f"options coco_r101_fpn bf16 b=8 832x832 train step: remat off "
+          f"peak {peak0:.2f} GiB, {ms0:.1f} ms; on {peak1:.2f} GiB, "
+          f"{ms1:.1f} ms (each one's second step); first steps from one "
+          f"state: equal losses {loss0:.5f}, updates within {gap:.3e} of "
+          f"their size | {card}", flush=True)
+    del results, up0, up1
+
+    # Head-shared sampling locations on coco_deformable_detr_r50.
+    shared = {"deformable_detr.sampling_gather": "patch",
+              "deformable_detr.shared_sampling_locations": True}
+    _, _, dets = card_equals_cpu("coco_deformable_detr_r50", 193,
+                                 "shared-location Deformable DETR",
+                                 overrides=shared)
+    cfg, model = preset_model("coco_deformable_detr_r50", "bfloat16",
+                              seed=195, overrides=shared)
+    big = canvases(8, 832, 832, seed=195)
+    out = counted("coco_deformable_detr_r50 shared predict",
+                  lambda: make_eval_step(model, cfg)(big))
+    check(bool(torch.isfinite(out["boxes"]).all()),
+          "options: shared-location predict boxes are not finite")
+    state = create_train_state(model, cfg.train, seed=None)
+    step = make_train_step(model, cfg)
+    batch = planted_batch(cfg, 8, 832, 832, seed=196)
+    _, metrics = counted("coco_deformable_detr_r50 shared train",
+                         lambda: step(state, batch))
+    check(all(bool(torch.isfinite(v)) for v in metrics.values()),
+          f"options: shared-location train step {metrics}")
+    expect_launches(launches["coco_deformable_detr_r50 shared predict"],
+                    "shared predict", deform_attn=12)
+    expect_launches(launches["coco_deformable_detr_r50 shared train"],
+                    "shared train", deform_attn=12, deform_attn_backward=12)
+    print(f"options coco_deformable_detr_r50 shared locations (patch): f32 "
+          f"b=2 256x256 predict equals the CPU's (detections {dets}); bf16 "
+          f"b=8 832x832 predict and train step (loss "
+          f"{float(metrics['loss']):.4f}) launch 12 forward and 12 backward "
+          f"kernels | {card}", flush=True)
+    del model, state, step
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = saved
+    torch.cuda.empty_cache()
+    return launches
 
 
 PHASES = {
@@ -5857,6 +6488,8 @@ PHASES = {
         card, [("serve_deformable", 165)]),
     "export_cli": lambda card: phase_export_cli(card),
     "parity_cli": lambda card: phase_parity_cli(card),
+    "tp_step": lambda card: phase_tp_step(card),
+    "options": lambda card: phase_options(card),
 }
 
 
@@ -5962,6 +6595,10 @@ def main(argv=None) -> None:
     phase_export_cli(card)
     serve_launches.update(phase_parity_cli(card))
     lap("serving, export_cli and parity_cli")
+    # Tensor parallelism (phase 61) while this process holds little memory:
+    # its two ranks share the card.
+    new_launches = phase_tp_step(card)
+    lap("tp_step")
     nms, nms_err = phase_nms()
     roi = phase_roi_align()
     roi_window = phase_roi_align_window()
@@ -6054,7 +6691,11 @@ def main(argv=None) -> None:
     slice_launches.update(phase_soft_nms(card))
     slice_launches.update(phase_backbones_cli(card))
     lap("soft_nms and backbones_cli")
+    new_launches.update(phase_options(card))
+    deform_h4 = phase_deform_attn(heads=4)
+    lap("options and the deformable kernels at 4 heads")
     slice_launches.update(serve_launches)
+    slice_launches.update(new_launches)
 
     from tpudet_torch.kernels import deform_attn as kda
     from tpudet_torch.kernels import nms as knms
@@ -6086,8 +6727,9 @@ def main(argv=None) -> None:
     def slice_paths(kernel):
         """The Mask R-CNN, data-parallel, Cascade R-CNN, Keypoint R-CNN,
         Panoptic FPN, RetinaNet, FCOS, DETR, ViTDet, VGG-16, Soft-NMS,
-        serving and parity-CLI paths' counts of ``kernel`` (phases 30-34,
-        36-55, 56-58 and 60), each zeroed just before its path."""
+        serving, parity-CLI, tensor-parallel and options paths' counts of
+        ``kernel`` (phases 30-34, 36-55, 56-58 and 60-62), each zeroed just
+        before its path."""
         return {path: counts[kernel] for path, counts in slice_launches.items()
                 if counts[kernel]}
 
@@ -6182,16 +6824,28 @@ def main(argv=None) -> None:
              {f"{detr} predict": detr_launches["deform_attn"],
               f"{detr} train": train_launches["deform_attn"],
               **{path: counts["deform_attn"]
-                 for path, counts in serve_launches.items()
-                 if counts["deform_attn"]}}),
+                 for path, counts in {**serve_launches,
+                                      **new_launches}.items()
+                 if counts.get("deform_attn")}}),
             ("deform_attn_backward", deform_bwd,
-             {f"{detr} train": train_launches["deform_attn_backward"]})):
+             {f"{detr} train": train_launches["deform_attn_backward"],
+              **{path: counts["deform_attn_backward"]
+                 for path, counts in new_launches.items()
+                 if counts.get("deform_attn_backward")}})):
         pair = [result[(call, "bf16")] for call in ("encoder", "decoder")]
         kernels.append(entry(
             name, kda, by_path,
             {key: sum(m[key] for m in pair)
              for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")},
             max(m["err"] for m in result.values())))
+    # The forward at a tp=2 rank's 4 of 8 heads (phase tp_step's shapes).
+    h4 = {key: sum(deform_h4[(call, "bf16")][key]
+                   for call in ("encoder", "decoder"))
+          for key in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+    kernels[-2]["h4"] = {"ms": h4["ms"], "plain_ms": h4["plain_ms"],
+                         "bound_ms": max(h4["bytes_ms"], h4["ops_ms"]),
+                         "max_abs_err": max(m["err"]
+                                            for m in deform_h4.values())}
     kernels[-1]["replaces"] = kda.BACKWARD_REPLACES
     # The probe's one-pass product; library_ms: torch.matmul on the bf16
     # operands (one cuBLAS call), eager as ms; the *device_ms keys: device

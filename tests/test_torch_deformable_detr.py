@@ -226,10 +226,15 @@ def test_build_checks_and_unported_parts():
             cfg.backbone, use_fpn=True)), device="cpu")
     with pytest.raises(ValueError, match="rpn_only"):
         tdd.DeformableDETR(cfg.replace(rpn_only=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Head-shared sampling needs the patch gather, as in the JAX package.
+    with pytest.raises(ValueError, match="patch"):
         tdd.DeformableDETR(cfg.replace(deformable_detr=dataclasses.replace(
-            dd, sampling_gather="patch", shared_sampling_locations=True)),
-            device="cpu")
+            dd, shared_sampling_locations=True)), device="cpu")
+    shared = tdd.DeformableDETR(cfg.replace(deformable_detr=dataclasses.replace(
+        dd, sampling_gather="patch", shared_sampling_locations=True)),
+        device="cpu")
+    assert shared.core.enc0.deform_attn.sampling_offsets.weight.shape[0] == (
+        dd.num_levels * dd.num_points * 2)
     # The loss is ported; in training mode with dropout it needs the
     # generator that draws the masks.
     dropping = tdd.DeformableDETR(cfg.replace(

@@ -214,9 +214,9 @@ def test_dropout_runs_at_every_flax_site(monkeypatch):
     model = build_model(tcfg, device="cpu").init(seed=0)
     calls = []
 
-    def counting(x, rate, generator):
+    def counting(x, rate, generator, tp=None):
         calls.append((rate, generator is not None))
-        return dropout(x, rate, generator)
+        return dropout(x, rate, generator, tp)
 
     monkeypatch.setattr(tdd, "dropout", counting)
     monkeypatch.setattr(tdetr, "dropout", counting)

@@ -165,9 +165,14 @@ def test_fpn_config_errors():
     with pytest.raises(ValueError, match="window"):
         build_model(cfg.replace(roi=dataclasses.replace(cfg.roi, window=32)),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The JAX package's other options build; unknown names are refused.
+    build_model(cfg.replace(rpn=dataclasses.replace(
+        cfg.rpn, topk_method="approx")), device="meta")
+    build_model(cfg.replace(roi=dataclasses.replace(
+        cfg.roi, pooler="roi_align_packed")), device="meta")
+    with pytest.raises(ValueError, match="topk_method"):
         build_model(cfg.replace(rpn=dataclasses.replace(
-            cfg.rpn, topk_method="approx")), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cfg.rpn, topk_method="partial")), device="cpu")
+    with pytest.raises(ValueError, match="pooler"):
         build_model(cfg.replace(roi=dataclasses.replace(
-            cfg.roi, pooler="roi_align_packed")), device="cpu")
+            cfg.roi, pooler="roi_pool")), device="cpu")

@@ -42,11 +42,12 @@ def test_import_loads_no_jax_and_no_tpudet_module():
     assert not [m for m in result["loaded"] if m.split(".")[0] in BANNED]
 
 
-# The modules of the data-parallel and Mask R-CNN slice, and the top-level
-# names they may import: the standard library, numpy, PIL (the polygon
-# raster), torch, and the port; torch.distributed is the one new torch
-# package among them.
+# The modules of the data-parallel and Mask R-CNN slice and of the tensor-
+# parallel one, and the top-level names they may import: the standard
+# library, numpy, PIL (the polygon raster), torch, and the port;
+# torch.distributed is the one new torch package among them.
 NEW_MODULES = ("tpudet_torch.parallel", "tpudet_torch.parallel.mesh",
+               "tpudet_torch.parallel.sharding_rules",
                "tpudet_torch.models.mask_rcnn", "tpudet_torch.models.mask_head",
                "tpudet_torch.ops.masks", "tpudet_torch.data.masks")
 NEW_IMPORTS = {"__future__", "dataclasses", "datetime", "os", "typing",
@@ -160,6 +161,24 @@ def test_config_defaults_equal_jax(group):
         if group != "Config" or name in ("model", "use_pallas", "rpn_only",
                                          "det_only"):
             assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
+    # ... and the other way: every JAX field exists in the port, with the
+    # JAX default, so that ``--set`` takes every field tpudet takes.
+    for name in (f.name for f in dataclasses.fields(ref)):
+        assert hasattr(port, name), f"{group}.{name} is missing in the port"
+        if group != "Config":
+            assert getattr(port, name) == getattr(ref, name), f"{group}.{name}"
+
+
+def test_no_option_raises_not_implemented():
+    """Every option the JAX package supports is ported: no source of the
+    port raises ``NotImplementedError``."""
+    for path in PORT.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Raise) and node.exc is not None:
+                exc = node.exc.func if isinstance(node.exc, ast.Call) \
+                    else node.exc
+                assert getattr(exc, "id", None) != "NotImplementedError", (
+                    f"{path.relative_to(ROOT)}:{node.lineno}")
 
 
 # The fields the FPN slice reads: present in the port, with JAX's defaults.

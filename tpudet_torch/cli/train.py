@@ -17,11 +17,21 @@ and ``--init-from``; pretrained backbone weights (an ``.npz`` of
 resumed run restarts the loader at epoch 0, as the JAX CLI does.
 
 Under torchrun (``WORLD_SIZE`` in the environment) each process joins the
-data-parallel group (NCCL on the cards, gloo with ``--device cpu``) and
-drives ``cuda:LOCAL_RANK``; ``--batch-size`` is the global batch, which the
-world size must divide. Every process restores the checkpoint; rank 0
-alone writes checkpoints, the config record and the log, and the others
-wait for it at a barrier.
+("data", "model") mesh (NCCL on the cards, gloo with ``--device cpu``) and
+drives ``cuda:LOCAL_RANK``. ``--set train.num_model_shards=2`` cuts the
+model over pairs of neighbouring ranks (tensor parallelism,
+``parallel/sharding_rules.py``), the rest of the world is the data axis
+(``train.num_data_shards``, -1: the world over the model axis);
+``--batch-size`` is the global batch, which the data axis must divide::
+
+  torchrun --nproc-per-node 4 -m tpudet_torch.cli.train \
+      --preset coco_r101_fpn --batch-size 16 \
+      --set train.num_model_shards=2 --checkpoint-dir /ckpt
+
+Every process restores the checkpoint (its shards of it); the data rank 0's
+model peers join their shards of each checkpoint and rank 0 of the world
+alone writes it, the config record and the log; the others wait for it at
+a barrier.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from tpudet_torch.models.import_weights import (
     apply_backbone_weights,
     load_backbone_npz,
 )
-from tpudet_torch.parallel import init_data_parallel
+from tpudet_torch.parallel import init_mesh
 from tpudet_torch.train.checkpoint import CheckpointManager
 from tpudet_torch.train.state import create_train_state
 from tpudet_torch.train.step import make_eval_step, make_train_step
@@ -116,19 +126,28 @@ def main(argv=None):
         cfg = cfg.replace(det_only=True)
     dp = None
     if "WORLD_SIZE" in os.environ and not args.no_mesh:
-        if cfg.train.batch_size % int(os.environ["WORLD_SIZE"]):
+        world = int(os.environ["WORLD_SIZE"])
+        num_model = cfg.train.num_model_shards
+        if num_model < 1 or world % num_model:
+            raise ValueError(f"train.num_model_shards {num_model} does not "
+                             f"divide the world size {world}")
+        num_data = cfg.train.num_data_shards
+        if num_data == -1:
+            num_data = world // num_model
+        if cfg.train.batch_size % num_data:
             # Refused before joining: the loader cannot split the batch.
             raise ValueError(
                 f"batch_size {cfg.train.batch_size} not divisible by the "
-                f"data-parallel world size {os.environ['WORLD_SIZE']}: "
+                f"data-parallel world size {num_data}: "
                 "adjust --batch-size (or pass --no-mesh)")
-        dp = init_data_parallel(args.device)
+        dp = init_mesh(num_model, num_data, args.device)
     device = dp.device if dp is not None else torch.device(args.device)
-    writer = dp is None or dp.rank == 0
+    writer = dp is None or dp.global_rank == 0
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
-          + (f", rank {dp.rank} of {dp.world_size}" if dp is not None
+          + (f", data rank {dp.rank} of {dp.world_size}, model rank "
+             f"{dp.model_rank} of {dp.model_size}" if dp is not None
              else ""))
     try:
         return _train(args, cfg, device, dp, writer)
@@ -147,7 +166,8 @@ def _train(args, cfg, device, dp, writer):
         apply_backbone_weights(model, *load_backbone_npz(args.backbone_weights))
         print(f"loaded backbone weights from {args.backbone_weights}")
         seed = None
-    state = create_train_state(model, cfg.train, seed=seed, device=device)
+    state = create_train_state(model, cfg.train, seed=seed, device=device,
+                               dp=dp)
     if args.init_from:
         # A stage transition: the previous stage's parameters, this stage's
         # fresh optimizer and step.
@@ -188,8 +208,9 @@ def _train(args, cfg, device, dp, writer):
     logger = MetricsLogger((args.logdir or None) if writer else None)
 
     def save(manager, **kw):
-        """Rank 0 writes; every rank waits until it has."""
-        if writer:
+        """Rank 0 writes (its model peers lend their shards); every rank
+        waits until it has."""
+        if dp is None or dp.rank == 0:
             manager.save(state, **kw)
         if dp is not None:
             dp.barrier()

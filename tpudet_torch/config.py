@@ -122,6 +122,15 @@ class BackboneConfig:
     # True: stride on the first 1x1 of a bottleneck (Keras/caffe);
     # False: stride on the 3x3 (torchvision "v1.5"). Basic blocks ignore it.
     stride_in_1x1: bool = True
+    # ResNets: the 7x7/2 stem as the equal 4x4/1 conv on the block-2
+    # space-to-depth image (models/resnet.py::stem_kernel_to_s2d converts a
+    # standard stem's weight).
+    s2d_stem: bool = False
+    # Training: recompute each backbone block (ResNet block, ViT block, VGG
+    # stage) in the backward pass instead of keeping its activations
+    # (torch.utils.checkpoint). Values and gradients are unchanged; inference
+    # is unaffected.
+    remat: bool = False
     # ViTDet (models/vit.py): the side of a windowed block's window, every
     # k-th block attends globally (depth 12, k=3: four global blocks), and
     # the side of the square position-embedding grid (resized to the canvas
@@ -182,10 +191,13 @@ class RPNConfig:
     loss_weight_box: float = 1.0
     # Anchors that cross the image's border are ignored in training.
     ignore_cross_boundary: bool = True
-    # Pre-NMS top-k: "exact" (a stable full sort, lax.top_k's tie order) or
-    # "blocked" (ops.selection.blocked_top_k, bit-identical to "exact");
-    # "approx" (a TPU PartialReduce knob) raises NotImplementedError.
+    # Pre-NMS top-k: "exact" (a stable full sort, lax.top_k's tie order),
+    # "blocked" (ops.selection.blocked_top_k, bit-identical to "exact") or
+    # "approx" (the JAX package's partial selection at topk_recall_target at
+    # inference; here the exact top-k, which approx approximates).
     topk_method: str = "exact"
+    # Recall target of topk_method="approx"; read by nothing here.
+    topk_recall_target: float = 0.95
     # Row width of the first stage of topk_method="blocked".
     topk_block_size: int = 8192
 
@@ -197,12 +209,21 @@ class ROIConfig:
     # "roi_align": the single-level RoI Align kernel, or with FPN each RoI
     # pooled at its FPN-paper level; "roi_align_window" (FPN): the same
     # pooling kernel with the level bumped until the RoI spans at most
-    # window - 12 cells (ops.roi_align.fpn_assign_levels). The JAX
-    # package's other poolers raise NotImplementedError.
+    # window - 12 cells (ops.roi_align.fpn_assign_levels);
+    # "roi_align_gather", "roi_align_pallas", "roi_align_packed": the JAX
+    # package's other formulations of roi_align's value, the same kernel
+    # here; "crop_and_resize": tf.image.crop_and_resize's convention
+    # (ops.roi_align.crop_and_resize), with FPN at each RoI's FPN-paper level.
     pooler: str = "roi_align"
     # Fit window of pooler="roi_align_window", in cells; every canvas side
     # must satisfy side / 32 <= window - 12 (checked at model build).
     window: int = 56
+    # TPU layout and memory knobs of the JAX package's poolers (one Pallas
+    # grid over the batch; chunked gathers and einsums): accepted and not
+    # read here, where each pooler is one kernel launch per batch.
+    window_batched: bool = False
+    pooler_chunk: int = 64
+    mxu_chunk_budget_mb: int = 256
     output_size: int = 7
     sampling_ratio: int = 2  # samples per bin side
     fc_dim: int = 1024
@@ -384,8 +405,9 @@ class DeformableDETRConfig:
     # "flat", "patch" or "mxu": three TPU formulations of one function; in
     # the port all three reach the same op (the Hopper kernel on the card).
     sampling_gather: str = "flat"
-    # Head-shared sampling locations (a model variant with other parameter
-    # shapes): not ported, raises NotImplementedError.
+    # Head-shared sampling locations (a model variant: the offsets layer
+    # loses its head axis, the locations are broadcast over the heads).
+    # Requires sampling_gather="patch".
     shared_sampling_locations: bool = False
     # Query tile of the TPU's one-hot kernel; kept for parity, not read.
     mxu_query_tile: int = 128

@@ -116,37 +116,70 @@ class MSDeformAttn(nn.Module):
     attention weights linear in the query, values linear in the flattened
     multi-scale memory, sampling through the kernel. ``gather`` names one
     of the JAX package's three formulations of the same function; all reach
-    the one op here."""
+    the one op here.
+
+    ``shared_locations`` (Lite-DETR-style, the JAX package's model variant;
+    it requires ``gather="patch"``): the offsets layer loses its head axis
+    (``Dense(L * P * 2)``, its bias a directional probe that spreads the P
+    points over the angles 2πk/P at radius 1), and the ``[B, Nq, L, P, 2]``
+    locations are broadcast over the heads. The JAX function is then the
+    per-head function with every head's locations equal, so here the
+    locations are expanded to ``[B, Nq, H, L, P, 2]`` (made contiguous for
+    the kernel) and go through the same forward and backward kernels;
+    autograd of the expand sums their gradient over the heads.
+
+    Under tensor parallelism (``layers.shard_model``) ``value`` is column-
+    and ``out`` row-parallel and a rank samples ``num_heads / size`` heads:
+    the replicated offsets and attention weights are cut to its heads
+    (``TensorParallel.split``, whose backward sums the heads' gradients over
+    the model group) and made contiguous for the kernel; the reference
+    points (the shared locations) reach its heads only, so their gradient
+    is summed over the model group too (``TensorParallel.copy``)."""
 
     def __init__(self, d_model: int, num_heads: int, num_levels: int,
                  num_points: int, dtype: torch.dtype, gather: str = "flat",
                  shared_locations: bool = False, device=None):
         super().__init__()
-        if shared_locations:
-            raise NotImplementedError(
-                "deformable_detr.shared_sampling_locations=True (head-shared "
-                "sampling) is not ported (ROADMAP.md, Queue 1 item 23)")
         if gather not in GATHERS:
             raise ValueError(f"sampling_gather={gather!r}: expected one of "
                              f"{GATHERS}")
+        if shared_locations and gather != "patch":
+            raise ValueError(
+                "shared_locations requires the patch gather formulation")
         self.num_heads = num_heads
         self.num_levels = num_levels
         self.num_points = num_points
+        self.shared_locations = shared_locations
         self.dtype = dtype
+        self.tp = None
         samples = num_heads * num_levels * num_points
         self.value = Dense(d_model, d_model, dtype=dtype, device=device)
-        self.sampling_offsets = Dense(d_model, samples * 2, device=device)
+        self.sampling_offsets = Dense(
+            d_model, (samples // num_heads if shared_locations else samples)
+            * 2, device=device)
         self.attention_weights = Dense(d_model, samples, device=device)
         self.out = Dense(d_model, d_model, dtype=dtype, device=device)
+
+    def shard_tp(self, tp) -> None:
+        if self.value.tp is not None:
+            if self.num_heads % tp.size:
+                raise ValueError(f"{self.num_heads} heads over a model axis "
+                                 f"of {tp.size}")
+            self.tp = tp
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The official init: offset kernel zero with the directional-probe
         bias, attention-weight layer zero (uniform after the softmax)."""
         del generator
+        lv, p = self.num_levels, self.num_points
+        if self.shared_locations:
+            probe = sampling_offset_init_bias(p, lv, 1).reshape(p, lv, 2)
+            bias = probe.permute(1, 0, 2).reshape(-1)
+        else:
+            bias = sampling_offset_init_bias(self.num_heads, lv, p)
         with torch.no_grad():
             self.sampling_offsets.weight.zero_()
-            self.sampling_offsets.bias.copy_(sampling_offset_init_bias(
-                self.num_heads, self.num_levels, self.num_points))
+            self.sampling_offsets.bias.copy_(bias)
             self.attention_weights.weight.zero_()
             self.attention_weights.bias.zero_()
 
@@ -161,27 +194,46 @@ class MSDeformAttn(nn.Module):
         contributes what an out-of-grid sample does: nothing)."""
         h, lv, p = self.num_heads, self.num_levels, self.num_points
         b, nq, d = query.shape
+        hd = d // h
+        local = h if self.tp is None else h // self.tp.size
         value = self.value(memory)
         value = value.masked_fill(~valid_tokens[..., None], 0.0)
-        value = value.reshape(b, -1, h, d // h)
+        value = value.reshape(b, -1, local, hd)
         q32 = query.to(torch.float32)
-        offsets = self.sampling_offsets(q32).reshape(b, nq, h, lv, p, 2)
         attn = self.attention_weights(q32).reshape(b, nq, h, lv * p)
-        attn = torch.softmax(attn, dim=-1).reshape(b, nq, h, lv, p)
-        ref = ref_xy[:, :, None, :, None, :]
+        # Locations [B, Nq, L, P, 2] (shared) or [B, Nq, H, L, P, 2]; the
+        # reference and the level sizes broadcast over the points (and the
+        # heads).
+        if self.shared_locations:
+            offsets = self.sampling_offsets(q32).reshape(b, nq, lv, p, 2)
+            at = (slice(None), slice(None), slice(None), None)
+        else:
+            offsets = self.sampling_offsets(q32).reshape(b, nq, h, lv, p, 2)
+            if self.tp is not None:
+                offsets = self.tp.split(offsets, 2)
+                ref_xy = self.tp.copy(ref_xy)
+                ref_wh = None if ref_wh is None else self.tp.copy(ref_wh)
+            at = (slice(None), slice(None), None, slice(None), None)
+        if self.tp is not None:
+            attn = self.tp.split(attn, 2)
+        attn = torch.softmax(attn, dim=-1).reshape(b, nq, local, lv, p)
+        ref = ref_xy[at]
         if ref_wh is None:
             # Point reference: offsets in pixels of each level's grid.
             normalizer = torch.tensor([[wl, hl] for hl, wl in level_shapes],
                                       dtype=torch.float32, device=query.device)
-            loc = ref + offsets / normalizer[None, None, None, :, None, :]
+            loc = ref + offsets / normalizer[(None, None) + at[2:]]
         else:
             # Box reference: offset / P * (w, h) / 2.
-            loc = (ref + offsets / _scalar(p, offsets)
-                   * ref_wh[:, :, None, :, None, :] * 0.5)
+            loc = ref + offsets / _scalar(p, offsets) * ref_wh[at] * 0.5
+        if self.shared_locations:
+            if self.tp is not None:
+                loc = self.tp.copy(loc)
+            loc = loc[:, :, None].expand(b, nq, local, lv, p, 2)
         out = deform_attn_kernel.ms_deform_attn(value.contiguous(),
                                                 level_shapes,
                                                 loc.contiguous(), attn)
-        return self.out(out.reshape(b, nq, d).to(self.dtype))
+        return self.out(out.reshape(b, nq, local * hd).to(self.dtype))
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -273,7 +325,8 @@ class DeformableDETRCore(nn.Module):
         self.dtype = dtype
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
                                        bb.stride_in_1x1, device,
-                                       freeze_stem=bb.freeze_stem)
+                                       freeze_stem=bb.freeze_stem,
+                                       s2d_stem=bb.s2d_stem, remat=bb.remat)
         channels = self.backbone.channels
         groups = min(32, d.d_model)
         # 1x1 conv + masked GroupNorm on C3..C5; each extra level a 3x3/2

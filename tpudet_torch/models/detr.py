@@ -78,7 +78,10 @@ def sine_position_embedding(valid: torch.Tensor, d_model: int,
 
 
 class _FFN(nn.Module):
-    """``fc1`` -> ReLU -> dropout -> ``fc2``, computing in ``dtype``."""
+    """``fc1`` -> ReLU -> dropout -> ``fc2``, computing in ``dtype``. Under
+    tensor parallelism ``fc1`` is column- and ``fc2`` row-parallel, and the
+    dropout between them draws the full-width mask and keeps this rank's
+    columns (``layers.dropout``)."""
 
     def __init__(self, d_model: int, ffn_dim: int, dtype: torch.dtype,
                  device=None, dropout: float = 0.0):
@@ -86,10 +89,15 @@ class _FFN(nn.Module):
         self.dropout = dropout
         self.fc1 = Dense(d_model, ffn_dim, dtype=dtype, device=device)
         self.fc2 = Dense(ffn_dim, d_model, dtype=dtype, device=device)
+        self.tp = None
+
+    def shard_tp(self, tp) -> None:
+        if self.fc1.tp is not None:
+            self.tp = tp
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = dropout(F.relu(self.fc1(x)), self.dropout, generator)
+        h = dropout(F.relu(self.fc1(x)), self.dropout, generator, self.tp)
         return self.fc2(h)
 
 
@@ -105,12 +113,18 @@ class MultiHeadDotProductAttention(nn.Module):
     projection, all in ``dtype``. Flax keeps the projections as ``DenseGeneral`` kernels
     ``[d, heads, hd]`` (``out``: ``[heads, hd, d]``); here each is a Linear
     over the flattened ``heads * hd`` axis (``models.import_weights`` maps
-    them)."""
+    them). Under tensor parallelism (``layers.shard_model``) the
+    projections to heads are column- and ``out`` row-parallel, and a rank
+    computes ``num_heads / size`` heads; the probabilities' dropout mask has
+    no head axis, so the model peers, whose generators are in one state,
+    draw the one-process mask."""
 
     def __init__(self, d_model: int, num_heads: int, dtype: torch.dtype,
                  device=None, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.local_heads = num_heads
+        self.head_dim = d_model // num_heads
         self.dtype = dtype
         self.dropout_rate = dropout_rate
         # sqrt(head_dim) in f32 (a double rounded to f32 is the correctly
@@ -122,14 +136,20 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = Dense(d_model, d_model, dtype=dtype, device=device)
         self.out = Dense(d_model, d_model, dtype=dtype, device=device)
 
+    def shard_tp(self, tp) -> None:
+        if self.value.tp is not None:
+            if self.num_heads % tp.size:
+                raise ValueError(f"{self.num_heads} heads over a model axis "
+                                 f"of {tp.size}")
+            self.local_heads = self.num_heads // tp.size
+
     def forward(self, inputs_q: torch.Tensor, inputs_k: torch.Tensor,
                 inputs_v: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, nq, d = inputs_q.shape
+        b, nq, _ = inputs_q.shape
         nk = inputs_k.shape[1]
-        h = self.num_heads
-        hd = d // h
+        h, hd = self.local_heads, self.head_dim
         q = self.query(inputs_q).reshape(b, nq, h, hd)
         k = self.key(inputs_k).reshape(b, nk, h, hd)
         v = self.value(inputs_v).reshape(b, nk, h, hd)
@@ -146,7 +166,7 @@ class MultiHeadDotProductAttention(nn.Module):
             attn = attn * (keep.to(attn.dtype) / torch.full(
                 (), keep_prob, dtype=attn.dtype, device=attn.device))
         x = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        return self.out(x.reshape(b, nq, d))
+        return self.out(x.reshape(b, nq, h * hd))
 
 
 class EncoderLayer(nn.Module):
@@ -215,7 +235,8 @@ class DETRCore(nn.Module):
         self.dtype = dtype
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
                                        bb.stride_in_1x1, device,
-                                       freeze_stem=bb.freeze_stem)
+                                       freeze_stem=bb.freeze_stem,
+                                       s2d_stem=bb.s2d_stem, remat=bb.remat)
         self.input_proj = Conv(self.backbone.channels["c5"], d.d_model, 1,
                                dtype=dtype, device=device)
         self.query_embed = nn.Parameter(

@@ -65,7 +65,11 @@ from tpudet_torch.ops import boxes as box_ops
 from tpudet_torch.ops import selection
 from tpudet_torch.ops.matchers import match_boxes
 from tpudet_torch.ops.nms import coordinate_offset_for, sort_desc
-from tpudet_torch.ops.roi_align import fpn_assign_levels
+from tpudet_torch.ops.roi_align import (
+    crop_and_resize_batched,
+    crop_and_resize_levels,
+    fpn_assign_levels,
+)
 from tpudet_torch.ops.samplers import draw_uniforms, sample_balanced
 
 # Default cap on flattened (box, class) candidates entering the final NMS
@@ -74,7 +78,13 @@ MAX_NMS_CANDIDATES = 1024
 # FPN levels that pool RoIs (p6 only proposes) and their strides.
 POOL_LEVELS = ("p2", "p3", "p4", "p5")
 POOL_STRIDES = (4.0, 8.0, 16.0, 32.0)
-POOLERS = ("roi_align", "roi_align_window")
+# The JAX package's poolers. "roi_align_gather", "roi_align_pallas" and
+# "roi_align_packed" are its other formulations of "roi_align"'s value
+# (gathers, a Pallas kernel, one einsum pair over the packed pyramid): here
+# they are "roi_align", the same kernel. "crop_and_resize" is another
+# function (tf.image.crop_and_resize's convention), in plain PyTorch.
+POOLERS = ("roi_align", "roi_align_window", "roi_align_gather",
+           "roi_align_pallas", "roi_align_packed", "crop_and_resize")
 
 
 def _max_canvas_dim(cfg: Config) -> int:
@@ -124,7 +134,9 @@ class DetectorCore(nn.Module):
         else:
             self.backbone = build_backbone(bb.name, bb.norm, dtype,
                                            bb.stride_in_1x1, device,
-                                           freeze_stem=bb.freeze_stem)
+                                           freeze_stem=bb.freeze_stem,
+                                           s2d_stem=bb.s2d_stem,
+                                           remat=bb.remat)
             if bb.use_fpn:
                 self.fpn = FPN(self.backbone.channels, dtype=dtype,
                                device=device)
@@ -219,17 +231,12 @@ class FasterRCNN(nn.Module):
 
     def __init__(self, cfg: Config, device="cuda"):
         super().__init__()
-        if cfg.rpn.topk_method == "approx":
-            raise NotImplementedError(
-                "rpn.topk_method='approx' is a TPU PartialReduce knob and is "
-                "not ported (ROADMAP.md, Queue 1 item 3); 'blocked' is exact")
-        if cfg.rpn.topk_method not in ("exact", "blocked"):
+        if cfg.rpn.topk_method not in ("exact", "blocked", "approx"):
             raise ValueError(f"rpn.topk_method={cfg.rpn.topk_method!r}: "
-                             "expected 'exact' or 'blocked'")
+                             "expected 'exact', 'blocked' or 'approx'")
         if cfg.roi.pooler not in POOLERS:
-            raise NotImplementedError(
-                f"roi.pooler={cfg.roi.pooler!r}: the port has {POOLERS} "
-                "(ROADMAP.md, Queue 1 item 4)")
+            raise ValueError(f"roi.pooler={cfg.roi.pooler!r}: expected one "
+                             f"of {POOLERS}")
         if cfg.roi.pooler == "roi_align_window" and cfg.backbone.use_fpn:
             max_dim = _max_canvas_dim(cfg)
             # Even a canvas-sized RoI must fit the window at p5 (stride 32),
@@ -294,7 +301,11 @@ class FasterRCNN(nn.Module):
     # ------------------------------------------------------- proposal path
     def _pre_nms_topk(self, scores, k):
         """Top-k along the last axis with ``lax.top_k``'s tie order, by the
-        configured method (both exact)."""
+        configured method, all exact. "approx" is the JAX package's
+        ``lax.approx_max_k`` at inference (a TPU partial selection at
+        ``rpn.topk_recall_target``; on its CPU backend it is ``lax.top_k``):
+        here it is the exact top-k on every device, the selection that
+        approx approximates at a recall target below 1."""
         if self.cfg.rpn.topk_method == "blocked":
             return selection.blocked_top_k(scores, k,
                                            self.cfg.rpn.topk_block_size)
@@ -396,8 +407,11 @@ class FasterRCNN(nn.Module):
         out_size`` (default ``roi.output_size``; the JAX ``_pool_batch`` /
         ``_pool_single``). Single-level: on c4. FPN: each
         RoI at its level of p2..p5, fit-bumped to ``roi.window`` with
-        ``pooler="roi_align_window"``; with ``"roi_align"`` this is the
-        value of the JAX package's all-level masked sum."""
+        ``pooler="roi_align_window"``; with ``"roi_align"`` (and its other
+        formulations, ``POOLERS``) this is the value of the JAX package's
+        all-level masked sum. ``"crop_and_resize"`` pools with
+        ``ops.roi_align.crop_and_resize`` instead (f32, as the JAX function
+        returns it), with FPN at each RoI's FPN-paper level."""
         roi = self.cfg.roi
         size = out_size or roi.output_size
         if self.cfg.backbone.use_fpn:
@@ -405,6 +419,9 @@ class FasterRCNN(nn.Module):
             levels = fpn_assign_levels(rois, fit_window=fit) - 2
             maps = [feats[name].permute(0, 2, 3, 1).contiguous()  # NHWC views
                     for name in POOL_LEVELS]
+            if roi.pooler == "crop_and_resize":
+                return crop_and_resize_levels(maps, POOL_STRIDES, rois,
+                                              levels, size)
             return roi_align_window_kernel.roi_align_window(
                 maps, POOL_STRIDES, rois.contiguous(), levels.contiguous(),
                 size, roi.sampling_ratio)
@@ -413,8 +430,12 @@ class FasterRCNN(nn.Module):
         fboxes = (rois / float(self.cfg.anchors.stride)).reshape(b * n, 4)
         image_index = torch.arange(b, dtype=torch.int32, device=rois.device
                                    ).repeat_interleave(n)
-        pooled = roi_align_kernel.roi_align(
-            fmap, fboxes.contiguous(), image_index, size, roi.sampling_ratio)
+        if roi.pooler == "crop_and_resize":
+            pooled = crop_and_resize_batched(fmap, fboxes, image_index, size)
+        else:
+            pooled = roi_align_kernel.roi_align(
+                fmap, fboxes.contiguous(), image_index, size,
+                roi.sampling_ratio)
         return pooled.reshape((b, n) + pooled.shape[1:])
 
     # ------------------------------------------------------------ training

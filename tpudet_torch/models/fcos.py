@@ -106,7 +106,8 @@ class FCOSCore(nn.Module):
         self.strides = tuple(cfg.anchors.fpn_strides)
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
                                        bb.stride_in_1x1, device,
-                                       freeze_stem=bb.freeze_stem)
+                                       freeze_stem=bb.freeze_stem,
+                                       s2d_stem=bb.s2d_stem, remat=bb.remat)
         self.fpn = RetinaNetFPN(self.backbone.channels, dtype=dtype,
                                 device=device)
         f = cfg.fcos

@@ -1,19 +1,36 @@
 """Shared building blocks (``tpudet.models.layers``): convolution and dense
 layers that compute in a given dtype over float32 parameters, Flax's
 initializers, the two backbone normalizations, Flax's GroupNorm and
-LayerNorm and Flax's dropout over an explicit generator.
+LayerNorm, Flax's dropout over an explicit generator, and the tensor-parallel
+form of the Dense layers (``shard_model``).
 
 Tensors are NCHW in ``torch.channels_last`` memory format inside the
 backbone, so an NHWC view of any feature map is a free permute.
+
+Tensor parallelism (Megatron-LM, Shoeybi et al., arXiv:1909.08053 §3): a
+column-parallel Dense holds its rank's rows of the weight and bias (its
+share of the output features) behind the operator **f** (identity forward,
+all-reduce of the gradient over the model group backward); a row-parallel
+Dense holds its rank's columns of the weight (its share of the input
+features) and is followed by **g** (all-reduce forward, identity backward),
+its replicated bias added once after the reduction; its partial products
+are f32 sums of the dtype's operands, rounded to the dtype once after the
+reduction, as the one-process product is. The attention modules
+then compute their rank's heads only. Each operator is a
+``torch.autograd.Function`` over ``dist.all_reduce`` alone, the one
+collective that gloo supports on CUDA tensors besides ``broadcast``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 # Flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
@@ -140,10 +157,106 @@ class ConvTranspose(nn.Module):
                                   padding=self.padding)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: the identity forward, the gradient summed over the
+    model group backward (each rank's columns contribute a part of it)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the sum of the ranks' partial outputs forward, the
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """This rank's share of ``dim`` of a replicated tensor forward
+    (``TensorParallel.shard``); backward, the whole gradient joined from
+    the ranks' shares (``TensorParallel.join``), so the replicated layer
+    that made the tensor gets its whole gradient on every rank."""
+
+    @staticmethod
+    def forward(ctx, x, dim, tp):
+        ctx.dim, ctx.tp = dim, tp
+        return tp.shard(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.join(grad.contiguous(), ctx.dim), None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A sharded model's place on the model axis: the layout it was cut by
+    (``parallel.sharding_rules.tp_layout``), its model group, and this
+    process's rank and the group's size."""
+
+    layout: Dict[str, object]
+    group: object
+    rank: int
+    size: int
+
+    def mean_(self, x: torch.Tensor) -> torch.Tensor:
+        """In place: the mean of ``x`` over the model group."""
+        dist.all_reduce(x, group=self.group)
+        return x.div_(self.size)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; its gradient summed over the model group (f)."""
+        return _CopyToModel.apply(x, self.group)
+
+    def split(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's share of ``dim`` of the replicated ``x``
+        (``_SplitToModel``)."""
+        return _SplitToModel.apply(x, dim, self)
+
+    def join(self, shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """The whole tensor of this rank's ``shard`` (cut on ``dim``; None
+        returns it): each peer's shard in its place in zeros, summed over
+        the model group. Every peer calls it, in the same order."""
+        if dim is None:
+            return shard
+        step = shard.shape[dim]
+        shape = list(shard.shape)
+        shape[dim] = step * self.size
+        whole = shard.new_zeros(shape)
+        whole.narrow(dim, self.rank * step, step).copy_(shard)
+        dist.all_reduce(whole, group=self.group)
+        return whole
+
+    def shard(self, whole: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's contiguous share of ``dim`` of ``whole`` (None
+        returns it)."""
+        if dim is None:
+            return whole
+        step = whole.shape[dim] // self.size
+        return whole.narrow(dim, self.rank * step, step).contiguous()
+
+
 class Dense(nn.Module):
     """Linear layer computing in ``dtype`` over an f32 ``[out, in]`` weight
     (Flax's ``nn.Dense`` kernel is ``[in, out]``: the weight is its
-    transpose)."""
+    transpose). ``shard_model`` makes it column- or row-parallel
+    (``tp``: the kind and the model group)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -151,6 +264,7 @@ class Dense(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.init_std = init_std
+        self.tp: Optional[Tuple[str, object]] = None
         self.weight = nn.Parameter(
             torch.zeros(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
@@ -164,8 +278,63 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+        x = x.to(self.dtype)
+        if self.tp is None:
+            return F.linear(x, self.weight.to(self.dtype),
+                            self.bias.to(self.dtype))
+        kind, group = self.tp
+        if kind == "column":
+            return F.linear(_CopyToModel.apply(x, group),
+                            self.weight.to(self.dtype),
+                            self.bias.to(self.dtype))
+        # Row-parallel: the partial products of the dtype's operands in f32
+        # (exact products, f32 sums: a bf16 partial would round before the
+        # reduction and lose the one rounding of the one-process product),
+        # summed over the group, then the bias, then one rounding.
+        part = F.linear(x.float(), self.weight.to(self.dtype).float())
+        return (_ReduceFromModel.apply(part, group)
+                + self.bias.float()).to(self.dtype)
+
+
+def shard_model(model: nn.Module, layout: Dict[str, object],
+                group) -> TensorParallel:
+    """Cut ``model`` (a model or its ``core``) over the model ``group`` by
+    ``layout`` (``parallel.sharding_rules.tp_layout``): each Dense whose
+    weight the layout cuts keeps this rank's contiguous slice of its weight
+    (and of a column-parallel bias) and becomes column- or row-parallel;
+    each attention module whose value projection is column-parallel
+    computes this rank's heads. Call it after the
+    weights are drawn or loaded and before the optimizer and the EMA are
+    made, which then hold shards too. Returns the ``TensorParallel``, also
+    kept as ``core.tp``; every module with a ``shard_tp(tp)`` hook is handed
+    it after the cut."""
+    core = getattr(model, "core", model)
+    rank, size = dist.get_rank(group), dist.get_world_size(group)
+    tp = TensorParallel(layout=layout, group=group, rank=rank, size=size)
+
+    def cut(tensor: torch.Tensor, dim: int, name: str) -> nn.Parameter:
+        if tensor.shape[dim] % size:
+            raise ValueError(f"shard_model: {name} has {tensor.shape[dim]} "
+                             f"rows on dim {dim}, not divisible by {size}")
+        step = tensor.shape[dim] // size
+        return nn.Parameter(tensor.detach().narrow(dim, rank * step, step)
+                            .contiguous())
+
+    for name, module in core.named_modules():
+        if not isinstance(module, Dense):
+            continue
+        shard = layout[f"{name}.weight"]
+        if shard.kind == "replicated":
+            continue
+        module.weight = cut(module.weight, shard.dim, f"{name}.weight")
+        if layout[f"{name}.bias"].kind == "column":
+            module.bias = cut(module.bias, 0, f"{name}.bias")
+        module.tp = (shard.kind, group)
+    for module in core.modules():
+        if hasattr(module, "shard_tp"):
+            module.shard_tp(tp)
+    core.tp = tp
+    return tp
 
 
 class FrozenBatchNorm(nn.Module):
@@ -272,17 +441,25 @@ class LayerNorm(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Flax's ``nn.Dropout``: each entry kept with probability ``1 - rate``
     and scaled by ``1 / (1 - rate)``, the rest zeroed. The mask is drawn
     from ``generator`` (on ``x``'s device) alone; ``generator`` None is
-    Flax's ``deterministic=True`` and returns ``x``."""
+    Flax's ``deterministic=True`` and returns ``x``. With ``tp``, ``x`` is
+    this rank's share of the last axis of a column-parallel output: the
+    mask is drawn at the full width and cut to the rank's columns, so the
+    model peers (whose generators are in one state) draw the one-process
+    mask between them."""
     if generator is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shape = x.shape if tp is None else x.shape[:-1] + (x.shape[-1] * tp.size,)
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if tp is not None:
+        keep = keep.narrow(-1, tp.rank * x.shape[-1], x.shape[-1])
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
@@ -301,3 +478,12 @@ def init_module(module: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, (Conv, ConvTranspose, Dense, FrozenBatchNorm,
                           AdaptiveGroupNorm, GroupNorm, LayerNorm)):
             m.reset_parameters(generator)
+
+
+def run_block(block: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """``block(x)``; with ``remat`` while autograd records, its activations
+    are recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint``, the JAX package's ``nn.remat``)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False)
+    return block(x)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudet_torch.models.layers import Conv, make_norm
+from tpudet_torch.models.layers import Conv, make_norm, run_block
 from tpudet_torch.models.vgg import VGG
 
 STAGE_BLOCKS = {
@@ -33,6 +33,40 @@ STAGE_BLOCKS = {
 # Basic-block (3x3 -> 3x3) variants; the rest are bottlenecks.
 BASIC_BLOCK = {"resnet18", "resnet34"}
 LEVELS = ("c2", "c3", "c4", "c5")
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """``[N, C, H, W]`` -> ``[N, b*b*C, H/b, W/b]`` with the channels in the
+    JAX package's NHWC order: channel ``(a * b + c) * C + k`` holds input
+    channel ``k`` at row ``a`` and column ``c`` of each block."""
+    n, c, h, w = x.shape
+    x = x.reshape(n, c, h // block, block, w // block, block)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(n, block * block * c,
+                                               h // block, w // block)
+
+
+def stem_kernel_to_s2d(weight: torch.Tensor) -> torch.Tensor:
+    """The standard stem's ``[64, C, 7, 7]`` stride-2 weight -> the equal
+    ``[64, 4 * C, 4, 4]`` stride-1 weight over the block-2 space-to-depth
+    input (``tpudet.models.resnet.stem_kernel_to_s2d`` in OIHW): the 7x7
+    taps padded to 8x8 on the top and left, so each tap ``u`` in [-4, 3]
+    splits as ``2k + a - 4``, regrouped over the s2d channels ``(a, b, C)``."""
+    o, c, kh, kw = weight.shape
+    if (kh, kw) != (7, 7):
+        raise ValueError(f"stem_kernel_to_s2d takes a 7x7 kernel, got "
+                         f"{(kh, kw)}")
+    pad = F.pad(weight, (1, 0, 1, 0))                     # [O, C, 8, 8]
+    k4 = pad.reshape(o, c, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    return k4.reshape(o, 4 * c, 4, 4)
+
+
+def convert_params_to_s2d(state_dict: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """A state dict with a standard stem (any key ending in
+    ``stem_conv.weight``) rewritten for ``s2d_stem=True``."""
+    return {k: (stem_kernel_to_s2d(v) if k.endswith("stem_conv.weight")
+                and v.shape[-1] == 7 else v)
+            for k, v in state_dict.items()}
 
 
 class Bottleneck(nn.Module):
@@ -102,18 +136,28 @@ class ResNet(nn.Module):
     """ResNet (``STAGE_BLOCKS``): 7x7/2 stem, 3x3/2 max-pool, stages c2..c5
     at strides 4..32, of bottleneck blocks (256..2048 wide) or with
     ``basic`` of basic blocks (64..512). ``freeze_stem`` detaches c2, so no
-    gradient reaches the stem or stage c2."""
+    gradient reaches the stem or stage c2. ``s2d_stem``: the stem is the
+    equal 4x4/1 conv on 12 channels of the block-2 space-to-depth image,
+    padded (2, 1) on each axis (``stem_kernel_to_s2d`` converts a standard
+    stem). ``remat``: each block is recomputed in the backward pass."""
 
     def __init__(self, blocks: Sequence[int] = (3, 4, 6, 3),
                  norm: str = "frozen_bn", dtype: torch.dtype = torch.float32,
                  stride_in_1x1: bool = True, freeze_stem: bool = True,
-                 device=None, basic: bool = False):
+                 device=None, basic: bool = False, s2d_stem: bool = False,
+                 remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.blocks = tuple(blocks)
         self.freeze_stem = freeze_stem
-        self.stem_conv = Conv(3, 64, 7, 2, padding=3, bias=False, dtype=dtype,
-                              device=device)
+        self.s2d_stem = s2d_stem
+        self.remat = remat
+        if s2d_stem:
+            self.stem_conv = Conv(12, 64, 4, 1, padding=0, bias=False,
+                                  dtype=dtype, device=device)
+        else:
+            self.stem_conv = Conv(3, 64, 7, 2, padding=3, bias=False,
+                                  dtype=dtype, device=device)
         self.norm_stem = make_norm(norm, 64, device)
         in_ch = 64
         widths = (64, 128, 256, 512) if basic else (256, 512, 1024, 2048)
@@ -132,12 +176,17 @@ class ResNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 stop_at: str = "c5") -> Dict[str, torch.Tensor]:
         """NCHW (channels-last) image -> {"c2": .., up to ``stop_at``}."""
-        x = F.relu(self.norm_stem(self.stem_conv(x.to(self.dtype))))
+        x = x.to(self.dtype)
+        if self.s2d_stem:
+            x = F.pad(space_to_depth(x), (2, 1, 2, 1)).contiguous(
+                memory_format=torch.channels_last)
+        x = F.relu(self.norm_stem(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
         for stage, n_blocks in enumerate(self.blocks):
             for i in range(n_blocks):
-                x = getattr(self, f"stage{stage + 2}_block{i}")(x)
+                x = run_block(getattr(self, f"stage{stage + 2}_block{i}"), x,
+                              self.remat)
             if stage == 0 and self.freeze_stem:
                 # No gradient into the stem and stage c2 (their
                 # parameters get none; weight decay still moves them).
@@ -185,19 +234,23 @@ class TinyBackbone(nn.Module):
 
 def build_backbone(name: str, norm: str, dtype: torch.dtype,
                    stride_in_1x1: bool = True, device=None,
-                   freeze_stem: bool = True) -> nn.Module:
+                   freeze_stem: bool = True, s2d_stem: bool = False,
+                   remat: bool = False) -> nn.Module:
     """``freeze_stem`` stops the gradient after stage c2 of a ResNet and
     after stage 2 of VGG-16, as the JAX package does; the tiny backbone
-    ignores it, as JAX's does. VGG has no norm layers: ``norm`` and
-    ``stride_in_1x1`` do not apply to it. (The ViTs are built by
+    ignores it, as JAX's does, and ``s2d_stem`` and ``remat`` too. VGG has
+    no norm layers and no stem variants: ``norm``, ``stride_in_1x1`` and
+    ``s2d_stem`` do not apply to it. (The ViTs are built by
     ``models.vit.build_vit``.)"""
     if name == "tiny":
         return TinyBackbone(norm=norm, dtype=dtype, device=device)
     if name in STAGE_BLOCKS:
         return ResNet(STAGE_BLOCKS[name], norm=norm, dtype=dtype,
                       stride_in_1x1=stride_in_1x1, freeze_stem=freeze_stem,
-                      device=device, basic=name in BASIC_BLOCK)
+                      device=device, basic=name in BASIC_BLOCK,
+                      s2d_stem=s2d_stem, remat=remat)
     if name == "vgg16":
-        return VGG(dtype=dtype, freeze_stem=freeze_stem, device=device)
+        return VGG(dtype=dtype, freeze_stem=freeze_stem, device=device,
+                   remat=remat)
     raise ValueError(f"unknown backbone {name!r}")
 

@@ -140,7 +140,8 @@ class RetinaNetCore(nn.Module):
         dtype = torch.bfloat16 if bb.dtype == "bfloat16" else torch.float32
         self.backbone = build_backbone(bb.name, bb.norm, dtype,
                                        bb.stride_in_1x1, device,
-                                       freeze_stem=bb.freeze_stem)
+                                       freeze_stem=bb.freeze_stem,
+                                       s2d_stem=bb.s2d_stem, remat=bb.remat)
         self.fpn = RetinaNetFPN(self.backbone.channels, dtype=dtype,
                                 device=device)
         r = cfg.retinanet

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudet_torch.models.layers import Conv
+from tpudet_torch.models.layers import Conv, run_block
 
 # (3x3 convs, channels) per stage; a max-pool precedes stages 2-5.
 VGG16_STAGES = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
@@ -42,13 +42,15 @@ class _VGGStage(nn.Module):
 
 
 class VGG(nn.Module):
-    """VGG-16 to the c2..c5 pyramid (see the module docstring)."""
+    """VGG-16 to the c2..c5 pyramid (see the module docstring); ``remat``
+    recomputes each stage in the backward pass."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 freeze_stem: bool = True, device=None):
+                 freeze_stem: bool = True, device=None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.freeze_stem = freeze_stem
+        self.remat = remat
         in_ch = 3
         for stage, (n, ch) in enumerate(VGG16_STAGES, start=1):
             self.add_module(f"stage{stage}",
@@ -64,7 +66,7 @@ class VGG(nn.Module):
         for stage in range(1, len(VGG16_STAGES) + 1):
             if stage > 1:
                 x = F.max_pool2d(x, 2, 2)
-            x = getattr(self, f"stage{stage}")(x)
+            x = run_block(getattr(self, f"stage{stage}"), x, self.remat)
             if stage == 2 and self.freeze_stem:
                 x = x.detach()
             if stage >= 3:

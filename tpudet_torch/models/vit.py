@@ -33,7 +33,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudet_torch.models.layers import Conv, ConvTranspose, Dense, LayerNorm
+from tpudet_torch.models.layers import (
+    Conv,
+    ConvTranspose,
+    Dense,
+    LayerNorm,
+    run_block,
+)
 
 # name -> (embed dim, depth, heads): the paper's variants and a test tiny.
 VIT_VARIANTS = {
@@ -46,22 +52,33 @@ VIT_VARIANTS = {
 
 class Attention(nn.Module):
     """Multi-head attention over ``[N, L, D]`` tokens with separate
-    ``query``/``key``/``value``/``out`` Dense layers."""
+    ``query``/``key``/``value``/``out`` Dense layers. Under tensor
+    parallelism (``layers.shard_model``) the first three are column- and
+    ``out`` row-parallel, and a rank computes ``heads / size`` heads."""
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype, device=None):
         super().__init__()
         self.heads = heads
+        self.local_heads = heads
+        self.head_dim = dim // heads
         self.dtype = dtype
         self.scale = (dim // heads) ** -0.5
         for name in ("query", "key", "value", "out"):
             self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
 
+    def shard_tp(self, tp) -> None:
+        if self.value.tp is not None:
+            if self.heads % tp.size:
+                raise ValueError(f"{self.heads} heads over a model axis "
+                                 f"of {tp.size}")
+            self.local_heads = self.heads // tp.size
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n, l, d = x.shape
-        h = self.heads
+        n, l, _ = x.shape
+        h, hd = self.local_heads, self.head_dim
 
         def proj(layer):
-            return layer(x).reshape(n, l, h, d // h).transpose(1, 2)
+            return layer(x).reshape(n, l, h, hd).transpose(1, 2)
 
         q, k, v = proj(self.query), proj(self.key), proj(self.value)
         # f32 logits from the dtype's q and k (a bf16 product is exact in
@@ -70,7 +87,7 @@ class Attention(nn.Module):
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         attn = torch.softmax(logits.mul_(self.scale), dim=-1).to(self.dtype)
         out = torch.matmul(attn, v).to(self.dtype)
-        return self.out(out.transpose(1, 2).reshape(n, l, d))
+        return self.out(out.transpose(1, 2).reshape(n, l, h * hd))
 
 
 def _window_partition(x: torch.Tensor, w: int
@@ -140,15 +157,17 @@ def resize_pos_embed(pos: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 class ViT(nn.Module):
     """Plain ViT backbone: ``{"plain": [B, H/16, W/16, dim]}`` in the block
     dtype. ``freeze_stem`` detaches the patch and position embeddings'
-    sum, so neither gets a gradient."""
+    sum, so neither gets a gradient; ``remat`` recomputes each block in the
+    backward pass."""
 
     def __init__(self, dim: int = 768, depth: int = 12, heads: int = 12,
                  patch: int = 16, window: int = 14,
                  global_attn_every: int = 3, pos_grid: int = 64,
                  dtype: torch.dtype = torch.float32,
-                 freeze_stem: bool = False, device=None):
+                 freeze_stem: bool = False, device=None, remat: bool = False):
         super().__init__()
         self.patch = patch
+        self.remat = remat
         self.dtype = dtype
         self.freeze_stem = freeze_stem
         self.dim = dim
@@ -189,7 +208,7 @@ class ViT(nn.Module):
         if self.freeze_stem:
             x = x.detach()
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            x = run_block(getattr(self, f"block{i}"), x, self.remat)
         return {"plain": self.norm(x).to(self.dtype)}
 
 
@@ -254,9 +273,10 @@ class SimpleFeaturePyramid(nn.Module):
 
 def build_vit(name: str, cfg, dtype: torch.dtype, device=None) -> ViT:
     """The ViT of ``name`` in ``VIT_VARIANTS``; ``cfg`` is the
-    ``BackboneConfig`` (its ``vit_*`` fields and ``freeze_stem``)."""
+    ``BackboneConfig`` (its ``vit_*`` fields, ``freeze_stem`` and
+    ``remat``)."""
     dim, depth, heads = VIT_VARIANTS[name]
     return ViT(dim=dim, depth=depth, heads=heads, window=cfg.vit_window,
                global_attn_every=cfg.vit_global_attn_every,
                pos_grid=cfg.vit_pos_grid, dtype=dtype,
-               freeze_stem=cfg.freeze_stem, device=device)
+               freeze_stem=cfg.freeze_stem, device=device, remat=cfg.remat)

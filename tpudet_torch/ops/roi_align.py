@@ -14,6 +14,11 @@ the port keeps it for the tests and as a timing reference only.
 FPN: ``fpn_assign_levels`` picks each RoI's level and ``roi_align_levels``
 pools each RoI once at it (the reference of the Hopper kernel in
 ``tpudet_torch.kernels.roi_align_window``).
+
+``crop_and_resize`` is the other pooler: ``tf.image.crop_and_resize``'s
+convention (the JAX package's ``ops.roi_align.crop_and_resize``), which no
+TPU kernel computes, in plain PyTorch; autograd differentiates it in the
+features.
 """
 
 from __future__ import annotations
@@ -272,3 +277,95 @@ def roi_align_levels(
     sampled = torch.where(vmask, sampled, torch.zeros_like(sampled))
     pooled = sampled.reshape(k, s, r, s, r, c).mean(dim=(2, 4))
     return pooled.to(features[0].dtype).reshape(b, n, s, s, c)
+
+
+def crop_and_resize_batched(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    image_index: torch.Tensor,
+    crop_size: int,
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """``tf.image.crop_and_resize``'s convention, as the JAX package's
+    ``crop_and_resize``: ``[B, H, W, C]`` features, ``[K, 4]`` boxes
+    ``[x1, y1, x2, y2]`` in feature-map index coordinates and their ``[K]``
+    image indices -> ``[K, S, S, C]`` f32. A ``crop_size`` grid spans the
+    box corners inclusive (the centre when ``crop_size`` is 1), each point
+    sampled bilinearly; a point outside ``[0, dim - 1]`` takes
+    ``extrapolation_value``. The arithmetic is f32 over the features cast
+    to f32 (JAX promotes a bf16 map times f32 weights to f32)."""
+    _, h, w, _ = features.shape
+    feats32 = features.float()
+    boxes = boxes.float()
+    s = crop_size
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    dev = boxes.device
+    if s > 1:
+        steps = (torch.arange(s, dtype=torch.float32, device=dev)
+                 / torch.tensor(float(s - 1), device=dev))
+        ys = y1[:, None] + steps[None, :] * (y2 - y1)[:, None]
+        xs = x1[:, None] + steps[None, :] * (x2 - x1)[:, None]
+    else:
+        ys = (0.5 * (y1 + y2))[:, None]
+        xs = (0.5 * (x1 + x2))[:, None]
+    valid_y = (ys >= 0) & (ys <= h - 1)
+    valid_x = (xs >= 0) & (xs <= w - 1)
+    ys = ys.clamp(0, h - 1)
+    xs = xs.clamp(0, w - 1)
+    y0 = ys.floor().long().clamp(0, h - 1)
+    x0 = xs.floor().long().clamp(0, w - 1)
+    y1i = (y0 + 1).clamp(max=h - 1)
+    x1i = (x0 + 1).clamp(max=w - 1)
+    ly = (ys - y0.float())[:, :, None, None]  # [K, S, 1, 1]
+    lx = (xs - x0.float())[:, None, :, None]  # [K, 1, S, 1]
+    img = image_index.long()[:, None, None]
+
+    def corner(yi, xi):  # [K, S, S, C]
+        return feats32[img, yi[:, :, None], xi[:, None, :]]
+
+    top = corner(y0, x0) * (1.0 - lx) + corner(y0, x1i) * lx
+    bot = corner(y1i, x0) * (1.0 - lx) + corner(y1i, x1i) * lx
+    out = top * (1.0 - ly) + bot * ly
+    valid = (valid_y[:, :, None] & valid_x[:, None, :])[..., None]
+    return torch.where(valid, out, torch.full_like(out, extrapolation_value))
+
+
+def crop_and_resize(
+    features: torch.Tensor,
+    boxes: torch.Tensor,
+    crop_size: int,
+    extrapolation_value: float = 0.0,
+) -> torch.Tensor:
+    """One image: ``[H, W, C]``, ``[N, 4]`` -> ``[N, S, S, C]`` f32 (see
+    ``crop_and_resize_batched``)."""
+    return crop_and_resize_batched(
+        features[None], boxes,
+        torch.zeros(boxes.shape[0], dtype=torch.int32, device=boxes.device),
+        crop_size, extrapolation_value)
+
+
+def crop_and_resize_levels(
+    features: Sequence[torch.Tensor],
+    strides: Sequence[float],
+    boxes: torch.Tensor,
+    levels: torch.Tensor,
+    crop_size: int,
+) -> torch.Tensor:
+    """FPN ``crop_and_resize``: ``[B, H_l, W_l, C]`` maps, ``[B, N, 4]``
+    image-pixel boxes and ``[B, N]`` 0-based levels -> ``[B, N, S, S, C]``
+    f32, each RoI cropped at its level from ``boxes / stride``: the value
+    of the JAX package's all-level masked sum (every level pooled, the
+    assigned one kept; the others add exact zeros)."""
+    b, n = boxes.shape[:2]
+    flat = boxes.reshape(b * n, 4)
+    image_index = torch.arange(b, dtype=torch.int32,
+                               device=boxes.device).repeat_interleave(n)
+    flat_levels = levels.reshape(b * n)
+    pooled = None
+    for level, (feat, stride) in enumerate(zip(features, strides)):
+        p = crop_and_resize_batched(feat, flat / float(stride), image_index,
+                                    crop_size)
+        keep = (flat_levels == level)[:, None, None, None]
+        pooled = (torch.where(keep, p, torch.zeros_like(p)) if pooled is None
+                  else torch.where(keep, p, pooled))
+    return pooled.reshape((b, n) + pooled.shape[1:])

@@ -1,6 +1,11 @@
-"""Data parallelism over ``torch.distributed`` (``tpudet.parallel``): one
-process per card, the global batch split by rows, the gradients averaged
-over the group. The data axis only; tensor parallelism waits (ROADMAP.md,
-Queue 1 item 32)."""
+"""Data and tensor parallelism over ``torch.distributed``
+(``tpudet.parallel``): one process per card on a ("data", "model") mesh.
+The global batch is split by rows over the data axis and the gradients are
+averaged over it; the model axis cuts the wide layers Megatron-style
+(``sharding_rules.tp_layout``, ``models.layers.shard_model``)."""
 
-from tpudet_torch.parallel.mesh import DataParallel, init_data_parallel  # noqa: F401
+from tpudet_torch.parallel.mesh import (  # noqa: F401
+    DataParallel,
+    init_data_parallel,
+    init_mesh,
+)

@@ -17,6 +17,13 @@ parameter groups carry the decay and the learning-rate factor, driven by
 * the factor scales the whole update, decay included: a group whose rate is
   the schedule's times the factor;
 * frozen parameters (``train.freeze``) belong to no group and never change.
+
+Under tensor parallelism ``create_train_state`` cuts the model
+(``models.layers.shard_model`` by ``parallel.sharding_rules.tp_layout``)
+before it makes the optimizer and the EMA, so the momentum, Adam's moments
+and the EMA are this rank's shards too, as the JAX package shards the
+train state "optimizer state included"; the decay mask still reads the Flax
+leaf's ndim.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from torch import nn
 
 from tpudet_torch.config import TrainConfig
 from tpudet_torch.models.import_weights import flax_param_ndims
+from tpudet_torch.models.layers import shard_model
+from tpudet_torch.parallel.sharding_rules import tp_layout
 
 F32 = np.float32
 
@@ -162,10 +171,14 @@ def make_optimizer(module: nn.Module, cfg: TrainConfig) -> torch.optim.Optimizer
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig,
-                       seed: Optional[int] = 0, device="cuda") -> TrainState:
+                       seed: Optional[int] = 0, device="cuda",
+                       dp=None) -> TrainState:
     """Move ``model`` to ``device`` (CUDA unless the caller passes "cpu"),
     draw its weights from ``seed`` (None keeps the weights it has, e.g.
-    converted ones), and build the optimizer and the EMA copy."""
+    converted ones), and build the optimizer and the EMA copy. With ``dp``
+    (``parallel.init_mesh``) on a model axis wider than one, the whole
+    weights are drawn first (every rank draws the same), then the model is
+    cut to this rank's shards."""
     if not 0.0 <= cfg.ema_decay < 1.0:
         raise ValueError(
             f"train.ema_decay {cfg.ema_decay} must be in [0, 1) (0 disables)")
@@ -175,6 +188,8 @@ def create_train_state(model: nn.Module, cfg: TrainConfig,
         model.device = device
     if seed is not None:
         model.init(seed)
+    if dp is not None and dp.model_size > 1:
+        shard_model(model, tp_layout(model, dp.model_size), dp.model_group)
     ema = ({name: p.detach().clone()
             for name, p in model.core.named_parameters()}
            if cfg.ema_decay > 0 else None)

@@ -13,6 +13,16 @@ draws the global microbatch's sampler and augmentation uniforms and keeps
 its own rows, and the gradients and metrics are averaged over the group
 before clipping, so the step equals the one-process step on the joined
 batch.
+
+Under tensor parallelism (``parallel.init_mesh`` with a model axis wider
+than one, and a state made by ``create_train_state(..., dp=...)``) ``dp``'s
+rank and size are the data axis's: the model peers take the same rows and
+the same draws, the gradients and metrics are averaged over the data axis
+only (over the world it would add different ranks' shards), the replicated
+gradients are averaged over the model axis (they are equal there but for
+the rounding of the backward kernels' atomics), and the global norm counts
+each sharded tensor's squares once over the model group and each
+replicated tensor once. The EMA is kept on the shards.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpudet_torch.config import Config
 from tpudet_torch.data.preprocess import augment_draws, device_preprocess
@@ -62,6 +73,17 @@ def _own_rows(draws, dp: Optional[DataParallel]):
     if isinstance(draws, dict):
         return {k: _own_rows(v, dp) for k, v in draws.items()}
     return tuple(_own_rows(v, dp) for v in draws)
+
+
+def _flat_mean_(grads, mean_) -> None:
+    """In place: each of ``grads`` replaced by ``mean_`` of it, through one
+    flat buffer (one collective)."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    mean_(flat)
+    start = 0
+    for g in grads:
+        g.copy_(flat[start:start + g.numel()].view_as(g))
+        start += g.numel()
 
 
 def make_train_step(model, cfg: Config, device="cuda",
@@ -109,6 +131,11 @@ def make_train_step(model, cfg: Config, device="cuda",
     if dp is not None and dp.device != device:
         raise ValueError(f"make_train_step(device={device}): this process "
                          f"of the data-parallel group drives {dp.device}")
+    tp = getattr(model.core, "tp", None)
+    if dp is not None and dp.model_size > 1 and tp is None:
+        raise ValueError("make_train_step: a model axis of "
+                         f"{dp.model_size} but the model is not sharded "
+                         "(create_train_state(..., dp=...) cuts it)")
     share = 1 if dp is None else dp.world_size
     rank = 0 if dp is None else dp.rank
     # Faster R-CNN's samplers draw from the step's generator; DETR's and
@@ -126,6 +153,9 @@ def make_train_step(model, cfg: Config, device="cuda",
                  if not frozen[name]]
     frozen_params = [p for name, p in model.core.named_parameters()
                      if frozen[name]]
+    sharded = [tp is not None and tp.layout[name].kind != "replicated"
+               for name, p in model.core.named_parameters()
+               if not frozen[name]]
     max_norm = tcfg.grad_clip_norm
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
@@ -171,14 +201,26 @@ def make_train_step(model, cfg: Config, device="cuda",
             grads.append(p.grad)
         if dp is not None:
             # psum's semantics: one all-reduce of every gradient, flat.
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dp.all_reduce_mean_(flat)
-            start = 0
-            for g in grads:
-                g.copy_(flat[start:start + g.numel()].view_as(g))
-                start += g.numel()
-            del flat
-        grad_norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+            _flat_mean_(grads, dp.all_reduce_mean_)
+        if tp is not None:
+            # The model peers' replicated gradients are equal but for the
+            # rounding of kernels whose sums have no fixed order (the RoI
+            # Align backwards' atomics): their mean keeps the peers'
+            # replicated parameters equal, step after step.
+            _flat_mean_([g for g, cut in zip(grads, sharded) if not cut],
+                        tp.mean_)
+        if tp is None:
+            grad_norm = torch.stack([g.square().sum()
+                                     for g in grads]).sum().sqrt()
+        else:
+            def squares(part):
+                return torch.stack([g.square().sum() for g, cut
+                                    in zip(grads, sharded) if cut == part]
+                                   or [grads[0].new_zeros(())]).sum()
+
+            cut_squares = squares(True)
+            dist.all_reduce(cut_squares, group=tp.group)
+            grad_norm = (cut_squares + squares(False)).sqrt()
         if max_norm > 0:
             keep = grad_norm < max_norm
             for g in grads:
