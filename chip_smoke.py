@@ -300,12 +300,19 @@ no result):
     (recorded), so two processes on the one card form a tp=2 gloo group
     on CUDA tensors; coco_r101_fpn (its RoI head's fc1 and fc2 cut) and
     coco_deformable_detr_r50 (4 of 8 heads per rank) at full width with
-    their plain init, bf16, 5 steps at b=8 832x832, each step held
-    against the one-process step from the same state (losses within
-    2^-7, gradients and SGD updates within phase 33's 5% or 4x the bf16
-    step's own distance from f32, the Hungarian matching replayed), ms
-    and peak memory per step of each, launches per rank (1 NMS, 1 FPN
-    forward and 1 backward; 12 deformable forward and 12 backward);
+    ``preset_model``'s widened heads, bf16, 5 steps at b=8 832x832, each
+    step held against the one-process step from the same state (losses
+    within 2^-7; SGD updates within phase 33's 5% of each tensor's
+    largest move; AdamW updates within ``PARAM_TOL`` of a whole Adam
+    step outside the elements whose gradient's sign differs, or 4x the
+    one-process bf16 step's own distance from its f32 step, and no more
+    such elements than that step has; gradients within 5% of each
+    tensor's largest or 4x the bf16 step's distance from f32; the
+    Hungarian matching replayed), ms and peak memory per step of each,
+    launches per rank (1 NMS, 1 FPN forward and 1 backward; 12 deformable
+    forward and 12 backward); then a row-parallel partial product in the
+    port's form (a tensor-core GEMM with f32 output) and as an f32 GEMM,
+    ms of each;
 62. the remaining options: approx and the routed poolers bit-equal to
     their defaults (voc_r50, coco_r101_fpn), ``crop_and_resize`` on
     voc_r50 against the CPU and through a bf16 predict and train step,
@@ -5803,12 +5810,7 @@ def phase_parity_cli(card):
 # --------------------------------------------------------------------------
 # Tensor parallelism and the remaining options (phases 61-62).
 
-# preset -> (seed, launches per step). The models take the plain init of
-# the train phases: with the widened heads of ``preset_model`` the
-# coco_r101_fpn step drives the logits into the hundreds by step 2, where
-# one bf16 ulp of a logit moves the loss by percents (a first card run:
-# the same state's one-process and TP losses 7% apart from step 2 on,
-# equal to 5 digits at steps 0 and 1).
+# preset -> (seed, launches per step).
 TP_PATHS = {"coco_r101_fpn": (171, {"nms": 1, "roi_align_window": 1,
                                     "roi_align_window_backward": 1}),
             "coco_deformable_detr_r50": (173, {"deform_attn": 12,
@@ -5871,23 +5873,20 @@ def run_pair(argvs, timeout):
 
 def tp_worker(spec):
     """One rank of the tp_step phase's tp=2 group (two processes on the one
-    card over gloo), for each preset of ``TP_PATHS`` in turn: the preset at
-    full width with its plain init (both ranks draw it from one seed),
-    bf16, ``TP_STEPS`` steps on planted ``TP_BATCH`` x 832x832 canvases.
-    Each step is taken three times from the same state: once by the
-    sharded model, then by an unsharded model in this process (the
-    one-process step, the sharded state joined into it), in bf16 and again
-    in f32 (the bf16 step's own rounding), both replaying the TP step's
-    Hungarian matching. The losses, each gradient shard and
-    each updated shard are compared (AdamW moves each element by the rate
-    times a sign that rounding flips where the gradient is noise: its
-    flips are counted), and the TP step's launches counted. Prints one
-    JSON record per preset."""
+    card over gloo), for each preset of ``TP_PATHS`` in turn: the preset
+    at full width, bf16, with ``preset_model``'s widened heads (both ranks
+    draw the weights from one seed), ``TP_STEPS`` steps on planted
+    ``TP_BATCH`` x 832x832 canvases. Each step is taken three times
+    from the same state: once by the sharded model, then by an
+    unsharded model in this process (the one-process step, the sharded
+    state joined into it), in bf16 and again in f32 (the bf16 step's own
+    rounding), both replaying the TP step's Hungarian matching. Per step
+    it records the losses, the distances of ``tp_gaps`` and the TP step's
+    launches. Prints one JSON record per preset."""
     import copy
 
     import torch
 
-    from tpudet_torch.cli.common import preset_config
     from tpudet_torch.models import build_model
     from tpudet_torch.parallel import init_mesh
     from tpudet_torch.train import losses
@@ -5920,13 +5919,13 @@ def tp_worker(spec):
 
     losses.hungarian_masked = hungarian_masked
     for preset, (seed, _) in TP_PATHS.items():
-        cfg = preset_config(preset)
-        cfg = cfg.replace(backbone=dataclasses.replace(cfg.backbone,
-                                                       dtype="bfloat16"))
-        model, ref_model = build_model(cfg), build_model(cfg)
-        state = create_train_state(model, cfg.train, seed=seed, device=dev,
+        cfg, model = preset_model(preset, "bfloat16", device=dev, seed=seed)
+        ref_model = build_model(cfg, device=dev)
+        ref_model.core.load_state_dict(model.core.state_dict())
+        state = create_train_state(model, cfg.train, seed=None, device=dev,
                                    dp=mesh)
-        ref = create_train_state(ref_model, cfg.train, seed=seed, device=dev)
+        ref = create_train_state(ref_model, cfg.train, seed=None, device=dev)
+        adam = cfg.train.optimizer in ("adam", "adamw")
         tp = model.core.tp
         layout = tp.layout
         batch = planted_batch(cfg, TP_BATCH, 832, 832, seed=seed)
@@ -5935,6 +5934,7 @@ def tp_worker(spec):
         record = {"preset": preset, "rank": mesh.model_rank, "steps": [],
                   "optimizer": cfg.train.optimizer, "launches": {},
                   "cut": sum(s.kind != "replicated" for s in layout.values())}
+
         def sync():
             """The one-process state := the TP state, joined."""
             with torch.no_grad():
@@ -5963,18 +5963,6 @@ def tp_worker(spec):
                                 layout[k].dim).clone()
                     for k, p in ref.params.items()
                     if which != "grad" or p.grad is not None}
-
-        def gaps(got, want, base=None):
-            """Per tensor: max |got - want| over the largest of ``want``
-            (``base``: of ``want - base``), floored at 1e-3 of the largest
-            of all."""
-            if base is not None:
-                got = {k: g - base[k] for k, g in got.items()}
-                want = {k: w - base[k] for k, w in want.items()}
-            floor = 1e-3 * max(float(w.abs().max()) for w in want.values())
-            return {k: float((got[k] - w).abs().max())
-                    / (float(w.abs().max()) + floor)
-                    for k, w in want.items()}
 
         for _ in range(TP_STEPS):
             before = {k: p.detach().clone() for k, p in state.params.items()}
@@ -6022,35 +6010,89 @@ def tp_worker(spec):
             torch.cuda.empty_cache()
             matcher["mode"] = None
             out["matches"] = (matcher["differ"], matcher["pairs"])
-            (g1, p1), (g2, p2), (gt, pt) = (seen[k] for k in
-                                            ("one", "f32", "tp"))
-            # The bf16 step's own rounding: the one-process step in bf16
-            # against the same step computed in f32.
-            spread_g, tp_g = gaps(g2, g1), gaps(gt, g1)
-            spread_u, tp_u = gaps(p2, p1, before), gaps(pt, p1, before)
-            moved = {k: p1[k] - before[k] for k in p1}
-            flips = sum(int(((pt[k] - before[k]) * m < 0).sum())
-                        for k, m in moved.items())
-            spread_flips = sum(int(((p2[k] - before[k]) * m < 0).sum())
-                               for k, m in moved.items())
-            worst = max((tp_g[k] / max(0.05, 4 * spread_g[k]), k)
-                        for k in tp_g)
-            worst_u = max((tp_u[k] / max(0.05, 4 * spread_u[k]), k)
-                          for k in tp_u)
-            out.update(
-                grad_gap=(tp_g[worst[1]], spread_g[worst[1]], worst[1],
-                          worst[0]),
-                update_gap=(tp_u[worst_u[1]], spread_u[worst_u[1]],
-                            worst_u[1], worst_u[0]),
-                sign_flips=(flips, spread_flips,
-                            sum(m.numel() for m in moved.values())))
+            rates = None
+            if adam:  # each parameter's rate in this step
+                group_of = {id(p): grp["lr"]
+                            for grp in ref.optimizer.param_groups
+                            for p in grp["params"]}
+                rates = {k: group_of[id(p)] for k, p in ref.params.items()}
+            out.update(tp_gaps(*seen["one"], *seen["f32"], *seen["tp"],
+                               before, rates))
             record["steps"].append(out)
-            del seen, g1, p1, g2, p2, gt, pt, moved
+            del seen
         print("TP_RECORD " + json.dumps(record), flush=True)
         del model, ref_model, state, ref, step, ref_step, batch
         torch.cuda.empty_cache()
     mesh.barrier()
     mesh.close()
+
+
+def tp_gaps(g1, p1, g2, p2, gt, pt, before, rates):
+    """One tp_step step's distances from the one-process bf16 step (``g1``
+    gradients, ``p1`` parameters after the update) of the TP step (``gt``,
+    ``pt``) and of the one-process f32 step (``g2``, ``p2``: the bf16
+    step's own rounding), this rank's shards, from the parameters
+    ``before`` the step; ``rates``: under AdamW, each parameter's learning
+    rate in this step (None under SGD):
+
+    * ``grad_gap``: the tensor with the largest TP gradient distance (max
+      |gt - g1| over max |g1|, floored at 1e-6 of the largest gradient
+      anywhere) over its limit, max(5%, 4x the f32 step's distance);
+      (tp, f32, name, ratio to the limit);
+    * ``update_gap``: SGD: phase 33's max |pt - p1| over max |p1 - before|
+      per tensor that moved, its limit 5%; AdamW: for each gradient above
+      1e-6 of the global norm, the norm of pt - p1 outside the elements
+      whose gradient's sign differs, over the norm of a whole Adam step
+      there (the rate on each element: Adam scales each element's move
+      to about the rate, and the move itself nears 0 where the moments
+      cancel), its limit max(``PARAM_TOL``, 4x the f32 step's distance
+      taken the same way: a gradient element near Adam's epsilon moves by
+      a fraction of the rate that bf16 rounding changes, 13% of a whole
+      step of dec5.self_attn.query.weight in bf16 against f32); (tp, f32,
+      name, ratio to the limit);
+    * ``sign_flips``: under AdamW, the elements whose gradient's sign
+      differs from the one-process bf16 step's, in the TP step and in the
+      f32 step, of all compared."""
+    floor = 1e-6 * max(float(g.abs().max()) for g in g1.values())
+    worst = (0.0, 0.0, None, -1.0)
+    for k, g in g1.items():
+        scale = float(g.abs().max()) + floor
+        tp_k = float((gt[k] - g).abs().max()) / scale
+        f32_k = float((g2[k] - g).abs().max()) / scale
+        ratio = tp_k / max(0.05, 4 * f32_k)
+        if ratio > worst[3]:
+            worst = (tp_k, f32_k, k, ratio)
+    norm = float(sum(float(g.float().square().sum()) for g in g1.values())
+                 ** 0.5)
+
+    def adam_gap(k, g_other, p_other):
+        same = g_other[k].sign() == g1[k].sign()
+        whole = rates[k] * float(same.sum()) ** 0.5
+        gap = (float((p_other[k] - p1[k])[same].norm()) / whole
+               if whole > 0 else 0.0)
+        return gap, int((~same).sum())
+
+    update, flips, flips_f32, elements = (0.0, 0.0, None, -1.0), 0, 0, 0
+    for k, g in g1.items():
+        if rates is not None:
+            if float(g.norm()) <= 1e-6 * norm:
+                continue
+            (tp_k, n_tp), (f32_k, n_f32) = (adam_gap(k, gt, pt),
+                                            adam_gap(k, g2, p2))
+            flips, flips_f32 = flips + n_tp, flips_f32 + n_f32
+            elements += g.numel()
+            ratio = tp_k / max(PARAM_TOL, 4 * f32_k)
+        else:
+            size = float((p1[k] - before[k]).abs().max())
+            if size == 0:
+                continue
+            tp_k = float((pt[k] - p1[k]).abs().max()) / size
+            f32_k = float((p2[k] - p1[k]).abs().max()) / size
+            ratio = tp_k / 0.05
+        if ratio > update[3]:
+            update = (tp_k, f32_k, k, ratio)
+    return {"grad_gap": worst, "update_gap": update,
+            "sign_flips": (flips, flips_f32, elements)}
 
 
 def nccl_two_ranks_one_card():
@@ -6074,15 +6116,21 @@ def phase_tp_step(card):
     rank) at full width, bf16, global b=``TP_BATCH``, tp=2 x dp=1, in two
     processes on the one card. NCCL refuses two ranks on one card, so the
     pair forms a gloo group on CUDA tensors (the TP layers use
-    ``all_reduce`` alone). Per rank and step (``tp_worker``): the loss
-    equals the one-process step's within bf16 rounding (2^-7 relative),
-    each gradient and (under SGD) each update agrees within 5% of the
-    tensor's largest (phase 33's rule: the backward kernels' atomics and
-    the bf16 convolution gradients) or 4x the one-process bf16 step's
-    distance from its f32 step where that is wider, AdamW's sign flips
-    are counted, and the launches are the path's per step. The ms and peak memory per step
-    of each are a record: two processes share the card and gloo stages
-    through the host."""
+    ``all_reduce`` alone). Per rank and step (``tp_worker``, ``tp_gaps``):
+    the loss equals the one-process step's within bf16 rounding (2^-7
+    relative); under SGD each update within 5% of the tensor's largest
+    move (phase 33's rule: the backward kernels' atomics and the bf16
+    convolution gradients); under AdamW each update within ``PARAM_TOL``
+    of a whole Adam step's norm (the rate on each element) outside the
+    elements whose gradient's sign differs, or 4x the bf16 step's own
+    distance from its f32 step where that is wider, and no more such
+    elements than the bf16 step has against the f32 step; each gradient
+    within 5% of the tensor's largest, or 4x the bf16 step's own distance
+    from f32 where that is wider (Deformable DETR's: the self-attention
+    key biases, zero in exact arithmetic, and the decoder's norms; the
+    readings in ``PERF.md``); the launches are the path's per step. The
+    ms and peak memory per step of each are a record: two processes share
+    the card and gloo stages through the host."""
     import torch
 
     torch.cuda.empty_cache()  # this process's cached blocks, for the pair
@@ -6094,7 +6142,8 @@ def phase_tp_step(card):
     rcs, outs = run_pair([[sys.executable, "-c", TP_WORKER, json.dumps(
         {"rank": r, "init": init}), str(HERE)] for r in range(2)],
         timeout=900)
-    seconds = time.perf_counter() - start
+    print(f"tp_step: {time.perf_counter() - start:.1f} s for the pair",
+          flush=True)
     check(rcs == [0, 0], f"tp_step: the ranks failed {rcs}:\n"
           + "\n".join(o[-3000:] for o in outs))
     records = [json.loads(ln[len("TP_RECORD "):]) for o in outs
@@ -6106,36 +6155,37 @@ def phase_tp_step(card):
         preset, r = rec["preset"], rec["rank"]
         adam = rec["optimizer"] != "sgd"
         for i, st in enumerate(rec["steps"]):
-            one, tp = st["one"], st["tp"]
-            (g_tp, g_spread, g_name, g_ratio) = st["grad_gap"]
-            (u_tp, u_spread, u_name, u_ratio) = st["update_gap"]
-            flips, spread_flips, elements = st["sign_flips"]
-            print(f"tp_step {preset} rank {r} step {i}: loss {tp['loss']:.6f}"
-                  f" (one process {one['loss']:.6f}, in f32 "
-                  f"{st['f32']['loss']:.6f}); worst gradient {g_name}: "
-                  f"{g_tp:.3e} (one process, bf16 against f32: "
-                  f"{g_spread:.3e}); worst update {u_name}: {u_tp:.3e} "
-                  f"({u_spread:.3e}); update "
-                  f"signs flipped {flips} ({spread_flips}) of {elements}; "
-                  f"Hungarian assignments the one-process step makes "
-                  f"otherwise {st['matches'][0]} of {st['matches'][1]}; "
-                  f"tp {tp['ms']:.1f} ms, {tp['peak_gib']:.2f} GiB; one "
-                  f"process {one['ms']:.1f} ms, {one['peak_gib']:.2f} GiB",
+            one, tp, f32 = st["one"], st["tp"], st["f32"]
+            g_tp, g_f32, g_name, g_ratio = st["grad_gap"]
+            u_tp, u_f32, u_name, u_ratio = st["update_gap"]
+            flips, flips_f32, elements = st["sign_flips"]
+            where = f"tp_step {preset} rank {r} step {i}"
+            print(f"{where}: loss {tp['loss']:.6f} (one process "
+                  f"{one['loss']:.6f}, in f32 {f32['loss']:.6f}); worst "
+                  f"gradient {g_name}: {g_tp:.3e} (one process, bf16 against "
+                  f"f32: {g_f32:.3e}); worst update {u_name}: {u_tp:.3e} "
+                  f"({u_f32:.3e})"
+                  + (f"; gradient signs flipped {flips} (bf16 against f32: "
+                     f"{flips_f32}) of {elements}" if adam else "")
+                  + f"; Hungarian assignments the one-process step makes "
+                  f"otherwise {st['matches'][0]} of {st['matches'][1]}; tp "
+                  f"{tp['ms']:.1f} ms, {tp['peak_gib']:.2f} GiB; one process "
+                  f"{one['ms']:.1f} ms, {one['peak_gib']:.2f} GiB",
                   flush=True)
             check(abs(tp["loss"] - one["loss"]) <= 2 ** -7 * abs(one["loss"]),
-                  f"tp_step {preset} rank {r} step {i}: loss {tp['loss']} "
-                  f"against one process {one['loss']}")
-            # Phase 33's rule, 5% of the tensor's largest, or 4x the bf16
-            # step's own distance from the f32 step where that is wider
-            # (as the f32 card steps are held within 4x the CPU's own
-            # spread, ROADMAP.md Queue 3).
-            check(g_ratio <= 1.0, f"tp_step {preset} rank {r} step {i}: "
-                  f"gradient {g_name} differs from the one-process step's "
-                  f"by {g_tp:.3e} of its largest (spread {g_spread:.3e})")
-            check(adam or u_ratio <= 1.0, f"tp_step {preset} rank {r} step "
-                  f"{i}: update {u_name} differs from the one-process "
-                  f"step's by {u_tp:.3e} of its size (spread "
-                  f"{u_spread:.3e})")
+                  f"{where}: loss {tp['loss']} against one process "
+                  f"{one['loss']}")
+            check(g_ratio <= 1.0, f"{where}: gradient {g_name} differs from "
+                  f"the one-process step's by {g_tp:.3e} of its largest "
+                  f"(the bf16 step against f32: {g_f32:.3e})")
+            check(u_ratio <= 1.0, f"{where}: update {u_name} differs from "
+                  f"the one-process step's by {u_tp:.3e} of its "
+                  + (f"whole Adam step outside the flipped elements (the "
+                     f"bf16 step against f32: {u_f32:.3e})" if adam
+                     else "largest move"))
+            check(flips <= flips_f32, f"{where}: {flips} gradient signs "
+                  f"differ from the one-process step's, more than the "
+                  f"bf16 step's {flips_f32} against f32")
         expect_launches(rec["launches"], f"tp_step {preset} rank {r}",
                         **{k: v * TP_STEPS
                            for k, v in TP_PATHS[preset][1].items()})
@@ -6151,8 +6201,44 @@ def phase_tp_step(card):
               f"card at once, gloo through the host); launches "
               f"{json.dumps(rec['launches'])} | {card}", flush=True)
         launches[f"{preset} tp_step rank {r}"] = rec["launches"]
-    print(f"tp_step: {seconds:.1f} s for the pair", flush=True)
+    row_parallel_product(card)
     return launches
+
+
+def row_parallel_product(card):
+    """A row-parallel Dense's partial product at a tp=2 rank's share of
+    the deformable encoder's FFN fc2 (b=8 832²: [114,920, 512] bf16 rows
+    against a [256, 512] bf16 weight), forward and backward: the port's
+    form (one tensor-core GEMM with f32 output, ``_linear_f32_out``)
+    against the f32 GEMM of the widened operands (TF32 off); their
+    outputs agree to the f32 sums' order (1e-5 of the largest), and each
+    one's ms is printed."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpudet_torch.models.layers import _linear_f32_out
+
+    gen = torch.Generator(device="cuda").manual_seed(181)
+    x = torch.randn(8 * 14365, 512, device="cuda", generator=gen
+                    ).bfloat16().requires_grad_()
+    w = (torch.randn(256, 512, device="cuda", generator=gen) * 0.05
+         ).bfloat16().requires_grad_()
+    grad = torch.randn(x.shape[0], 256, device="cuda", generator=gen)
+    forms = {"tensor cores, f32 output": lambda: _linear_f32_out(x, w),
+             "f32 GEMM": lambda: F.linear(x.float(), w.float())}
+    out = {k: f().detach() for k, f in forms.items()}
+    a, b = out.values()
+    err = float((a - b).abs().max()) / float(b.abs().max())
+    check(a.dtype == b.dtype == torch.float32 and err <= 1e-5,
+          f"row-parallel product: the two forms differ by {err:.3e}")
+    ms = {k: time_ms(lambda f=f: f().backward(grad), iters=10)
+          for k, f in forms.items()}
+    print("tp_step: a row-parallel partial product (deformable encoder FFN "
+          "fc2 at a tp=2 rank's share, [114920, 512] x [512, 256] bf16, "
+          "forward and backward): "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + f"; outputs within {err:.2e} of the largest | {card}",
+          flush=True)
 
 
 def phase_options(card):

@@ -9,7 +9,8 @@ each against tpudet's same option: ``rpn.topk_method="approx"`` and the
 * ``crop_and_resize`` (TF's convention, plain PyTorch): the function equals
   tpudet's with its extrapolation, and its gradient equals ``jax.vjp``'s;
   one train step's loss and gradients equal tpudet's given JAX's draws
-  (the poolers' features and predicts: ``test_torch_options_poolers.py``).
+  (the poolers' features and predicts: ``test_torch_options_poolers.py``);
+* the fields the port accepts and does not read warn when set.
 """
 
 import dataclasses
@@ -143,3 +144,23 @@ def test_crop_and_resize_train_step_equals_jax():
                                    atol=1e-4 * np.abs(want).max() + floor,
                                    err_msg=name)
     assert tm.core.det_head.fc1.weight.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("key,value", [("rpn.topk_recall_target", 0.9),
+                                       ("roi.window_batched", False),
+                                       ("roi.pooler_chunk", 64),
+                                       ("roi.mxu_chunk_budget_mb", 8.0)])
+def test_fields_the_port_does_not_read_warn_when_set(key, value):
+    """The four fields kept for ``--set`` parity (``config.NOT_READ``) are
+    set as tpudet sets them, with a warning that they change nothing."""
+    from tpudet import config as jconfig
+    from tpudet_torch import config as tconfig
+
+    assert key in tconfig.NOT_READ
+    with pytest.warns(UserWarning, match=f"{key}: the port accepts"):
+        cfg = tconfig.apply_overrides(tconfig.tiny_test_config(),
+                                      {key: value})
+    group, field = key.split(".")
+    ref = jconfig.apply_overrides(jconfig.tiny_test_config(), {key: value})
+    assert getattr(getattr(cfg, group), field) == value == getattr(
+        getattr(ref, group), field)

@@ -23,7 +23,15 @@ import pytest
 import torch
 
 from tests import _torch_tp_worker as worker
-from tests._torch_tp_check import assert_shards_equal, run_mesh
+from tests._torch_tp_check import (
+    assert_shards_equal,
+    assert_shards_match_tpudet,
+    assert_step_matches_tpudet,
+    f32_rounding,
+    groupnorm_in_f64,
+    run_mesh,
+    tpudet_steps,
+)
 from tests.test_torch_parallel import CLI, free_port, spawn
 from tpudet_torch.cli import train as ttrain
 from tpudet_torch.models import build_model
@@ -34,21 +42,37 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")
-def mesh(tmp_path_factory):
+def tpudet():
+    """tpudet's two steps on its dp=2 x tp=2 mesh -> (the port's start,
+    [step 1, step 2])."""
+    return tpudet_steps("mesh", 2, 2, steps=2)
+
+
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory, tpudet):
     out = tmp_path_factory.mktemp("mesh")
-    ranks = run_mesh(out, 4, 2, "mesh")
+    ranks = run_mesh(out, 4, 2, "mesh", start={"mesh": tpudet[0]})
     restore = tmp_path_factory.mktemp("restore")
     flat = run_mesh(restore, 4, 1, "restore", ckpt=out / "ckpt")
     return out, ranks, flat
 
 
-@pytest.fixture(scope="module")
-def reference():
-    """The one-process steps 1 and 2 from the seed-0 state."""
+def one_process_steps(start):
+    """The one-process steps 1 and 2 from ``start``."""
     cfg = worker.mesh_config()
-    state, first = worker.step_once(cfg, None)
-    _, second = worker.step_once(cfg, None, state)
+    state, first = worker.step_once(cfg, None, init=start)
+    _, second = worker.step_once(cfg, None, state, init=start, index=1)
     return first, second
+
+
+@pytest.fixture(scope="module")
+def reference(tpudet):
+    """The one-process steps 1 and 2 from tpudet's start, and the same
+    steps with GroupNorm in float64."""
+    plain = one_process_steps(tpudet[0])
+    with groupnorm_in_f64():
+        wide = one_process_steps(tpudet[0])
+    return plain + wide
 
 
 def test_mesh_places_the_ranks_as_make_mesh(mesh):
@@ -75,6 +99,11 @@ def test_dp2_tp2_step_with_accumulation_and_ema_equals_one_process(
         want = {k: e["momentum_buffer"] for k, e in ref["optimizer"].items()}
         assert_shards_equal(mom, want, r["layout"], r["model_rank"], 2,
                             "momentum")
+
+
+def tpudet_start(mesh):
+    """The start the mesh's workers took (tpudet's weights and draws)."""
+    return torch.load(mesh[0] / "start.pt")["mesh"]
 
 
 def test_sharded_checkpoint_restores_into_every_layout(mesh, reference):
@@ -105,7 +134,8 @@ def test_sharded_checkpoint_restores_into_every_layout(mesh, reference):
         assert torch.equal(p.detach(), whole[k]), k
     # One more step on the mesh and in the one process.
     ref = reference[1]
-    _, again = worker.step_once(cfg, None, one)
+    _, again = worker.step_once(cfg, None, one, init=tpudet_start(mesh),
+                                index=1)
     for r in ranks:
         for k, v in ref["metrics"].items():
             assert r["step2"]["metrics"][k] == pytest.approx(v, rel=1e-5), k
@@ -115,6 +145,43 @@ def test_sharded_checkpoint_restores_into_every_layout(mesh, reference):
                   for k, sh in ranks[0]["layout"].items()}
     assert_shards_equal(again["params"], ref["params"], replicated, 0, 1,
                         "one process, step 2")
+
+
+def test_mesh_steps_and_restore_equal_tpudet_sharded_steps(mesh, reference,
+                                                           tpudet):
+    _, ranks, _ = mesh
+    start, (first, second) = tpudet
+    slack = [f32_rounding(plain, wide) for plain, wide in
+             zip(reference[:2], reference[2:])]
+    # The one-process steps with GroupNorm in float64 equal tpudet's.
+    replicated = {k: type(sh)("replicated")
+                  for k, sh in ranks[0]["layout"].items()}
+    for i, (want, before) in enumerate(((first, start["weights"]),
+                                        (second, first["params"]))):
+        assert_step_matches_tpudet(reference[2 + i], want, before,
+                                   replicated, 0, 1,
+                                   f"one process step {i + 1}, GroupNorm "
+                                   f"in f64")
+    for r in ranks:
+        layout, rank = r["layout"], r["model_rank"]
+        label = f"rank {r['global_rank']}"
+        assert_step_matches_tpudet(r["step1"], first, start["weights"],
+                                   layout, rank, 2, f"{label} step 1",
+                                   slack[0])
+        for what, got in (("ema", r["step1"]["ema"]),
+                          ("ema", r["restored_ema"]),
+                          ("params", r["restored"])):
+            assert_shards_match_tpudet(got, first[what], layout, rank, 2,
+                                       f"{label} restored {what}",
+                                       start["weights"], slack[0]["params"])
+        momentum = {k: e["momentum_buffer"]
+                    for k, e in r["restored_optimizer"].items()}
+        assert_shards_match_tpudet(momentum, first["momentum"], layout, rank,
+                                   2, f"{label} restored momentum",
+                                   slack=slack[0]["momentum"])
+        assert_step_matches_tpudet(r["step2"], second, first["params"],
+                                   layout, rank, 2, f"{label} step 2",
+                                   slack[1])
 
 
 def test_train_cli_with_a_model_axis_equals_one_process(tmp_path):

@@ -15,6 +15,7 @@ the optimizer, schedule, EMA, accumulation, freeze and seed fields so far.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Tuple
 
 
@@ -724,10 +725,21 @@ def tiny_panoptic_config(canvas: int = 128, num_classes: int = 3) -> Config:
     )
 
 
+# Fields kept for ``--set`` parity with tpudet that change nothing here:
+# TPU layout and memory knobs, and the recall target of the approximate
+# top-k, which the port computes exactly.
+NOT_READ = ("rpn.topk_recall_target", "roi.window_batched",
+            "roi.pooler_chunk", "roi.mxu_chunk_budget_mb")
+
+
 def apply_overrides(cfg: Config, overrides: dict) -> Config:
-    """Apply ``{"rpn.nms_thresh": 0.6, ...}``-style dotted overrides."""
+    """Apply ``{"rpn.nms_thresh": 0.6, ...}``-style dotted overrides; a
+    field of ``NOT_READ`` is set with a warning that it has no effect."""
     grouped: dict = {}
     for key, value in overrides.items():
+        if key in NOT_READ:
+            warnings.warn(f"{key}: the port accepts this field for parity "
+                          "with tpudet and does not read it", stacklevel=2)
         if "." in key:
             group, field = key.split(".", 1)
             grouped.setdefault(group, {})[field] = value

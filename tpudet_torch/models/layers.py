@@ -287,13 +287,46 @@ class Dense(nn.Module):
             return F.linear(_CopyToModel.apply(x, group),
                             self.weight.to(self.dtype),
                             self.bias.to(self.dtype))
-        # Row-parallel: the partial products of the dtype's operands in f32
-        # (exact products, f32 sums: a bf16 partial would round before the
-        # reduction and lose the one rounding of the one-process product),
-        # summed over the group, then the bias, then one rounding.
-        part = F.linear(x.float(), self.weight.to(self.dtype).float())
+        # Row-parallel: each rank's partial product kept in f32 (a bf16
+        # partial would round before the reduction and lose the one
+        # rounding of the one-process product), summed over the group,
+        # then the bias, then one rounding.
+        part = _linear_f32_out(x, self.weight.to(self.dtype))
         return (_ReduceFromModel.apply(part, group)
                 + self.bias.float()).to(self.dtype)
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``x @ w.T`` of 16-bit operands on the card as one tensor-core GEMM
+    that accumulates in f32 and returns the f32 sums (``torch.mm``'s
+    ``out_dtype``). Backward, the gradient (16-bit exact: it comes through
+    the layer's rounding to its dtype) in the operands' dtype, and the two
+    GEMMs of an ordinary 16-bit linear layer."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        out = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g2 = grad.to(x.dtype).reshape(-1, w.shape[0])
+        grad_x = torch.mm(g2, w).reshape(x.shape)
+        grad_w = torch.mm(g2.t(), x.reshape(-1, x.shape[-1]))
+        return grad_x, grad_w
+
+
+def _linear_f32_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` in f32 from operands of one dtype: on the card a 16-bit
+    pair is one tensor-core GEMM with f32 output (``_MatmulF32Out``);
+    elsewhere, and for f32 operands, an f32 GEMM of the widened operands
+    (whose products are exact all the same)."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        return _MatmulF32Out.apply(x, w)
+    return F.linear(x.float(), w.float())
 
 
 def shard_model(model: nn.Module, layout: Dict[str, object],
