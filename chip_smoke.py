@@ -70,7 +70,8 @@ no result):
     ``create_train_state`` and ``make_train_step``: the preset's own train
     config (AdamW 2e-4, backbone 0.1x, clip 0.1, warmup) and plain init, bf16,
     dropout 0.1, b=8 832x832 uint8 canvases normalized by
-    ``device_preprocess`` with 1-20 planted boxes per image, 20 steps: every
+    ``device_preprocess`` with 1-20 planted boxes per image,
+    ``TRAIN_STEPS`` steps: every
     loss, ms per step, img/s, the matcher's ms, the launches per step (12
     forward and 12 backward deformable attention launches), peak memory;
 12. one f32 b=2 256x256 train step of the full preset (dropout 0) on the
@@ -89,7 +90,8 @@ no result):
 15. voc_r50 training at full width through ``create_train_state`` and
     ``make_train_step``: the preset's train config (SGD 1e-3, momentum 0.9,
     decay 5e-4, warmup 500) and plain init, bf16 backbone, b=8 640x640
-    planted boxes, 20 steps: every loss, ms per step, img/s, peak memory and
+    planted boxes, ``TRAIN_STEPS`` steps: every loss, ms per step, img/s,
+    peak memory and
     the launches per step (NMS 1, RoI Align forward 1 and backward 1);
 16. one f32 b=2 320x320 train step of the full voc_r50 preset on the card
     against the CPU plain path with the same sampler draws (numpy): equal
@@ -107,7 +109,8 @@ no result):
     time, the kernel's and the dense passes' (the flat f32 accumulator
     zeroed and cast) apart, its atomics, no slower than the plain version;
 19. coco_r101_fpn training at full width the same way as phase 15 (the
-    preset's train config, bf16 backbone, b=8 832x832, 20 steps): the
+    preset's train config, bf16 backbone, b=8 832x832, ``TRAIN_STEPS``
+    steps): the
     launches per step (NMS 1, FPN RoI Align forward 1 and backward 1, no
     single-level RoI Align), ms per step, img/s, peak memory;
 20. one f32 b=2 256x256 train step of the full coco_r101_fpn preset on the
@@ -186,7 +189,7 @@ no result):
     one b=8 832x832 predict;
 31. coco_maskrcnn_r50_fpn training at full width as phase 19 (b=8
     832x832, 1-20 planted ellipses per image with their 112-px box-frame
-    crops, 20 steps; launches per step: 1 NMS, 2 FPN forward, 2
+    crops, ``TRAIN_STEPS`` steps; launches per step: 1 NMS, 2 FPN forward, 2
     backward), a profile of one step, and the f32 b=2 256x256 step on the
     card against the CPU as phase 20, every loss term included;
 32. the tiny Mask R-CNN learning check (``tests/test_maskrcnn.py``'s
@@ -296,8 +299,8 @@ no result):
     empty checkpoint directory;
 60. ``python -m tpudet_torch.cli.parity --dry-run`` on the card;
 61. tensor parallelism (right after the serving phases, while this process
-    holds little of the card): two NCCL ranks on one card are refused
-    (recorded), so two processes on the one card form a tp=2 gloo group
+    holds little of the card): NCCL refuses two ranks on one card, so
+    two processes on the one card form a tp=2 gloo group
     on CUDA tensors; coco_r101_fpn (its RoI head's fc1 and fc2 cut) and
     coco_deformable_detr_r50 (4 of 8 heads per rank) at full width with
     ``preset_model``'s widened heads, bf16, 5 steps at b=8 832x832, each
@@ -307,8 +310,10 @@ no result):
     step outside the elements whose gradient's sign differs, or 4x the
     one-process bf16 step's own distance from its f32 step, and no more
     such elements than that step has; gradients within 5% of each
-    tensor's largest or 4x the bf16 step's distance from f32; the
-    Hungarian matching replayed), ms and peak memory per step of each,
+    tensor's largest or 4x the bf16 step's distance from f32; of the
+    gradient and AdamW limits, at most ``TP_OUTLIERS`` of the tensors
+    passed, none by more than ``TP_SPREAD`` times; the Hungarian
+    matching replayed), ms and peak memory per step of each,
     launches per rank (1 NMS, 1 FPN forward and 1 backward; 12 deformable
     forward and 12 backward); then a row-parallel partial product in the
     port's form (a tensor-core GEMM with f32 output) and as an f32 GEMM,
@@ -398,6 +403,9 @@ DETR_STD = {"sampling_offsets": 0.08, "attention_weights": 0.04,
 # The f32 train reference's tolerance on each parameter after one AdamW
 # step, as a fraction of how far the step moved it (phase_train_reference).
 PARAM_TOL = 0.1
+# Steps of each preset's bf16 b=8 train path: ms per step over the steps
+# after the first 5, every loss finite, the launches per step.
+TRAIN_STEPS = 10
 
 
 def fail(message: str) -> None:
@@ -1643,7 +1651,8 @@ def planted_batch(cfg, b, h, w, seed, boxes=(1, 20), slivers=0,
 def phase_train_path(card):
     """coco_deformable_detr_r50 training at full width: the preset's train
     config and plain init through ``create_train_state`` and
-    ``make_train_step``, bf16, dropout 0.1, b=8 832x832, 20 steps."""
+    ``make_train_step``, bf16, dropout 0.1, b=8 832x832, ``TRAIN_STEPS``
+    steps."""
     import math
 
     import torch
@@ -1663,7 +1672,8 @@ def phase_train_path(card):
     state = create_train_state(model, cfg.train, seed=0)
     step = make_train_step(model, cfg)
     batch = planted_batch(cfg, 8, 832, 832, seed=41)
-    steps, layers = 20, cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
+    steps = TRAIN_STEPS
+    layers = cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     hungarian.SECONDS = 0.0
@@ -2089,7 +2099,8 @@ def phase_roi_align_window_backward():
 def phase_faster_rcnn_train_path(card, preset, size, seed):
     """Faster R-CNN training at full width: the preset's train config and
     plain init through ``create_train_state`` and ``make_train_step``, bf16
-    backbone, b=8 ``size`` x ``size`` planted boxes, 20 steps. voc_r50 pools
+    backbone, b=8 ``size`` x ``size`` planted boxes, ``TRAIN_STEPS`` steps.
+    voc_r50 pools
     through the RoI Align kernels, coco_r101_fpn through the FPN ones."""
     import math
 
@@ -2112,7 +2123,7 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
     state = create_train_state(model, cfg.train, seed=0)
     step = make_train_step(model, cfg)
     batch = planted_batch(cfg, 8, size, size, seed=seed)
-    steps = 20
+    steps = TRAIN_STEPS
     label = f"{preset} bf16 b=8 {size}x{size}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3585,7 +3596,8 @@ def phase_mask_predict(card):
 def phase_mask_train_path(card):
     """coco_maskrcnn_r50_fpn training at full width: the preset's train
     config through ``make_train_step``, bf16, b=8 832x832, 1-20 planted
-    ellipses per image with their box-frame crops (112 px), 20 steps."""
+    ellipses per image with their box-frame crops (112 px),
+    ``TRAIN_STEPS`` steps."""
     return phase_faster_rcnn_train_path(card, "coco_maskrcnn_r50_fpn", 832,
                                         seed=77)
 
@@ -4160,7 +4172,8 @@ def phase_family_predict(card, family, seed):
 
 def phase_family_train(card, family, seed):
     """One family's preset training at full width as phase 19 (b=8
-    832x832, 1-20 planted objects with the family's ground truth, 20 steps;
+    832x832, 1-20 planted objects with the family's ground truth,
+    ``TRAIN_STEPS`` steps;
     ``roi_pools`` FPN RoI Align forwards and backwards per step), then the
     f32 b=2 256x256 step on the card against the CPU as phase 20."""
     preset = FAMILY_PRESETS[family]
@@ -4637,7 +4650,8 @@ def phase_one_stage_train_path(card, family, seed):
     """One of ``ONE_STAGE_PRESETS`` training at full width: the preset's
     train config and plain init through ``create_train_state`` and
     ``make_train_step`` (bf16; DETR's dropout 0.1), b=8 832x832 with 1-20
-    planted boxes per image, 20 steps: every loss, ms per step, img/s, peak
+    planted boxes per image, ``TRAIN_STEPS`` steps: every loss, ms per
+    step, img/s, peak
     memory, the launches per step (none: no kernel is on these train
     paths) and DETR's host matcher ms."""
     import math
@@ -4656,7 +4670,7 @@ def phase_one_stage_train_path(card, family, seed):
     state = create_train_state(model, cfg.train, seed=0)
     step = make_train_step(model, cfg)
     batch = planted_batch(cfg, 8, 832, 832, seed=seed)
-    steps = 20
+    steps = TRAIN_STEPS
     label = f"{preset} bf16 b=8 832x832"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5817,25 +5831,24 @@ TP_PATHS = {"coco_r101_fpn": (171, {"nms": 1, "roi_align_window": 1,
                                                "deform_attn_backward": 12})}
 TP_STEPS = 5
 TP_BATCH = 8
+# A tensor's gradient or AdamW update limit in tp_step (``tp_gaps``) is 4x
+# the one-process bf16 step's own distance from its f32 step: one reading
+# of one rounding. Over a few elements, and through the kinks of the box
+# losses (L1's signs), the max of such a distance is heavy-tailed. On the
+# card (NVIDIA H100 80GB HBM3, 700 W) a correct TP step put one tensor
+# past its limit in about one run of two, at most 2.13x
+# (bbox_head5.out.bias, 4 elements: 13.5% of its largest, 1.6% in bf16
+# against f32); with the column-parallel layers' backward all-reduce
+# removed, the first step's class_head4.bias read 20.8x (PERF.md, tensor
+# parallelism). So at most TP_OUTLIERS of the tensors may pass their
+# limit, none by more than TP_SPREAD times.
+TP_OUTLIERS = 0.01
+TP_SPREAD = 4.0
 TP_WORKER = r"""
 import json, sys
 sys.path.insert(0, sys.argv[2])
 import chip_smoke
 chip_smoke.tp_worker(json.loads(sys.argv[1]))
-"""
-NCCL_TWO_RANKS = r"""
-import datetime, sys
-import torch
-import torch.distributed as dist
-rank = int(sys.argv[1])
-torch.cuda.set_device(0)
-dist.init_process_group("nccl", init_method=sys.argv[2], rank=rank,
-                        world_size=2, timeout=datetime.timedelta(seconds=60))
-x = torch.ones(4, device="cuda:0")
-dist.all_reduce(x)
-torch.cuda.synchronize()
-print("all_reduce returned", x.tolist(), flush=True)
-dist.destroy_process_group()
 """
 
 
@@ -6039,6 +6052,7 @@ def tp_gaps(g1, p1, g2, p2, gt, pt, before, rates):
       |gt - g1| over max |g1|, floored at 1e-6 of the largest gradient
       anywhere) over its limit, max(5%, 4x the f32 step's distance);
       (tp, f32, name, ratio to the limit);
+    * ``grad_over``: (tensors past their gradient limit, tensors);
     * ``update_gap``: SGD: phase 33's max |pt - p1| over max |p1 - before|
       per tensor that moved, its limit 5%; AdamW: for each gradient above
       1e-6 of the global norm, the norm of pt - p1 outside the elements
@@ -6050,16 +6064,19 @@ def tp_gaps(g1, p1, g2, p2, gt, pt, before, rates):
       a fraction of the rate that bf16 rounding changes, 13% of a whole
       step of dec5.self_attn.query.weight in bf16 against f32); (tp, f32,
       name, ratio to the limit);
+    * ``update_over``: (tensors past their update limit, tensors
+      compared);
     * ``sign_flips``: under AdamW, the elements whose gradient's sign
       differs from the one-process bf16 step's, in the TP step and in the
       f32 step, of all compared."""
     floor = 1e-6 * max(float(g.abs().max()) for g in g1.values())
-    worst = (0.0, 0.0, None, -1.0)
+    worst, grad_over = (0.0, 0.0, None, -1.0), 0
     for k, g in g1.items():
         scale = float(g.abs().max()) + floor
         tp_k = float((gt[k] - g).abs().max()) / scale
         f32_k = float((g2[k] - g).abs().max()) / scale
         ratio = tp_k / max(0.05, 4 * f32_k)
+        grad_over += ratio > 1.0
         if ratio > worst[3]:
             worst = (tp_k, f32_k, k, ratio)
     norm = float(sum(float(g.float().square().sum()) for g in g1.values())
@@ -6073,6 +6090,7 @@ def tp_gaps(g1, p1, g2, p2, gt, pt, before, rates):
         return gap, int((~same).sum())
 
     update, flips, flips_f32, elements = (0.0, 0.0, None, -1.0), 0, 0, 0
+    update_over, compared = 0, 0
     for k, g in g1.items():
         if rates is not None:
             if float(g.norm()) <= 1e-6 * norm:
@@ -6089,33 +6107,23 @@ def tp_gaps(g1, p1, g2, p2, gt, pt, before, rates):
             tp_k = float((pt[k] - p1[k]).abs().max()) / size
             f32_k = float((p2[k] - p1[k]).abs().max()) / size
             ratio = tp_k / 0.05
+        update_over += ratio > 1.0
+        compared += 1
         if ratio > update[3]:
             update = (tp_k, f32_k, k, ratio)
     return {"grad_gap": worst, "update_gap": update,
+            "grad_over": (grad_over, len(g1)),
+            "update_over": (update_over, compared),
             "sign_flips": (flips, flips_f32, elements)}
-
-
-def nccl_two_ranks_one_card():
-    """Two NCCL ranks on one card: the error NCCL gives (it refuses the
-    pair), or None where the all-reduce went through."""
-    init = f"tcp://127.0.0.1:{free_port()}"
-    rcs, outs = run_pair([[sys.executable, "-c", NCCL_TWO_RANKS, str(r),
-                           init] for r in range(2)], timeout=120)
-    if all(rc == 0 for rc in rcs):
-        return None
-    text = "\n".join(outs)
-    lines = [ln for ln in text.splitlines()
-             if "Duplicate GPU" in ln or "ncclInvalidUsage" in ln]
-    return (lines[0].strip() if lines else
-            f"return codes {rcs}: {text.strip().splitlines()[-1:]}")
 
 
 def phase_tp_step(card):
     """Tensor parallelism on the card: coco_r101_fpn (the RoI head's fc
     1024 -> 512 per rank) and coco_deformable_detr_r50 (4 of 8 heads per
     rank) at full width, bf16, global b=``TP_BATCH``, tp=2 x dp=1, in two
-    processes on the one card. NCCL refuses two ranks on one card, so the
-    pair forms a gloo group on CUDA tensors (the TP layers use
+    processes on the one card. NCCL refuses two ranks on one card
+    (``ncclInvalidUsage``, PERF.md), so the pair forms a gloo group on
+    CUDA tensors (the TP layers use
     ``all_reduce`` alone). Per rank and step (``tp_worker``, ``tp_gaps``):
     the loss equals the one-process step's within bf16 rounding (2^-7
     relative); under SGD each update within 5% of the tensor's largest
@@ -6128,15 +6136,15 @@ def phase_tp_step(card):
     within 5% of the tensor's largest, or 4x the bf16 step's own distance
     from f32 where that is wider (Deformable DETR's: the self-attention
     key biases, zero in exact arithmetic, and the decoder's norms; the
-    readings in ``PERF.md``); the launches are the path's per step. The
+    readings in ``PERF.md``); of the gradient and AdamW update limits, at
+    most ``TP_OUTLIERS`` of the tensors passed, none by more than
+    ``TP_SPREAD`` times (a max over a few elements of one bf16 reading is
+    heavy-tailed); the launches are the path's per step. The
     ms and peak memory per step of each are a record: two processes share
     the card and gloo stages through the host."""
     import torch
 
     torch.cuda.empty_cache()  # this process's cached blocks, for the pair
-    refused = nccl_two_ranks_one_card()
-    print(f"tp_step: two NCCL ranks on one card: "
-          f"{refused or 'the all-reduce went through'}", flush=True)
     init = f"tcp://127.0.0.1:{free_port()}"
     start = time.perf_counter()
     rcs, outs = run_pair([[sys.executable, "-c", TP_WORKER, json.dumps(
@@ -6158,13 +6166,16 @@ def phase_tp_step(card):
             one, tp, f32 = st["one"], st["tp"], st["f32"]
             g_tp, g_f32, g_name, g_ratio = st["grad_gap"]
             u_tp, u_f32, u_name, u_ratio = st["update_gap"]
+            (g_over, g_n), (u_over, u_n) = st["grad_over"], st["update_over"]
             flips, flips_f32, elements = st["sign_flips"]
             where = f"tp_step {preset} rank {r} step {i}"
             print(f"{where}: loss {tp['loss']:.6f} (one process "
                   f"{one['loss']:.6f}, in f32 {f32['loss']:.6f}); worst "
                   f"gradient {g_name}: {g_tp:.3e} (one process, bf16 against "
-                  f"f32: {g_f32:.3e}); worst update {u_name}: {u_tp:.3e} "
-                  f"({u_f32:.3e})"
+                  f"f32: {g_f32:.3e}), {g_ratio:.2f} of its limit, {g_over} "
+                  f"of {g_n} past theirs; worst update {u_name}: {u_tp:.3e} "
+                  f"({u_f32:.3e}), {u_ratio:.2f} of its limit, {u_over} of "
+                  f"{u_n} past theirs"
                   + (f"; gradient signs flipped {flips} (bf16 against f32: "
                      f"{flips_f32}) of {elements}" if adam else "")
                   + f"; Hungarian assignments the one-process step makes "
@@ -6175,14 +6186,24 @@ def phase_tp_step(card):
             check(abs(tp["loss"] - one["loss"]) <= 2 ** -7 * abs(one["loss"]),
                   f"{where}: loss {tp['loss']} against one process "
                   f"{one['loss']}")
-            check(g_ratio <= 1.0, f"{where}: gradient {g_name} differs from "
-                  f"the one-process step's by {g_tp:.3e} of its largest "
-                  f"(the bf16 step against f32: {g_f32:.3e})")
-            check(u_ratio <= 1.0, f"{where}: update {u_name} differs from "
-                  f"the one-process step's by {u_tp:.3e} of its "
-                  + (f"whole Adam step outside the flipped elements (the "
-                     f"bf16 step against f32: {u_f32:.3e})" if adam
-                     else "largest move"))
+            check(g_ratio <= TP_SPREAD
+                  and g_over <= int(TP_OUTLIERS * g_n),
+                  f"{where}: gradient {g_name} differs from the one-process "
+                  f"step's by {g_tp:.3e} of its largest (the bf16 step "
+                  f"against f32: {g_f32:.3e}), {g_ratio:.2f} of its limit; "
+                  f"{g_over} of {g_n} gradients past their limits")
+            if adam:
+                check(u_ratio <= TP_SPREAD
+                      and u_over <= int(TP_OUTLIERS * u_n),
+                      f"{where}: update {u_name} differs from the "
+                      f"one-process step's by {u_tp:.3e} of its whole Adam "
+                      f"step outside the flipped elements (the bf16 step "
+                      f"against f32: {u_f32:.3e}), {u_ratio:.2f} of its "
+                      f"limit; {u_over} of {u_n} updates past their limits")
+            else:
+                check(u_ratio <= 1.0, f"{where}: update {u_name} differs "
+                      f"from the one-process step's by {u_tp:.3e} of its "
+                      "largest move")
             check(flips <= flips_f32, f"{where}: {flips} gradient signs "
                   f"differ from the one-process step's, more than the "
                   f"bf16 step's {flips_f32} against f32")
