@@ -72,7 +72,7 @@ no result):
     dropout 0.1, b=8 832x832 uint8 canvases normalized by
     ``device_preprocess`` with 1-20 planted boxes per image,
     ``TRAIN_STEPS`` steps: every
-    loss, ms per step, img/s, the matcher's ms, the launches per step (12
+    loss, ms per step, img/s, the launches per step (12
     forward and 12 backward deformable attention launches), peak memory;
 12. one f32 b=2 256x256 train step of the full preset (dropout 0) on the
     card against the same step on the CPU plain path: equal matches, the
@@ -255,7 +255,7 @@ no result):
     centre sampling) the same way, its NMS at 0.6 (``fcos_final``);
 48-49. coco_detr_r50 (ResNet-50 C5, 6+6 layers of 256, FFN 2048, 100
     queries, bf16) the same way: no kernel on either path, the f32
-    reference step's matches equal, the host matcher's ms per step;
+    reference step's matches equal;
 50-51. coco_vitdet_b (ViT-B/16, window 14, 4 global blocks, the simple
     feature pyramid, the FPN RoI Align at window 56, 80 classes, bf16)
     inference through ``make_eval_step`` (run before phases 42-43): b = 8
@@ -1663,7 +1663,6 @@ def phase_train_path(card):
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
     from tpudet_torch.models import build_model
-    from tpudet_torch.ops import hungarian
     from tpudet_torch.train.state import create_train_state
     from tpudet_torch.train.step import make_train_step
 
@@ -1676,7 +1675,6 @@ def phase_train_path(card):
     layers = cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hungarian.SECONDS = 0.0
     # The main path: counts set to 0 just before, read just after.
     kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
     knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
@@ -1703,15 +1701,12 @@ def phase_train_path(card):
                        "roi_align": 0, "roi_align_window": 0},
           f"train path launches {launches}: expected {layers} forward and "
           f"{layers} backward deformable attention launches per step")
-    matcher_ms = hungarian.SECONDS / steps * 1e3
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"coco_deformable_detr_r50 bf16 train b=8 832x832 (preset AdamW, "
           f"dropout {cfg.deformable_detr.dropout}, 1-20 boxes/image): "
           f"{ms:.2f} ms/step over steps 5..{steps - 1} (first {times[0]:.2f} "
-          f"ms), {8e3 / ms:.1f} img/s, matcher (host, lockstep over "
-          f"{cfg.deformable_detr.dec_layers} layers x 8 images) "
-          f"{matcher_ms:.2f} ms/step, launches per step "
+          f"ms), {8e3 / ms:.1f} img/s, launches per step "
           f"{launches['deform_attn'] // steps} forward + "
           f"{launches['deform_attn_backward'] // steps} backward, peak device "
           f"memory {peak:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
@@ -4652,15 +4647,14 @@ def phase_one_stage_train_path(card, family, seed):
     ``make_train_step`` (bf16; DETR's dropout 0.1), b=8 832x832 with 1-20
     planted boxes per image, ``TRAIN_STEPS`` steps: every loss, ms per
     step, img/s, peak
-    memory, the launches per step (none: no kernel is on these train
-    paths) and DETR's host matcher ms."""
+    memory and the launches per step (none: no kernel is on these train
+    paths)."""
     import math
 
     import torch
 
     from tpudet_torch.cli.common import preset_config
     from tpudet_torch.models import build_model
-    from tpudet_torch.ops import hungarian
     from tpudet_torch.train.state import create_train_state
     from tpudet_torch.train.step import make_train_step
 
@@ -4674,7 +4668,6 @@ def phase_one_stage_train_path(card, family, seed):
     label = f"{preset} bf16 b=8 832x832"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hungarian.SECONDS = 0.0
     # The main path: counts set to 0 just before, read just after.
     zero_launches()
     times, rows = [], []
@@ -4694,14 +4687,9 @@ def phase_one_stage_train_path(card, family, seed):
     expect_launches(launches, f"{family}_train")
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    matcher = ""
-    if cfg.model == "detr":
-        matcher = (f", matcher (host, lockstep over {cfg.detr.dec_layers} "
-                   f"layers x 8 images) "
-                   f"{hungarian.SECONDS / steps * 1e3:.2f} ms/step")
     print(f"{label} train (preset {cfg.train.optimizer}, planted 1-20 "
           f"boxes/image): {ms:.2f} ms/step over steps 5..{steps - 1} (first "
-          f"{times[0]:.2f} ms), {8e3 / ms:.1f} img/s{matcher}, no kernel "
+          f"{times[0]:.2f} ms), {8e3 / ms:.1f} img/s, no kernel "
           f"launches, peak device memory {peak:.2f} GiB, loss "
           f"{rows[0]['loss']:.4f} (step 0) -> {rows[-1]['loss']:.4f} (step "
           f"{steps - 1}) | {card}", flush=True)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from scipy.optimize import linear_sum_assignment
+from torch.profiler import ProfilerActivity, profile
 
 from tpudet.ops import boxes as jboxes
 from tpudet.ops.hungarian import hungarian as jax_hungarian
@@ -131,9 +132,15 @@ def test_hungarian_leading_axes_and_timing():
     rng = np.random.default_rng(3)
     cost = rng.normal(0, 1, (2, 3, 5, 9)).astype(np.float32)
     valid = rng.uniform(size=(2, 3, 5)) < 0.7
-    before = thung.SECONDS
-    out = thung.hungarian_masked(t(cost), t(valid))
-    assert out.shape == (2, 3, 5) and thung.SECONDS > before
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = thung.hungarian_masked(t(cost), t(valid))
+    assert out.shape == (2, 3, 5)
+    # The call is one matcher span, its copies to the host a child span.
+    spans = [e for e in prof.events() if e.name.startswith("tpudet/")]
+    assert [e.name for e in spans] == ["tpudet/matcher",
+                                       "tpudet/matcher/fetch"]
+    matcher, fetch = spans
+    assert fetch.cpu_parent is matcher and matcher.cpu_time_total > 0
     flat = thung.hungarian_masked(t(cost.reshape(6, 5, 9)),
                                   t(valid.reshape(6, 5)))
     assert torch.equal(out.reshape(6, 5), flat)

@@ -67,6 +67,7 @@ from tpudet_torch.ops.deform_attn import (
     sampling_offset_init_bias,
 )
 from tpudet_torch.train import losses
+from tpudet_torch.utils.profiling import span
 
 GATHERS = ("flat", "patch", "mxu")
 LevelShapes = Tuple[Tuple[int, int], ...]
@@ -443,54 +444,58 @@ class DeformableDETRCore(nn.Module):
         (cx, cy, w, h) boxes normalized by each image's true extent.
         ``generator`` (None: no dropout) draws every dropout mask."""
         d = self.cfg.deformable_detr
-        src, pos, valid_tokens, level_shapes, valid_ratios = (
-            self._multi_scale(images, image_hw))
+        with span("tpudet/backbone"):
+            src, pos, valid_tokens, level_shapes, valid_ratios = (
+                self._multi_scale(images, image_hw))
         b = src.shape[0]
 
-        # Encoder references: each token's own center in valid-normalized
-        # coordinates, scaled into every level's full grid by its ratio.
-        centers = level_reference_points(level_shapes, device=src.device)
-        own_ratio = torch.cat([
-            valid_ratios[:, li:li + 1, :].expand(b, hl * wl, 2)
-            for li, (hl, wl) in enumerate(level_shapes)], dim=1)
-        ref_valid = centers[None] / own_ratio.clamp(min=1e-6)
-        enc_ref = ref_valid[:, :, None, :] * valid_ratios[:, None, :, :]
-        for layer in self._layers("enc", d.enc_layers):
-            src = layer(src, pos, enc_ref, valid_tokens, level_shapes,
-                        generator)
+        with span("tpudet/encoder"):
+            # Encoder references: each token's own center in
+            # valid-normalized coordinates, scaled into every level's full
+            # grid by its ratio.
+            centers = level_reference_points(level_shapes, device=src.device)
+            own_ratio = torch.cat([
+                valid_ratios[:, li:li + 1, :].expand(b, hl * wl, 2)
+                for li, (hl, wl) in enumerate(level_shapes)], dim=1)
+            ref_valid = centers[None] / own_ratio.clamp(min=1e-6)
+            enc_ref = ref_valid[:, :, None, :] * valid_ratios[:, None, :, :]
+            for layer in self._layers("enc", d.enc_layers):
+                src = layer(src, pos, enc_ref, valid_tokens, level_shapes,
+                            generator)
+        with span("tpudet/decoder"):
+            qe = self.query_embed
+            qpos = qe[None, :, :d.d_model].expand(b, -1, -1).to(self.dtype)
+            tgt = qe[None, :, d.d_model:].expand(b, -1, -1).to(self.dtype)
+            ref = torch.sigmoid(self.ref_point_head(qpos.to(torch.float32)))
 
-        qe = self.query_embed
-        qpos = qe[None, :, :d.d_model].expand(b, -1, -1).to(self.dtype)
-        tgt = qe[None, :, d.d_model:].expand(b, -1, -1).to(self.dtype)
-        ref = torch.sigmoid(self.ref_point_head(qpos.to(torch.float32)))
-
-        all_logits, all_boxes = [], []
-        for i, layer in enumerate(self._layers("dec", d.dec_layers)):
-            if ref.shape[-1] == 2:
-                ref_xy = ref[:, :, None, :] * valid_ratios[:, None, :, :]
-                ref_wh = None
-            else:
-                scaled = ref[:, :, None, :] * torch.cat(
-                    [valid_ratios, valid_ratios], dim=-1)[:, None, :, :]
-                ref_xy, ref_wh = scaled[..., :2], scaled[..., 2:]
-            tgt = layer(tgt, qpos, src, ref_xy, ref_wh, valid_tokens,
-                        level_shapes, generator)
-            hi = i if d.with_box_refine else 0
-            logits = getattr(self, f"class_head{hi}")(tgt.to(torch.float32))
-            delta = getattr(self, f"bbox_head{hi}")(tgt)
-            if ref.shape[-1] == 2:
-                anchor = torch.cat([inverse_sigmoid(ref),
-                                    torch.zeros_like(ref)], dim=-1)
-            else:
-                anchor = inverse_sigmoid(ref)
-            boxes = torch.sigmoid(delta + anchor)
-            all_logits.append(logits)
-            all_boxes.append(boxes)
-            if d.with_box_refine:
-                # Each layer refines around the previous layer's boxes
-                # without backpropagating into them.
-                ref = boxes.detach()
-        return torch.stack(all_logits), torch.stack(all_boxes)
+            all_logits, all_boxes = [], []
+            for i, layer in enumerate(self._layers("dec", d.dec_layers)):
+                if ref.shape[-1] == 2:
+                    ref_xy = ref[:, :, None, :] * valid_ratios[:, None, :, :]
+                    ref_wh = None
+                else:
+                    scaled = ref[:, :, None, :] * torch.cat(
+                        [valid_ratios, valid_ratios], dim=-1)[:, None, :, :]
+                    ref_xy, ref_wh = scaled[..., :2], scaled[..., 2:]
+                tgt = layer(tgt, qpos, src, ref_xy, ref_wh, valid_tokens,
+                            level_shapes, generator)
+                hi = i if d.with_box_refine else 0
+                logits = getattr(self, f"class_head{hi}")(
+                    tgt.to(torch.float32))
+                delta = getattr(self, f"bbox_head{hi}")(tgt)
+                if ref.shape[-1] == 2:
+                    anchor = torch.cat([inverse_sigmoid(ref),
+                                        torch.zeros_like(ref)], dim=-1)
+                else:
+                    anchor = inverse_sigmoid(ref)
+                boxes = torch.sigmoid(delta + anchor)
+                all_logits.append(logits)
+                all_boxes.append(boxes)
+                if d.with_box_refine:
+                    # Each layer refines around the previous layer's boxes
+                    # without backpropagating into them.
+                    ref = boxes.detach()
+            return torch.stack(all_logits), torch.stack(all_boxes)
 
 
 class DeformableDETR(nn.Module):
@@ -573,12 +578,14 @@ class DeformableDETR(nn.Module):
                            dim=-1)[:, None, :]
         gt_n = box_ops.xyxy_to_cxcywh(batch["gt_boxes"].to(torch.float32)) / norm
         layers = logits.shape[0]
-        focal_s, l1_s, gi_s, npos = losses.deformable_detr_set_loss(
-            logits, boxes, gt_n.expand(layers, -1, -1, -1),
-            batch["gt_classes"].expand(layers, -1, -1),
-            batch["gt_valid"].to(torch.bool).expand(layers, -1, -1),
-            cost_class=d.cost_class, cost_bbox=d.cost_bbox,
-            cost_giou=d.cost_giou, alpha=d.focal_alpha, gamma=d.focal_gamma)
+        with span("tpudet/set_loss"):
+            focal_s, l1_s, gi_s, npos = losses.deformable_detr_set_loss(
+                logits, boxes, gt_n.expand(layers, -1, -1, -1),
+                batch["gt_classes"].expand(layers, -1, -1),
+                batch["gt_valid"].to(torch.bool).expand(layers, -1, -1),
+                cost_class=d.cost_class, cost_bbox=d.cost_bbox,
+                cost_giou=d.cost_giou, alpha=d.focal_alpha,
+                gamma=d.focal_gamma)
         # Every term over the matched pairs of the batch (layer 0's count).
         total_pos = npos[0].sum()
         if dp is not None:
@@ -631,8 +638,9 @@ class DeformableDETR(nn.Module):
         ``classes [B, D]`` (1..C), ``valid [B, D]``, ``num_detections [B]``."""
         image_hw = batch["image_hw"].to(torch.float32)
         logits, boxes_n = self.core(batch["image"], image_hw)
-        boxes, scores, classes, valid = self._predict_single(
-            logits[-1], boxes_n[-1], image_hw)
+        with span("tpudet/postprocess"):
+            boxes, scores, classes, valid = self._predict_single(
+                logits[-1], boxes_n[-1], image_hw)
         return {
             "boxes": boxes,
             "scores": scores,

@@ -71,6 +71,7 @@ from tpudet_torch.ops.roi_align import (
     fpn_assign_levels,
 )
 from tpudet_torch.ops.samplers import draw_uniforms, sample_balanced
+from tpudet_torch.utils.profiling import span
 
 # Default cap on flattened (box, class) candidates entering the final NMS
 # (ROIConfig.max_nms_candidates overrides it).
@@ -559,28 +560,30 @@ class FasterRCNN(nn.Module):
         b = images.shape[0]
         canvas = images.shape[1:3]
         anchors = self.anchor_boxes(canvas)
-        feats = self.core.features(images)
-        rpn_logits, rpn_deltas = self.core.rpn(feats)
-
-        if not cfg.det_only:
-            rpn_cls, rpn_box, num_pos = self._rpn_stage_losses(
-                anchors, rpn_logits, rpn_deltas, batch, draws["rpn"])
-        if cfg.rpn_only:
-            total = rpn_cls + rpn_box
-            return total, {"loss": total, "rpn_cls_loss": rpn_cls,
-                           "rpn_box_loss": rpn_box, "num_pos_anchors": num_pos}
-
-        prop_boxes, _, prop_valid = self.proposals(
-            rpn_logits, rpn_deltas, batch["image_hw"], canvas_hw=canvas,
-            training=True)
-        roi_boxes, tgt_cls, tgt_box, is_fg, roi_valid, mgt = (
-            self._roi_targets_single(prop_boxes, prop_valid, batch["gt_boxes"],
-                                     batch["gt_classes"], batch["gt_valid"],
-                                     draws["roi"]))
-        pooled = self._pool_batch(feats, roi_boxes)
-        r = roi_boxes.shape[1]
-        cls_logits, det_deltas = self.core.roi_head(
-            pooled.reshape((b * r,) + pooled.shape[2:]))
+        with span("tpudet/backbone"):
+            feats = self.core.features(images)
+        with span("tpudet/rpn"):
+            rpn_logits, rpn_deltas = self.core.rpn(feats)
+            if not cfg.det_only:
+                rpn_cls, rpn_box, num_pos = self._rpn_stage_losses(
+                    anchors, rpn_logits, rpn_deltas, batch, draws["rpn"])
+            if cfg.rpn_only:
+                total = rpn_cls + rpn_box
+                return total, {"loss": total, "rpn_cls_loss": rpn_cls,
+                               "rpn_box_loss": rpn_box,
+                               "num_pos_anchors": num_pos}
+            prop_boxes, _, prop_valid = self.proposals(
+                rpn_logits, rpn_deltas, batch["image_hw"], canvas_hw=canvas,
+                training=True)
+        with span("tpudet/roi_head"):
+            roi_boxes, tgt_cls, tgt_box, is_fg, roi_valid, mgt = (
+                self._roi_targets_single(
+                    prop_boxes, prop_valid, batch["gt_boxes"],
+                    batch["gt_classes"], batch["gt_valid"], draws["roi"]))
+            pooled = self._pool_batch(feats, roi_boxes)
+            r = roi_boxes.shape[1]
+            cls_logits, det_deltas = self.core.roi_head(
+                pooled.reshape((b * r,) + pooled.shape[2:]))
         det_cls, det_box = L.detection_losses(
             cls_logits.reshape(b, r, -1), det_deltas.reshape(b, r, -1, 4),
             tgt_cls, tgt_box, is_fg, roi_valid)
@@ -670,10 +673,12 @@ class FasterRCNN(nn.Module):
         ``classes [B, D]`` (1..C), ``valid [B, D]``, ``num_detections [B]``."""
         images = batch["image"]
         image_hw = batch["image_hw"].float()
-        feats = self.core.features(images)
-        rpn_logits, rpn_deltas = self.core.rpn(feats)
-        prop_boxes, prop_scores, prop_valid = self.proposals(
-            rpn_logits, rpn_deltas, image_hw, canvas_hw=images.shape[1:3])
+        with span("tpudet/backbone"):
+            feats = self.core.features(images)
+        with span("tpudet/rpn"):
+            rpn_logits, rpn_deltas = self.core.rpn(feats)
+            prop_boxes, prop_scores, prop_valid = self.proposals(
+                rpn_logits, rpn_deltas, image_hw, canvas_hw=images.shape[1:3])
         if self.cfg.rpn_only:
             # The RPN as a class-agnostic detector.
             d = min(self.cfg.roi.max_detections, prop_boxes.shape[1])
@@ -687,12 +692,14 @@ class FasterRCNN(nn.Module):
                 "num_detections": valid.sum(dim=1, dtype=torch.int32),
             }
         b, r = prop_boxes.shape[:2]
-        pooled = self._pool_batch(feats, prop_boxes)
-        cls_logits, det_deltas = self.core.roi_head(
-            pooled.reshape((b * r,) + pooled.shape[2:]))
-        boxes, scores, classes, valid = self._postprocess_single(
-            prop_boxes, prop_valid, cls_logits.reshape(b, r, -1),
-            det_deltas.reshape(b, r, det_deltas.shape[1], 4), image_hw)
+        with span("tpudet/roi_head"):
+            pooled = self._pool_batch(feats, prop_boxes)
+            cls_logits, det_deltas = self.core.roi_head(
+                pooled.reshape((b * r,) + pooled.shape[2:]))
+        with span("tpudet/postprocess"):
+            boxes, scores, classes, valid = self._postprocess_single(
+                prop_boxes, prop_valid, cls_logits.reshape(b, r, -1),
+                det_deltas.reshape(b, r, det_deltas.shape[1], 4), image_hw)
         out = {
             "boxes": boxes,
             "scores": scores,

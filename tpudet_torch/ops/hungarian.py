@@ -16,19 +16,20 @@ algorithm's short sequential steps would cost several launches and a sync
 for the loop condition; on the host the whole matcher of a train step is a
 few milliseconds. The copy to the host waits for the device.
 
-``SECONDS`` accumulates the host time spent solving (the copies aside).
+Each call is a ``tpudet/matcher`` span (``utils.profiling.span``) with the
+copies to the host in its child ``tpudet/matcher/fetch``: in a profiler's
+trace the matcher's self time is the solve (and the copy of the answer back
+to the device), the child's time the wait for the device.
 """
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-__all__ = ["hungarian", "hungarian_masked"]
+from tpudet_torch.utils.profiling import span
 
-SECONDS = 0.0
+__all__ = ["hungarian", "hungarian_masked"]
 
 
 def _solve(cost: np.ndarray, order: np.ndarray,
@@ -106,23 +107,18 @@ def _host_cost(cost: torch.Tensor) -> np.ndarray:
     return cost.detach().to(torch.float32).cpu().numpy().reshape(-1, rows, cols)
 
 
-def _timed_solve(cost, order, num_rows):
-    global SECONDS
-    start = time.perf_counter()
-    col4row = _solve(cost, order, num_rows)
-    SECONDS += time.perf_counter() - start
-    return col4row
-
-
 def hungarian(cost: torch.Tensor) -> torch.Tensor:
     """Minimize ``sum(cost[i, col4row[i]])`` over injective row -> column
     maps. ``cost [..., R, C]`` finite with ``R <= C`` -> ``col4row [..., R]``
     int64 on ``cost``'s device."""
-    host = _host_cost(cost)
-    problems, rows, _ = host.shape
-    order = np.broadcast_to(np.arange(rows), (problems, rows))
-    col4row = _timed_solve(host, order, np.full(problems, rows))
-    return torch.from_numpy(col4row.reshape(cost.shape[:-1])).to(cost.device)
+    with span("tpudet/matcher"):
+        with span("tpudet/matcher/fetch"):
+            host = _host_cost(cost)
+        problems, rows, _ = host.shape
+        order = np.broadcast_to(np.arange(rows), (problems, rows))
+        col4row = _solve(host, order, np.full(problems, rows))
+        return torch.from_numpy(col4row.reshape(cost.shape[:-1])).to(
+            cost.device)
 
 
 def hungarian_masked(cost: torch.Tensor, row_valid: torch.Tensor
@@ -131,11 +127,14 @@ def hungarian_masked(cost: torch.Tensor, row_valid: torch.Tensor
     stable order), the set losses' matcher: ``cost [..., R, C]``,
     ``row_valid [..., R]`` -> ``col4row [..., R]`` int64, the out-of-bounds
     sentinel ``C`` for invalid rows."""
-    host = _host_cost(cost)
-    problems, rows, cols = host.shape
-    valid = row_valid.detach().to(torch.bool).cpu().numpy().reshape(
-        problems, rows)
-    order = np.argsort(~valid, axis=1, kind="stable")
-    col4row = _timed_solve(host, order, valid.sum(axis=1))
-    col4row = np.where(valid, col4row, cols)
-    return torch.from_numpy(col4row.reshape(cost.shape[:-1])).to(cost.device)
+    with span("tpudet/matcher"):
+        with span("tpudet/matcher/fetch"):
+            host = _host_cost(cost)
+            problems, rows, cols = host.shape
+            valid = row_valid.detach().to(torch.bool).cpu().numpy().reshape(
+                problems, rows)
+        order = np.argsort(~valid, axis=1, kind="stable")
+        col4row = _solve(host, order, valid.sum(axis=1))
+        col4row = np.where(valid, col4row, cols)
+        return torch.from_numpy(col4row.reshape(cost.shape[:-1])).to(
+            cost.device)

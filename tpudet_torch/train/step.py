@@ -42,6 +42,7 @@ from tpudet_torch.train.state import (
     freeze_mask,
     lr_schedule,
 )
+from tpudet_torch.utils.profiling import span
 
 
 def _step_seed(seed: int, step: int, micro: int, rank: int = 0) -> int:
@@ -115,6 +116,12 @@ def make_train_step(model, cfg: Config, device="cuda",
     * the rate of update ``n`` is ``schedule(n)`` times each group's factor;
     * the EMA ``e + (1 - d) * (p - e)`` with the decay after the update.
 
+    Each call is a ``tpudet/step`` span (``utils.profiling.span``) holding
+    per microbatch ``tpudet/preprocess`` (its copy to the device and
+    ``device_preprocess``), ``tpudet/forward`` (the draws and the loss) and
+    ``tpudet/backward``, then ``tpudet/optimizer`` (from dropping the frozen
+    gradients to the metrics' reduction).
+
     Runs on ``device`` (CUDA unless the caller passes "cpu"), where the
     state's model must be, and which must be ``dp.device``."""
     tcfg = cfg.train
@@ -159,95 +166,103 @@ def make_train_step(model, cfg: Config, device="cuda",
     max_norm = tcfg.grad_clip_norm
 
     def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
-                 for k, v in batch.items()}
-        if batch["image"].shape[0] % accum:
-            raise ValueError(f"batch of {batch['image'].shape[0]} not "
-                             f"divisible by train.accum_steps {accum}")
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        per_micro = []
-        for a in range(accum):
-            micro = ({k: v[a::accum] for k, v in batch.items()}
-                     if accum > 1 else batch)
-            rows = micro["image"].shape[0] * share  # of the global batch
-            if fused_preprocess:
-                augment = torch.Generator(device=device).manual_seed(
-                    _augment_seed(tcfg.seed, state.step, a))
-                micro = device_preprocess(
-                    cfg, micro, training=True,
-                    draws=_own_rows(augment_draws(augment, rows), dp))
-            generator = torch.Generator(device=device).manual_seed(
-                _step_seed(tcfg.seed, state.step, a,
-                           0 if draws_samples else rank))
-            if draws_samples:
-                # The global batch's draws (loss would draw the local
-                # batch's), this process's rows of them.
-                draws = model.draw_samples(generator, rows,
-                                           micro["image"].shape[1:3])
-                loss, metrics = model.loss(micro, draws=_own_rows(draws, dp))
-            else:
-                loss, metrics = model.loss(micro, generator, **loss_kw)
-            loss.backward()
-            per_micro.append({k: v.detach() for k, v in metrics.items()})
-        for p in frozen_params:
-            p.grad = None
-        grads = []
-        for p in trainable:
-            if p.grad is None:  # behind freeze_stem: optax sees zeros
-                p.grad = torch.zeros_like(p)
-            elif accum > 1:
-                p.grad.div_(accum)
-            grads.append(p.grad)
-        if dp is not None:
-            # psum's semantics: one all-reduce of every gradient, flat.
-            _flat_mean_(grads, dp.all_reduce_mean_)
-        if tp is not None:
-            # The model peers' replicated gradients are equal but for the
-            # rounding of kernels whose sums have no fixed order (the RoI
-            # Align backwards' atomics): their mean keeps the peers'
-            # replicated parameters equal, step after step.
-            _flat_mean_([g for g, cut in zip(grads, sharded) if not cut],
-                        tp.mean_)
-        if tp is None:
-            grad_norm = torch.stack([g.square().sum()
-                                     for g in grads]).sum().sqrt()
-        else:
-            def squares(part):
-                return torch.stack([g.square().sum() for g, cut
-                                    in zip(grads, sharded) if cut == part]
-                                   or [grads[0].new_zeros(())]).sum()
+        with span("tpudet/step"):
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            if batch["image"].shape[0] % accum:
+                raise ValueError(f"batch of {batch['image'].shape[0]} not "
+                                 f"divisible by train.accum_steps {accum}")
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            per_micro = []
+            for a in range(accum):
+                with span("tpudet/preprocess"):
+                    micro = {k: (v[a::accum] if accum > 1 else v).to(
+                        device, non_blocking=True) for k, v in batch.items()}
+                    rows = micro["image"].shape[0] * share  # global batch's
+                    if fused_preprocess:
+                        augment = torch.Generator(device=device).manual_seed(
+                            _augment_seed(tcfg.seed, state.step, a))
+                        micro = device_preprocess(
+                            cfg, micro, training=True,
+                            draws=_own_rows(augment_draws(augment, rows), dp))
+                with span("tpudet/forward"):
+                    generator = torch.Generator(device=device).manual_seed(
+                        _step_seed(tcfg.seed, state.step, a,
+                                   0 if draws_samples else rank))
+                    if draws_samples:
+                        # The global batch's draws (loss would draw the local
+                        # batch's), this process's rows of them.
+                        draws = model.draw_samples(generator, rows,
+                                                   micro["image"].shape[1:3])
+                        loss, metrics = model.loss(
+                            micro, draws=_own_rows(draws, dp))
+                    else:
+                        loss, metrics = model.loss(micro, generator, **loss_kw)
+                with span("tpudet/backward"):
+                    loss.backward()
+                per_micro.append({k: v.detach() for k, v in metrics.items()})
+            with span("tpudet/optimizer"):
+                for p in frozen_params:
+                    p.grad = None
+                grads = []
+                for p in trainable:
+                    if p.grad is None:  # behind freeze_stem: optax sees zeros
+                        p.grad = torch.zeros_like(p)
+                    elif accum > 1:
+                        p.grad.div_(accum)
+                    grads.append(p.grad)
+                if dp is not None:
+                    # psum's semantics: one all-reduce of every gradient, flat.
+                    _flat_mean_(grads, dp.all_reduce_mean_)
+                if tp is not None:
+                    # The model peers' replicated gradients are equal but
+                    # for the rounding of kernels whose sums have no fixed
+                    # order (the RoI Align backwards' atomics): their mean
+                    # keeps the peers' replicated parameters equal, step
+                    # after step.
+                    _flat_mean_([g for g, cut in zip(grads, sharded)
+                                 if not cut], tp.mean_)
+                if tp is None:
+                    grad_norm = torch.stack([g.square().sum()
+                                             for g in grads]).sum().sqrt()
+                else:
+                    def squares(part):
+                        return torch.stack(
+                            [g.square().sum() for g, cut
+                             in zip(grads, sharded) if cut == part]
+                            or [grads[0].new_zeros(())]).sum()
 
-            cut_squares = squares(True)
-            dist.all_reduce(cut_squares, group=tp.group)
-            grad_norm = (cut_squares + squares(False)).sqrt()
-        if max_norm > 0:
-            keep = grad_norm < max_norm
-            for g in grads:
-                g.copy_(torch.where(keep, g, g / grad_norm * max_norm))
-        lr = schedule(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr * group["lr_factor"]
-        state.optimizer.step()
-        state.step += 1
-        if tcfg.ema_decay > 0:
-            if state.ema_params is None:
-                raise ValueError("train.ema_decay > 0 but the state has no "
-                                 "EMA: create it with create_train_state")
-            keep_ema = ema_decay_at(tcfg, state.step)
-            with torch.no_grad():
-                for name, p in model.core.named_parameters():
-                    e = state.ema_params[name]
-                    e.add_((p - e) * (1.0 - keep_ema))
-        metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
-                   for k in per_micro[0]}
-        if dp is not None:  # the group's means
-            names = list(metrics)
-            values = dp.all_reduce_mean_(
-                torch.stack([metrics[k].float() for k in names]))
-            metrics = dict(zip(names, values.unbind()))
-        metrics["grad_norm"] = grad_norm
-        return state, metrics
+                    cut_squares = squares(True)
+                    dist.all_reduce(cut_squares, group=tp.group)
+                    grad_norm = (cut_squares + squares(False)).sqrt()
+                if max_norm > 0:
+                    keep = grad_norm < max_norm
+                    for g in grads:
+                        g.copy_(torch.where(keep, g, g / grad_norm * max_norm))
+                lr = schedule(state.step)
+                for group in state.optimizer.param_groups:
+                    group["lr"] = lr * group["lr_factor"]
+                state.optimizer.step()
+                state.step += 1
+                if tcfg.ema_decay > 0:
+                    if state.ema_params is None:
+                        raise ValueError(
+                            "train.ema_decay > 0 but the state has no EMA: "
+                            "create it with create_train_state")
+                    keep_ema = ema_decay_at(tcfg, state.step)
+                    with torch.no_grad():
+                        for name, p in model.core.named_parameters():
+                            e = state.ema_params[name]
+                            e.add_((p - e) * (1.0 - keep_ema))
+                metrics = {k: torch.stack([m[k] for m in per_micro]).mean()
+                           for k in per_micro[0]}
+                if dp is not None:  # the group's means
+                    names = list(metrics)
+                    values = dp.all_reduce_mean_(
+                        torch.stack([metrics[k].float() for k in names]))
+                    metrics = dict(zip(names, values.unbind()))
+                metrics["grad_norm"] = grad_norm
+                return state, metrics
 
     return step_fn
 
@@ -255,14 +270,20 @@ def make_train_step(model, cfg: Config, device="cuda",
 def make_eval_step(model, cfg: Config, fused_preprocess: bool = True
                    ) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """``batch`` (``image [B, H, W, 3]`` uint8 or normalized, ``image_hw
-    [B, 2]``; tensors or arrays) -> the detection dict of ``predict``."""
+    [B, 2]``; tensors or arrays) -> the detection dict of ``predict``; each
+    call a ``tpudet/step`` span holding ``tpudet/preprocess`` and
+    ``tpudet/predict``."""
 
     @torch.inference_mode()
     def eval_fn(batch):
-        batch = {k: torch.as_tensor(v).to(model.device, non_blocking=True)
-                 for k, v in batch.items()}
-        if fused_preprocess:
-            batch = device_preprocess(cfg, batch, training=False)
-        return model.predict(batch)
+        with span("tpudet/step"):
+            with span("tpudet/preprocess"):
+                batch = {k: torch.as_tensor(v).to(model.device,
+                                                  non_blocking=True)
+                         for k, v in batch.items()}
+                if fused_preprocess:
+                    batch = device_preprocess(cfg, batch, training=False)
+            with span("tpudet/predict"):
+                return model.predict(batch)
 
     return eval_fn

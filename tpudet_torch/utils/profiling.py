@@ -4,6 +4,13 @@ CUDA work is asynchronous: a call returns once its kernels are queued.
 ``sync`` waits for them, ``device_timeit`` is the benchmark's timing of
 synced calls, and ``trace`` records a ``torch.profiler`` trace of the host
 and the card, viewable in Perfetto or ``chrome://tracing``.
+
+``span`` marks a layer of the program in such a trace: the steps
+(``train/step.py``) and the models open ``tpudet/<layer>`` ranges
+(``tpudet/step``, ``tpudet/backbone``, ``tpudet/matcher``, ...), which land
+in the profiler's trace on the clock of the card's kernels. The names keep
+clear of the ``tpudet::`` operator namespace, which names the kernels'
+operators.
 """
 
 from __future__ import annotations
@@ -15,6 +22,22 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+
+# What ``span`` returns while no profiler runs: one shared context manager
+# that does nothing (``nullcontext`` may be entered again and nested).
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` around the
+    block while a profiler runs; otherwise the shared no-op ``_NO_SPAN``,
+    after one check of the profiler's state: a ``record_function`` entered
+    with no profiler running still allocates and dispatches its range,
+    about a hundred times the check's host time."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def first_tensor(out) -> Optional[torch.Tensor]:
