@@ -39,8 +39,13 @@ no result):
 6. voc_r50 inference at full width (ResNet-50 to c4, neck 256, RPN 512, fc
    1024, 20 classes, bf16 backbone) through ``make_eval_step`` on uint8
    canvases drawn from a seed: b = 8 on the 640x640 and 640x1024 buckets
-   with the kernels' launch counts, a small f32 input held against the same
-   model on the CPU (the plain versions), and ms per batch at b = 8 and 32;
+   with the kernels' launch counts (40 of the fused frozen-norm pass a
+   predict), a small f32 input held against the same model on the CPU (the
+   plain versions), and ms per batch at b = 8 and 32; then the fused
+   frozen-norm pass on its c2 map at b = 32 on 640x832 ([32, 256, 160, 208]
+   bf16 channels-last) and on the deformable cells' at b = 8 on 832x1120,
+   in its three forms, forward and backward bit for bit against the plain
+   ops and autograd, with their ms, the plain ops' and the bytes bound;
 7. coco_r101_fpn inference at full width (ResNet-101 to c5, FPN 256 p2..p6,
    RPN 256, blocked per-level top-1000, level-offset NMS to 300, windowed
    RoI Align at window 56, fc 1024, 80 classes, bf16 backbone) the same
@@ -376,10 +381,22 @@ DEFORM_SHAPES = ((104, 104), (52, 52), (26, 26), (13, 13))
 # the cotangent times each corner's weight (the weights are per sample, not
 # per channel) and the add into that corner.
 ROI_BWD_OPS_PER_SAMPLE = 8
-# Sources under tpudet_torch/kernels/csrc (deform_attn.cu and roi_align.cu
-# hold a forward and a backward kernel each).
+# Sources under tpudet_torch/kernels/csrc (deform_attn.cu, roi_align.cu and
+# frozen_bn.cu hold a forward and a backward kernel each).
 KERNELS = ("nms", "roi_align", "roi_align_window", "deform_attn",
-           "precision_probe")
+           "precision_probe", "frozen_bn")
+# Launches of the fused frozen-norm pass per forward of each preset's
+# backbone, and per backward: the stem and each bottleneck's three norms
+# (the projection's norm rides in its block's third); freeze_stem detaches
+# the stem and c2's three bottlenecks, so those 10 get no gradient and no
+# backward launch. ViTDet and VGG-16 have no frozen norm.
+FROZEN_BN_UNITS = {"voc_r50": (40, 30), "coco_r101_fpn": (100, 90),
+                   **dict.fromkeys(("coco_deformable_detr_r50",
+                                    "coco_maskrcnn_r50_fpn",
+                                    "coco_cascade_r50_fpn",
+                                    "coco_keypoint_r50_fpn",
+                                    "coco_panoptic_r50_fpn"), (49, 39)),
+                   "coco_vitdet_b": (0, 0), "voc_vgg16": (0, 0)}
 # The NMS kernels by name: the diagonal words and the walk, and the two
 # passes they replaced (so a comparison with an earlier tree reads both).
 NMS_KERNELS = ("nms_diag_kernel", "nms_walk_kernel", "nms_mask_kernel",
@@ -1031,6 +1048,114 @@ def canvases(b, h, w, seed, device="cuda"):
             "image_hw": torch.from_numpy(hw).to(device)}
 
 
+def frozen_bn_launches(preset, predicts=0, steps=0):
+    """The fused frozen-norm pass's launches over ``predicts`` forwards and
+    ``steps`` train steps of ``preset``'s ResNet, as ``expect_launches``
+    takes them."""
+    forward, backward = FROZEN_BN_UNITS[preset]
+    return {"frozen_bn": forward * (predicts + steps),
+            "frozen_bn_backward": backward * steps}
+
+
+# The c2 maps the fused frozen-norm pass is timed on: voc_r50's at b=32 on
+# 640x832, and the deformable cells' at b=8 on 832x1120.
+FROZEN_BN_MAPS = {"voc": (32, 256, 160, 208),
+                  "b8_832x1120": (8, 256, 208, 280)}
+
+
+def frozen_bn_pass(card, shape):
+    """The fused frozen-norm pass on a bf16 channels-last map of ``shape``
+    (norms far from the identity) in its three forms: the forward against
+    the plain ops and the backward against autograd through them, bit for
+    bit; the device time of each beside the plain version's, and the bytes
+    bound (the maps each pass reads and writes; the per-channel buffers are
+    a few KB) -> {"forward": ..., "backward": ...}, each {"ms", "plain_ms",
+    "bytes_ms", "ops_ms"} summed over the forms with each form's own under
+    "forms"."""
+    import math
+
+    import torch
+
+    from tpudet_torch.kernels import frozen_bn as kfb
+    from tpudet_torch.models.layers import FrozenBatchNorm
+
+    elements = math.prod(shape)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def draw():
+        return torch.randn(shape, device="cuda", generator=gen,
+                           dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    def drawn_norm():
+        norm = FrozenBatchNorm(shape[1], device="cuda")
+        c = (shape[1],)
+        norm.scale.copy_(0.25 + 2 * torch.rand(c, device="cuda",
+                                                generator=gen))
+        norm.bias.copy_(torch.randn(c, device="cuda", generator=gen))
+        norm.mean.copy_(0.5 * torch.randn(c, device="cuda", generator=gen))
+        norm.var.copy_(0.05 + 3 * torch.rand(c, device="cuda",
+                                             generator=gen))
+        return norm
+
+    # form: (maps the forward moves, its flops an element, the backward's
+    # maps, its flops an element)
+    forms = {"plain": (2, 3, 3, 2), "identity": (3, 4, 4, 2),
+             "projected": (3, 6, 4, 3)}
+    result = {"forward": {"forms": {}}, "backward": {"forms": {}}}
+    for form, (maps, flops, bwd_maps, bwd_flops) in forms.items():
+        x, g, norm = draw(), draw(), drawn_norm()
+        r = None if form == "plain" else draw()
+        rn = drawn_norm() if form == "projected" else None
+        leaves = [t.clone().requires_grad_() for t in (x, r) if t is not None]
+        refs = [t.clone().requires_grad_() for t in (x, r) if t is not None]
+        second = (lambda ts: ts[1] if r is not None else None)
+        got = kfb.frozen_bn_act(leaves[0], norm, second(leaves), rn)
+        want = kfb.frozen_bn_act_plain(refs[0], norm, second(refs), rn)
+        check(torch.equal(got, want), f"frozen_bn {form} at the c2 map: "
+              "the kernel differs from the plain ops")
+        grads = torch.autograd.grad(got, leaves, g)
+        plain_grads = torch.autograd.grad(want, refs, g, retain_graph=True)
+        check(all(torch.equal(a, b) for a, b in zip(grads, plain_grads)),
+              f"frozen_bn {form} backward at the c2 map: the kernel differs "
+              "from autograd through the plain ops")
+        out = got.detach()
+        proj = [] if rn is None else [rn.scale, rn.var]
+        proj_eps = 0.0 if rn is None else rn.epsilon
+        with torch.no_grad():
+            fwd = {"ms": time_ms(lambda: kfb.frozen_bn_act(x, norm, r, rn)),
+                   "plain_ms": time_ms(lambda: kfb.frozen_bn_act_plain(
+                       x, norm, r, rn))}
+            bwd = {"ms": time_ms(lambda: kfb.frozen_bn_act_bwd(
+                g, out, norm.scale, norm.var, norm.epsilon, r is not None,
+                proj, proj_eps))}
+        bwd["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+            want, refs, g, retain_graph=True))
+        for m, n, f in ((fwd, maps, flops), (bwd, bwd_maps, bwd_flops)):
+            m["bytes_ms"] = n * elements * 2 / HBM_BYTES_PER_S * 1e3
+            m["ops_ms"] = f * elements / F32_OPS_PER_S * 1e3
+        result["forward"]["forms"][form] = fwd
+        result["backward"]["forms"][form] = bwd
+        del x, g, r, leaves, refs, got, want, grads, plain_grads, out
+        torch.cuda.empty_cache()
+    for kind in ("forward", "backward"):
+        per = result[kind]["forms"]
+        result[kind].update({key: sum(m[key] for m in per.values())
+                             for key in ("ms", "plain_ms", "bytes_ms",
+                                         "ops_ms")})
+        rate = {form: m["bytes_ms"] / m["ms"] * HBM_BYTES_PER_S / 1e12
+                for form, m in per.items()}
+        print(f"frozen_bn {kind} on a c2 map {list(shape)} "
+              f"bf16 channels-last, bit for bit the plain "
+              f"{'ops' if kind == 'forward' else 'autograd'}: "
+              + "; ".join(f"{form} {m['ms']:.4f} ms ({rate[form]:.2f} "
+                          f"TB/s), plain {m['plain_ms']:.4f} ms, bound "
+                          f"{m['bytes_ms']:.4f} ms"
+                          for form, m in per.items()) + f" | {card}",
+              flush=True)
+    return result
+
+
 def check_detections(out, batch, num_classes, label):
     import torch
 
@@ -1100,6 +1225,7 @@ def card_equals_cpu(preset, seed, label, overrides=None):
 def phase_main_path(card):
     import torch
 
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -1112,14 +1238,17 @@ def phase_main_path(card):
     torch.cuda.synchronize()
     # The main path: counts set to 0 just before, read just after.
     knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    kfb.LAUNCHES = kfb.BACKWARD_LAUNCHES = 0
     outs = {name: step(batch) for name, batch in batches.items()}
     torch.cuda.synchronize()
     launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
-                "roi_align_window": krw.LAUNCHES}
+                "roi_align_window": krw.LAUNCHES, "frozen_bn": kfb.LAUNCHES,
+                "frozen_bn_backward": kfb.BACKWARD_LAUNCHES}
     check(launches == {"nms": 2 * len(batches), "roi_align": len(batches),
-                       "roi_align_window": 0},
-          f"main path launches {launches}: expected 2 NMS and 1 RoI Align "
-          "per predict")
+                       "roi_align_window": 0,
+                       **frozen_bn_launches("voc_r50", len(batches))},
+          f"main path launches {launches}: expected 2 NMS, 1 RoI Align and "
+          f"{FROZEN_BN_UNITS['voc_r50'][0]} frozen-norm passes per predict")
     for name, out in outs.items():
         check_detections(out, batches[name], cfg.data.num_classes, name)
         print(f"voc_r50 bf16 b=8 {name}: detections/image "
@@ -1143,7 +1272,9 @@ def phase_main_path(card):
                   f"preprocess included) | {card}", flush=True)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
-    return launches, step, ms_by["640x640", 32]
+    return launches, step, ms_by["640x640", 32], {
+        name: frozen_bn_pass(card, shape)
+        for name, shape in FROZEN_BN_MAPS.items()}
 
 
 def level_mismatches(model, batch):
@@ -1171,6 +1302,7 @@ def phase_fpn_path(card):
     """coco_r101_fpn inference at full width through ``make_eval_step``."""
     import torch
 
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -1183,14 +1315,19 @@ def phase_fpn_path(card):
     torch.cuda.synchronize()
     # The main path: counts set to 0 just before, read just after.
     knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    kfb.LAUNCHES = kfb.BACKWARD_LAUNCHES = 0
     outs = {name: step(batch) for name, batch in batches.items()}
     torch.cuda.synchronize()
     launches = {"nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
-                "roi_align_window": krw.LAUNCHES}
+                "roi_align_window": krw.LAUNCHES, "frozen_bn": kfb.LAUNCHES,
+                "frozen_bn_backward": kfb.BACKWARD_LAUNCHES}
     check(launches == {"nms": 2 * len(batches), "roi_align": 0,
-                       "roi_align_window": len(batches)},
-          f"FPN path launches {launches}: expected 2 NMS, 1 FPN RoI Align "
-          "and no single-level RoI Align per predict")
+                       "roi_align_window": len(batches),
+                       **frozen_bn_launches("coco_r101_fpn", len(batches))},
+          f"FPN path launches {launches}: expected 2 NMS, 1 FPN RoI Align, "
+          f"no single-level RoI Align and "
+          f"{FROZEN_BN_UNITS['coco_r101_fpn'][0]} frozen-norm passes per "
+          "predict")
     for name, out in outs.items():
         check_detections(out, batches[name], cfg.data.num_classes, name)
         print(f"coco_r101_fpn bf16 b=8 {name}: detections/image "
@@ -1521,6 +1658,7 @@ def phase_detr_path(card):
 
     from tpudet_torch.data.preprocess import device_preprocess
     from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -1533,15 +1671,22 @@ def phase_detr_path(card):
     torch.cuda.synchronize()
     # The main path: counts set to 0 just before, read just after.
     kda.LAUNCHES = knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    kfb.LAUNCHES = kfb.BACKWARD_LAUNCHES = 0
     outs = {name: step(batch) for name, batch in batches.items()}
     torch.cuda.synchronize()
     launches = {"deform_attn": kda.LAUNCHES, "nms": knms.LAUNCHES,
-                "roi_align": kra.LAUNCHES, "roi_align_window": krw.LAUNCHES}
+                "roi_align": kra.LAUNCHES, "roi_align_window": krw.LAUNCHES,
+                "frozen_bn": kfb.LAUNCHES,
+                "frozen_bn_backward": kfb.BACKWARD_LAUNCHES}
     layers = cfg.deformable_detr.enc_layers + cfg.deformable_detr.dec_layers
     check(launches == {"deform_attn": layers * len(batches), "nms": 0,
-                       "roi_align": 0, "roi_align_window": 0},
+                       "roi_align": 0, "roi_align_window": 0,
+                       **frozen_bn_launches("coco_deformable_detr_r50",
+                                            len(batches))},
           f"Deformable DETR path launches {launches}: expected {layers} "
-          "deformable attention launches and no NMS or RoI Align per predict")
+          "deformable attention launches, "
+          f"{FROZEN_BN_UNITS['coco_deformable_detr_r50'][0]} frozen-norm "
+          "passes and no NMS or RoI Align per predict")
     for name, out in outs.items():
         check_detections(out, batches[name], cfg.data.num_classes, name)
         print(f"coco_deformable_detr_r50 bf16 b=8 {name}: detections/image "
@@ -1659,6 +1804,7 @@ def phase_train_path(card):
 
     from tpudet_torch.cli.common import preset_config
     from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -1678,6 +1824,7 @@ def phase_train_path(card):
     # The main path: counts set to 0 just before, read just after.
     kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
     knms.LAUNCHES = kra.LAUNCHES = krw.LAUNCHES = 0
+    kfb.LAUNCHES = kfb.BACKWARD_LAUNCHES = 0
     times, losses = [], []
     for i in range(steps):
         start = time.perf_counter()
@@ -1695,12 +1842,17 @@ def phase_train_path(card):
     launches = {"deform_attn": kda.LAUNCHES,
                 "deform_attn_backward": kda.BACKWARD_LAUNCHES,
                 "nms": knms.LAUNCHES, "roi_align": kra.LAUNCHES,
-                "roi_align_window": krw.LAUNCHES}
+                "roi_align_window": krw.LAUNCHES, "frozen_bn": kfb.LAUNCHES,
+                "frozen_bn_backward": kfb.BACKWARD_LAUNCHES}
+    fused = frozen_bn_launches("coco_deformable_detr_r50", steps=1)
     check(launches == {"deform_attn": layers * steps,
                        "deform_attn_backward": layers * steps, "nms": 0,
-                       "roi_align": 0, "roi_align_window": 0},
+                       "roi_align": 0, "roi_align_window": 0,
+                       **{k: v * steps for k, v in fused.items()}},
           f"train path launches {launches}: expected {layers} forward and "
-          f"{layers} backward deformable attention launches per step")
+          f"{layers} backward deformable attention launches and "
+          f"{fused['frozen_bn']} forward and {fused['frozen_bn_backward']} "
+          "backward frozen-norm passes per step")
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"coco_deformable_detr_r50 bf16 train b=8 832x832 (preset AdamW, "
@@ -2103,6 +2255,7 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
 
     from tpudet_torch.cli.common import preset_config
     from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -2126,6 +2279,7 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
     knms.LAUNCHES = kra.LAUNCHES = kra.BACKWARD_LAUNCHES = 0
     krw.LAUNCHES = krw.BACKWARD_LAUNCHES = 0
     kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
+    kfb.LAUNCHES = kfb.BACKWARD_LAUNCHES = 0
     times, losses = [], []
     for i in range(steps):
         start = time.perf_counter()
@@ -2145,15 +2299,21 @@ def phase_faster_rcnn_train_path(card, preset, size, seed):
                 "roi_align_window": krw.LAUNCHES,
                 "roi_align_window_backward": krw.BACKWARD_LAUNCHES,
                 "deform_attn": kda.LAUNCHES,
-                "deform_attn_backward": kda.BACKWARD_LAUNCHES}
+                "deform_attn_backward": kda.BACKWARD_LAUNCHES,
+                "frozen_bn": kfb.LAUNCHES,
+                "frozen_bn_backward": kfb.BACKWARD_LAUNCHES}
     pooler = "roi_align_window" if fpn else "roi_align"
     pools = roi_pools(cfg)
     expected = dict.fromkeys(launches, 0)
     expected.update({"nms": steps, pooler: pools * steps,
-                     f"{pooler}_backward": pools * steps})
+                     f"{pooler}_backward": pools * steps,
+                     **frozen_bn_launches(preset, steps=steps)})
     check(launches == expected,
           f"{preset} train path launches {launches}: expected 1 NMS, "
-          f"{pools} {pooler} forward and {pools} backward per step")
+          f"{pools} {pooler} forward and {pools} backward and "
+          f"{expected['frozen_bn'] // steps} forward and "
+          f"{expected['frozen_bn_backward'] // steps} backward frozen-norm "
+          "passes per step")
     ms = sum(times[5:]) / len(times[5:])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{label} train (preset {cfg.train.optimizer}, planted 1-20 "
@@ -2571,6 +2731,7 @@ def saved_steps(directory):
 
 def zero_launches():
     from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -2578,12 +2739,14 @@ def zero_launches():
     knms.LAUNCHES = kra.LAUNCHES = kra.BACKWARD_LAUNCHES = 0
     krw.LAUNCHES = krw.BACKWARD_LAUNCHES = 0
     kda.LAUNCHES = kda.BACKWARD_LAUNCHES = 0
+    kfb.LAUNCHES = kfb.BACKWARD_LAUNCHES = 0
 
 
 def read_launches():
     import torch
 
     from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import roi_align as kra
     from tpudet_torch.kernels import roi_align_window as krw
@@ -2594,12 +2757,19 @@ def read_launches():
             "roi_align_window": krw.LAUNCHES,
             "roi_align_window_backward": krw.BACKWARD_LAUNCHES,
             "deform_attn": kda.LAUNCHES,
-            "deform_attn_backward": kda.BACKWARD_LAUNCHES}
+            "deform_attn_backward": kda.BACKWARD_LAUNCHES,
+            "frozen_bn": kfb.LAUNCHES,
+            "frozen_bn_backward": kfb.BACKWARD_LAUNCHES}
 
 
 def expect_launches(got, label, **want):
-    expected = {k: 0 for k in got}
+    """``got`` equals ``want`` with every other kernel at 0, but for the
+    fused frozen-norm pass: its counts follow the backbone
+    (``frozen_bn_launches``), so they are held where ``want`` gives
+    them."""
+    expected = {k: 0 for k in got if not k.startswith("frozen_bn")}
     expected.update(want)
+    got = {k: v for k, v in got.items() if k in expected}
     check(got == expected, f"{label} launches {got}: expected {expected}")
 
 
@@ -2720,7 +2890,8 @@ def phase_voc_cli(card):
               and all(math.isfinite(x) for _, x in losses),
               f"cli.train losses {losses}")
         expect_launches(launches["cli_train"], "cli.train", nms=30,
-                        roi_align=30, roi_align_backward=30)
+                        roi_align=30, roi_align_backward=30,
+                        **frozen_bn_launches("voc_r50", steps=30))
 
         zero_launches()
         summary, out = run_cli(ceval.main, VOC_CLI + [
@@ -2732,7 +2903,8 @@ def phase_voc_cli(card):
               "cli.eval: no 2,400-candidate final NMS, restore or 64 images")
         rates["cli.eval"] = cli_rate(out, r"eval: 64 images in .*?\(([\d.]+)"
                                      r" img/s")
-        expect_launches(launches["cli_eval"], "cli.eval", nms=16, roi_align=8)
+        expect_launches(launches["cli_eval"], "cli.eval", nms=16, roi_align=8,
+                        **frozen_bn_launches("voc_r50", predicts=8))
 
         model = build_model(cfg)
         state = create_train_state(model, cfg.train, seed=0)
@@ -2930,7 +3102,9 @@ def phase_voc_learning(card):
     expect_launches(launches, "voc_r50 learning",
                     nms=VOC_LEARNING_STEPS + 16 * n_evals,
                     roi_align=VOC_LEARNING_STEPS + 8 * n_evals,
-                    roi_align_backward=VOC_LEARNING_STEPS)
+                    roi_align_backward=VOC_LEARNING_STEPS,
+                    **frozen_bn_launches("voc_r50", predicts=8 * n_evals,
+                                         steps=VOC_LEARNING_STEPS))
     print(f"voc_learning: voc_r50 synthetic bf16 b=8 SGD {VOC_LEARNING_LR}, "
           f"{VOC_LEARNING_STEPS} steps ({rate:.1f} img/s with the evals): "
           f"loss {first:.4f} -> {last:.4f} (means of the first and last "
@@ -3020,12 +3194,18 @@ def phase_bench(card, predict_ms=None):
                 "infer_stream": 1 + bench.STREAM_BATCHES}
     steps = 1 + warm + iters["train"]
     want = {"infer": dict(nms=2 * predicts["infer"],
-                          roi_align=predicts["infer"]),
+                          roi_align=predicts["infer"],
+                          **frozen_bn_launches("voc_r50",
+                                               predicts["infer"])),
             "infer_stream": dict(nms=2 * predicts["infer_stream"],
-                                 roi_align=predicts["infer_stream"]),
+                                 roi_align=predicts["infer_stream"],
+                                 **frozen_bn_launches(
+                                     "voc_r50", predicts["infer_stream"])),
             "train": dict(nms=steps, roi_align=steps,
-                          roi_align_backward=steps),
-            "nms": dict(nms=2 * warm + 1 + bench.NMS_REPS),
+                          roi_align_backward=steps,
+                          **frozen_bn_launches("voc_r50", steps=steps)),
+            "nms": dict(nms=2 * warm + 1 + bench.NMS_REPS,
+                        **frozen_bn_launches("voc_r50")),
             "host": {}}
     for mode, argv in BENCH_RUNS.items():
         # The main path: counts set to 0 just before, read just after.
@@ -3252,7 +3432,8 @@ def phase_native_decode(card):
                       for k in ("image", "image_hw")}) for b in batches]
         launches = read_launches()
     expect_launches(launches, "voc_r50 native loader", nms=2 * len(batches),
-                    roi_align=len(batches))
+                    roi_align=len(batches),
+                    **frozen_bn_launches("voc_r50", len(batches)))
     for b, out in zip(batches, outs):
         check_detections(out, {k: torch.from_numpy(b[k]).cuda()
                                for k in ("image", "image_hw")},
@@ -5471,12 +5652,13 @@ def phase_backbones_cli(card):
 # Phases that ``--phases`` runs alone (after the device and build phases),
 # each a call on the card's name.
 SERVE_PATHS = {
-    # phase: (preset, canvas, the tpudet:: forward operator its graph calls)
-    "serve_voc": ("voc_r50", (640, 640), ("nms_keep", "roi_align_fwd")),
+    # phase: (preset, canvas, the tpudet:: forward operators its graph calls)
+    "serve_voc": ("voc_r50", (640, 640),
+                  ("frozen_bn_act_fwd", "nms_keep", "roi_align_fwd")),
     "serve_fpn": ("coco_r101_fpn", (832, 832),
-                  ("nms_keep", "roi_align_window_fwd")),
+                  ("frozen_bn_act_fwd", "nms_keep", "roi_align_window_fwd")),
     "serve_deformable": ("coco_deformable_detr_r50", (832, 832),
-                         ("ms_deform_attn_fwd",)),
+                         ("frozen_bn_act_fwd", "ms_deform_attn_fwd")),
 }
 SERVE_BATCH = 8
 SERVE_IMAGES = 32
@@ -5500,9 +5682,10 @@ from tpudet_torch.serving import ServingModel
 from tpudet_torch.serving.export import program_ops
 from tpudet_torch.kernels import nms as knms, roi_align as kra
 from tpudet_torch.kernels import roi_align_window as krw, deform_attn as kda
+from tpudet_torch.kernels import frozen_bn as kfb
 
 KERNELS = {"nms": knms, "roi_align": kra, "roi_align_window": krw,
-           "deform_attn": kda}
+           "deform_attn": kda, "frozen_bn": kfb}
 
 def counts():
     torch.cuda.synchronize()
@@ -5712,6 +5895,10 @@ def phase_serve(card, phases):
                       f"{ops}")
                 check(r["finite"] and sum(r["detections"]) > 0,
                       f"{phase} {dtype}: detect gave {r['detections']}")
+                fused = FROZEN_BN_UNITS[preset][0]
+                check(r["launches_per_call"]["frozen_bn"] == fused,
+                      f"{phase} {dtype}: {r['launches_per_call']} launches "
+                      f"a call, not {fused} frozen-norm passes")
                 f = facts[phase, dtype]
                 print(f"{phase} {preset} {dtype} b={SERVE_BATCH} {h}x{w}: "
                       f"export {f['export_s']:.1f} s, artifact "
@@ -5733,7 +5920,8 @@ def phase_serve(card, phases):
                 launches[f"{preset} serve {dtype}"] = {
                     **dict.fromkeys(("roi_align_backward",
                                      "roi_align_window_backward",
-                                     "deform_attn_backward"), 0),
+                                     "deform_attn_backward",
+                                     "frozen_bn_backward"), 0),
                     **r["detect_launches"]}
         print(f"serving: one process loaded and ran the "
               f"{sum(len(j['artifacts']) for j in jobs)} artifacts in "
@@ -6697,7 +6885,8 @@ def main(argv=None) -> None:
     nms, nms_err = phase_nms()
     roi = phase_roi_align()
     roi_window = phase_roi_align_window()
-    voc_launches, voc_step, voc_predict_b32_ms = phase_main_path(card)
+    voc_launches, voc_step, voc_predict_b32_ms, frozen_bn = phase_main_path(
+        card)
     fpn_launches, mismatched, fpn_step = phase_fpn_path(card)
     deform = phase_deform_attn()
     detr_launches, detr_step = phase_detr_path(card)
@@ -6793,6 +6982,7 @@ def main(argv=None) -> None:
     slice_launches.update(new_launches)
 
     from tpudet_torch.kernels import deform_attn as kda
+    from tpudet_torch.kernels import frozen_bn as kfb
     from tpudet_torch.kernels import nms as knms
     from tpudet_torch.kernels import precision_probe as kpp
     from tpudet_torch.kernels import roi_align as kra
@@ -6817,7 +7007,7 @@ def main(argv=None) -> None:
                  "cli_eval": "voc_r50 cli_eval"}
         return {names.get(path, path): counts[kernel]
                 for path, counts in {**cli_launches, **bench_launches}.items()
-                if counts[kernel]}
+                if counts.get(kernel)}
 
     def slice_paths(kernel):
         """The Mask R-CNN, data-parallel, Cascade R-CNN, Keypoint R-CNN,
@@ -6826,7 +7016,7 @@ def main(argv=None) -> None:
         ``kernel`` (phases 30-34, 36-55, 56-58 and 60-62), each zeroed just
         before its path."""
         return {path: counts[kernel] for path, counts in slice_launches.items()
-                if counts[kernel]}
+                if counts.get(kernel)}
 
     def keypoint_s14(kind):
         """The FPN RoI Align ``kind`` at Keypoint R-CNN's S = 14 (phase
@@ -6951,6 +7141,33 @@ def main(argv=None) -> None:
                         **{k: probe[k] for k in (
                             "library_ms", "split_ms", "device_ms",
                             "split_device_ms", "library_device_ms")}))
+    # The fused frozen-norm pass, forward and backward: its three forms on
+    # voc_r50's c2 map at b=32 (phase 6), summed, each form's own beside
+    # them and at b=8 832x1120; bit for bit the plain ops, so no error.
+    # Launches over the main paths, the CLI paths and the slices that count
+    # them.
+    main_paths = {"voc_r50 predict": voc_launches,
+                  "coco_r101_fpn predict": fpn_launches,
+                  f"{detr} predict": detr_launches,
+                  f"{detr} train": train_launches,
+                  "voc_r50 train": voc_train_launches,
+                  "coco_r101_fpn train": fpn_train_launches}
+    def frozen_bn_forms(result):
+        return {form: {"ms": m["ms"], "plain_ms": m["plain_ms"],
+                       "bound_ms": max(m["bytes_ms"], m["ops_ms"])}
+                for form, m in result["forms"].items()}
+
+    for name in ("frozen_bn", "frozen_bn_backward"):
+        kind = "backward" if name.endswith("backward") else "forward"
+        kernels.append(dict(
+            entry(name, kfb,
+                  {**{path: counts[name]
+                      for path, counts in main_paths.items()
+                      if counts[name]},
+                   **cli_paths(name), **slice_paths(name)},
+                  frozen_bn["voc"][kind], 0.0),
+            forms=frozen_bn_forms(frozen_bn["voc"][kind]),
+            b8_832x1120=frozen_bn_forms(frozen_bn["b8_832x1120"][kind])))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,16 +10,23 @@ Shapes here are small and ragged (box counts that are not a multiple of the
 covers the main paths' shapes.
 """
 
+import math
+
 import pytest
 import torch
 
 from tpudet_torch import kernels as tk
 from tpudet_torch.kernels import deform_attn as kda
+from tpudet_torch.kernels import frozen_bn as kfb
 from tpudet_torch.kernels import nms as knms
 from tpudet_torch.kernels import roi_align as kra
 from tpudet_torch.kernels import roi_align_window as krw
+from tpudet_torch.models.layers import FrozenBatchNorm
+from tpudet_torch.models.resnet import Bottleneck, ResNet
 from tpudet_torch.ops import nms as tnms
 from tpudet_torch.ops.roi_align import fpn_assign_levels
+
+from tests.test_torch_frozen_bn import drawn_norm, module_by_module
 
 pytestmark = pytest.mark.cuda
 
@@ -1529,7 +1536,7 @@ def test_backbone_weights_load_into_a_card_model(cuda):
 
 # ------------------------------------------ the tpudet:: operators (serving)
 def op_cases(cuda):
-    """One small input of each of the seven operators -> {name: (op, args,
+    """One small input of each of the nine operators -> {name: (op, args,
     plain result)}: the plain versions' values (the gradients through
     autograd) on the same inputs."""
     gen = torch.Generator().manual_seed(31)
@@ -1567,6 +1574,17 @@ def op_cases(cuda):
     dgrads = torch.autograd.grad(dref, leaves, dcot)
     flat = [d for s in shapes for d in s]
 
+    fx, fs = (torch.randn(2, 64, 5, 7, generator=gen).contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    fnorm, fproj = drawn_norm(64, gen), drawn_norm(64, gen)
+    fleaves = [fx.clone().requires_grad_(), fs.clone().requires_grad_()]
+    fref = kfb.frozen_bn_act_plain(fleaves[0], fnorm, fleaves[1], fproj)
+    fcot = torch.randn(fref.shape, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    fgrads = torch.autograd.grad(fref, fleaves, fcot)
+    fbufs = [fnorm.scale, fnorm.bias, fnorm.mean, fnorm.var]
+    pbufs = [fproj.scale, fproj.bias, fproj.mean, fproj.var]
+
     def on(*ts):
         return [t.to(cuda) if torch.is_tensor(t) else
                 [x.to(cuda) for x in t] if isinstance(t, list)
@@ -1593,11 +1611,19 @@ def op_cases(cuda):
                                (dref.detach(),)),
         "ms_deform_attn_bwd": (kda.ms_deform_attn_bwd,
                                on(values, flat, loc, weights, dcot), dgrads),
+        "frozen_bn_act_fwd": (kfb.frozen_bn_act_fwd,
+                              on(fx, *fbufs, 1e-5, fs, pbufs, 1e-5),
+                              (fref.detach(),)),
+        "frozen_bn_act_bwd": (kfb.frozen_bn_act_bwd,
+                              on(fcot, fref.detach(), fnorm.scale, fnorm.var,
+                                 1e-5, True, [fproj.scale, fproj.var], 1e-5),
+                              fgrads),
     }
 
 
 OPS = ("nms_keep", "roi_align_fwd", "roi_align_bwd", "roi_align_window_fwd",
-       "roi_align_window_bwd", "ms_deform_attn_fwd", "ms_deform_attn_bwd")
+       "roi_align_window_bwd", "ms_deform_attn_fwd", "ms_deform_attn_bwd",
+       "frozen_bn_act_fwd", "frozen_bn_act_bwd")
 
 
 @pytest.mark.parametrize("name", OPS)
@@ -1650,3 +1676,223 @@ def test_exported_tiny_artifact_holds_the_ops(cuda, tmp_path):
     assert (knms.LAUNCHES, kra.LAUNCHES) == (before[0] + 2, before[1] + 1)
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+# --------------------------- frozen batch norm, residual and ReLU, one pass
+@pytest.fixture
+def deterministic_cudnn(cuda):
+    """The same convolution algorithms on both sides of a comparison."""
+    saved = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    (torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.deterministic) = saved
+
+
+def frozen_bn_case(gen, form, dtype, shape, cuda):
+    """A channels-last map, its norm, the residual input and its norm (per
+    ``form``) on the card."""
+    def draw():
+        return torch.randn(*shape, generator=gen).to(dtype).to(cuda) \
+            .contiguous(memory_format=torch.channels_last)
+    x = draw()
+    norm = drawn_norm(shape[1], gen).to(cuda)
+    residual = None if form == "plain" else draw()
+    residual_norm = (drawn_norm(shape[1], gen).to(cuda)
+                     if form == "projected" else None)
+    return x, norm, residual, residual_norm
+
+
+@pytest.mark.parametrize("c", [64, 256, 1024, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["plain", "identity", "projected"])
+def test_frozen_bn_kernel_equals_plain(cuda, form, dtype, c):
+    """The forward kernel against the plain ops on the card, bit for bit:
+    N*H*W of 286 (no multiple of the block) and of 288, the norms far from
+    the identity."""
+    gen = torch.Generator().manual_seed(c + len(form))
+    for shape in ((2, c, 13, 11), (3, c, 8, 12)):
+        x, norm, r, rn = frozen_bn_case(gen, form, dtype, shape, cuda)
+        before = kfb.LAUNCHES
+        got = kfb.frozen_bn_act(x, norm, r, rn)
+        assert kfb.LAUNCHES == before + 1
+        want = kfb.frozen_bn_act_plain(x, norm, r, rn)
+        assert got.dtype == dtype and got.stride() == x.stride()
+        assert torch.equal(got, want)
+        assert (want > 0).any() and (want == 0).any()
+
+
+@pytest.mark.parametrize("form", ["plain", "identity", "projected"])
+def test_frozen_bn_kernel_at_the_c2_size(cuda, form):
+    """bf16, channels-last, [4, 256, 80, 104]: many grid-stride rounds a
+    thread, with a ragged last one; forward and backward bit for bit."""
+    gen = torch.Generator().manual_seed(21)
+    x, norm, r, rn = frozen_bn_case(gen, form, torch.bfloat16,
+                                    (4, 256, 80, 104), cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, r) if t is not None]
+    refs = [t.clone().requires_grad_() for t in (x, r) if t is not None]
+    got = kfb.frozen_bn_act(leaves[0], norm, leaves[1] if r is not None
+                            else None, rn)
+    want = kfb.frozen_bn_act_plain(refs[0], norm, refs[1] if r is not None
+                                   else None, rn)
+    assert torch.equal(got, want)
+    cot = torch.randn(x.shape, generator=gen).to(torch.bfloat16).to(cuda) \
+        .contiguous(memory_format=torch.channels_last)
+    before = kfb.BACKWARD_LAUNCHES
+    grads = torch.autograd.grad(got, leaves, cot)
+    assert kfb.BACKWARD_LAUNCHES == before + 1
+    for g, w in zip(grads, torch.autograd.grad(want, refs, cot)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["plain", "identity", "projected"])
+def test_frozen_bn_backward_kernel_equals_autograd(cuda, form, dtype):
+    """The backward kernel against autograd through the plain ops, bit for
+    bit: the map's gradient and the residual input's (the identity's, or
+    the projection's input through its norm); the upstream gradient comes
+    NCHW-contiguous and is made channels-last."""
+    gen = torch.Generator().manual_seed(5 + len(form))
+    x, norm, r, rn = frozen_bn_case(gen, form, dtype, (2, 256, 13, 11), cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, r) if t is not None]
+    refs = [t.clone().requires_grad_() for t in (x, r) if t is not None]
+    second = (lambda ts: ts[1] if r is not None else None)
+    got = kfb.frozen_bn_act(leaves[0], norm, second(leaves), rn)
+    want = kfb.frozen_bn_act_plain(refs[0], norm, second(refs), rn)
+    cot = torch.randn(x.shape, generator=gen).to(dtype).to(cuda)
+    before = kfb.BACKWARD_LAUNCHES
+    grads = torch.autograd.grad(got, leaves, cot)
+    assert kfb.BACKWARD_LAUNCHES == before + 1
+    for g, w in zip(grads, torch.autograd.grad(want, refs, cot)):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("in_ch,channels,stride", [(256, 256, 1),
+                                                   (256, 512, 2)])
+def test_bottleneck_on_card_equals_module_by_module(deterministic_cudnn,
+                                                    in_ch, channels, stride,
+                                                    dtype):
+    """A bottleneck with an identity residual (which also feeds conv1) and
+    one with a projection, on the card through the kernels, against its
+    layers one by one on the card: output, input and weight gradients bit
+    for bit (deterministic cuDNN on both sides)."""
+    cuda = deterministic_cudnn
+    gen = torch.Generator().manual_seed(channels + stride)
+    block = Bottleneck(in_ch, channels, stride, "frozen_bn", dtype)
+    with torch.no_grad():
+        for m in block.modules():
+            if isinstance(m, FrozenBatchNorm):
+                fresh = drawn_norm(m.scale.shape[0], gen)
+                m.load_state_dict(fresh.state_dict())
+            elif getattr(m, "weight", None) is not None:
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * m.weight[0].numel() ** -0.5)
+    block = block.to(cuda)
+    x = torch.randn(2, in_ch, 20, 26, generator=gen).to(dtype).to(cuda) \
+        .contiguous(memory_format=torch.channels_last)
+    xs, xw = x.clone().requires_grad_(), x.clone().requires_grad_()
+    launches = (kfb.LAUNCHES, kfb.BACKWARD_LAUNCHES)
+    got = block(xs)
+    want = module_by_module(block, xw)
+    assert torch.equal(got, want)
+    cot = torch.randn(want.shape, generator=gen).to(dtype).to(cuda)
+    params = list(block.parameters())
+    grads = torch.autograd.grad(got, [xs, *params], cot)
+    assert (kfb.LAUNCHES - launches[0],
+            kfb.BACKWARD_LAUNCHES - launches[1]) == (3, 3)
+    for g, w in zip(grads, torch.autograd.grad(want, [xw, *params], cot)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("stop_at,launches", [("c4", 40), ("c5", 49)])
+def test_resnet50_forward_launches_the_fused_pass(cuda, stop_at, launches):
+    """ResNet-50 in bf16 over a channels-last image: the stem and each of
+    the bottlenecks' three norms one launch each, 40 to voc_r50's c4 and 49
+    for the whole network; no launch in the module-by-module forward's
+    place."""
+    net = ResNet((3, 4, 6, 3), norm="frozen_bn", dtype=torch.bfloat16,
+                 device=cuda)
+    x = torch.randn(2, 3, 128, 160, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    before = kfb.LAUNCHES
+    with torch.no_grad():
+        feats = net(x, stop_at=stop_at)
+    assert kfb.LAUNCHES - before == launches
+    assert feats[stop_at].is_contiguous(memory_format=torch.channels_last)
+
+
+def test_deformable_detr_r50_train_step_runs_the_backward_kernel(cuda):
+    """One f32 step of the tiny Deformable DETR on a frozen-norm ResNet-50
+    (the stem not frozen): 49 forward and 49 backward launches of the
+    fused pass, a finite loss equal to the same step's through the plain
+    layers on the card."""
+    import dataclasses
+
+    import tpudet_torch.models.resnet as resnet
+    from tpudet_torch.config import tiny_deformable_detr_config
+    from tpudet_torch.models import build_model
+    from tpudet_torch.train.state import create_train_state
+    from tpudet_torch.train.step import make_train_step
+
+    cfg = tiny_deformable_detr_config()
+    cfg = cfg.replace(backbone=dataclasses.replace(
+        cfg.backbone, name="resnet50", norm="frozen_bn"))
+    assert not cfg.backbone.freeze_stem
+    gen = torch.Generator().manual_seed(2)
+    batch = {"image": torch.randn(2, 128, 128, 3, generator=gen),
+             "image_hw": torch.tensor([[128.0, 128.0], [96.0, 112.0]]),
+             "gt_boxes": torch.tensor([[[10.0, 12.0, 60.0, 70.0],
+                                        [0.0, 0.0, 0.0, 0.0]]] * 2),
+             "gt_classes": torch.tensor([[1, 0]] * 2),
+             "gt_valid": torch.tensor([[True, False]] * 2)}
+    losses = []
+    for fused in (True, False):
+        model = build_model(cfg, device=cuda)
+        state = create_train_state(model, cfg.train, seed=0, device=cuda)
+        step = make_train_step(model, cfg, device=cuda)
+        launches = (kfb.LAUNCHES, kfb.BACKWARD_LAUNCHES)
+        if fused:
+            loss = float(step(state, batch)[1]["loss"])
+        else:
+            saved = resnet.frozen_bn_act
+            resnet.frozen_bn_act = kfb.frozen_bn_act_plain
+            try:
+                loss = float(step(state, batch)[1]["loss"])
+            finally:
+                resnet.frozen_bn_act = saved
+        launched = (kfb.LAUNCHES - launches[0],
+                    kfb.BACKWARD_LAUNCHES - launches[1])
+        assert launched == ((49, 49) if fused else (0, 0))
+        losses.append(loss)
+    assert math.isfinite(losses[0])
+    assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+
+
+def test_frozen_bn_kernel_rejects_what_it_does_not_take(cuda):
+    """Another dtype, an NCHW-contiguous map and a transposed one, a
+    channels-last map of a channel count that 16-byte vectors do not
+    divide, a residual of another layout; the entry passes such a map on
+    to the operator, which refuses it."""
+    gen = torch.Generator().manual_seed(3)
+    norm = drawn_norm(64, gen).to(cuda)
+    bufs = [norm.scale, norm.bias, norm.mean, norm.var]
+    x = torch.randn(2, 64, 6, 10, device=cuda)
+    with pytest.raises(TypeError):
+        kfb.frozen_bn_act_fwd(x.half(), *bufs, 1e-5, None, [], 0.0)
+    for layout in (x, x.transpose(2, 3)):
+        with pytest.raises(ValueError, match="channels-last"):
+            kfb.frozen_bn_act_fwd(layout, *bufs, 1e-5, None, [], 0.0)
+    with pytest.raises(ValueError, match="channels-last"):
+        kfb.frozen_bn_act(x, norm)
+    narrow = drawn_norm(12, gen).to(cuda)
+    odd = torch.randn(2, 12, 6, 10, device=cuda).to(torch.bfloat16) \
+        .contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        kfb.frozen_bn_act_fwd(odd, narrow.scale, narrow.bias, narrow.mean,
+                              narrow.var, 1e-5, None, [], 0.0)
+    with pytest.raises(ValueError):
+        kfb.frozen_bn_act_fwd(x.contiguous(memory_format=torch.channels_last),
+                              *bufs, 1e-5, x, [], 0.0)

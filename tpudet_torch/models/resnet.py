@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudet_torch.kernels.frozen_bn import frozen_bn_act
 from tpudet_torch.models.layers import Conv, make_norm, run_block
 from tpudet_torch.models.vgg import VGG
 
@@ -96,11 +97,11 @@ class Bottleneck(nn.Module):
         self.norm3 = make_norm(norm, channels, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
-        y = self.norm3(self.conv3(y))
-        return F.relu(y + shortcut)
+        shortcut = self.conv_proj(x) if self.has_proj else x
+        y = frozen_bn_act(self.conv1(x), self.norm1)
+        y = frozen_bn_act(self.conv2(y), self.norm2)
+        return frozen_bn_act(self.conv3(y), self.norm3, shortcut,
+                             self.norm_proj if self.has_proj else None)
 
 
 class BasicBlock(nn.Module):
@@ -126,10 +127,10 @@ class BasicBlock(nn.Module):
         self.norm2 = make_norm(norm, channels, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.norm_proj(self.conv_proj(x)) if self.has_proj else x
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = self.norm2(self.conv2(y))
-        return F.relu(y + shortcut)
+        shortcut = self.conv_proj(x) if self.has_proj else x
+        y = frozen_bn_act(self.conv1(x), self.norm1)
+        return frozen_bn_act(self.conv2(y), self.norm2, shortcut,
+                             self.norm_proj if self.has_proj else None)
 
 
 class ResNet(nn.Module):
@@ -180,7 +181,7 @@ class ResNet(nn.Module):
         if self.s2d_stem:
             x = F.pad(space_to_depth(x), (2, 1, 2, 1)).contiguous(
                 memory_format=torch.channels_last)
-        x = F.relu(self.norm_stem(self.stem_conv(x)))
+        x = frozen_bn_act(self.stem_conv(x), self.norm_stem)
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
         for stage, n_blocks in enumerate(self.blocks):
@@ -224,7 +225,7 @@ class TinyBackbone(nn.Module):
         for i in range(5):
             conv = getattr(self, f"Conv_{i}")
             norm = getattr(self, f"{self.norm_kind}_{i}")
-            x = F.relu(norm(conv(x)))
+            x = frozen_bn_act(conv(x), norm)
             if i > 0:
                 feats[LEVELS[i - 1]] = x
                 if LEVELS[i - 1] == stop_at:

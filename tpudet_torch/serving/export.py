@@ -48,6 +48,7 @@ from tpudet_torch.data.preprocess import (
 # program is loaded.
 from tpudet_torch.kernels import _ops
 from tpudet_torch.kernels import deform_attn as _deform_attn  # noqa: F401
+from tpudet_torch.kernels import frozen_bn as _frozen_bn  # noqa: F401
 from tpudet_torch.kernels import nms as _nms  # noqa: F401
 from tpudet_torch.kernels import roi_align as _roi_align  # noqa: F401
 from tpudet_torch.kernels import roi_align_window as _roi_window  # noqa: F401
