@@ -5405,12 +5405,13 @@ def phase_backbone_predict(card, path, seed):
     if path == "vitdet":
         bb = model.core.backbone
         h, w = first
-        tokens = (h // 16) * (w // 16)
+        grid = (h // bb.patch, w // bb.patch)
+        tokens = grid[0] * grid[1]
         x = torch.randn(8, tokens, bb.dim, device="cuda").to(torch.bfloat16)
         glob = [getattr(bb, f"block{i}") for i in range(bb.depth)
                 if getattr(bb, f"block{i}").window == 0]
         with torch.no_grad():
-            attn_ms = sum(time_ms(lambda blk=blk: blk.attn(x), iters=5,
+            attn_ms = sum(time_ms(lambda blk=blk: blk.attn(x, grid), iters=5,
                                   warmup=2) for blk in glob)
         name = next(iter(sizes))
         print(f"{preset} global attention: {len(glob)} blocks of {tokens} "

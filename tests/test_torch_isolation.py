@@ -12,6 +12,7 @@ import sys
 
 import pytest
 
+from tests.test_torch_ops import PORT_ONLY_FIELDS, assert_group_equals_jax
 from tpudet import config as jconfig
 from tpudet_torch import config as tconfig
 
@@ -144,6 +145,13 @@ def test_sources_import_no_jax_and_no_tpudet():
                     f"{path.relative_to(ROOT)} imports {name}"
 
 
+# Each group's class name -> its field of ``Config`` (``PORT_ONLY_FIELDS``
+# are keyed by the field).
+GROUPS = {type(getattr(tconfig.Config(), f.name)).__name__: f.name
+          for f in dataclasses.fields(tconfig.Config)
+          if dataclasses.is_dataclass(getattr(tconfig.Config(), f.name))}
+
+
 @pytest.mark.parametrize("group", ["DataConfig", "BackboneConfig",
                                    "AnchorConfig", "RPNConfig", "ROIConfig",
                                    "RetinaNetConfig", "FCOSConfig",
@@ -155,7 +163,9 @@ def test_sources_import_no_jax_and_no_tpudet():
 def test_config_defaults_equal_jax(group):
     port = getattr(tconfig, group)()
     ref = getattr(jconfig, group)()
-    fields = [f.name for f in dataclasses.fields(port)]
+    key = GROUPS.get(group, "")
+    fields = [f.name for f in dataclasses.fields(port)
+              if f"{key}.{f.name}" not in PORT_ONLY_FIELDS]
     for name in fields:
         assert hasattr(ref, name), f"{group}.{name} is not a JAX field"
         if group != "Config" or name in ("model", "use_pallas", "rpn_only",
@@ -222,10 +232,7 @@ def test_tiny_test_config_equals_jax_fields():
         port = tconfig.tiny_test_config(use_fpn=use_fpn)
         ref = jconfig.tiny_test_config(use_fpn=use_fpn)
         for group in ("data", "backbone", "anchors", "rpn", "roi", "train"):
-            for f in dataclasses.fields(getattr(port, group)):
-                assert (getattr(getattr(port, group), f.name)
-                        == getattr(getattr(ref, group), f.name)), \
-                    f"{group}.{f.name}"
+            assert_group_equals_jax(port, ref, group)
         assert port.use_pallas == ref.use_pallas
 
 
@@ -234,10 +241,7 @@ def test_tiny_deformable_detr_config_equals_jax_fields():
     ref = jconfig.tiny_deformable_detr_config()
     assert port.model == ref.model == "deformable_detr"
     for group in ("data", "backbone", "deformable_detr", "train"):
-        for f in dataclasses.fields(getattr(port, group)):
-            assert (getattr(getattr(port, group), f.name)
-                    == getattr(getattr(ref, group), f.name)), \
-                f"{group}.{f.name}"
+        assert_group_equals_jax(port, ref, group)
     # Every JAX field of the group is in the port.
     assert ({f.name for f in dataclasses.fields(ref.deformable_detr)}
             == {f.name for f in dataclasses.fields(port.deformable_detr)})
@@ -249,10 +253,7 @@ def test_tiny_maskrcnn_config_equals_jax_fields():
     assert port.model == ref.model == "mask_rcnn"
     for group in ("data", "backbone", "anchors", "rpn", "roi", "mask",
                   "train"):
-        for f in dataclasses.fields(getattr(port, group)):
-            assert (getattr(getattr(port, group), f.name)
-                    == getattr(getattr(ref, group), f.name)), \
-                f"{group}.{f.name}"
+        assert_group_equals_jax(port, ref, group)
     assert ({f.name for f in dataclasses.fields(ref.mask)}
             == {f.name for f in dataclasses.fields(port.mask)})
 
@@ -276,10 +277,7 @@ def test_slice_presets_equal_jax(name):
     for group in ("data", "backbone", "anchors", "rpn", "roi", "retinanet",
                   "fcos", "detr", "mask", "cascade", "keypoint", "panoptic",
                   "train"):
-        for f in dataclasses.fields(getattr(port, group)):
-            assert (getattr(getattr(port, group), f.name)
-                    == getattr(getattr(ref, group), f.name)), \
-                f"{name}: {group}.{f.name}"
+        assert_group_equals_jax(port, ref, group, f"{name}: ")
 
 
 @pytest.mark.parametrize("name", ["tiny_cascade_config",
@@ -293,13 +291,11 @@ def test_family_tiny_configs_equal_jax_fields(name):
     for group in ("data", "backbone", "anchors", "rpn", "roi", "retinanet",
                   "fcos", "detr", "mask", "cascade", "keypoint", "panoptic",
                   "train"):
-        for f in dataclasses.fields(getattr(port, group)):
-            assert (getattr(getattr(port, group), f.name)
-                    == getattr(getattr(ref, group), f.name)), \
-                f"{name}: {group}.{f.name}"
-        # Every JAX field of the group is in the port.
+        assert_group_equals_jax(port, ref, group, f"{name}: ")
+        # Every field of the port's group but its own is a JAX field.
         assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
-                >= {f.name for f in dataclasses.fields(getattr(port, group))})
+                >= {f.name for f in dataclasses.fields(getattr(port, group))
+                    if f"{group}.{f.name}" not in PORT_ONLY_FIELDS})
     for group in ("retinanet", "fcos", "detr", "cascade", "keypoint",
                   "panoptic"):
         assert ({f.name for f in dataclasses.fields(getattr(ref, group))}
@@ -320,9 +316,5 @@ def test_every_jax_preset_is_ported():
     for name in PRESETS:
         port, ref = preset_config(name), jax_preset(name)
         for f in dataclasses.fields(port):
-            group = getattr(port, f.name)
-            if dataclasses.is_dataclass(group):
-                for g in dataclasses.fields(group):
-                    assert (getattr(group, g.name)
-                            == getattr(getattr(ref, f.name), g.name)), \
-                        f"{name}: {f.name}.{g.name}"
+            if dataclasses.is_dataclass(getattr(port, f.name)):
+                assert_group_equals_jax(port, ref, f.name, f"{name}: ")

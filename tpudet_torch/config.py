@@ -139,6 +139,11 @@ class BackboneConfig:
     vit_window: int = 14
     vit_global_attn_every: int = 3
     vit_pos_grid: int = 64
+    # ViTDet: detectron2's decomposed relative positions in every block
+    # (``use_rel_pos``): tables of [2 * vit_window - 1, head_dim] in window
+    # blocks and [2 * vit_pos_grid - 1, head_dim] in global ones. A field of
+    # the port alone; the JAX package has no relative positions.
+    vit_rel_pos: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

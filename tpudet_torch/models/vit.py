@@ -23,6 +23,17 @@ the product with v, which accumulates in f32. LayerNorms run in f32 with
 Flax's epsilon; the GELUs are exact (erf). Module names follow the Flax
 tree (``patch_embed``, ``pos_embed``, ``block{i}.attn.query``, ...,
 ``up4_deconv1``, ``p2_proj_ln``).
+
+With ``rel_pos`` (``BackboneConfig.vit_rel_pos``) each block adds
+detectron2's decomposed relative positions to its logits after the scale:
+``rel_h[q, kh] + rel_w[q, kw]``, each the f32 product of the unscaled q
+with a learned table of ``[2S - 1, head_dim]`` (S the window in a window
+block, ``pos_grid`` in a global one) gathered at the query's and key's
+relative offset, the table resized linearly when the token grid is not
+S (``get_rel_pos``). The tables are shared by the heads, start at zero, as
+detectron2's do, and under tensor parallelism every rank holds them whole.
+Each attention core (q, k, v after their projections to the heads' output
+before ``out``) is a ``tpudet/attn_window`` or ``tpudet/attn_global`` span.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from tpudet_torch.models.layers import (
     LayerNorm,
     run_block,
 )
+from tpudet_torch.utils.profiling import span
 
 # name -> (embed dim, depth, heads): the paper's variants and a test tiny.
 VIT_VARIANTS = {
@@ -50,21 +62,51 @@ VIT_VARIANTS = {
 }
 
 
+def get_rel_pos(q_size: int, k_size: int, table: torch.Tensor
+                ) -> torch.Tensor:
+    """detectron2's ``get_rel_pos``: ``table`` ``[2S - 1, C]`` resized
+    linearly to ``2 * max(q_size, k_size) - 1`` rows where its length
+    differs, then gathered at each query and key position's relative offset
+    ``i * max(k/q, 1) - j * max(q/k, 1) + (k - 1) * max(q/k, 1)`` -> ``[q_size,
+    k_size, C]``."""
+    rows = 2 * max(q_size, k_size) - 1
+    if table.shape[0] != rows:
+        table = F.interpolate(table.t()[None], size=rows, mode="linear")[0].t()
+    dev = table.device
+    q = torch.arange(q_size, device=dev)[:, None] * max(k_size / q_size, 1.0)
+    k = torch.arange(k_size, device=dev)[None, :] * max(q_size / k_size, 1.0)
+    return table[((q - k) + (k_size - 1) * max(q_size / k_size, 1.0)).long()]
+
+
 class Attention(nn.Module):
     """Multi-head attention over ``[N, L, D]`` tokens with separate
-    ``query``/``key``/``value``/``out`` Dense layers. Under tensor
-    parallelism (``layers.shard_model``) the first three are column- and
-    ``out`` row-parallel, and a rank computes ``heads / size`` heads."""
+    ``query``/``key``/``value``/``out`` Dense layers, and with ``rel_pos``
+    ``S`` > 0 the decomposed relative-position tables ``rel_pos_h`` and
+    ``rel_pos_w`` of ``[2S - 1, head_dim]``. ``window`` names the core's
+    span: ``tpudet/attn_window``, or ``tpudet/attn_global`` where it is 0.
+    Under tensor parallelism (``layers.shard_model``) the first three are
+    column- and ``out`` row-parallel, and a rank computes ``heads / size``
+    heads with the whole tables, whose gradient is summed over the model
+    group."""
 
-    def __init__(self, dim: int, heads: int, dtype: torch.dtype, device=None):
+    def __init__(self, dim: int, heads: int, dtype: torch.dtype, device=None,
+                 rel_pos: int = 0, window: int = 0):
         super().__init__()
         self.heads = heads
         self.local_heads = heads
         self.head_dim = dim // heads
         self.dtype = dtype
         self.scale = (dim // heads) ** -0.5
+        self.span_name = ("tpudet/attn_window" if window
+                          else "tpudet/attn_global")
+        self.tp = None
         for name in ("query", "key", "value", "out"):
             self.add_module(name, Dense(dim, dim, dtype=dtype, device=device))
+        self.rel_pos = rel_pos > 0
+        if self.rel_pos:
+            for name in ("rel_pos_h", "rel_pos_w"):
+                self.register_parameter(name, nn.Parameter(torch.zeros(
+                    2 * rel_pos - 1, self.head_dim, device=device)))
 
     def shard_tp(self, tp) -> None:
         if self.value.tp is not None:
@@ -72,8 +114,10 @@ class Attention(nn.Module):
                 raise ValueError(f"{self.heads} heads over a model axis "
                                  f"of {tp.size}")
             self.local_heads = self.heads // tp.size
+            self.tp = tp
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        """``x`` ``[N, L, D]`` over an ``hw`` grid of ``L`` tokens."""
         n, l, _ = x.shape
         h, hd = self.local_heads, self.head_dim
 
@@ -81,13 +125,35 @@ class Attention(nn.Module):
             return layer(x).reshape(n, l, h, hd).transpose(1, 2)
 
         q, k, v = proj(self.query), proj(self.key), proj(self.value)
-        # f32 logits from the dtype's q and k (a bf16 product is exact in
-        # f32), scaled after the product, in place: a global block's logits
-        # are [N, heads, L, L].
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-        attn = torch.softmax(logits.mul_(self.scale), dim=-1).to(self.dtype)
-        out = torch.matmul(attn, v).to(self.dtype)
+        with span(self.span_name):
+            # f32 logits from the dtype's q and k (a bf16 product is exact
+            # in f32), scaled after the product, in place: a global block's
+            # logits are [N, heads, L, L].
+            qf = q.float()
+            logits = torch.matmul(qf, k.float().transpose(-1, -2))
+            logits.mul_(self.scale)
+            if self.rel_pos:
+                self._add_rel_pos(logits, qf, hw)
+            attn = torch.softmax(logits, dim=-1).to(self.dtype)
+            out = torch.matmul(attn, v).to(self.dtype)
         return self.out(out.transpose(1, 2).reshape(n, l, h * hd))
+
+    def _add_rel_pos(self, logits: torch.Tensor, qf: torch.Tensor,
+                     hw: Tuple[int, int]) -> None:
+        """``logits`` ``[N, h, L, L]`` += ``rel_h[.., kh] + rel_w[.., kw]``
+        in place on their ``[N, h, qh, qw, kh, kw]`` view, from the
+        unscaled f32 ``qf``."""
+        gh, gw = hw
+        tables = (self.rel_pos_h, self.rel_pos_w)
+        if self.tp is not None:
+            tables = tuple(self.tp.copy(t) for t in tables)
+        r_q = qf.reshape(qf.shape[0], qf.shape[1], gh, gw, qf.shape[-1])
+        rel_h = torch.einsum("nhyxc,ykc->nhyxk", r_q,
+                             get_rel_pos(gh, gh, tables[0]))
+        rel_w = torch.einsum("nhyxc,xkc->nhyxk", r_q,
+                             get_rel_pos(gw, gw, tables[1]))
+        grid = logits.view(logits.shape[:2] + (gh, gw, gh, gw))
+        grid.add_(rel_h[..., None]).add_(rel_w[..., None, :])
 
 
 def _window_partition(x: torch.Tensor, w: int
@@ -115,15 +181,18 @@ def _window_unpartition(x: torch.Tensor, w: int, hw_pad: Tuple[int, int],
 
 class Block(nn.Module):
     """Pre-LN transformer block over the NHWC token grid; ``window`` 0 is
-    global attention."""
+    global attention. ``rel_pos`` is the side ``S`` of the attention's
+    relative-position tables (0: none)."""
 
     def __init__(self, dim: int, heads: int, window: int, mlp_ratio: int = 4,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 rel_pos: int = 0):
         super().__init__()
         self.window = window
         self.dtype = dtype
         self.norm1 = LayerNorm(dim, device=device)
-        self.attn = Attention(dim, heads, dtype, device)
+        self.attn = Attention(dim, heads, dtype, device, rel_pos=rel_pos,
+                              window=window)
         self.norm2 = LayerNorm(dim, device=device)
         self.mlp_fc1 = Dense(dim, mlp_ratio * dim, dtype=dtype, device=device)
         self.mlp_fc2 = Dense(mlp_ratio * dim, dim, dtype=dtype, device=device)
@@ -133,10 +202,10 @@ class Block(nn.Module):
         y = self.norm1(x).to(self.dtype)
         if self.window > 0:
             y, hw_pad = _window_partition(y, self.window)
-            y = _window_unpartition(self.attn(y), self.window, hw_pad,
-                                    (h, w), b)
+            y = self.attn(y, (self.window, self.window))
+            y = _window_unpartition(y, self.window, hw_pad, (h, w), b)
         else:
-            y = self.attn(y.reshape(b, h * w, d)).reshape(b, h, w, d)
+            y = self.attn(y.reshape(b, h * w, d), (h, w)).reshape(b, h, w, d)
         x = x + y
         y = self.norm2(x).to(self.dtype)
         y = self.mlp_fc2(F.gelu(self.mlp_fc1(y)))
@@ -158,13 +227,16 @@ class ViT(nn.Module):
     """Plain ViT backbone: ``{"plain": [B, H/16, W/16, dim]}`` in the block
     dtype. ``freeze_stem`` detaches the patch and position embeddings'
     sum, so neither gets a gradient; ``remat`` recomputes each block in the
-    backward pass."""
+    backward pass; ``rel_pos`` gives every block detectron2's decomposed
+    relative positions (tables of side ``window`` in window blocks,
+    ``pos_grid`` in global ones)."""
 
     def __init__(self, dim: int = 768, depth: int = 12, heads: int = 12,
                  patch: int = 16, window: int = 14,
                  global_attn_every: int = 3, pos_grid: int = 64,
                  dtype: torch.dtype = torch.float32,
-                 freeze_stem: bool = False, device=None, remat: bool = False):
+                 freeze_stem: bool = False, device=None, remat: bool = False,
+                 rel_pos: bool = False):
         super().__init__()
         self.patch = patch
         self.remat = remat
@@ -180,7 +252,8 @@ class ViT(nn.Module):
             is_global = (i + 1) % global_attn_every == 0
             self.add_module(f"block{i}", Block(
                 dim, heads, 0 if is_global else window, dtype=dtype,
-                device=device))
+                device=device,
+                rel_pos=(pos_grid if is_global else window) if rel_pos else 0))
         self.norm = LayerNorm(dim, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -279,4 +352,5 @@ def build_vit(name: str, cfg, dtype: torch.dtype, device=None) -> ViT:
     return ViT(dim=dim, depth=depth, heads=heads, window=cfg.vit_window,
                global_attn_every=cfg.vit_global_attn_every,
                pos_grid=cfg.vit_pos_grid, dtype=dtype,
-               freeze_stem=cfg.freeze_stem, device=device, remat=cfg.remat)
+               freeze_stem=cfg.freeze_stem, device=device, remat=cfg.remat,
+               rel_pos=cfg.vit_rel_pos)
